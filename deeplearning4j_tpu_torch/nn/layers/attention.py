@@ -8,7 +8,9 @@ Attention implementations (``attn_impl``):
                 masked input, flash at or above it.
   'ring'/'ulysses' (sequence parallelism) are not ported yet.
 
-KV-cache decoding and the MoE feed-forward come in later slices.
+The flash path is differentiable: its backward runs the two Hopper
+backward kernels on CUDA tensors.  KV-cache decoding and the MoE
+feed-forward come in later slices.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ class LayerNormLayer(BaseLayerConf):
                 "beta": torch.zeros(self.n_out, dtype=self._dtype(),
                                     device=device)}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False):
         return _layer_norm(x, params["gamma"], params["beta"], self.eps)
 
 
@@ -139,7 +141,7 @@ class MultiHeadAttention(BaseLayerConf):
         bsz, t = y.shape[0], y.shape[1]
         return y.reshape(bsz, t, h, d).transpose(1, 2)   # [b,h,t,d]
 
-    def attend(self, p, x, *, mask=None):
+    def attend(self, p, x, *, train=False, mask=None):
         """QKV projection -> attention -> output projection."""
         q = self._heads(x, p, "Wq", "bq")
         k = self._heads(x, p, "Wk", "bk")
@@ -150,10 +152,17 @@ class MultiHeadAttention(BaseLayerConf):
         y = o.transpose(1, 2).reshape(b_, t, h * d) @ p["Wo"]
         if self.has_bias:
             y = y + p["bo"]
+        if train and self.attn_dropout:
+            raise NotImplementedError(
+                f"layer '{self.name}': attn_dropout={self.attn_dropout!r} "
+                "is not ported yet (its masks come from JAX's threefry "
+                "stream); train with attn_dropout unset")
         return y
 
-    def apply(self, params, x, *, mask=None):
-        return self.act_fn(self.attend(params, x, mask=mask))
+    def apply(self, params, x, *, train=False, mask=None):
+        params = self.maybe_noise_weights(params, train)
+        x = self.maybe_dropout_input(x, train)
+        return self.act_fn(self.attend(params, x, train=train, mask=mask))
 
 
 @register_serde
@@ -216,11 +225,12 @@ class TransformerBlock(BaseLayerConf):
         })
         return params
 
-    def apply(self, params, x, *, mask=None):
-        p = params
+    def apply(self, params, x, *, train=False, mask=None):
+        p = self.maybe_noise_weights(params, train)
+        x = self.maybe_dropout_input(x, train)
         mha_p = {k[4:]: v for k, v in p.items() if k.startswith("mha_")}
         xn = _layer_norm(x, p["ln1_g"], p["ln1_b"], self.eps)
-        x = x + self._mha().attend(mha_p, xn, mask=mask)
+        x = x + self._mha().attend(mha_p, xn, train=train, mask=mask)
         xn = _layer_norm(x, p["ln2_g"], p["ln2_b"], self.eps)
         return x + gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"]
 
@@ -239,6 +249,6 @@ class PositionalEncodingLayer(LayerConf):
         return torch.where(i % 2 == 0, torch.sin(angle),
                            torch.cos(angle)).to(dtype)
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False):
         _, t, e = x.shape
         return x + self._pe(t, e, x.dtype, x.device)

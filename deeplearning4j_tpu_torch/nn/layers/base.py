@@ -4,14 +4,15 @@ A layer is a config dataclass, read from the JAX package's JSON, with two
 functions on tensors:
 
     init(generator, itype, device) -> {name: tensor}   fresh parameters
-    apply(params, x)               -> y                inference forward
+    apply(params, x, train=False)  -> y                forward
 
 Parameters keep the JAX package's names and shapes (a dense ``W`` is
 ``[n_in, n_out]`` and applies as ``x @ W``), so a checkpoint crosses over
 without transposes.  ``None`` fields inherit the network-level default,
-as in the reference's builder.  Training-only fields (updaters,
-regularisation, dropout, weight noise, constraints) are read and kept
-but have no effect on inference.
+as in the reference's builder.  l1/l2 regularisation is ported
+(``regularization_score``).  Dropout and weight noise draw their masks
+from JAX's threefry stream, which is not ported: they have no effect on
+inference, and a training forward with either set raises.
 """
 from __future__ import annotations
 
@@ -70,8 +71,19 @@ class LayerConf:
              device) -> Params:
         return {}
 
-    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: Params, x: torch.Tensor, *,
+              train: bool = False) -> torch.Tensor:
         raise NotImplementedError
+
+
+def _dropout_on(d) -> bool:
+    """The reference's ``conf.dropout.resolve``: None, or a float retain
+    probability outside (0, 1), is off; anything else is on."""
+    if d is None:
+        return False
+    if isinstance(d, (int, float)):
+        return 0.0 < float(d) < 1.0
+    return True
 
 
 @dataclass
@@ -93,6 +105,8 @@ class BaseLayerConf(LayerConf):
     dtype: Optional[str] = None
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: Optional[float] = None
+
+    _BIAS_PARAMS = ("b", "gamma", "beta", "mean", "var")  # bias-like (no l2 by default)
 
     def apply_global_defaults(self, defaults: Dict[str, Any]) -> None:
         """Fill None fields from network-level defaults."""
@@ -140,3 +154,41 @@ class BaseLayerConf(LayerConf):
     def make_bias(self, shape, device) -> torch.Tensor:
         return torch.full(shape, float(self.resolved("bias_init", 0.0)),
                           dtype=self._dtype(), device=device)
+
+    def maybe_dropout_input(self, x: torch.Tensor, train: bool
+                            ) -> torch.Tensor:
+        """Dropout on the layer input (reference semantics).  Identity
+        when unset or not training; raises when set in training."""
+        if train and _dropout_on(self.dropout):
+            raise NotImplementedError(
+                f"layer '{self.name}': dropout={self.dropout!r} is not "
+                "ported yet (its masks come from JAX's threefry stream); "
+                "train with dropout unset")
+        return x
+
+    def maybe_noise_weights(self, params: Params, train: bool) -> Params:
+        """Weight noise on non-bias params.  Identity when unset or not
+        training; raises when set in training."""
+        if train and self.weight_noise is not None:
+            raise NotImplementedError(
+                f"layer '{self.name}': weight_noise is not ported yet (its "
+                "draws come from JAX's threefry stream); train with "
+                "weight_noise unset")
+        return params
+
+    def regularization_score(self, params: Params) -> torch.Tensor:
+        """l1·sum|w| + l2/2·sum w² over weights, with the ``*_bias``
+        coefficients over bias-like params."""
+        l1 = float(self.resolved("l1", 0.0) or 0.0)
+        l2 = float(self.resolved("l2", 0.0) or 0.0)
+        l1b = float(self.resolved("l1_bias", 0.0) or 0.0)
+        l2b = float(self.resolved("l2_bias", 0.0) or 0.0)
+        device = next(iter(params.values())).device if params else None
+        score = torch.zeros((), dtype=torch.float32, device=device)
+        for k, v in params.items():
+            a1, a2 = (l1b, l2b) if k in self._BIAS_PARAMS else (l1, l2)
+            if a1:
+                score = score + a1 * torch.sum(torch.abs(v))
+            if a2:
+                score = score + 0.5 * a2 * torch.sum(v * v)
+        return score

@@ -3,18 +3,23 @@
 
 ``DenseLayer`` computes ``x @ W + b`` with ``W`` stored ``[n_in, n_out]``
 as in the JAX package (not ``nn.Linear``'s transposed weight).
-``EmbeddingSequenceLayer`` takes integer ids ``[b, t]`` or a one-hot
-``[b, t, n_in]`` batch, which it decodes by argmax.
+``OutputLayer`` adds the loss head.  ``EmbeddingSequenceLayer`` takes
+integer ids ``[b, t]`` or a one-hot ``[b, t, n_in]`` batch, which it
+decodes by argmax.  The id range is checked once, on the host batch, at
+the network's boundary (``validate_host_ids``), not inside the forward,
+where reading a device tensor's min and max would stall the device.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ...parallel.inference import InvalidInputError
 from ...utils.serde import register_serde
+from .. import losses as _losses
 from ..conf.input_type import InputType
 from .base import BaseLayerConf
 
@@ -39,23 +44,39 @@ class DenseLayer(BaseLayerConf):
             params["b"] = self.make_bias((self.n_out,), device)
         return params
 
-    def pre_output(self, params, x):
+    def pre_output(self, params, x, *, train=False):
+        params = self.maybe_noise_weights(params, train)
+        x = self.maybe_dropout_input(x, train)
         z = x @ params["W"]
         if self.has_bias:
             z = z + params["b"]
         return z
 
-    def apply(self, params, x):
-        return self.act_fn(self.pre_output(params, x))
+    def apply(self, params, x, *, train=False):
+        return self.act_fn(self.pre_output(params, x, train=train))
 
 
 @register_serde
 @dataclass
 class OutputLayer(DenseLayer):
-    """Dense + loss head.  The loss is read for the configuration; the
-    forward is the dense head and its activation."""
+    """Dense + loss head.  ``loss_weights`` scales the per-unit loss
+    column-wise before reduction (the reference's per-output weights)."""
     loss: str = "mcxent"
     loss_weights: Optional[Sequence[float]] = None
+
+    def compute_loss(self, params, x, labels, *, train=False, mask=None):
+        z = self.pre_output(params, x, train=train)
+        act = self.resolved("activation", "identity")
+        if self.loss_weights is not None:
+            w = torch.as_tensor(self.loss_weights, dtype=z.dtype,
+                                device=z.device)
+            if w.shape[-1] != self.n_out:
+                raise ValueError(
+                    f"layer '{self.name}': {w.shape[-1]} loss weights for "
+                    f"{self.n_out} outputs")
+            return _losses.get(self.loss)(labels, z, act, mask,
+                                          unit_weights=w)
+        return _losses.get(self.loss)(labels, z, act, mask)
 
 
 def _is_integer(dtype: torch.dtype) -> bool:
@@ -110,16 +131,30 @@ class EmbeddingSequenceLayer(BaseLayerConf):
                 f"dtype, got {x.dtype} — a float id batch would silently "
                 f"truncate; pass int ids, or a one-hot batch with trailing "
                 f"dim {self.n_in}")
-        if x.numel():
-            lo, hi = int(x.min()), int(x.max())
-            if lo < 0 or hi >= self.n_in:
-                raise InvalidInputError(
-                    f"layer '{self.name}': embedding ids out of range "
-                    f"[{lo}, {hi}] for vocabulary of {self.n_in}")
         return x.long()
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False):
         W = params["W"]
         idx = self.decode_ids(x)
         z = x.to(W.dtype) @ W if idx is None else W[idx]
         return self.act_fn(z)
+
+
+def validate_host_ids(lc, x) -> None:
+    """Id-range check of a host (numpy) id batch for an embedding-first
+    network, at the fit/output/score boundary.  Tensors skip it, CPU ones
+    included: reading a CUDA tensor's min and max stalls the device, and
+    a tensor's producer validated it on the host.  Lists and tuples
+    (multi-input batches) skip, as in the reference, and so do float and
+    one-hot batches: the dtype check in ``decode_ids`` covers them."""
+    if x is None or isinstance(x, (torch.Tensor, list, tuple)):
+        return
+    arr = np.asarray(x)
+    if arr.ndim == 0 or arr.size == 0 or \
+            not np.issubdtype(arr.dtype, np.integer):
+        return
+    lo, hi = int(arr.min()), int(arr.max())
+    if lo < 0 or hi >= lc.n_in:
+        raise InvalidInputError(
+            f"layer '{lc.name}': embedding ids out of range [{lo}, {hi}] "
+            f"for vocabulary of {lc.n_in}")

@@ -133,7 +133,7 @@ class ServingEngine:
             "shed": self.admission.shed,
             "queue_depth": self._queue.qsize(),
             "queue_limit": self.admission.queue_limit,
-            "flash_attention_launches": _flash.launches,
+            "flash_attention_launches": _flash.launches["fwd"],
         }
 
     # ------------------------------------------------------------- serving

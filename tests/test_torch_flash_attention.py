@@ -65,7 +65,7 @@ def test_supports_rule_matches_reference(t, d):
 
 def test_flash_attention_fallback_on_odd_shapes():
     q, k, v = _qkv(t=7, d=5)
-    before = tflash.launches
+    before = dict(tflash.launches)
     out = tflash.flash_attention(_t(q), _t(k), _t(v))
     ref = tattn.sdpa_reference(_t(q), _t(k), _t(v))
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
@@ -100,7 +100,7 @@ def test_fully_masked_rows_give_zeros_not_nan():
 
 def test_plain_forward_on_cpu_does_not_count_launches():
     q, k, v = (_t(x.reshape(4, 128, 64)) for x in _qkv())
-    before = tflash.launches
+    before = dict(tflash.launches)
     o, lse = tflash.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
     assert tflash.launches == before
     assert o.dtype == q.dtype and lse.dtype == torch.float32

@@ -145,8 +145,12 @@ def test_embedding_input_errors(bad):
     p = {"W": np.zeros((11, 6), np.float32)}
     with pytest.raises(JInvalid):
         _jax_apply(_embedding(jff.EmbeddingSequenceLayer), p, bad)
+    # the port checks the id range on the host batch at the network's
+    # boundary (validate_host_ids), and dtype and shape in the layer
+    layer = _embedding(tff.EmbeddingSequenceLayer)
     with pytest.raises(InvalidInputError):
-        _torch_apply(_embedding(tff.EmbeddingSequenceLayer), p, bad)
+        tff.validate_host_ids(layer, bad)
+        _torch_apply(layer, p, bad)
 
 
 @pytest.mark.parametrize("act", ["softmax", "identity"])
@@ -169,3 +173,22 @@ def test_gelu_is_the_tanh_approximation():
     np.testing.assert_allclose(got, want, atol=ATOL_EW, rtol=0)
     with pytest.raises(ValueError, match="not ported"):
         activations.get("relu")
+
+
+def test_decode_ids_reads_no_min_or_max_of_the_tensor(monkeypatch):
+    # the range check would be a device-to-host sync in every forward
+    def no_sync(self, *a, **k):
+        raise AssertionError("decode_ids read the tensor's min/max")
+
+    for name in ("min", "max", "amin", "amax", "aminmax"):
+        monkeypatch.setattr(torch.Tensor, name, no_sync)
+    layer = _embedding(tff.EmbeddingSequenceLayer)
+    ids = torch.tensor([[0, 3, 10], [11, -1, 2]])   # out of range: unchecked
+    assert torch.equal(layer.decode_ids(ids), ids)
+
+
+def test_validate_host_ids_passes_in_range_batches():
+    layer = _embedding(tff.EmbeddingSequenceLayer)
+    tff.validate_host_ids(layer, np.array([[0, 5], [10, 3]]))
+    tff.validate_host_ids(layer, torch.tensor([[11, -1]]))  # tensors skip
+    tff.validate_host_ids(layer, np.zeros((2, 3, 11), np.float32))

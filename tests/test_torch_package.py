@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,3 +84,17 @@ def test_entry_points_refuse_a_silent_cpu_default(no_cuda, tmp_path):
         ServingEngine(net)
     eng = ServingEngine(net, device="cpu")
     eng.shutdown()
+
+
+def test_training_entry_points_run_on_the_network_device(no_cuda):
+    lm = TransformerLM(vocab_size=8, seq_len=4, embed=8, n_layers=1,
+                       n_heads=1, sparse_labels=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init().fit(np.zeros((1, 4), np.int64), np.zeros((1, 4), np.int64))
+    net = lm.init(device="cpu")
+    ids = np.zeros((2, 4), np.int64)
+    net.fit(ids, ids)
+    assert net._score.device.type == "cpu"
+    assert np.isfinite(net.score(x=ids, y=ids))
+    slots = net.opt_state["slots"]["layer_0"]["W"]
+    assert all(t.device.type == "cpu" for t in slots.values())
