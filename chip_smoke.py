@@ -30,7 +30,25 @@ if any phase fails:
    paths) with a ``torch.profiler`` split of the step's device time, and
    each kernel beside its plain version, its bound and a PyTorch
    yardstick (``scaled_dot_product_attention``, forward or backward),
-   which the port never calls.
+   which the port never calls;
+7. ``bn_kernel_vs_plain``: holds the BatchNorm-apply kernel against its
+   plain version at every BN geometry of ResNet50 at batch 64 and
+   224x224, f32 and bf16, relu and identity;
+8. ``cnn_train``: trains the zoo ResNet50 at its published widths
+   (224x224x3, 1000 classes, the full 50-layer graph; random weights from
+   the seed) through ``ComputationGraph.fit`` for 5 Nesterovs steps of
+   batch 64, f32 with TF32 off, every BatchNormalization at
+   ``helper="pallas"``, beside a twin at ``helper=None`` (the unfused
+   path): step-0 loss and gradients, each step's loss (the twin starts
+   each step from the fused net's params), the running statistics after
+   5 steps, the eval outputs of both, and 53 launches of ``bn_apply`` per
+   step;
+9. ``cnn_train_time`` and the ``bn_apply`` rows of ``kernel_time``: the
+   median step of both nets and images/s, a ``torch.profiler`` split of
+   the step (convolutions and matrix products / the BN kernel / the rest
+   / idle), and the kernel at each geometry beside its plain version, its
+   bound and ``torch.addcmul(shift, x, scale)``, which the port never
+   calls.
 
 Each phase prints one JSON line.  Then come the card's name and power
 limit, the ``kernels`` record (the line before the last) and, last,
@@ -48,6 +66,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+SRC_DIR = "deeplearning4j_tpu_torch/csrc"
 
 # The model's width: TransformerLM as the repo benchmarks it
 # (utils/benchmarks.py transformer_lm_step_time).
@@ -106,6 +125,17 @@ PROFILED_STEPS = 3
 TIMED_RUNS = 30
 SERVE_TIMED_RUNS = 10
 
+# ResNet50 as the JAX package's bench.py trains it: published widths,
+# batch 64 (cut from bench.py's 256 to leave room for the twin), f32.
+CNN_BATCH, CNN_STEPS, CNN_TIMED_STEPS = 64, 5, 20
+CNN_EVAL_ROWS = 16
+# BN apply, kernel vs plain version on the same inputs.  The kernel
+# rounds once (f32 FMA), the plain version twice (x·scale, then + shift):
+# apart by at most half an ulp of |x·scale| plus half an ulp of |y|, so
+# within 2**-23 of max(|x·scale| + |shift|).  bf16: both round the f32
+# result once more, and may land one bf16 ulp (2**-7 of |y|) apart.
+BN_TOL_F32, BN_TOL_BF16 = 2.0 ** -23, 2.0 ** -23 + 2.0 ** -7
+
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -120,8 +150,9 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, torch, runs: int = TIMED_RUNS) -> float:
-    """Median of ``runs`` single calls, each between CUDA events."""
+def median_ms(fn, torch, runs: int = TIMED_RUNS, before=None) -> float:
+    """Median of ``runs`` single calls, each between CUDA events;
+    ``before()`` runs ahead of each call, outside the events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -129,6 +160,8 @@ def median_ms(fn, torch, runs: int = TIMED_RUNS) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         start.record()
         fn()
         end.record()
@@ -162,6 +195,31 @@ def attention_bound_ms(kernel: str, bh: int, t: int, d: int, causal: bool,
     return _bound(nbytes, per_pair * d * bh * pairs, dtype)
 
 
+def bn_bound_ms(m: int, c: int, dtype: str) -> tuple:
+    """Least time for one BN-apply call on an [m, c] tensor: x read and y
+    written once, scale and shift read once; one multiply-add (2
+    operations) per element on the CUDA cores."""
+    elem = 4 if dtype == "float32" else 2
+    return _bound(2 * m * c * elem + 2 * c * elem, 2 * m * c, "float32")
+
+
+def bn_geometries(conf, batch: int):
+    """``{(rows, channels, activation): count}`` of the BatchNorm layers
+    of a graph configuration at ``batch``."""
+    from collections import Counter
+    geo = Counter()
+    for name in conf.topological_order:
+        lc = getattr(conf.vertices[name], "layer", None)
+        if type(lc).__name__ != "BatchNormalization":
+            continue
+        shape = conf.vertex_input_types[name][0].shape(batch)
+        m = 1
+        for d in shape[:-1]:
+            m *= d
+        geo[(m, shape[-1], lc.resolved("activation", "identity"))] += 1
+    return geo
+
+
 def seeded_params(spec, seed: int):
     """JAX-layout numpy param tree for ``spec`` ({layer: {name: (shape,
     dtype)}}): xavier-normal matrices, small biases, unit LN gains."""
@@ -182,18 +240,25 @@ def seeded_params(spec, seed: int):
     return tree
 
 
-KERNEL_CLASSES = (("flash_attn_fwd", "flash_fwd_kernel"),
-                  ("flash_attn_bwd_dq", "flash_bwd_dq_kernel"),
-                  ("flash_attn_bwd_dkv", "flash_bwd_dkv_kernel"))
+MATMUL_TAGS = ("gemm", "cutlass", "xmma", "sm90_")
+# kernel classes of a step's device time: (class, name substrings), the
+# first match wins; anything else is "other"
+LM_KERNEL_CLASSES = (("flash_attn_fwd", ("flash_fwd_kernel",)),
+                     ("flash_attn_bwd_dq", ("flash_bwd_dq_kernel",)),
+                     ("flash_attn_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+                     ("matmul", MATMUL_TAGS))
+CNN_KERNEL_CLASSES = (("bn_apply", ("bn_apply_kernel",)),
+                      ("conv_and_matmul", MATMUL_TAGS + (
+                          "conv", "cudnn", "implicit", "wgrad", "dgrad",
+                          "fprop")))
 
 
-def profile_steps(torch, net, batches) -> dict:
+def profile_steps(torch, net, batches, classes) -> dict:
     """Device time per training step by kernel class, from a
-    ``torch.profiler`` trace of ``len(batches)`` ``fit`` steps: the three
-    attention kernels, matrix products (cuBLAS/CUTLASS kernels), and the
-    rest.  The wall time of the profiled steps includes the profiler's
-    own host overhead; the caller sets the device time against the
-    unprofiled step time for the busy share."""
+    ``torch.profiler`` trace of ``len(batches)`` ``fit`` steps.  The wall
+    time of the profiled steps includes the profiler's own host overhead;
+    the caller sets the device time against the unprofiled step time for
+    the busy share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -203,8 +268,8 @@ def profile_steps(torch, net, batches) -> dict:
             net.fit(x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
-    per_class.update(matmul=0.0, other=0.0)
+    per_class = {name: 0.0 for name, _ in classes}
+    per_class["other"] = 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
@@ -212,11 +277,8 @@ def profile_steps(torch, net, batches) -> dict:
                 "CUDA" not in str(ev.device_type):
             continue
         key = ev.key.lower()
-        cls = next((name for name, tag in KERNEL_CLASSES if tag in key),
-                   None)
-        if cls is None:
-            cls = "matmul" if any(t in key for t in (
-                "gemm", "cutlass", "xmma", "sm90_")) else "other"
+        cls = next((name for name, tags in classes
+                    if any(t in key for t in tags)), "other")
         per_class[cls] += us / 1e3
     n = len(batches)
     return {"steps": n, "profiled_wall_ms_per_step": wall_ms / n,
@@ -240,6 +302,310 @@ def build_all(kernel_build, sources) -> dict:
         return dict(pool.map(one, sources))
 
 
+# ResNet50 training, fused (helper="pallas") vs unfused twin, f32 with
+# TF32 off; the twin starts each step from the fused net's params.
+# - Losses (a mean over 64 rows of −log p): the two paths round each BN
+#   output differently, ~1 f32 ulp, which moves the loss by ~1e-7
+#   relative: 1e-5.
+# - Running statistics after 5 steps: EMAs of batch statistics taken at
+#   the same params, apart by that rounding (~1e-6 relative): 1e-5 of
+#   each stat's largest entry.
+# - Eval outputs (probabilities <= 1): 1e-4 abs.
+# - Step-0 gradients.  At initialisation this 50-layer BN network
+#   amplifies rounding enormously: the unfused path run on the same batch
+#   with its rows reversed (the same loss in exact arithmetic, rounded
+#   otherwise in every BN and weight-gradient sum) moves the gradient by
+#   ~3 % in relative L2.  That reordered run is the noise floor: the fused
+#   gradients must differ from the unfused ones by at most 2x its relative
+#   L2 over the net, and per parameter by at most 4x its largest
+#   difference on that parameter plus 1e-6 of the net's largest |g|.
+CNN_GRAD_NOISE_K, CNN_GRAD_LEAF_K, CNN_TOL_GRAD_NET = 2.0, 4.0, 1e-6
+CNN_TOL_LOSS = 1e-5
+CNN_TOL_STATE = 1e-5
+CNN_TOL_EVAL = 1e-4
+
+
+def cnn_phases(args, torch, dev, card):
+    """Phases 7-9 (ResNet50).  Returns ``(the bn_apply kernels record,
+    None)``, or ``(None, what failed)``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import (
+        ComputationGraph, _graph_loss)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+
+    zoo = ResNet50(seed=args.seed)
+    geoms = bn_geometries(zoo.conf(), CNN_BATCH)
+    if sum(geoms.values()) != 53:
+        return None, f"ResNet50 has {sum(geoms.values())} BN layers, not 53"
+
+    # ---- 7. BN apply kernel vs plain at every geometry -------------------
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    bn_err = 0.0
+    for (m, c, act), count in sorted(geoms.items()):
+        for dname, dt, tol_rel in (("float32", torch.float32, BN_TOL_F32),
+                                   ("bfloat16", torch.bfloat16,
+                                    BN_TOL_BF16)):
+            x = (torch.randn((m, c), generator=gen, device=dev) * 2
+                 + 0.5).to(dt)
+            scale = torch.randn(c, generator=gen, device=dev).to(dt)
+            shift = torch.randn(c, generator=gen, device=dev).to(dt)
+            tol = tol_rel * (x.float().abs() * scale.float().abs()
+                             + shift.float().abs()).max().item()
+            errs = {}
+            for relu in (True, False):
+                y = pb.bn_apply(x, scale, shift, relu)
+                want = pb.bn_apply_plain(x, scale, shift, relu)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(y.float()).all()):
+                    return None, f"bn_apply not finite at [{m}, {c}] {dname}"
+                errs["relu" if relu else "identity"] = \
+                    (y.float() - want.float()).abs().max().item()
+            print(json.dumps({"phase": "bn_kernel_vs_plain", "rows": m,
+                              "channels": c, "resnet_activation": act,
+                              "resnet_layers": count, "dtype": dname,
+                              "max_abs_err": errs, "tol": tol}), flush=True)
+            if max(errs.values()) > tol:
+                return None, (f"bn_apply disagrees with plain at [{m}, {c}] "
+                              f"{dname}: {errs} > {tol}")
+            if dname == "float32":
+                bn_err = max(bn_err, *errs.values())
+            del x, y, want
+
+    # ---- 8. full-width ResNet50 training ---------------------------------
+    nets = {}
+    for helper in ("pallas", None):
+        conf = zoo.conf()
+        for v in conf.vertices.values():
+            lc = getattr(v, "layer", None)
+            if type(lc).__name__ == "BatchNormalization":
+                lc.helper = helper
+        nets[helper] = ComputationGraph(conf, device=dev)
+    net = nets["pallas"].init()
+    twin = nets[None].load_params({
+        k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+        for k, g in net.params.items()})
+    h, w, c = zoo.input_shape
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    xs = [torch.randn((CNN_BATCH, h, w, c), generator=dgen, device=dev)
+          for _ in range(CNN_STEPS)]
+    ys = [F.one_hot(torch.randint(0, zoo.num_classes, (CNN_BATCH,),
+                                  generator=dgen, device=dev),
+                    zoo.num_classes).float() for _ in range(CNN_STEPS)]
+
+    # step-0 loss and gradients of every parameter, fused vs unfused; and
+    # the unfused twin once more on the batch in reverse row order: the
+    # same loss in exact arithmetic (BN statistics and the loss are means
+    # over rows), rounded otherwise in every BN and every weight-gradient
+    # sum.  That pair is the f32 noise floor of each gradient here.
+    grads, loss0 = [], []
+    for m, x, y in ((net, xs[0], ys[0]), (twin, xs[0], ys[0]),
+                    (twin, xs[0].flip(0), ys[0].flip(0))):
+        params = m._param_tree()
+        keys = [(k, n) for k in params for n in params[k]]
+        loss, _ = _graph_loss(m.conf, params, m.state, [x], [y],
+                              train=True)
+        grads.append(dict(zip(keys, torch.autograd.grad(
+            loss, [params[k][n] for k, n in keys]))))
+        loss0.append(loss.item())
+        del loss
+    fused_g, twin_g, flip_g = grads
+    net_max = max(g.abs().max().item() for g in twin_g.values())
+    worst_ratio, worst_name, rel = 0.0, "", []
+    sq = {"fused": 0.0, "reordered": 0.0, "norm": 0.0}
+    for key, g in fused_g.items():
+        want = twin_g[key]
+        err = (g - want).abs().max().item()
+        noise = (flip_g[key] - want).abs().max().item()
+        tol = CNN_GRAD_LEAF_K * noise + CNN_TOL_GRAD_NET * net_max
+        if not bool(torch.isfinite(g).all()) or err > tol:
+            return None, (f"step-0 gradient {key} fused vs unfused: {err} > "
+                          f"{tol} ({CNN_GRAD_LEAF_K} x the reordered "
+                          f"twin's {noise})")
+        rel.append((err / noise if noise else float("inf"), "/".join(key)))
+        if err / tol >= worst_ratio:
+            worst_ratio, worst_name = err / tol, "/".join(key)
+        sq["fused"] += ((g - want) ** 2).sum().item()
+        sq["reordered"] += ((flip_g[key] - want) ** 2).sum().item()
+        sq["norm"] += (want ** 2).sum().item()
+    grad_rel_l2 = {k: (sq[k] / sq["norm"]) ** 0.5
+                   for k in ("fused", "reordered")}
+    del grads, fused_g, twin_g, flip_g
+    if grad_rel_l2["fused"] > CNN_GRAD_NOISE_K * grad_rel_l2["reordered"]:
+        return None, (f"step-0 gradients fused vs unfused, relative L2 "
+                      f"{grad_rel_l2['fused']} > {CNN_GRAD_NOISE_K} x the "
+                      f"reordered twin's {grad_rel_l2['reordered']}")
+
+    # the main path: 5 fit steps of the fused net, counted
+    names = [n for n, _ in net.named_parameters()]
+    if names != [n for n, _ in twin.named_parameters()]:
+        return None, "the twin's parameters are not the fused net's"
+    snaps = []
+    torch.cuda.synchronize()
+    pb.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    step_losses = []
+    for x, y in zip(xs, ys):
+        snaps.append([p.detach().clone() for p in net.parameters()])
+        net.fit(x, y)
+        step_losses.append(net._score)     # a device scalar: no sync here
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(pb.launches)
+    flash_launches = dict(fa.launches)
+    losses = [float(v) for v in step_losses]
+
+    # the twin: each step from the fused net's params before that step
+    pb.reset_launches()
+    twin_losses = []
+    for snap, x, y in zip(snaps, xs, ys):
+        with torch.no_grad():
+            for p, q in zip(twin.parameters(), snap):
+                p.copy_(q)
+        twin.fit(x, y)
+        twin_losses.append(twin.get_score())
+    twin_launches = pb.launches["bn_apply"]
+    del snaps
+    loss_diff = max(abs(a - b) / abs(b) for a, b in
+                    zip([loss0[0]] + losses, [loss0[1]] + twin_losses))
+    state_diff = max(
+        ((net.state[k][n] - t).abs().max()
+         / t.abs().max().clamp(min=1e-30)).item()
+        for k, g in twin.state.items() for n, t in g.items())
+    xe = xs[0][:CNN_EVAL_ROWS]
+    pe, te = net.output(xe), twin.output(xe)
+    eval_diff = (pe - te).abs().max().item()
+    eval_max_prob = pe.max().item()
+    expected = 53 * CNN_STEPS
+    rel.sort(reverse=True)
+    print(json.dumps({
+        "phase": "cnn_train", "model": {
+            "name": "ResNet50", "input": list(zoo.input_shape),
+            "classes": zoo.num_classes, "batch": CNN_BATCH,
+            "dtype": "float32", "tf32": False,
+            "updater": "Nesterovs(learning_rate=0.1, momentum=0.9)",
+            "bn_helper": "pallas", "num_params": net.num_params()},
+        "steps": CNN_STEPS, "step0_loss": loss0, "losses": losses,
+        "twin_losses": twin_losses, "max_rel_loss_diff": loss_diff,
+        "tol_loss": CNN_TOL_LOSS,
+        "step0_grad_worst_err_over_tol": worst_ratio,
+        "step0_grad_worst_param": worst_name,
+        "step0_grad_err_over_reordered_noise_worst": rel[:5],
+        "step0_grad_rel_l2": grad_rel_l2,
+        "tol_grad": {"rel_l2_times_reordered": CNN_GRAD_NOISE_K,
+                     "leaf_times_reordered": CNN_GRAD_LEAF_K,
+                     "leaf_of_net_max": CNN_TOL_GRAD_NET},
+        "max_rel_running_stat_diff": state_diff,
+        "tol_state": CNN_TOL_STATE, "eval_max_abs_diff": eval_diff,
+        "tol_eval": CNN_TOL_EVAL, "eval_max_prob": eval_max_prob,
+        "kernel_launches": launches,
+        "expected_launches": {"bn_apply": expected},
+        "flash_launches": flash_launches, "twin_bn_launches": twin_launches,
+        "seconds": round(train_s, 4)}), flush=True)
+    if launches["bn_apply"] != expected or twin_launches or \
+            any(flash_launches.values()):
+        return None, (f"bn_apply launched {launches} (twin {twin_launches}"
+                      f", flash {flash_launches}); expected {expected}")
+    if not all(np.isfinite(losses + twin_losses)) or \
+            loss_diff > CNN_TOL_LOSS:
+        return None, (f"losses {losses} vs twin {twin_losses}: "
+                      f"{loss_diff} > {CNN_TOL_LOSS}")
+    if state_diff > CNN_TOL_STATE:
+        return None, (f"running stats differ from the twin's by "
+                      f"{state_diff} > {CNN_TOL_STATE}")
+    if pe.shape != (CNN_EVAL_ROWS, zoo.num_classes) or \
+            not bool(torch.isfinite(pe).all()) or \
+            (pe.sum(-1) - 1).abs().max().item() > 1e-4 or \
+            eval_diff > CNN_TOL_EVAL:
+        return None, f"eval outputs differ from the twin's by {eval_diff}"
+    del pe, te
+
+    # ---- 9. times -----------------------------------------------------
+    step_ms = {"pallas": [], "unfused": []}
+    models = {"pallas": net, "unfused": twin}
+    for m in models.values():
+        for i in range(2):
+            m.fit(xs[i], ys[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("unfused", "pallas", "pallas", "unfused"):
+        for i in range(CNN_TIMED_STEPS // 2):
+            x, y = xs[i % CNN_STEPS], ys[i % CNN_STEPS]
+            t1 = time.perf_counter()
+            models[name].fit(x, y)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t1) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    splits = {}
+    for name, m in models.items():
+        split = profile_steps(torch, m, list(zip(xs, ys))[:PROFILED_STEPS],
+                              CNN_KERNEL_CLASSES)
+        busy = split["device_ms_total_per_step"] / med[name] \
+            if split["device_ms_total_per_step"] else None
+        split["device_busy_share"] = busy
+        split["device_idle_share"] = None if busy is None else 1 - busy
+        splits[name] = split
+    del twin, models
+    print(json.dumps({"phase": "cnn_train_time", "batch": CNN_BATCH,
+                      "steps_per_net": CNN_TIMED_STEPS,
+                      "step_ms_median": med["pallas"],
+                      "images_per_s": CNN_BATCH / med["pallas"] * 1e3,
+                      "unfused_step_ms_median": med["unfused"],
+                      "unfused_images_per_s": CNN_BATCH / med["unfused"]
+                      * 1e3, "step_ms": step_ms,
+                      "peak_memory_gb": peak_gb, "profile": splits["pallas"],
+                      "unfused_profile": splits["unfused"],
+                      "card": card}), flush=True)
+    del net, xs, ys
+    torch.cuda.empty_cache()
+
+    # BN apply at each geometry: kernel, plain version, torch.addcmul,
+    # each launch with the 50 MB L2 flushed (a 64 MB write) before it
+    flush_buf = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "bound_ms": 0.0}
+    bound_by_all = set()
+    for (m, c, act), count in sorted(geoms.items()):
+        x = torch.randn((m, c), generator=gen, device=dev)
+        scale = torch.randn(c, generator=gen, device=dev)
+        shift = torch.randn(c, generator=gen, device=dev)
+        out = torch.empty_like(x)
+        relu = act == "relu"
+        # straight through the binding: timing launches are not counted
+        kern = median_ms(lambda: pb._launch(x, scale, shift, out, relu),
+                         torch, before=flush_buf.zero_)
+        plain = median_ms(lambda: pb.bn_apply_plain(x, scale, shift, relu),
+                          torch, runs=10, before=flush_buf.zero_)
+        lib = median_ms(lambda: torch.addcmul(shift, x, scale), torch,
+                        before=flush_buf.zero_)
+        bound, bound_by = bn_bound_ms(m, c, "float32")
+        bound_by_all.add(bound_by)
+        for key, v in (("ms", kern), ("plain_ms", plain),
+                       ("library_ms", lib), ("bound_ms", bound)):
+            totals[key] += count * v
+        print(json.dumps({"phase": "kernel_time", "kernel": "bn_apply",
+                          "dtype": "float32", "rows": m, "channels": c,
+                          "activation": act, "layers_per_step": count,
+                          "ms": kern, "plain_ms": plain, "library_ms": lib,
+                          "library_call": "torch.addcmul(shift, x, scale)"
+                          + (" (relu would need a second call)"
+                             if relu else ""),
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "card": card}), flush=True)
+        del x, out
+    return {"name": "bn_apply", "route": "cuda",
+            "source": f"{SRC_DIR}/{pb.SOURCE}",
+            "replaces": "deeplearning4j_tpu/ops/pallas_bn.py:82",
+            "launches": launches["bn_apply"], "max_abs_err": bn_err,
+            **totals, "bound_by": "/".join(sorted(bound_by_all)),
+            "per": "one ResNet50 training step at batch 64, f32: the 53 "
+                   "launches at their shapes, summed"}, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -257,6 +623,7 @@ def main(argv=None) -> int:
     from deeplearning4j_tpu_torch.models.zoo import TransformerLM
     from deeplearning4j_tpu_torch.nn.multilayer import _stack_loss
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
     from deeplearning4j_tpu_torch.serving.engine import ServingEngine
     from deeplearning4j_tpu_torch.utils import kernel_build
     from deeplearning4j_tpu_torch.utils.model_serializer import params_from_jax
@@ -266,11 +633,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    src_dir = "deeplearning4j_tpu_torch/csrc"
+    src_dir = SRC_DIR
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    built = build_all(kernel_build, [fa.SOURCE, fa.BWD_SOURCE])
+    built = build_all(kernel_build, [fa.SOURCE, fa.BWD_SOURCE, pb.SOURCE])
     print(json.dumps({"phase": "build", "seconds": round(
         time.perf_counter() - t0, 3), "sources": {
             f"{src_dir}/{s}": v for s, v in built.items()}}), flush=True)
@@ -501,7 +868,8 @@ def main(argv=None) -> int:
                 times.append((time.perf_counter() - t1) * 1e3)
         step_ms[name] = statistics.median(times)
     del tref
-    split = profile_steps(torch, tnet, batches[:PROFILED_STEPS])
+    split = profile_steps(torch, tnet, batches[:PROFILED_STEPS],
+                          LM_KERNEL_CLASSES)
     # device busy share of an unprofiled step; None when the profiler
     # saw no device time
     split["device_busy_share"] = (
@@ -579,6 +947,14 @@ def main(argv=None) -> int:
                                   "bound_ms": bound, "bound_by": bound_by,
                                   "card": card}), flush=True)
 
+    del tnet, inputs, saved
+    torch.cuda.empty_cache()
+
+    # ---- 7-9. ResNet50: BN kernel vs plain, training, times --------------
+    bn_record, err = cnn_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -597,6 +973,7 @@ def main(argv=None) -> int:
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms})
+    records.append(bn_record)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

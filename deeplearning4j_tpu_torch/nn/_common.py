@@ -1,6 +1,8 @@
-"""Training-step machinery shared by the network types (port of
-``nn/_common.py``): the updater groups (``build_tx``), gradient
-normalization, and the constraint pass.
+"""Machinery shared by the network types (port of ``nn/_common.py``):
+the updater groups (``build_tx``), gradient normalization, the
+constraint pass, the backward-and-update half of a train step, and
+``Network``, the base of ``MultiLayerNetwork`` and ``ComputationGraph``
+(parameter and state storage, init, loading, the fit loop).
 
 Gradients and parameters are ``{layer_i: {name: tensor}}`` dicts, as the
 JAX package's pytrees.  ``build_tx`` returns an ``UpdaterGroups`` in
@@ -10,11 +12,15 @@ frozen group), a label per parameter, and a step count per label.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, \
+    Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
-from .conf.updaters import UpdaterConf
+from ..utils.device import resolve_device
+from .conf.updaters import Sgd, UpdaterConf
 from .layers.base import BaseLayerConf, LayerConf
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -180,3 +186,239 @@ def apply_constraints_all(params: Tree,
                 f"layer '{getattr(hc, 'name', name)}': constraints are not "
                 "ported yet")
     return params
+
+
+def refuse_unported_training(conf, layers: Iterable[Optional[LayerConf]]
+                             ) -> None:
+    """The JAX train step's branches this port does not have."""
+    d = conf.defaults
+    if d.get("precision") is not None or \
+            str(d.get("compute_dtype") or "float32") != "float32":
+        raise NotImplementedError(
+            "precision policies (precision / compute_dtype) are not ported "
+            "yet: training runs float32")
+    if conf.backprop_type == "tbptt":
+        raise NotImplementedError("backprop_type='tbptt' is not ported yet")
+    if d.get("cache_mode") == "remat":
+        raise NotImplementedError("cache_mode='remat' is not ported yet")
+    algo = d.get("optimization_algo", "sgd")
+    if algo not in ("sgd", "stochastic_gradient_descent"):
+        raise NotImplementedError(
+            f"optimization_algo='{algo}' (the legacy solvers) is not "
+            "ported yet")
+    for lc in layers:
+        if getattr(lc, "sparse_grad", False):
+            raise NotImplementedError(
+                f"layer '{lc.name}': sparse_grad=True (the sparse-embedding "
+                "gradient) is not ported yet")
+
+
+def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
+                        tx: "UpdaterGroups",
+                        confs: Dict[str, Optional[LayerConf]],
+                        gn_mode: Optional[str], gn_thr: float
+                        ) -> Dict[str, Any]:
+    """The second half of the SGD-path train step: gradients of ``loss``
+    by autograd, gradient normalization, then the updaters, in place on
+    ``params`` and ``opt_state``.  Returns the gradient statistics
+    (global and per-layer L2 norms) as device scalars."""
+    keys = [(k, n) for k, group in params.items() for n in group]
+    leaves = [params[k][n] for k, n in keys]
+    flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads: Tree = {k: {} for k in params}
+    for (k, n), g, p in zip(keys, flat, leaves):
+        # a param the loss does not reach has gradient 0, as in JAX
+        grads[k][n] = torch.zeros_like(p) if g is None else g
+    with torch.no_grad():
+        grads = apply_gradient_norm_all(grads, confs, gn_mode, gn_thr)
+        gleaves = float_grad_leaves(grads)
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gleaves)) \
+            if gleaves else torch.zeros((), dtype=torch.float32)
+        glayer = {k: torch.sqrt(sum(torch.sum(g * g)
+                                    for g in float_grad_leaves(v)))
+                  for k, v in grads.items() if v}
+    tx.step(params, grads, opt_state)
+    return {"global_norm": gnorm, "layer_norms": glayer}
+
+
+def batch_factory(data, one, normalize: Callable) -> Callable:
+    """``factory() -> batches`` for one epoch of ``fit``: ``[one]`` when
+    the caller passed labels, else ``data`` read as one batch (a 2- or
+    4-tuple, or a ``DataSet``-like object with ``features``) or as an
+    iterable of batches with an optional ``reset()`` (the DataSetIterator
+    role).  ``normalize`` turns one batch into the network's 4-tuple."""
+    if one is not None:
+        return lambda: [one]
+    if hasattr(data, "features") or \
+            (isinstance(data, tuple) and len(data) in (2, 4)):
+        return lambda: [normalize(data)]
+    if hasattr(data, "reset") or hasattr(data, "__iter__"):
+        if not hasattr(data, "reset") and iter(data) is data:
+            # a bare generator cannot be iterated again per epoch
+            batches = [normalize(b) for b in data]
+            return lambda: batches
+
+        def factory():
+            if hasattr(data, "reset"):
+                data.reset()
+            for b in data:
+                yield normalize(b)
+        return factory
+    raise ValueError("fit() needs (x, y) or an iterator")
+
+
+class Network(nn.Module):
+    """Parameters, state and updater state of a network, and what the
+    two containers do alike with them.
+
+    ``params`` is an ``nn.ModuleDict`` of one ``nn.ParameterDict`` per
+    layer (or vertex), keyed and named as the JAX package's param tree,
+    so a JAX checkpoint maps onto it one to one; ``state`` is a plain
+    ``{key: {name: tensor}}`` dict (BatchNorm running stats), replaced by
+    each training step.  A subclass lists its layers in ``_layers`` and
+    runs one step in ``_fit_one``."""
+
+    def __init__(self, conf, device="cuda"):
+        super().__init__()
+        self.device = resolve_device(device)
+        conf.resolve()
+        self.conf = conf
+        self.params = nn.ModuleDict()
+        self.state: Tree = {}
+        self.opt_state: Optional[Dict[str, Any]] = None
+        self.iteration = 0
+        self.epoch = 0
+        self.last_batch_size = 0
+        self._score: Any = float("nan")
+        self._last_grad_stats: Optional[Dict[str, Any]] = None
+        self._tx = None
+        self._step = None
+
+    def _layers(self) -> List[Tuple[str, Any, Any]]:
+        """``(key, conf, input types)`` of every layer, in order; ``conf``
+        has ``init(generator, itypes, device)`` and
+        ``init_state(itypes, device)``."""
+        raise NotImplementedError
+
+    def _hyper_confs(self) -> Dict[str, Optional[LayerConf]]:
+        """``{key: layer conf}`` for the updater labels, gradient
+        normalization and constraints."""
+        raise NotImplementedError
+
+    def _set_params(self, groups: Mapping[str, Dict[str, torch.Tensor]]):
+        self.params = nn.ModuleDict({
+            key: nn.ParameterDict({
+                name: nn.Parameter(t, requires_grad=t.is_floating_point())
+                for name, t in group.items()})
+            for key, group in groups.items()})
+
+    def _param_tree(self) -> Tree:
+        return {k: dict(g.items()) for k, g in self.params.items()}
+
+    def init(self) -> "Network":
+        """Fresh parameters from a ``torch.Generator`` seeded with the
+        configuration's seed (torch's numbers, not JAX's), fresh state
+        and fresh updater state."""
+        gen = torch.Generator().manual_seed(self.conf.seed)
+        self._set_params({key: c.init(gen, it, self.device)
+                          for key, c, it in self._layers()})
+        self.state = {key: c.init_state(it, self.device)
+                      for key, c, it in self._layers()}
+        self._init_updater()
+        return self
+
+    def _default_updater(self) -> UpdaterConf:
+        u = self.conf.defaults.get("updater")
+        return u if u is not None else Sgd(learning_rate=0.1)
+
+    def _init_updater(self) -> None:
+        self._tx = build_tx(self._default_updater(), self._hyper_confs(),
+                            self._param_tree())
+        self.opt_state = self._tx.init(self._param_tree())
+        self._step = None
+
+    def _spec(self, what: str) -> Dict[str, Dict[str, Tuple[tuple,
+                                                           torch.dtype]]]:
+        gen, meta = torch.Generator(), torch.device("meta")
+        out = {}
+        for key, c, it in self._layers():
+            made = c.init(gen, it, meta) if what == "params" \
+                else c.init_state(it, meta)
+            out[key] = {n: (tuple(t.shape), t.dtype) for n, t in made.items()}
+        return out
+
+    def param_spec(self) -> Dict[str, Dict[str, Tuple[tuple, torch.dtype]]]:
+        """``{key: {name: (shape, dtype)}}`` without allocating."""
+        return self._spec("params")
+
+    def state_spec(self) -> Dict[str, Dict[str, Tuple[tuple, torch.dtype]]]:
+        return self._spec("state")
+
+    def _tensors(self, tree: Mapping[str, Mapping[str, Any]], what: str
+                 ) -> Tree:
+        """``tree`` checked against the spec of ``what`` (names and shapes
+        exactly; a group with nothing in it may be absent) and moved to
+        the device in the spec's dtypes."""
+        spec = self._spec(what)
+        extra = sorted(set(tree) - set(spec))
+        if extra:
+            raise ValueError(f"{what} tree has unknown groups {extra}")
+        groups = {}
+        for key, want in spec.items():
+            got = tree.get(key, {})
+            if set(got) != set(want):
+                raise ValueError(
+                    f"{key}: {what} names {sorted(got)} != expected "
+                    f"{sorted(want)}")
+            group = {}
+            for name, (shape, dtype) in want.items():
+                arr = np.asarray(got[name])
+                if tuple(arr.shape) != shape:
+                    raise ValueError(f"{key}/{name}: shape {arr.shape} != "
+                                     f"expected {shape}")
+                group[name] = torch.tensor(arr, dtype=dtype,
+                                           device=self.device)
+            groups[key] = group
+        return groups
+
+    def load_params(self, tree: Mapping[str, Mapping[str, Any]]
+                    ) -> "Network":
+        """Install a JAX-layout param tree ``{key: {name: array}}``.
+        Names and shapes must match exactly; a layer without params may be
+        absent.  State is made fresh if there is none, and updater state
+        is kept (made fresh if there is none)."""
+        self._set_params(self._tensors(tree, "params"))
+        if not self.state:
+            self.state = {key: c.init_state(it, self.device)
+                          for key, c, it in self._layers()}
+        if self.opt_state is None:
+            self._init_updater()
+        return self
+
+    def load_state(self, tree: Mapping[str, Mapping[str, Any]]
+                   ) -> "Network":
+        """Install a JAX-layout state tree (BatchNorm running stats)."""
+        self.state = self._tensors(tree, "state")
+        return self
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.params.parameters())
+
+    def _on_device(self, a) -> Optional[torch.Tensor]:
+        return None if a is None else torch.as_tensor(a, device=self.device)
+
+    def _fit_one(self, *batch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _fit_epochs(self, factory: Callable, epochs: int) -> "Network":
+        if not self.params:
+            self.init()
+        for _ in range(epochs):
+            for batch in factory():
+                self._fit_one(*batch)
+            self.epoch += 1
+        return self
+
+    def get_score(self) -> float:
+        """The loss of the most recent training batch."""
+        return float(self._score)

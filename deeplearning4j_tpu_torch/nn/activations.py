@@ -1,8 +1,9 @@
 """Activation functions by name (port of ``nn/activations.py``).
 
-Only the activations the TransformerLM serving path uses are ported:
-``identity``/``linear``, ``softmax`` and ``gelu``.  ``gelu`` is the tanh
-approximation, because ``jax.nn.gelu`` defaults to it.
+Only the activations the TransformerLM and ResNet50 paths use are
+ported: ``identity``/``linear``, ``softmax``, ``gelu`` and ``relu``.
+``gelu`` is the tanh approximation, because ``jax.nn.gelu`` defaults to
+it.  ``relu``'s gradient at 0 is 0, as ``jax.nn.relu``'s.
 """
 from __future__ import annotations
 
@@ -24,11 +25,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
 _REGISTRY: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "identity": identity,
     "linear": identity,
     "softmax": softmax,
     "gelu": gelu,
+    "relu": relu,
 }
 
 

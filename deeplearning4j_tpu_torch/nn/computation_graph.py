@@ -1,0 +1,212 @@
+"""ComputationGraph: the DAG network (port of ``nn/computation_graph.py``):
+init, output, the loss, the train step, fit and score.
+
+The forward walks the configuration's topological order eagerly, one
+vertex at a time; fan-in gradients (the residual adds) are summed by
+autograd.  Parameters live in one ``nn.ParameterDict`` per vertex, keyed
+by vertex name and named as in the JAX package; state (BatchNorm running
+statistics) in ``state``, replaced by each training step.
+
+Training takes the JAX package's SGD path: forward to the output layers'
+summed loss plus l1/l2, gradients by autograd (through the hand-written
+BatchNorm kernel's ``autograd.Function`` where a layer selects it),
+gradient normalization, then the updaters.  The step leaves the loss on
+the device.  Not ported, and refused when configured: precision policies,
+the sparse-embedding gradient, tBPTT, remat, the legacy solvers, layer
+constraints, dropout, weight noise and features masks.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ._common import (Network, apply_constraints_all, backward_and_update,
+                      batch_factory, refuse_unported_training)
+
+
+def _as_list(x) -> List:
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x]
+
+
+def _vertex_confs(conf) -> Dict[str, Any]:
+    return {name: getattr(v, "layer", None)
+            for name, v in conf.vertices.items()}
+
+
+def _is_loss_output(conf, name: str) -> bool:
+    return name in conf.network_outputs and \
+        hasattr(getattr(conf.vertices[name], "layer", None), "compute_loss")
+
+
+def _graph_forward(conf, params, state, inputs: List[torch.Tensor], *,
+                   train: bool, exclude_outputs: bool = False
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """Walk the topological order; returns ``(acts, new_state)``, acts
+    keyed by vertex name (plus the network inputs).  With
+    ``exclude_outputs``, output layers that nothing consumes are skipped:
+    the loss applies them itself."""
+    acts = dict(zip(conf.network_inputs, inputs))
+    new_state = dict(state)
+    consumed = {src for ins in conf.vertex_inputs.values() for src in ins}
+    for name in conf.topological_order:
+        if exclude_outputs and name not in consumed and \
+                _is_loss_output(conf, name):
+            continue
+        xs = [acts[s] for s in conf.vertex_inputs[name]]
+        acts[name], new_state[name] = conf.vertices[name].forward(
+            params.get(name, {}), state.get(name, {}), xs, train=train)
+    return acts, new_state
+
+
+def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
+                label_masks=None) -> Tuple[torch.Tensor, Dict]:
+    """Sum of the output layers' losses plus regularization; returns
+    ``(loss, new_state)``."""
+    acts, new_state = _graph_forward(conf, params, state, inputs,
+                                     train=train, exclude_outputs=True)
+    total = None
+    for oi, name in enumerate(conf.network_outputs):
+        if not _is_loss_output(conf, name):
+            raise ValueError(
+                f"network output '{name}' is not an output layer vertex")
+        lm = label_masks[oi] if label_masks and oi < len(label_masks) \
+            else None
+        loss = conf.vertices[name].compute_loss(
+            params.get(name, {}), acts[conf.vertex_inputs[name][0]],
+            labels[oi], train=train, mask=lm)
+        total = loss if total is None else total + loss
+    reg = torch.zeros((), dtype=total.dtype, device=total.device)
+    for name, v in conf.vertices.items():
+        lp = params.get(name, {})
+        if lp:
+            reg = reg + v.regularization_score(dict(lp))
+    return total + reg, new_state
+
+
+def _build_graph_train_step(conf, tx):
+    """``step(params, state, opt_state, xs, ys, label_masks) -> (loss,
+    new_state, gstats)``, updating ``params`` and ``opt_state`` in place.
+    Port of the reference's graph train step without its precision,
+    sparse-gradient and remat branches."""
+    confs = _vertex_confs(conf)
+    refuse_unported_training(conf, confs.values())
+    gn_mode = conf.defaults.get("gradient_normalization")
+    gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
+                                     1.0))
+
+    def step(params, state, opt_state, xs, ys, label_masks):
+        apply_constraints_all(params, confs)
+        loss, new_state = _graph_loss(conf, params, state, xs, ys,
+                                      train=True, label_masks=label_masks)
+        gstats = backward_and_update(loss, params, opt_state, tx, confs,
+                                     gn_mode, gn_thr)
+        return loss.detach(), new_state, gstats
+
+    return step
+
+
+def _normalize_batch(b):
+    """``(inputs, labels, features_masks, labels_masks)``, each a list
+    (or None for the masks), from a 2- or 4-tuple or a (Multi)DataSet-like
+    object."""
+    if isinstance(b, (tuple, list)):
+        if len(b) == 2:
+            return _as_list(b[0]), _as_list(b[1]), None, None
+        if len(b) == 4:
+            return (_as_list(b[0]), _as_list(b[1]),
+                    None if b[2] is None else _as_list(b[2]),
+                    None if b[3] is None else _as_list(b[3]))
+    if hasattr(b, "features"):
+        fm = getattr(b, "features_mask", None)
+        lm = getattr(b, "labels_mask", None)
+        return (_as_list(b.features), _as_list(b.labels),
+                None if fm is None else _as_list(fm),
+                None if lm is None else _as_list(lm))
+    raise ValueError(f"cannot interpret batch of type {type(b)}")
+
+
+class ComputationGraph(Network):
+    """``ComputationGraph(conf, device="cuda").init()``, then ``fit``,
+    ``output`` and ``score``."""
+
+    def _layers(self):
+        return [(name, self.conf.vertices[name],
+                 self.conf.vertex_input_types[name])
+                for name in self.conf.topological_order]
+
+    def _hyper_confs(self):
+        return _vertex_confs(self.conf)
+
+    def forward(self, *inputs: torch.Tensor) -> List[torch.Tensor]:
+        """Inference activations of the network outputs."""
+        if not self.params:
+            raise RuntimeError("network has no params: call init() or "
+                               "load_params() first")
+        acts, _ = _graph_forward(self.conf, self._param_tree(), self.state,
+                                 list(inputs), train=False)
+        return [acts[o] for o in self.conf.network_outputs]
+
+    def output(self, *inputs):
+        """Inference forward on a batch (numpy arrays or tensors): the
+        output activation, or a list of them for several outputs.  Results
+        stay on the network's device."""
+        with torch.inference_mode():
+            ys = self(*[self._on_device(x) for x in inputs])
+        return ys[0] if len(ys) == 1 else ys
+
+    # ------------------------------------------------------------ training
+    def fit(self, data=None, labels=None, *, epochs: int = 1, masks=None,
+            label_masks=None) -> "ComputationGraph":
+        """Train.  ``data`` may be (inputs, labels), each an array or a
+        list of arrays, or an iterable of MultiDataSet-shaped batches."""
+        one = (_as_list(data), _as_list(labels), masks, label_masks) \
+            if labels is not None else None
+        return self._fit_epochs(batch_factory(data, one, _normalize_batch),
+                                epochs)
+
+    def _fit_one(self, xs, ys, ms, lms) -> torch.Tensor:
+        """One train step; returns (and keeps in ``_score``) the loss as a
+        device scalar, without waiting for the device."""
+        if ms is not None and any(m is not None for m in _as_list(ms)):
+            raise NotImplementedError(
+                "features masks in training are not ported yet")
+        xs = [self._on_device(x) for x in _as_list(xs)]
+        self.last_batch_size = int(xs[0].shape[0])
+        if self._step is None:
+            if self.opt_state is None:
+                self._init_updater()
+            self._step = _build_graph_train_step(self.conf, self._tx)
+        lms = None if lms is None else [self._on_device(m)
+                                        for m in _as_list(lms)]
+        loss, self.state, gstats = self._step(
+            self._param_tree(), self.state, self.opt_state, xs,
+            [self._on_device(y) for y in _as_list(ys)], lms)
+        self._score = loss
+        self._last_grad_stats = gstats
+        self.iteration += 1
+        return loss
+
+    def fit_batch(self, batch) -> float:
+        """One train step on one batch, without epoch bookkeeping."""
+        if not self.params:
+            self.init()
+        return float(self._fit_one(*_normalize_batch(batch)))
+
+    def score(self, dataset=None, inputs=None, labels=None) -> float:
+        """Loss on a dataset; with no arguments, the score of the most
+        recent training batch."""
+        if dataset is None and inputs is None:
+            return float(self._score)
+        if dataset is not None:
+            inputs, labels, _, _ = _normalize_batch(dataset)
+        with torch.no_grad():
+            loss, _ = _graph_loss(
+                self.conf, self._param_tree(), self.state,
+                [self._on_device(x) for x in _as_list(inputs)],
+                [self._on_device(y) for y in _as_list(labels)], train=False)
+        return float(loss)

@@ -1,8 +1,9 @@
 """Static shape inference (port of ``nn/conf/input_type.py``).
 
-Only the recurrent kind is ported: ``[batch, time, size]``.  The other
-kinds' fields stay so that a configuration written by the JAX package
-reads back unchanged.
+Ported kinds: feed-forward ``[batch, size]``, recurrent ``[batch, time,
+size]`` and convolutional ``[batch, height, width, channels]`` (NHWC, as
+in the JAX package).  The other kinds' fields stay so that a
+configuration written by the JAX package reads back unchanged.
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ from ...utils.serde import register_serde
 @register_serde
 @dataclass(frozen=True)
 class InputType:
-    kind: str  # only "rnn" runs in the port so far
-    size: int = 0            # feature size
+    kind: str  # "ff" | "rnn" | "cnn" run in the port so far
+    size: int = 0            # ff/rnn feature size
     timesteps: int = -1      # -1 = variable
     height: int = 0
     width: int = 0
@@ -24,11 +25,24 @@ class InputType:
     channels: int = 0
 
     @staticmethod
+    def feed_forward(size: int) -> "InputType":
+        return InputType("ff", size=int(size))
+
+    @staticmethod
     def recurrent(size: int, timesteps: int = -1) -> "InputType":
         return InputType("rnn", size=int(size), timesteps=int(timesteps))
 
+    @staticmethod
+    def convolutional(height: int, width: int, channels: int) -> "InputType":
+        return InputType("cnn", height=int(height), width=int(width),
+                         channels=int(channels))
+
     def shape(self, batch: int = -1) -> Tuple[int, ...]:
         """Array shape with batch dim (-1 placeholder allowed)."""
+        if self.kind == "ff":
+            return (batch, self.size)
         if self.kind == "rnn":
             return (batch, self.timesteps, self.size)
+        if self.kind == "cnn":
+            return (batch, self.height, self.width, self.channels)
         raise ValueError(f"input kind '{self.kind}' is not ported yet")

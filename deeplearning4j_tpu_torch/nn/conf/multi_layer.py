@@ -13,7 +13,8 @@ from typing import Any, Dict, List, Optional
 
 from ...utils import serde
 from ...utils.serde import register_serde
-from ..layers import attention, feedforward, recurrent  # noqa: F401  (@class registry)
+from ..layers import (attention, convolution, feedforward,  # noqa: F401
+                      normalization, pooling, recurrent)  # (@class registry)
 from ..layers.base import LayerConf
 from . import updaters  # noqa: F401  (@class registry)
 from .input_type import InputType

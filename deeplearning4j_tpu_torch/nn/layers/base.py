@@ -1,10 +1,19 @@
 """Layer base classes (port of ``nn/layers/base.py``).
 
-A layer is a config dataclass, read from the JAX package's JSON, with two
-functions on tensors:
+A layer is a config dataclass, read from the JAX package's JSON, with
+these functions on tensors:
 
-    init(generator, itype, device) -> {name: tensor}   fresh parameters
-    apply(params, x, train=False)  -> y                forward
+    init(generator, itype, device) -> {name: tensor}    fresh parameters
+    init_state(itype, device)      -> {name: tensor}    fresh state
+    apply(params, x, train=False)  -> y                 stateless forward
+    forward(params, state, x, train=False) -> (y, new_state)
+
+The networks call ``forward``: the JAX package's ``apply`` returns
+``(y, new_state)`` for every layer, and the port keeps that one protocol
+for both containers.  A stateless layer writes ``apply`` only and hands
+its (empty) state back; a layer with state (``BatchNormalization``:
+running mean and variance) overrides ``forward``.  New state is returned,
+never written in place.
 
 Parameters keep the JAX package's names and shapes (a dense ``W`` is
 ``[n_in, n_out]`` and applies as ``x @ W``), so a checkpoint crosses over
@@ -18,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,9 +60,26 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _fans(shape) -> tuple:
+    """Fan-in and fan-out as the JAX package's ``nn/weights._fans``: a
+    dense ``[n_in, n_out]`` kernel gives (n_in, n_out); a conv kernel
+    ``[kh, kw, c_in, c_out]`` (HWIO) gives (kh·kw·c_in, kh·kw·c_out)."""
+    shape = tuple(shape)
+    if len(shape) == 0:
+        return 1.0, 1.0
     if len(shape) == 1:
         return float(shape[0]), float(shape[0])
-    return float(shape[0]), float(shape[-1])
+    receptive = 1.0
+    for d in shape[:-2]:
+        receptive *= d
+    return receptive * shape[-2], receptive * shape[-1]
+
+
+# Ported weight-init schemes: the std of a normal draw from (fan_in,
+# fan_out), as in the JAX package's ``nn/weights.init_weights``.
+_WEIGHT_STD = {
+    "xavier": lambda fan_in, fan_out: (2.0 / (fan_in + fan_out)) ** 0.5,
+    "relu": lambda fan_in, fan_out: (2.0 / fan_in) ** 0.5,
+}
 
 
 @dataclass
@@ -71,9 +97,16 @@ class LayerConf:
              device) -> Params:
         return {}
 
+    def init_state(self, itype: InputType, device) -> Params:
+        return {}
+
     def apply(self, params: Params, x: torch.Tensor, *,
               train: bool = False) -> torch.Tensor:
         raise NotImplementedError
+
+    def forward(self, params: Params, state: Params, x: torch.Tensor, *,
+                train: bool = False) -> Tuple[torch.Tensor, Params]:
+        return self.apply(params, x, train=train), state
 
 
 def _dropout_on(d) -> bool:
@@ -137,19 +170,20 @@ class BaseLayerConf(LayerConf):
 
     def make_weight(self, generator: torch.Generator, shape, device
                     ) -> torch.Tensor:
-        """Fresh weight.  Only ``xavier`` (normal, std
-        sqrt(2/(fan_in+fan_out))) is ported; torch's generator does not
-        reproduce JAX's numbers, so parity runs load transferred params."""
+        """Fresh weight: a normal draw scaled by ``xavier``
+        (sqrt(2/(fan_in+fan_out))) or ``relu`` (sqrt(2/fan_in)); the other
+        schemes are not ported.  torch's generator does not reproduce
+        JAX's numbers, so parity runs load transferred params."""
         scheme = self.resolved("weight_init", "xavier").lower()
-        if scheme != "xavier" or self.weight_dist is not None:
+        if scheme not in _WEIGHT_STD or self.weight_dist is not None:
             raise ValueError(f"layer '{self.name}': weight_init '{scheme}' "
-                             "is not ported yet; ported: ['xavier']")
+                             "is not ported yet; ported: "
+                             f"{sorted(_WEIGHT_STD)}")
         if torch.device(device).type == "meta":   # shapes only
             return torch.empty(shape, dtype=self._dtype(), device=device)
-        fan_in, fan_out = _fans(shape)
+        std = _WEIGHT_STD[scheme](*_fans(shape))
         w = torch.randn(shape, generator=generator, dtype=torch.float32)
-        w = w * (2.0 / (fan_in + fan_out)) ** 0.5
-        return w.to(device=device, dtype=self._dtype())
+        return (w * std).to(device=device, dtype=self._dtype())
 
     def make_bias(self, shape, device) -> torch.Tensor:
         return torch.full(shape, float(self.resolved("bias_init", 0.0)),

@@ -1,5 +1,6 @@
-"""Dense/output head and token embedding (port of the parts of
-``nn/layers/feedforward.py`` that TransformerLM uses).
+"""Dense/output head, activation layer and token embedding (port of the
+parts of ``nn/layers/feedforward.py`` that TransformerLM and ResNet50
+use).
 
 ``DenseLayer`` computes ``x @ W + b`` with ``W`` stored ``[n_in, n_out]``
 as in the JAX package (not ``nn.Linear``'s transposed weight).
@@ -31,8 +32,15 @@ class DenseLayer(BaseLayerConf):
     n_out: int = 0
     has_bias: bool = True
 
+    def set_n_in(self, itype: InputType, override: bool = False) -> None:
+        if self.n_in == 0 or override:
+            if itype.kind != "ff":
+                raise ValueError(f"layer '{self.name}': dense layer expects "
+                                 f"FF input, got {itype}")
+            self.n_in = itype.size
+
     def output_type(self, itype: InputType) -> InputType:
-        raise ValueError("feed-forward input types are not ported yet")
+        return InputType.feed_forward(self.n_out)
 
     def init(self, generator, itype, device):
         if self.n_in <= 0 or self.n_out <= 0:
@@ -77,6 +85,15 @@ class OutputLayer(DenseLayer):
             return _losses.get(self.loss)(labels, z, act, mask,
                                           unit_weights=w)
         return _losses.get(self.loss)(labels, z, act, mask)
+
+
+@register_serde
+@dataclass
+class ActivationLayer(BaseLayerConf):
+    """The activation alone, no params."""
+
+    def apply(self, params, x, *, train=False):
+        return self.act_fn(x)
 
 
 def _is_integer(dtype: torch.dtype) -> bool:

@@ -1,0 +1,48 @@
+"""Global pooling (port of ``nn/layers/pooling.py``): CNN activations
+``[b, h, w, c]`` -> ``[b, c]``, or RNN activations ``[b, t, f]`` ->
+``[b, f]``.  The masked time reduction (variable-length series) comes
+with the recurrent slice: the port's networks pass no masks to layers."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ...utils.serde import register_serde
+from ..conf.input_type import InputType
+from .base import LayerConf
+
+
+@register_serde
+@dataclass
+class GlobalPoolingLayer(LayerConf):
+    pooling_type: str = "max"    # max | avg | sum | pnorm
+    pnorm: int = 2
+    collapse_dimensions: bool = True
+
+    def output_type(self, itype: InputType) -> InputType:
+        if itype.kind == "cnn":
+            return InputType.feed_forward(itype.channels)
+        if itype.kind == "rnn":
+            return InputType.feed_forward(itype.size)
+        raise ValueError(f"global pooling over {itype.kind} input")
+
+    def apply(self, params, x, *, train=False):
+        if x.ndim == 4:
+            dims = (1, 2)
+        elif x.ndim == 3:
+            dims = (1,)
+        else:
+            raise ValueError(f"global pooling needs 3/4-d input, got "
+                             f"{x.ndim}d")
+        pt = self.pooling_type.lower()
+        if pt == "max":
+            return torch.amax(x, dim=dims)
+        if pt == "avg":
+            return torch.mean(x, dim=dims)
+        if pt == "sum":
+            return torch.sum(x, dim=dims)
+        if pt == "pnorm":
+            p = float(self.pnorm)
+            return torch.sum(torch.abs(x) ** p, dim=dims) ** (1.0 / p)
+        raise ValueError(f"unknown pooling type '{self.pooling_type}'")

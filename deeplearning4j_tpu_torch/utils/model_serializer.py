@@ -2,11 +2,13 @@
 ``utils/model_serializer.py``).
 
 The container is a zip: ``configuration.json`` (``@class``-tagged config
-JSON), ``metadata.json`` and ``params.npz``, whose keys are
-``layer_i/name`` paths.  It is read with ``zipfile``, ``json`` and
-``numpy`` alone.  ``params_from_jax`` and ``updater_state_from_jax``
-carry a live JAX network's weights and optax state across.  Writing and
-restoring updater state from a container come later.
+JSON), ``metadata.json``, ``params.npz`` and ``state.npz``, whose keys
+are ``group/name`` paths (``layer_i`` for a MultiLayerNetwork, the
+vertex name for a ComputationGraph; the state holds BatchNorm running
+statistics).  It is read with ``zipfile``, ``json`` and ``numpy`` alone.
+``params_from_jax``, ``state_from_jax`` and ``updater_state_from_jax``
+carry a live JAX network's weights, state and optax state across.
+Writing and restoring updater state from a container come later.
 """
 from __future__ import annotations
 
@@ -17,9 +19,18 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 
+from ..nn._common import Network
+from ..nn.computation_graph import ComputationGraph
+from ..nn.conf.computation_graph import ComputationGraphConfiguration
 from ..nn.conf.multi_layer import MultiLayerConfiguration
 from ..nn.multilayer import MultiLayerNetwork
 from .device import resolve_device
+
+# net_class in metadata.json -> (configuration class, network class)
+_NET_CLASSES = {
+    "MultiLayerNetwork": (MultiLayerConfiguration, MultiLayerNetwork),
+    "ComputationGraph": (ComputationGraphConfiguration, ComputationGraph),
+}
 
 
 class CorruptModelError(RuntimeError):
@@ -45,12 +56,18 @@ def _read(zf: zipfile.ZipFile, name: str, path) -> bytes:
         raise CorruptModelError(f"{path}: member {name} missing") from None
 
 
-def params_from_jax(net: MultiLayerNetwork,
-                    params: Mapping[str, Mapping[str, Any]]
-                    ) -> MultiLayerNetwork:
-    """Install the JAX package's param tree (``{layer_i: {name: array}}``
+def params_from_jax(net: Network, params: Mapping[str, Mapping[str, Any]]
+                    ) -> Network:
+    """Install the JAX package's param tree (``{group: {name: array}}``
     of numpy arrays, as ``net.params`` there) into ``net``; returns it."""
     return net.load_params(params)
+
+
+def state_from_jax(net: Network, state: Mapping[str, Mapping[str, Any]]
+                   ) -> Network:
+    """Install the JAX package's state tree (``net.state`` there: BatchNorm
+    running mean and var) into ``net``; returns it."""
+    return net.load_state(state)
 
 
 def _optax_node(state, fields):
@@ -66,15 +83,15 @@ def _optax_node(state, fields):
     return None
 
 
-def updater_state_from_jax(net: MultiLayerNetwork, opt_state
-                           ) -> MultiLayerNetwork:
+def updater_state_from_jax(net: Network, opt_state) -> Network:
     """Install the JAX package's optax state (``net.opt_state`` there,
     leaves as numpy or JAX arrays) into ``net``, so both sides continue
     from the same mid-training state.  Ported: ``Adam``
     (``ScaleByAdamState(count, mu, nu)``), ``Nesterovs``
     (``TraceState(trace)``) and ``Sgd`` (no state), whether one transform
     serves the whole network or ``multi_transform`` partitions it by
-    updater label, as ``nn/_common.build_tx`` does."""
+    updater label, as ``nn/_common.build_tx`` does; slots are keyed by
+    layer (``layer_i``) or vertex name, as the params."""
     import torch
     tx = net._tx
     inner = getattr(opt_state, "inner_states", None)
@@ -109,19 +126,24 @@ def updater_state_from_jax(net: MultiLayerNetwork, opt_state
     return net
 
 
-def load_reference_model(path, device="cuda") -> MultiLayerNetwork:
-    """A ``MultiLayerNetwork`` on ``device`` from a ``write_model`` zip."""
+def load_reference_model(path, device="cuda") -> Network:
+    """A ``MultiLayerNetwork`` or ``ComputationGraph`` on ``device`` from a
+    ``write_model`` zip, with its params and state."""
     device = resolve_device(device)
     try:
         with zipfile.ZipFile(path, "r") as zf:
             meta = json.loads(_read(zf, "metadata.json", path))
             conf_json = _read(zf, "configuration.json", path).decode()
             params = _npz_bytes_to_tree(_read(zf, "params.npz", path))
+            state = _npz_bytes_to_tree(_read(zf, "state.npz", path))
     except (zipfile.BadZipFile, EOFError, ValueError, OSError) as e:
         raise CorruptModelError(f"{path}: {type(e).__name__}: {e}") from e
-    if meta.get("net_class") != "MultiLayerNetwork":
+    classes = _NET_CLASSES.get(meta.get("net_class"))
+    if classes is None:
         raise NotImplementedError(
             f"{path}: net_class {meta.get('net_class')!r} is not ported "
-            "yet; only MultiLayerNetwork")
-    conf = MultiLayerConfiguration.from_json(conf_json)
-    return params_from_jax(MultiLayerNetwork(conf, device=device), params)
+            f"yet; ported: {sorted(_NET_CLASSES)}")
+    conf_cls, net_cls = classes
+    net = params_from_jax(net_cls(conf_cls.from_json(conf_json),
+                                  device=device), params)
+    return state_from_jax(net, state)

@@ -1,0 +1,171 @@
+"""The port's fused BatchNorm apply (the kernel's plain version on the CPU)
+against the JAX package's Pallas kernel run in interpret mode, and the
+kernel rule ``supports`` against the JAX package's.
+
+The CUDA kernel (``csrc/bn_apply.cu``) is held against the plain version
+on the card by ``chip_smoke.py``.
+"""
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.nn.layers.normalization import \
+    _bn_train_norm as jax_bn_train_norm
+from deeplearning4j_tpu.ops import pallas_bn as jbn
+from deeplearning4j_tpu_torch.nn.layers import normalization as tnorm
+from deeplearning4j_tpu_torch.ops import pallas_bn as tbn
+
+EPS = 1e-5
+# f32 on both sides with the same formulas.  The statistics are sums over
+# 32 rows of |x| <~ 7 in another order: within 5e-7 abs (a few ulps of
+# the mean's scale, measured 1.2e-7) plus 1e-6 relative (measured 3e-7
+# on var ~4); scale, shift and y (|y| <~ 5) then move by a few ulps:
+# 2e-6 abs.  The gradients sum over the 32 rows again and reach |g| ~ 10:
+# 1e-5 abs.
+ATOL_Y, ATOL_STATS, RTOL_STATS, ATOL_GRAD = 2e-6, 5e-7, 1e-6, 1e-5
+
+
+def _inputs(c, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 4, 2, c)).astype(np.float32) * 2.0 + 0.5
+    g = rng.standard_normal(c).astype(np.float32)
+    b = rng.standard_normal(c).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    return x, g, b, dy
+
+
+@pytest.mark.parametrize("act", ["relu", "identity"])
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_bn_act_train_matches_pallas_interpret(c, act):
+    x, g, b, dy = _inputs(c, c + (act == "relu"))
+    assert tbn.supports(activation=act, shape=x.shape)
+    assert jbn.supports(activation=act, shape=x.shape)
+
+    def jax_fused(x_, g_, b_):
+        return jbn.bn_act_train(x_, g_, b_, EPS, act, True)
+
+    jy, jmean, jvar = jax_fused(jnp.asarray(x), jnp.asarray(g),
+                                jnp.asarray(b))
+    jgrads = jax.grad(lambda *a: jnp.sum(jax_fused(*a)[0] * dy),
+                      (0, 1, 2))(jnp.asarray(x), jnp.asarray(g),
+                                 jnp.asarray(b))
+    tx, tg, tb = (torch.tensor(a, requires_grad=True) for a in (x, g, b))
+    ty, tmean, tvar = tbn.bn_act_train(tx, tg, tb, EPS, act)
+    assert not tmean.requires_grad and not tvar.requires_grad
+    tgrads = torch.autograd.grad((ty * torch.tensor(dy)).sum(), (tx, tg, tb))
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               atol=ATOL_Y, rtol=0)
+    for got, want in ((tmean, jmean), (tvar, jvar)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATOL_STATS, rtol=RTOL_STATS)
+    for got, want in zip(tgrads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATOL_GRAD, rtol=0)
+
+
+@pytest.mark.parametrize("act", ["relu", "identity"])
+def test_unfused_path_matches_jax(act):
+    """``_bn_train_norm`` and its hand-derived backward, the path every
+    shape outside ``supports`` takes."""
+    x, g, b, dy = _inputs(96, 7)
+
+    def ref(x_, g_, b_):
+        y, _, _ = jax_bn_train_norm(x_, g_, b_, EPS)
+        return jnp.maximum(y, 0) if act == "relu" else y
+
+    jy = ref(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    jgrads = jax.grad(lambda *a: jnp.sum(ref(*a) * dy), (0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    tx, tg, tb = (torch.tensor(a, requires_grad=True) for a in (x, g, b))
+    ty, _, _ = tnorm.bn_train_norm(tx, tg, tb, EPS)
+    if act == "relu":
+        ty = torch.relu(ty)
+    tgrads = torch.autograd.grad((ty * torch.tensor(dy)).sum(), (tx, tg, tb))
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               atol=ATOL_Y, rtol=0)
+    for got, want in zip(tgrads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATOL_GRAD, rtol=0)
+
+
+def test_stats_are_one_pass_biased_and_clamped():
+    # a constant channel: E[x²] − E[x]² may round below 0; it is clamped
+    x = torch.full((16, 2), 3.1, dtype=torch.float32)
+    x[:, 1] = torch.arange(16, dtype=torch.float32)
+    mean, var, inv = tnorm._bn_stats(x, EPS)
+    assert var[0].item() == 0.0 or var[0].item() > 0
+    np.testing.assert_allclose(var[1].item(), np.var(np.arange(16)),
+                               rtol=1e-6)      # biased: / n, not / (n − 1)
+    np.testing.assert_allclose(inv.numpy(), 1 / np.sqrt(var.numpy() + EPS),
+                               rtol=1e-6)
+
+
+SHAPES = [(4, 4, 2, 64), (8, 128), (8, 96), (3, 64), (4, 3, 2, 64),
+          (16, 64), (2048, 2048), (2, 1, 1, 2048), (4, 2, 2, 1024),
+          (64, 112, 112, 64), (64, 7, 7, 2048), (1, 32), (5, 24), (128,)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_supports_is_the_jax_rule(shape):
+    for act, itemsize in itertools.product(
+            ("relu", "identity", "tanh"), (2, 4, 8)):
+        assert tbn.supports(activation=act, shape=shape,
+                            itemsize=itemsize) == \
+            jbn.supports(activation=act, shape=shape, itemsize=itemsize)
+    assert tbn._lane_geometry(shape) == jbn._lane_geometry(shape)
+
+
+def test_supports_cases():
+    assert tbn.supports(activation="relu", shape=(4, 4, 2, 64))
+    assert not tbn.supports(activation="tanh", shape=(8, 128))
+    assert not tbn.supports(activation="relu", shape=(8, 96))
+    assert not tbn.supports(activation="relu", shape=(3, 64))
+    assert not tbn.supports(activation="relu", shape=(4, 3, 2, 64))
+    assert tbn.supports(activation="relu", shape=(16, 64))
+    assert tbn._tile_m(2048, 2048, 4) == 512
+    with pytest.raises(ValueError, match="activation"):
+        tbn.bn_act_train(torch.zeros(8, 128), torch.ones(128),
+                         torch.zeros(128), EPS, "tanh")
+
+
+def test_plain_apply_rounds_once():
+    """bf16 input: the plain version computes in f32 and rounds once, as
+    the kernel does (f32 FMA, one rounding to bf16)."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal((64, 32)), dtype=torch.bfloat16)
+    s = torch.tensor(rng.standard_normal(32), dtype=torch.bfloat16)
+    b = torch.tensor(rng.standard_normal(32), dtype=torch.bfloat16)
+    want = torch.relu(x.double() * s.double() + b.double()).to(torch.bfloat16)
+    got = tbn.bn_apply(x, s, b, True)
+    assert got.dtype == torch.bfloat16
+    # f32 and f64 products of bf16 inputs are exact; one rounding of the
+    # sum can differ from f64's only on a tie: 1 bf16 ulp at most
+    ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().clamp(
+        min=2 ** -126))) - 7)
+    assert ((got.float() - want.float()).abs() <= ulp).all()
+
+
+def test_kernel_door_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(4, 8, 64)
+    ok = torch.zeros(64)
+    tbn._check_kernel_inputs(x, ok, ok)
+    bad = [((x.transpose(0, 1), ok, ok), "channels last"),
+           ((x.double(), ok.double(), ok.double()), "float32 or bfloat16"),
+           ((x, torch.zeros(32), ok), "scale"),
+           ((x, ok, ok.to(torch.bfloat16)), "shift"),
+           ((torch.zeros(2, tbn.MAX_CHANNELS + 1),
+             torch.zeros(tbn.MAX_CHANNELS + 1),
+             torch.zeros(tbn.MAX_CHANNELS + 1)), "channels")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            tbn._check_kernel_inputs(*args)
+    # a tensor that is neither on the CPU nor on CUDA has no kernel
+    meta = torch.zeros(8, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tbn.bn_apply(meta, torch.zeros(64, device="meta"),
+                     torch.zeros(64, device="meta"), False)
+    assert tbn.launches["bn_apply"] == 0

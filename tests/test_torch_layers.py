@@ -172,7 +172,7 @@ def test_gelu_is_the_tanh_approximation():
     got = activations.get("gelu")(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL_EW, rtol=0)
     with pytest.raises(ValueError, match="not ported"):
-        activations.get("relu")
+        activations.get("elu")
 
 
 def test_decode_ids_reads_no_min_or_max_of_the_tensor(monkeypatch):

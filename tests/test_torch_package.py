@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
-from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+from deeplearning4j_tpu_torch.models.zoo import ResNet50, TransformerLM
+from deeplearning4j_tpu_torch.nn.computation_graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
 from deeplearning4j_tpu_torch.utils.model_serializer import \
@@ -98,3 +99,23 @@ def test_training_entry_points_run_on_the_network_device(no_cuda):
     assert np.isfinite(net.score(x=ids, y=ids))
     slots = net.opt_state["slots"]["layer_0"]["W"]
     assert all(t.device.type == "cpu" for t in slots.values())
+
+
+def test_cnn_slice_modules_are_checked():
+    for m in ("ops.pallas_bn", "nn.computation_graph",
+              "nn.conf.computation_graph", "nn.layers.convolution",
+              "nn.layers.normalization", "nn.layers.pooling"):
+        assert f"deeplearning4j_tpu_torch.{m}" in MODULES
+    assert (PKG / "csrc" / "bn_apply.cu").is_file()
+
+
+def test_graph_entry_points_refuse_a_silent_cpu_default(no_cuda):
+    small = ResNet50(num_classes=4, input_shape=(32, 32, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        small.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ComputationGraph(small.conf())
+    net = small.init(device="cpu")
+    assert net.device.type == "cpu"
+    assert all(t.device.type == "cpu" for g in net.state.values()
+               for t in g.values())
