@@ -48,7 +48,26 @@ if any phase fails:
    the step (convolutions and matrix products / the BN kernel / the rest
    / idle), and the kernel at each geometry beside its plain version, its
    bound and ``torch.addcmul(shift, x, scale)``, which the port never
-   calls.
+   calls;
+10. ``lstm_kernel_vs_plain``: holds the LSTM-recurrence kernel against its
+    plain version on ``ys``, ``hT`` and ``cT`` at (t, b, h) = (64, 128,
+    256), (256, 32, 256), (1, 16, 256) from a nonzero state and the ragged
+    (7, 5, 100), within an error bound derived from each run's data;
+11. ``lstm_serve`` and ``lstm_train``: the zoo TextGenerationLSTM at its
+    width (26 classes, two LSTM-256 layers; random weights from the seed),
+    its LSTMs at ``helper="pallas"``, beside a twin at ``helper=None``
+    (the plain recurrence on the card) that shares its params: ``output``
+    on batch 128 x 64 steps, a 16-character prefix streamed through
+    ``rnn_time_step`` and then 48 greedy single-step calls, and 5 ``fit``
+    steps (one-hot next-character labels, Adam 2e-3, clipping at 10;
+    step-0 loss and gradients, each step's loss); 2 kernel launches per
+    ``output``, per streaming call and per training step;
+12. ``lstm_train_time`` and the ``lstm_fwd`` rows of ``kernel_time``: the
+    median step of both nets and tokens/s, a ``torch.profiler`` split of
+    the step, the batch-128 ``output`` latency, and the kernel at both
+    long shapes beside its plain version, its bound, its time at batch 1
+    (the serial chain alone) and ``torch.nn.LSTM`` (cuDNN) on the same
+    weights, which the port never calls.
 
 Each phase prints one JSON line.  Then come the card's name and power
 limit, the ``kernels`` record (the line before the last) and, last,
@@ -323,6 +342,431 @@ CNN_GRAD_NOISE_K, CNN_GRAD_LEAF_K, CNN_TOL_GRAD_NET = 2.0, 4.0, 1e-6
 CNN_TOL_LOSS = 1e-5
 CNN_TOL_STATE = 1e-5
 CNN_TOL_EVAL = 1e-4
+
+# The char-LSTM as the repo benchmarks it (utils/benchmarks.py
+# char_lstm_step_time): the zoo TextGenerationLSTM, 26 classes, two
+# LSTM-256 layers, batch 128 x 64 steps, f32.
+LSTM_CLASSES, LSTM_HIDDEN, LSTM_T, LSTM_BATCH = 26, 256, 64, 128
+LSTM_STEPS, LSTM_TIMED_STEPS = 5, 20
+STREAM_BATCH, STREAM_PREFIX = 16, 16
+# kernel vs plain: (t, b, h, f, nonzero initial state)
+LSTM_CHECK_SHAPES = ((64, 128, 256, 256, False), (256, 32, 256, 256, False),
+                     (1, 16, 256, 256, True), (7, 5, 100, 26, True))
+LSTM_TIME_SHAPES = ((64, 128, 256), (256, 32, 256))
+# Probabilities of the helper net vs its plain twin (f32, TF32 off).  The
+# two differ only in the order of the recurrence's 256-term sums: h by
+# ~1e-6 (lstm_kernel_vs_plain measures it in the same run).  The output
+# layer's 256-term sums, |W| <~ 0.15 (xavier, std 0.084), move a logit by
+# at most 256 * 0.15 * 1e-6 ~ 4e-5, and a probability p by at most twice
+# that times p <= 1: 1e-4 abs.  The same bound holds between the streamed
+# outputs and ``output`` over the same characters, which differ in the
+# same way (another plan and projection shape per call).  Where the two
+# nets' probabilities differ by at most e everywhere, their greedy
+# choices can differ only where the top two are within 2·e: the twin,
+# fed the same characters, must pick the same character at every other
+# step (e measured in this run; the steps within 2·e are counted).
+TOL_LSTM_OUT = 1e-4
+# Training, helper net vs twin: the helper's backward differentiates the
+# plain recurrence at the same saved inputs, so the two differ only by the
+# forward's rounding (~1e-6 relative): step-0 gradients within 1e-4 of
+# each leaf's largest |g| plus 1e-6 of the net's; losses (per row a sum
+# over 64 steps of ~3.3 nats, averaged over 128 rows) within 1e-5
+# relative.
+TOL_LSTM_GRAD_LEAF, TOL_LSTM_GRAD_NET = 1e-4, 1e-6
+TOL_LSTM_LOSS = 1e-5
+LSTM_KERNEL_CLASSES = (("lstm_fwd", ("lstm_fwd_kernel",)),
+                       ("matmul", MATMUL_TAGS))
+
+
+def lstm_error_bound(torch, x, W, U, b, h0, c0) -> float:
+    """A bound on |kernel - plain| for ``ys``, ``hT`` and ``cT`` from these
+    inputs (f32 on both sides; they differ only in the order of the sums).
+
+    Per step, each side computes every z = xz + Σ_k h_k·U[k, j] with H + 1
+    roundings, so each is within γ_{H+1}·S of the exact value (Higham's
+    bound, γ_n = n·u / (1 - n·u), u = 2⁻²⁴), S = max |xz| + Σ_k |h_k||U_kj|:
+    the two within e_z = 2·γ_{H+1}·S.  The gates are Lipschitz (sigmoid
+    with 1/4, tanh with 1) and the two sides' expf / tanhf may differ by a
+    few ulps of 1 (2⁻²¹ allowed): each gate value within e_g = e_z + 2⁻²¹.
+    Then c' = f·c + i·g moves by at most |f||δc| + |c||δf| + |g||δi| +
+    |i||δg| <= f·|δc| + (|c| + 2)·e_g (|i|, |g| <= 1), and h = o·tanh(c)
+    by at most |δc| + e_g.  So, unit by unit, the c error after step t is
+    at most B_t·e_g with B_t = f_t·B_{t-1} + |c_{t-1}| + 2, B_{-1} = 0: it
+    grows through c, damped by the forget gate it passes, and the bound
+    is (max_t B_t + 1)·e_g.  It leaves out the feedback of δh into the
+    next step's z through U; the measured error, orders of magnitude
+    below the bound, shows that feedback does not amplify it here.  S, f
+    and c are taken from a plain f32 run of the recurrence on these
+    inputs."""
+    t, h = x.shape[1], U.shape[0]
+    u = 2.0 ** -24
+    gamma = (h + 1) * u / (1 - (h + 1) * u)
+    xz = x @ W + b
+    ua = U.abs()
+    hh, cc = h0, c0
+    s_max, b_max = 0.0, 0.0
+    grow = torch.zeros_like(c0)      # B_t, in units of e_g
+    for s in range(t):
+        s_max = max(s_max, (xz[:, s].abs() + hh.abs() @ ua).max().item())
+        zi, zf, zo, zg = (xz[:, s] + hh @ U).chunk(4, dim=-1)
+        f = torch.sigmoid(zf)
+        grow = f * grow + cc.abs() + 2
+        cc = f * cc + torch.sigmoid(zi) * torch.tanh(zg)
+        hh = torch.sigmoid(zo) * torch.tanh(cc)
+        b_max = max(b_max, grow.max().item())
+    e_g = 2 * gamma * s_max + 2.0 ** -21
+    return (b_max + 1) * e_g
+
+
+def lstm_bound_ms(t: int, b: int, h: int) -> tuple:
+    """Least time for one ``lstm_fwd`` launch: xz [t, b, 4h], U [h, 4h],
+    h0 and c0 read once, ys [t, b, h], hT and cT written once, all f32;
+    per step and row, the [h] x [h, 4h] product (8h² operations), the 4h
+    adds of xz, the cell's 4h multiply-adds and 5h sigmoids and tanhs,
+    on the CUDA cores."""
+    nbytes = 4 * (t * b * 4 * h + 4 * h * h + 2 * b * h + t * b * h
+                  + 2 * b * h)
+    return _bound(nbytes, t * b * h * (8 * h + 13), "float32")
+
+
+def lstm_phases(args, torch, dev, card):
+    """Phases 10-12 (char-LSTM).  Returns ``(the lstm_fwd kernels record,
+    None)``, or ``(None, what failed)``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
+                                                        _stack_loss)
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+
+    def lstm_inputs(t, b, h, f, nonzero):
+        x = torch.randn((b, t, f), generator=gen, device=dev)
+        W = torch.randn((f, 4 * h), generator=gen, device=dev) \
+            * (2 / (f + 4 * h)) ** 0.5
+        U = torch.randn((h, 4 * h), generator=gen, device=dev) \
+            * (2 / (5 * h)) ** 0.5
+        bias = torch.randn((4 * h,), generator=gen, device=dev) * 0.1
+        h0, c0 = ((torch.randn((b, h), generator=gen, device=dev) * 0.5)
+                  if nonzero else torch.zeros((b, h), device=dev)
+                  for _ in range(2))
+        return x, W, U, bias, h0, c0
+
+    # ---- 10. LSTM kernel vs plain ----------------------------------------
+    lstm_err = 0.0
+    for t, b, h, f, nonzero in LSTM_CHECK_SHAPES:
+        args6 = lstm_inputs(t, b, h, f, nonzero)
+        got = pl.lstm_forward(*args6)
+        want = pl.lstm_forward_plain(*args6)
+        torch.cuda.synchronize()
+        tol = lstm_error_bound(torch, *args6)
+        errs = {}
+        for name, g, w in zip(("ys", "hT", "cT"), got, want):
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                return None, f"lstm_fwd {name} at {(t, b, h)}: shape " \
+                             f"{tuple(g.shape)} or not finite"
+            errs[name] = (g - w).abs().max().item()
+        p = pl.device_plan(b, h, t, dev)
+        print(json.dumps({"phase": "lstm_kernel_vs_plain", "t": t,
+                          "batch": b, "hidden": h, "features": f,
+                          "nonzero_state": nonzero, "plan": p.__dict__,
+                          "max_abs_err": errs, "tol": tol}), flush=True)
+        if max(errs.values()) > tol:
+            return None, (f"lstm_fwd disagrees with plain at (t, b, h) = "
+                          f"{(t, b, h)}: {errs} > {tol}")
+        lstm_err = max(lstm_err, *errs.values())
+        del args6, got, want
+
+    # ---- 11a. serve and stream -------------------------------------------
+    zoo = TextGenerationLSTM(num_classes=LSTM_CLASSES, timesteps=LSTM_T,
+                             hidden=LSTM_HIDDEN, seed=args.seed)
+
+    def build(helper):
+        conf = zoo.conf()
+        for lc in conf.layers:
+            if isinstance(lc, LSTM):
+                lc.helper = helper
+        return MultiLayerNetwork(conf, device=dev)
+
+    net = build("pallas").init()
+    twin = build(None).load_params({
+        k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+        for k, g in net.params.items()})
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+
+    def onehot(ids):
+        return F.one_hot(ids, LSTM_CLASSES).float()
+
+    def ifog_to_cudnn(a):
+        """Gate blocks IFOG (the port's order) -> IFGO (cuDNN's), dim 0."""
+        i, f, o, g = a.chunk(4, dim=0)
+        return torch.cat((i, f, g, o))
+
+    x_serve = onehot(torch.randint(0, LSTM_CLASSES, (LSTM_BATCH, LSTM_T),
+                                   generator=dgen, device=dev))
+    torch.cuda.synchronize()
+    pl.reset_launches()
+    probs = net.output(x_serve)
+    torch.cuda.synchronize()
+    output_launches = pl.launches["lstm_fwd"]
+    want = twin.output(x_serve)
+    out_err = (probs - want).abs().max().item()
+
+    prefix = torch.randint(0, LSTM_CLASSES, (STREAM_BATCH, STREAM_PREFIX),
+                           generator=dgen, device=dev)
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    pl.reset_launches()
+    outs = [net.rnn_time_step(onehot(prefix))]
+    fed = [prefix]
+    nxt = outs[0][:, -1].argmax(-1)
+    for _ in range(LSTM_T - STREAM_PREFIX):
+        fed.append(nxt[:, None])
+        step = net.rnn_time_step(onehot(nxt))
+        outs.append(step[:, None])
+        nxt = step.argmax(-1)
+    torch.cuda.synchronize()
+    stream_launches = pl.launches["lstm_fwd"]
+    stream_calls = 1 + LSTM_T - STREAM_PREFIX
+    text = torch.cat(fed, dim=1)
+    streamed = torch.cat(outs, dim=1)
+    # the twin, fed the same characters
+    twin.rnn_clear_previous_state()
+    touts = [twin.rnn_time_step(onehot(prefix))]
+    for c in fed[1:]:
+        touts.append(twin.rnn_time_step(onehot(c[:, 0]))[:, None])
+    tstreamed = torch.cat(touts, dim=1)
+    stream_err = (streamed - tstreamed).abs().max().item()
+    # greedy choices: from the last prefix output on
+    choice = streamed[:, STREAM_PREFIX - 1:].argmax(-1)
+    tchoice_p = tstreamed[:, STREAM_PREFIX - 1:]
+    top2 = tchoice_p.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 2 * stream_err
+    differ = (tchoice_p.argmax(-1) != choice)
+    mismatches = int((differ & ~tie).sum().item())
+    ties = int(tie.sum().item())
+    whole = net.output(onehot(text))
+    whole_err = (whole - streamed).abs().max().item()
+    print(json.dumps({
+        "phase": "lstm_serve", "model": {
+            "name": "TextGenerationLSTM", "classes": LSTM_CLASSES,
+            "hidden": LSTM_HIDDEN, "layers": "LSTM, LSTM, RnnOutputLayer",
+            "dtype": "float32", "helper": "pallas",
+            "num_params": net.num_params()},
+        "output": {"batch": LSTM_BATCH, "t": LSTM_T,
+                   "max_abs_err_vs_twin": out_err,
+                   "kernel_launches": output_launches,
+                   "expected_launches": 2},
+        "stream": {"batch": STREAM_BATCH, "prefix": STREAM_PREFIX,
+                   "single_steps": LSTM_T - STREAM_PREFIX,
+                   "calls": stream_calls,
+                   "max_abs_err_vs_twin": stream_err,
+                   "greedy_choices": int(choice.numel()),
+                   "choices_differing_from_twin": mismatches,
+                   "ties_within_2x_err": ties,
+                   "max_abs_err_vs_output_of_the_text": whole_err,
+                   "kernel_launches": stream_launches,
+                   "expected_launches": 2 * stream_calls},
+        "tol": TOL_LSTM_OUT}), flush=True)
+    if output_launches != 2 or stream_launches != 2 * stream_calls:
+        return None, (f"lstm_fwd launched {output_launches} times for one "
+                      f"output and {stream_launches} for {stream_calls} "
+                      "streaming calls; expected 2 per call")
+    if probs.shape != (LSTM_BATCH, LSTM_T, LSTM_CLASSES) or \
+            not bool(torch.isfinite(probs).all()) or \
+            (probs.sum(-1) - 1).abs().max().item() > 1e-4:
+        return None, f"char-LSTM output shape {tuple(probs.shape)} or rows"
+    if out_err > TOL_LSTM_OUT or stream_err > TOL_LSTM_OUT or \
+            whole_err > TOL_LSTM_OUT:
+        return None, (f"char-LSTM outputs differ: output vs twin {out_err}, "
+                      f"stream vs twin {stream_err}, stream vs output "
+                      f"{whole_err} (tol {TOL_LSTM_OUT})")
+    if mismatches:
+        return None, (f"{mismatches} greedy characters differ from the "
+                      "twin's outside a tie")
+    del probs, want, whole, streamed, tstreamed
+
+    # ---- 11b. train ------------------------------------------------------
+    seqs = torch.randint(0, LSTM_CLASSES, (LSTM_STEPS, LSTM_BATCH,
+                                           LSTM_T + 1),
+                         generator=dgen, device=dev)
+    batches = [(onehot(s[:, :-1]), onehot(s[:, 1:])) for s in seqs]
+    grads, loss0 = [], []
+    for m in (net, twin):
+        params = m._param_tree()
+        keys = [(k, n) for k in params for n in params[k]]
+        loss = _stack_loss(m.conf, params, *batches[0], train=True)
+        grads.append(dict(zip(keys, torch.autograd.grad(
+            loss, [params[k][n] for k, n in keys]))))
+        loss0.append(loss.item())
+    net_max = max(g.abs().max().item() for g in grads[1].values())
+    worst_ratio, worst_name = 0.0, ""
+    for key, g in grads[0].items():
+        w = grads[1][key]
+        err = (g - w).abs().max().item()
+        tol = TOL_LSTM_GRAD_LEAF * w.abs().max().item() \
+            + TOL_LSTM_GRAD_NET * net_max
+        if not bool(torch.isfinite(g).all()) or err > tol:
+            return None, (f"step-0 gradient {key} helper vs twin: {err} > "
+                          f"{tol}")
+        if err / tol >= worst_ratio:
+            worst_ratio, worst_name = err / tol, "/".join(key)
+    del grads
+
+    snaps = []
+    torch.cuda.synchronize()
+    pl.reset_launches()
+    t0 = time.perf_counter()
+    step_losses = []
+    for x, y in batches:
+        snaps.append([p.detach().clone() for p in net.parameters()])
+        net.fit(x, y)
+        step_losses.append(net._score)     # a device scalar: no sync here
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = pl.launches["lstm_fwd"]
+    losses = [float(v) for v in step_losses]
+    twin_losses = []
+    for snap, (x, y) in zip(snaps, batches):
+        with torch.no_grad():
+            for p, q in zip(twin.parameters(), snap):
+                p.copy_(q)
+        twin.fit(x, y)
+        twin_losses.append(twin.get_score())
+    del snaps
+    loss_diff = max(abs(a - b) / abs(b) for a, b in
+                    zip([loss0[0]] + losses, [loss0[1]] + twin_losses))
+    print(json.dumps({
+        "phase": "lstm_train", "model": {
+            "name": "TextGenerationLSTM", "batch": LSTM_BATCH, "t": LSTM_T,
+            "dtype": "float32", "updater": "Adam(learning_rate=2e-3)",
+            "gradient_normalization": "clipelementwiseabsolutevalue 10",
+            "loss": "mcxent", "helper": "pallas"},
+        "steps": LSTM_STEPS, "step0_loss": loss0, "losses": losses,
+        "twin_losses": twin_losses, "max_rel_loss_diff": loss_diff,
+        "tol_loss": TOL_LSTM_LOSS,
+        "step0_grad_worst_err_over_tol": worst_ratio,
+        "step0_grad_worst_param": worst_name,
+        "tol_grad": [TOL_LSTM_GRAD_LEAF, TOL_LSTM_GRAD_NET],
+        "kernel_launches": train_launches,
+        "expected_launches": 2 * LSTM_STEPS,
+        "seconds": round(train_s, 4)}), flush=True)
+    if train_launches != 2 * LSTM_STEPS:
+        return None, (f"lstm_fwd launched {train_launches} times in "
+                      f"{LSTM_STEPS} steps; expected 2 per step")
+    if not all(np.isfinite(losses + twin_losses)) or \
+            loss_diff > TOL_LSTM_LOSS:
+        return None, (f"char-LSTM losses {losses} vs twin {twin_losses}: "
+                      f"{loss_diff} > {TOL_LSTM_LOSS}")
+
+    # ---- 12. times -------------------------------------------------------
+    models = {"pallas": net, "plain": twin}
+    step_ms = {"pallas": [], "plain": []}
+    for m in models.values():
+        for x, y in batches[:2]:
+            m.fit(x, y)
+    torch.cuda.synchronize()
+    for name in ("plain", "pallas", "pallas", "plain"):
+        for i in range(LSTM_TIMED_STEPS // 2):
+            x, y = batches[i % LSTM_STEPS]
+            t1 = time.perf_counter()
+            models[name].fit(x, y)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t1) * 1e3)
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    splits = {}
+    for name, m in models.items():
+        split = profile_steps(torch, m, batches[:PROFILED_STEPS],
+                              LSTM_KERNEL_CLASSES)
+        busy = split["device_ms_total_per_step"] / med[name] \
+            if split["device_ms_total_per_step"] else None
+        split["device_busy_share"] = busy
+        split["device_idle_share"] = None if busy is None else 1 - busy
+        splits[name] = split
+    out_ms = {name: median_ms(lambda: m.output(x_serve), torch)
+              for name, m in models.items()}
+    tokens = LSTM_BATCH * LSTM_T
+    print(json.dumps({"phase": "lstm_train_time", "batch": LSTM_BATCH,
+                      "t": LSTM_T, "steps_per_net": LSTM_TIMED_STEPS,
+                      "step_ms_median": med["pallas"],
+                      "tokens_per_s": tokens / med["pallas"] * 1e3,
+                      "plain_step_ms_median": med["plain"],
+                      "plain_tokens_per_s": tokens / med["plain"] * 1e3,
+                      "step_ms": step_ms, "profile": splits["pallas"],
+                      "plain_profile": splits["plain"],
+                      "output_batch128_ms": out_ms["pallas"],
+                      "plain_output_batch128_ms": out_ms["plain"],
+                      "card": card}), flush=True)
+    del net, twin, models, batches, x_serve
+
+    timings = {}
+    for t, b, h in LSTM_TIME_SHAPES:
+        f = h
+        x, W, U, bias, h0, c0 = lstm_inputs(t, b, h, f, False)
+        p = pl.device_plan(b, h, t, dev)
+        xz = pl.input_projection(x, W, bias)
+        ys = torch.empty((t, b, h), device=dev)
+        hT, cT = torch.empty((b, h), device=dev), torch.empty((b, h),
+                                                                device=dev)
+        # straight through the binding: timing launches are not counted
+        kern = median_ms(lambda: pl._launch(xz, U, h0, c0, ys, hT, cT, p),
+                         torch)
+        with_proj = median_ms(lambda: pl._launch(
+            pl.input_projection(x, W, bias), U, h0, c0, ys, hT, cT, p),
+            torch)
+        # the serial chain alone: the same t and h at batch 1
+        p1 = pl.device_plan(1, h, t, dev)
+        x1, h01, c01 = x[:1], h0[:1], c0[:1]
+        xz1 = pl.input_projection(x1, W, bias)
+        ys1 = torch.empty((t, 1, h), device=dev)
+        hT1, cT1 = torch.empty((1, h), device=dev), torch.empty((1, h),
+                                                                 device=dev)
+        serial = median_ms(lambda: pl._launch(xz1, U, h01, c01, ys1, hT1,
+                                              cT1, p1), torch)
+        plain = median_ms(lambda: pl.lstm_forward_plain(x, W, U, bias, h0,
+                                                        c0), torch, runs=10)
+        # cuDNN on the same weights: gates IFOG -> IFGO, b_hh = 0
+        lib = torch.nn.LSTM(f, h, batch_first=True).to(dev)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(ifog_to_cudnn(W.t()))
+            lib.weight_hh_l0.copy_(ifog_to_cudnn(U.t()))
+            lib.bias_ih_l0.copy_(ifog_to_cudnn(bias))
+            lib.bias_hh_l0.zero_()
+            lib_y = lib(x, (h0[None], c0[None]))[0]
+            lib_err = (lib_y - ys.transpose(0, 1)).abs().max().item()
+            lib_ms = median_ms(lambda: lib(x, (h0[None], c0[None])), torch)
+        bound, bound_by = lstm_bound_ms(t, b, h)
+        timings[(t, b, h)] = (kern, plain, lib_ms, bound, bound_by,
+                              with_proj)
+        print(json.dumps({"phase": "kernel_time", "kernel": "lstm_fwd",
+                          "t": t, "batch": b, "hidden": h, "features": f,
+                          "plan": p.__dict__, "ms": kern,
+                          "ms_with_projection": with_proj,
+                          "serial_ms_at_batch_1": serial,
+                          "plain_ms": plain, "library_ms": lib_ms,
+                          "library_call": "torch.nn.LSTM (cuDNN), "
+                                          "projection included",
+                          "library_max_abs_diff": lib_err,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "card": card}), flush=True)
+        del x, xz, ys, lib
+    kern, plain, lib_ms, bound, bound_by, with_proj = \
+        timings[LSTM_TIME_SHAPES[0]]
+    return {"name": "lstm_fwd", "route": "cuda",
+            "source": f"{SRC_DIR}/{pl.SOURCE}",
+            "replaces": "deeplearning4j_tpu/ops/pallas_lstm.py:51",
+            "launches": train_launches, "max_abs_err": lstm_err,
+            "ms": kern, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "ms_with_projection": with_proj,
+            "launches_by_path": {"output": output_launches,
+                                 "stream": stream_launches,
+                                 "fit": train_launches},
+            "per": "one launch at t 64, batch 128, h 256; plain_ms and "
+                   "library_ms include the input projection, as "
+                   "ms_with_projection does"}, None
 
 
 def cnn_phases(args, torch, dev, card):
@@ -624,6 +1068,7 @@ def main(argv=None) -> int:
     from deeplearning4j_tpu_torch.nn.multilayer import _stack_loss
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
     from deeplearning4j_tpu_torch.serving.engine import ServingEngine
     from deeplearning4j_tpu_torch.utils import kernel_build
     from deeplearning4j_tpu_torch.utils.model_serializer import params_from_jax
@@ -637,7 +1082,8 @@ def main(argv=None) -> int:
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    built = build_all(kernel_build, [fa.SOURCE, fa.BWD_SOURCE, pb.SOURCE])
+    built = build_all(kernel_build, [fa.SOURCE, fa.BWD_SOURCE, pb.SOURCE,
+                                     pl.SOURCE])
     print(json.dumps({"phase": "build", "seconds": round(
         time.perf_counter() - t0, 3), "sources": {
             f"{src_dir}/{s}": v for s, v in built.items()}}), flush=True)
@@ -954,6 +1400,12 @@ def main(argv=None) -> int:
     bn_record, err = cnn_phases(args, torch, dev, card)
     if err:
         return fail(err)
+    torch.cuda.empty_cache()
+
+    # ---- 10-12. char-LSTM: kernel vs plain, serve, stream, train, times --
+    lstm_record, err = lstm_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
 
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
@@ -974,6 +1426,7 @@ def main(argv=None) -> int:
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms})
     records.append(bn_record)
+    records.append(lstm_record)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,10 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 
+def _optional_array(a):
+    return None if a is None else np.asarray(a)
+
+
 class DataSet:
     """features/labels (+ masks) container (nd4j DataSet role)."""
 
@@ -72,7 +76,8 @@ class INDArrayDataSetIterator(DataSetIterator):
                  features_mask=None, labels_mask=None, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False):
         self.data = DataSet(np.asarray(features), np.asarray(labels),
-                            features_mask, labels_mask)
+                            _optional_array(features_mask),
+                            _optional_array(labels_mask))
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed

@@ -1,5 +1,5 @@
-"""Zoo models (port of ``models/zoo.py``): ``TransformerLM`` and
-``ResNet50`` so far."""
+"""Zoo models (port of ``models/zoo.py``): ``TransformerLM``,
+``ResNet50`` and ``TextGenerationLSTM`` so far."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -17,7 +17,7 @@ from ..nn.layers.feedforward import (ActivationLayer, EmbeddingSequenceLayer,
                                      OutputLayer)
 from ..nn.layers.normalization import BatchNormalization
 from ..nn.layers.pooling import GlobalPoolingLayer
-from ..nn.layers.recurrent import RnnOutputLayer
+from ..nn.layers.recurrent import LSTM, RnnOutputLayer
 from ..nn.multilayer import MultiLayerNetwork
 
 
@@ -145,3 +145,41 @@ class ResNet50:
     def init(self, device="cuda") -> ComputationGraph:
         """The graph on ``device`` with fresh seeded parameters."""
         return ComputationGraph(self.conf(), device=device).init()
+
+
+@dataclass
+class TextGenerationLSTM:
+    """Char-level text generation LSTM (reference
+    ``TextGenerationLSTM.java:34``): two tanh LSTM layers of ``hidden``
+    units and a softmax ``RnnOutputLayer`` over ``num_classes``
+    characters; Adam(2e-3), xavier init, element-wise gradient clipping
+    at 10.  Same fields and configuration as the JAX zoo model.  The
+    LSTMs' ``helper`` is left unset: a caller that wants the Hopper kernel
+    sets ``helper="pallas"`` on each ``LSTM`` of ``conf()``."""
+    num_classes: int = 26          # vocab size
+    timesteps: int = 40
+    hidden: int = 256
+    seed: int = 123
+    updater: Optional[UpdaterConf] = None
+    compute_dtype: Optional[str] = None
+
+    def conf(self) -> MultiLayerConfiguration:
+        if self.compute_dtype:
+            raise NotImplementedError("compute_dtype (precision policies) "
+                                      "is not ported yet")
+        return MultiLayerConfiguration(
+            layers=[LSTM(n_out=self.hidden, activation="tanh"),
+                    LSTM(n_out=self.hidden, activation="tanh"),
+                    RnnOutputLayer(n_out=self.num_classes,
+                                   activation="softmax", loss="mcxent")],
+            input_type=InputType.recurrent(self.num_classes, self.timesteps),
+            defaults={"updater": self.updater or Adam(learning_rate=2e-3),
+                      "weight_init": "xavier",
+                      "gradient_normalization":
+                          "clipelementwiseabsolutevalue",
+                      "gradient_normalization_threshold": 10.0},
+            seed=self.seed)
+
+    def init(self, device="cuda") -> MultiLayerNetwork:
+        """The network on ``device`` with fresh seeded parameters."""
+        return MultiLayerNetwork(self.conf(), device=device).init()

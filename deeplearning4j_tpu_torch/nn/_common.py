@@ -21,16 +21,18 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .conf.updaters import Sgd, UpdaterConf
-from .layers.base import BaseLayerConf, LayerConf
+from .layers.base import BaseLayerConf, LayerConf, flatten_group
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
 
 def hyperparam_conf(lc: Optional[LayerConf]) -> Optional[BaseLayerConf]:
     """The conf that carries hyperparams (updater/constraints/
-    normalization).  The reference also looks through wrapper layers
-    (Bidirectional, LastTimeStep, FrozenLayer), which are not ported."""
-    return lc if isinstance(lc, BaseLayerConf) else None
+    normalization): wrappers (Bidirectional, LastTimeStep) delegate to the
+    layer they wrap."""
+    while lc is not None and not isinstance(lc, BaseLayerConf):
+        lc = getattr(lc, "underlying", None) or getattr(lc, "fwd", None)
+    return lc
 
 
 def float_grad_leaves(tree: Dict[str, Any]) -> List[torch.Tensor]:
@@ -197,8 +199,6 @@ def refuse_unported_training(conf, layers: Iterable[Optional[LayerConf]]
         raise NotImplementedError(
             "precision policies (precision / compute_dtype) are not ported "
             "yet: training runs float32")
-    if conf.backprop_type == "tbptt":
-        raise NotImplementedError("backprop_type='tbptt' is not ported yet")
     if d.get("cache_mode") == "remat":
         raise NotImplementedError("cache_mode='remat' is not ported yet")
     algo = d.get("optimization_algo", "sgd")
@@ -275,8 +275,10 @@ class Network(nn.Module):
     layer (or vertex), keyed and named as the JAX package's param tree,
     so a JAX checkpoint maps onto it one to one; ``state`` is a plain
     ``{key: {name: tensor}}`` dict (BatchNorm running stats), replaced by
-    each training step.  A subclass lists its layers in ``_layers`` and
-    runs one step in ``_fit_one``."""
+    each training step.  A layer whose JAX group nests sub-groups
+    (``Bidirectional``) holds them flat (``fwd/W``): ``_tensors`` flattens
+    a JAX tree on the way in.  A subclass lists its layers in ``_layers``
+    and runs one step in ``_fit_one`` (``_fit_step`` in ``fit``'s loop)."""
 
     def __init__(self, conf, device="cuda"):
         super().__init__()
@@ -357,15 +359,16 @@ class Network(nn.Module):
     def _tensors(self, tree: Mapping[str, Mapping[str, Any]], what: str
                  ) -> Tree:
         """``tree`` checked against the spec of ``what`` (names and shapes
-        exactly; a group with nothing in it may be absent) and moved to
-        the device in the spec's dtypes."""
+        exactly; a group with nothing in it may be absent; nested
+        sub-groups are flattened to ``sub/name``) and moved to the device
+        in the spec's dtypes."""
         spec = self._spec(what)
         extra = sorted(set(tree) - set(spec))
         if extra:
             raise ValueError(f"{what} tree has unknown groups {extra}")
         groups = {}
         for key, want in spec.items():
-            got = tree.get(key, {})
+            got = flatten_group(dict(tree.get(key, {})))
             if set(got) != set(want):
                 raise ValueError(
                     f"{key}: {what} names {sorted(got)} != expected "
@@ -410,12 +413,16 @@ class Network(nn.Module):
     def _fit_one(self, *batch) -> torch.Tensor:
         raise NotImplementedError
 
+    def _fit_step(self, *batch) -> None:
+        """One batch of ``fit``'s loop (a subclass may route it)."""
+        self._fit_one(*batch)
+
     def _fit_epochs(self, factory: Callable, epochs: int) -> "Network":
         if not self.params:
             self.init()
         for _ in range(epochs):
             for batch in factory():
-                self._fit_one(*batch)
+                self._fit_step(*batch)
             self.epoch += 1
         return self
 

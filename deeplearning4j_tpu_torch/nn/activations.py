@@ -1,7 +1,8 @@
 """Activation functions by name (port of ``nn/activations.py``).
 
-Only the activations the TransformerLM and ResNet50 paths use are
-ported: ``identity``/``linear``, ``softmax``, ``gelu`` and ``relu``.
+Only the activations the TransformerLM, ResNet50 and char-LSTM paths use
+are ported: ``identity``/``linear``, ``softmax``, ``gelu``, ``relu``, and
+the LSTM's ``sigmoid`` gates and ``tanh`` cell activation.
 ``gelu`` is the tanh approximation, because ``jax.nn.gelu`` defaults to
 it.  ``relu``'s gradient at 0 is 0, as ``jax.nn.relu``'s.
 """
@@ -29,12 +30,22 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
 _REGISTRY: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "identity": identity,
     "linear": identity,
     "softmax": softmax,
     "gelu": gelu,
     "relu": relu,
+    "sigmoid": sigmoid,
+    "tanh": tanh,
 }
 
 

@@ -84,6 +84,19 @@ def _run_attention(q, k, v, *, impl: str, causal: bool, mask=None,
     return sdpa_reference(q, k, v, mask=mask, causal=causal)
 
 
+def _no_kv_cache(layer) -> NotImplementedError:
+    """The JAX package carries a KV cache (the stream position, for the
+    positional encoding) through these layers for incremental decoding.
+    That comes with generation (ROADMAP queue 1, item 3): until then
+    ``rnn_time_step`` and tBPTT refuse such a stack rather than recompute
+    it without the cache."""
+    return NotImplementedError(
+        f"layer '{layer.name}' ({type(layer).__name__}) carries a KV cache "
+        "(stream position) across calls in the JAX package; that comes "
+        "with generation (ROADMAP queue 1, item 3) and is not ported yet, "
+        "so rnn_time_step and tBPTT do not run through it")
+
+
 @register_serde
 @dataclass
 class MultiHeadAttention(BaseLayerConf):
@@ -101,6 +114,11 @@ class MultiHeadAttention(BaseLayerConf):
     has_bias: bool = True
     attn_dropout: Optional[float] = None
     max_cache_len: int = 512
+
+    HAS_CARRY = True
+
+    def init_carry(self, batch, dtype, device):
+        raise _no_kv_cache(self)
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
         if self.n_in == 0 or override:
@@ -164,6 +182,9 @@ class MultiHeadAttention(BaseLayerConf):
         x = self.maybe_dropout_input(x, train)
         return self.act_fn(self.attend(params, x, train=train, mask=mask))
 
+    def forward(self, params, state, x, *, train=False, mask=None):
+        return self.apply(params, x, train=train, mask=mask), state
+
 
 @register_serde
 @dataclass
@@ -182,6 +203,11 @@ class TransformerBlock(BaseLayerConf):
     moe_experts: int = 0
     moe_capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
+
+    HAS_CARRY = True
+
+    def init_carry(self, batch, dtype, device):
+        raise _no_kv_cache(self)
 
     def __post_init__(self):
         if self.moe_experts:
@@ -234,12 +260,19 @@ class TransformerBlock(BaseLayerConf):
         xn = _layer_norm(x, p["ln2_g"], p["ln2_b"], self.eps)
         return x + gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"]
 
+    def forward(self, params, state, x, *, train=False, mask=None):
+        return self.apply(params, x, train=train, mask=mask), state
+
 
 @register_serde
 @dataclass
 class PositionalEncodingLayer(LayerConf):
     """Adds the sinusoidal table ``pos / 10000**(2*(i//2)/e)`` (sin on
     even i, cos on odd i).  No params."""
+    HAS_CARRY = True
+
+    def init_carry(self, batch, dtype, device):
+        raise _no_kv_cache(self)
 
     @staticmethod
     def _pe(t, e, dtype, device):

@@ -6,18 +6,29 @@ these functions on tensors:
     init(generator, itype, device) -> {name: tensor}    fresh parameters
     init_state(itype, device)      -> {name: tensor}    fresh state
     apply(params, x, train=False)  -> y                 stateless forward
-    forward(params, state, x, train=False) -> (y, new_state)
+    forward(params, state, x, train=False, mask=None) -> (y, new_state)
+    feed_forward_mask(mask, itype) -> the mask the next layer sees
 
 The networks call ``forward``: the JAX package's ``apply`` returns
 ``(y, new_state)`` for every layer, and the port keeps that one protocol
 for both containers.  A stateless layer writes ``apply`` only and hands
 its (empty) state back; a layer with state (``BatchNormalization``:
 running mean and variance) overrides ``forward``.  New state is returned,
-never written in place.
+never written in place.  A ``[b, t]`` features mask reaches ``forward``;
+layers that ignore it in the JAX package ignore it here, and the layers
+that read it (recurrent, attention) override ``forward``.
+
+Recurrent layers carry state across calls (``rnn_time_step`` streaming,
+tBPTT chunks): ``HAS_CARRY`` marks them, ``init_carry(batch, dtype,
+device)`` makes a zero carry and ``apply_with_carry(params, x, carry,
+train, mask) -> (y, new_carry)`` runs from a given one.
 
 Parameters keep the JAX package's names and shapes (a dense ``W`` is
 ``[n_in, n_out]`` and applies as ``x @ W``), so a checkpoint crosses over
-without transposes.  ``None`` fields inherit the network-level default,
+without transposes.  A wrapper whose JAX param group nests sub-groups
+(``Bidirectional``: ``{"fwd": {...}, "bwd": {...}}``) keeps one flat group
+named ``fwd/W``, ...: ``flatten_group`` and ``nest_group`` map between the
+two.  ``None`` fields inherit the network-level default,
 as in the reference's builder.  l1/l2 regularisation is ported
 (``regularization_score``).  Dropout and weight noise draw their masks
 from JAX's threefry stream, which is not ported: they have no effect on
@@ -82,10 +93,37 @@ _WEIGHT_STD = {
 }
 
 
+def flatten_group(group: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A JAX param group with nested sub-groups as one flat group:
+    ``{"fwd": {"W": a}}`` -> ``{"fwd/W": a}``; a flat group is unchanged
+    ('.' is illegal in a parameter name, so the port joins with '/')."""
+    out = {}
+    for k, v in group.items():
+        if isinstance(v, dict):
+            out.update(flatten_group(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def nest_group(group: Dict[str, Any]) -> Dict[str, Any]:
+    """``flatten_group`` undone: ``{"fwd/W": a}`` -> ``{"fwd": {"W": a}}``."""
+    out: Dict[str, Any] = {}
+    for k, v in group.items():
+        *path, leaf = k.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
 @dataclass
 class LayerConf:
     """Root of the layer-config hierarchy."""
     name: Optional[str] = None
+
+    HAS_CARRY = False
 
     def output_type(self, itype: InputType) -> InputType:
         return itype
@@ -105,8 +143,16 @@ class LayerConf:
         raise NotImplementedError
 
     def forward(self, params: Params, state: Params, x: torch.Tensor, *,
-                train: bool = False) -> Tuple[torch.Tensor, Params]:
+                train: bool = False, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Params]:
         return self.apply(params, x, train=train), state
+
+    def feed_forward_mask(self, mask: Optional[torch.Tensor],
+                          itype: Optional[InputType]
+                          ) -> Optional[torch.Tensor]:
+        """Propagate a mask through this layer (reference Layer.java:282):
+        unchanged unless the layer changes the time axis."""
+        return mask
 
 
 def _dropout_on(d) -> bool:

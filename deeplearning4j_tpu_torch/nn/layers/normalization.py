@@ -139,7 +139,7 @@ class BatchNormalization(BaseLayerConf):
         return {"mean": torch.zeros((f,), dtype=dt, device=device),
                 "var": torch.ones((f,), dtype=dt, device=device)}
 
-    def forward(self, params, state, x, *, train=False):
+    def forward(self, params, state, x, *, train=False, mask=None):
         act = self.resolved("activation", "identity")
         if self.lock_gamma_beta:
             gamma = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)

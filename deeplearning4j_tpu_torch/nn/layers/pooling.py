@@ -1,7 +1,8 @@
 """Global pooling (port of ``nn/layers/pooling.py``): CNN activations
 ``[b, h, w, c]`` -> ``[b, c]``, or RNN activations ``[b, t, f]`` ->
-``[b, f]``.  The masked time reduction (variable-length series) comes
-with the recurrent slice: the port's networks pass no masks to layers."""
+``[b, f]``.  The masked time reduction (variable-length series,
+reference ``MaskedReductionUtil``) is not ported: a mask on RNN input
+raises."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -26,6 +27,16 @@ class GlobalPoolingLayer(LayerConf):
         if itype.kind == "rnn":
             return InputType.feed_forward(itype.size)
         raise ValueError(f"global pooling over {itype.kind} input")
+
+    def forward(self, params, state, x, *, train=False, mask=None):
+        if mask is not None and x.ndim == 3:
+            raise NotImplementedError(
+                f"layer '{self.name}': masked global pooling over time is "
+                "not ported yet")
+        return self.apply(params, x, train=train), state
+
+    def feed_forward_mask(self, mask, itype):
+        return None      # the time axis is gone after global pooling
 
     def apply(self, params, x, *, train=False):
         if x.ndim == 4:

@@ -1,5 +1,5 @@
 """Sequential network (port of ``nn/multilayer.py``): init, output, the
-loss, the train step, fit and score.
+loss, the train step, fit and score, tBPTT and streaming (``rnn_time_step``).
 
 The forward is a plain Python loop over the layers.  The JAX package
 runs identical repeated blocks under ``lax.scan``; PyTorch runs eagerly
@@ -7,21 +7,30 @@ and needs no such fold.  Parameters live in one ``nn.ParameterDict`` per
 layer, keyed ``layer_i`` and named as in the JAX package, so a JAX
 checkpoint maps onto them one to one.  Layer state (BatchNormalization's
 running statistics) lives in ``state``; every layer runs through
-``forward(params, state, x, train)`` and each training step replaces
-``state`` with the new one it returns.
+``forward(params, state, x, train, mask)`` and each training step replaces
+``state`` with the new one it returns.  A ``[b, t]`` features mask goes
+through the stack, each layer handing the next ``feed_forward_mask`` of
+it; the loss's label mask defaults to the mask that reaches the output
+layer.
+
+Recurrent layers carry state across calls as ``carries`` (``{layer_i:
+carry}``): ``rnn_time_step`` keeps them between calls (reference
+``rnnTimeStep``), and tBPTT (``backprop_type="tbptt"``) carries them from
+one ``tbptt_fwd_length`` chunk of a sequence to the next with gradients
+stopped at the boundary.
 
 Training (``fit``) takes the JAX package's SGD path: forward to the
 output layer's loss plus l1/l2, gradients by autograd (through the
-flash-attention backward kernels on CUDA), gradient normalization, then
-the hand-written updater arithmetic of ``nn/conf/updaters.py``.  The
-step leaves the loss on the device: ``score()``/``get_score()``
-materialise it on demand.  Not ported, and refused when configured:
-precision policies, the sparse-embedding gradient, tBPTT, remat, the
-legacy solvers, layer constraints, dropout and weight noise.
+kernels' autograd functions on CUDA), gradient normalization, then the
+hand-written updater arithmetic of ``nn/conf/updaters.py``.  The step
+leaves the loss on the device: ``score()``/``get_score()`` materialise it
+on demand.  Not ported, and refused when configured: precision policies,
+the sparse-embedding gradient, remat, the legacy solvers, layer
+constraints, dropout and weight noise, and the shape policy's padding.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -34,26 +43,54 @@ def _layer_confs(conf) -> Dict[str, Any]:
     return {f"layer_{i}": lc for i, lc in enumerate(conf.layers)}
 
 
-def _stack_loss_state(conf, params, state, x, y, *, train: bool,
-                      label_mask=None) -> Tuple[torch.Tensor, Dict]:
+def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
+                   to_layer: Optional[int] = None,
+                   carries: Optional[Dict[str, Any]] = None
+                   ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+    """The layers ``[0, to_layer)`` (all by default); returns ``(h,
+    new_state, mask)`` with the mask as the next layer would see it.
+    ``carries`` (``{layer_i: carry}``), when given, runs every layer with
+    ``HAS_CARRY`` from its carry (a zero one where it has none) and is
+    updated in place with the carries it ends with."""
+    layers = conf.layers
+    n = len(layers) if to_layer is None else to_layer
+    new_state = dict(state)
+    h = x
+    for i in range(n):
+        lc, key = layers[i], f"layer_{i}"
+        if carries is not None and lc.HAS_CARRY:
+            h, carries[key] = lc.apply_with_carry(
+                params[key], h, carries.get(key), train=train, mask=mask)
+        else:
+            h, new_state[key] = lc.forward(params[key], state.get(key, {}),
+                                           h, train=train, mask=mask)
+        if mask is not None:
+            mask = lc.feed_forward_mask(mask, None)
+    return h, new_state, mask
+
+
+def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
+                      label_mask=None, carries=None
+                      ) -> Tuple[torch.Tensor, Dict]:
     """Forward to the last layer's loss, plus regularization (reference
     ``computeGradientAndScore``); returns ``(loss, new_state)``.  A free
     function over the configuration, a ``{layer_i: {name: tensor}}``
     params mapping and the layers' state."""
     layers = conf.layers
     n = len(layers)
-    h = x
-    new_state = dict(state)
-    for i in range(n - 1):
-        key = f"layer_{i}"
-        h, new_state[key] = layers[i].forward(params[key], state.get(key, {}),
-                                              h, train=train)
+    h, new_state, pmask = _stack_forward(conf, params, state, x, train=train,
+                                         mask=mask, to_layer=n - 1,
+                                         carries=carries)
     out_conf = layers[-1]
     if not hasattr(out_conf, "compute_loss"):
         raise ValueError(
             f"last layer '{out_conf.name}' is not an output layer")
+    # the label mask defaults to the PROPAGATED features mask (reference
+    # per-step masking when labelsMask is absent; LastTimeStep or global
+    # pooling consumes the time axis and nulls it)
+    lm = label_mask if label_mask is not None else pmask
     loss = out_conf.compute_loss(params[f"layer_{n - 1}"], h, y,
-                                 train=train, mask=label_mask)
+                                 train=train, mask=lm)
     reg = torch.zeros((), dtype=loss.dtype, device=loss.device)
     for i, lc in enumerate(layers):
         lp = params[f"layer_{i}"]
@@ -62,36 +99,49 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool,
     return loss + reg, new_state
 
 
-def _stack_loss(conf, params, x, y, *, train: bool,
+def _stack_loss(conf, params, x, y, *, train: bool, mask=None,
                 label_mask=None) -> torch.Tensor:
     """``_stack_loss_state``'s loss, for a stack whose layers keep no
     state."""
-    return _stack_loss_state(conf, params, {}, x, y, train=train,
+    return _stack_loss_state(conf, params, {}, x, y, train=train, mask=mask,
                               label_mask=label_mask)[0]
 
 
+def _detached(carries: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: {n: t.detach() for n, t in c.items()}
+            for k, c in carries.items()}
+
+
 def _build_train_step(conf, tx):
-    """``step(params, state, opt_state, x, y, label_mask) -> (loss,
-    new_state, gstats)``: one SGD-path training step that updates
-    ``params`` and ``opt_state`` in place.  Port of the reference's
-    ``_build_train_step`` without its sparse-embedding, precision and
-    tBPTT-carry branches."""
+    """``step(params, state, opt_state, x, y, mask, label_mask, carries=None)
+    -> (loss, new_state, gstats, new_carries)``: one SGD-path training step
+    that updates ``params`` and ``opt_state`` in place.  With ``carries``
+    (tBPTT) the recurrent layers start from them, gradients stopped at the
+    chunk boundary, and the step returns the carries it ends with.  Port
+    of the reference's ``_build_train_step`` without its sparse-embedding
+    and precision branches."""
     refuse_unported_training(conf, conf.layers)
     gn_mode = conf.defaults.get("gradient_normalization")
     gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
                                      1.0))
     confs = _layer_confs(conf)
 
-    def step(params, state, opt_state, x, y, label_mask):
+    def step(params, state, opt_state, x, y, mask, label_mask,
+             carries=None):
         # constraints are checked before anything moves: the reference
         # applies them after the update, and they are not ported
         apply_constraints_all(params, confs)
+        # carry state flows INTO the chunk; gradients do not flow back
+        # across the chunk boundary (tBPTT truncation)
+        cs = None if carries is None else _detached(carries)
         loss, new_state = _stack_loss_state(conf, params, state, x, y,
-                                            train=True,
-                                            label_mask=label_mask)
+                                            train=True, mask=mask,
+                                            label_mask=label_mask,
+                                            carries=cs)
         gstats = backward_and_update(loss, params, opt_state, tx, confs,
                                      gn_mode, gn_thr)
-        return loss.detach(), new_state, gstats
+        return (loss.detach(), new_state, gstats,
+                None if cs is None else _detached(cs))
 
     return step
 
@@ -112,12 +162,14 @@ def _normalize_batch(b) -> Tuple[Any, Any, Any, Any]:
 
 class MultiLayerNetwork(Network):
     """``MultiLayerNetwork(conf, device="cuda").init()``, then ``fit``,
-    ``output`` and ``score``."""
+    ``output``, ``score`` and ``rnn_time_step``."""
 
     def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
         super().__init__(conf, device)
         self.layer_confs = conf.layers
         self._id_layer = None
+        self._rnn_carries: Optional[Dict[str, Any]] = None
+        self._rnn_carry_batch = -1
 
     def _layers(self):
         return [(f"layer_{i}", lc, self.conf.layer_input_types[i])
@@ -130,10 +182,8 @@ class MultiLayerNetwork(Network):
         if not self.params:
             raise RuntimeError("network has no params: call init() or "
                                "load_params() first")
-        h = x
-        for key, lc, _ in self._layers():
-            h, _ = lc.forward(self.params[key], self.state.get(key, {}), h)
-        return h
+        return _stack_forward(self.conf, self.params, self.state, x,
+                              train=False)[0]
 
     def _validate_input_ids(self, x) -> None:
         """Host-side id-range check for an embedding-first network at the
@@ -160,31 +210,74 @@ class MultiLayerNetwork(Network):
             label_mask=None) -> "MultiLayerNetwork":
         """Train.  ``data`` may be ``(x, y)`` arrays (or ``x`` with
         ``labels``), a ``DataSet``, or an iterable of batches with an
-        optional ``reset()`` (the DataSetIterator role)."""
+        optional ``reset()`` (the DataSetIterator role).  A 3-D batch
+        longer than ``tbptt_fwd_length`` trains by tBPTT when the
+        configuration asks for it."""
         one = (data, labels, mask, label_mask) if labels is not None \
             else None
         return self._fit_epochs(batch_factory(data, one, _normalize_batch),
                                 epochs)
 
-    def _fit_one(self, x, y, m, lm) -> torch.Tensor:
-        """One train step; returns (and keeps in ``_score``) the loss as a
-        device scalar, without waiting for the device."""
-        self._validate_input_ids(x)
-        if m is not None:
-            raise NotImplementedError(
-                "features masks in training are not ported yet")
-        self.last_batch_size = int(getattr(x, "shape", (0,))[0])
+    def _fit_step(self, x, y, m, lm) -> None:
+        if self.conf.backprop_type == "tbptt" and \
+                getattr(x, "ndim", 2) == 3 and \
+                x.shape[1] > self.conf.tbptt_fwd_length:
+            self._fit_tbptt(x, y, m, lm)
+        else:
+            self._fit_one(x, y, m, lm)
+
+    def _train_step(self):
         if self._step is None:
             if self.opt_state is None:
                 self._init_updater()
             self._step = _build_train_step(self.conf, self._tx)
-        loss, self.state, gstats = self._step(
+        return self._step
+
+    def _fit_one(self, x, y, m, lm) -> torch.Tensor:
+        """One train step; returns (and keeps in ``_score``) the loss as a
+        device scalar, without waiting for the device."""
+        self._validate_input_ids(x)
+        self.last_batch_size = int(getattr(x, "shape", (0,))[0])
+        step = self._train_step()
+        loss, self.state, gstats, _ = step(
             self._param_tree(), self.state, self.opt_state,
-            self._on_device(x), self._on_device(y), self._on_device(lm))
+            self._on_device(x), self._on_device(y), self._on_device(m),
+            self._on_device(lm))
         self._score = loss
         self._last_grad_stats = gstats
         self.iteration += 1
         return loss
+
+    def _fit_tbptt(self, x, y, mask, label_mask) -> None:
+        """Truncated BPTT (reference ``doTruncatedBPTT``): the time axis in
+        ``tbptt_fwd_length`` chunks, one update each; recurrent state
+        carries across chunk boundaries with gradients stopped there, so
+        the backward window is the forward chunk (``tbptt_back_length``
+        is accepted for configuration parity)."""
+        self._validate_input_ids(x)
+        self.last_batch_size = int(x.shape[0])
+        step = self._train_step()
+        L = self.conf.tbptt_fwd_length
+        carries = self._init_carries(int(x.shape[0]))
+        x, y = self._on_device(x), self._on_device(y)
+        mask, label_mask = self._on_device(mask), self._on_device(label_mask)
+        for t0 in range(0, x.shape[1], L):
+            sl = slice(t0, t0 + L)
+            loss, self.state, gstats, carries = step(
+                self._param_tree(), self.state, self.opt_state, x[:, sl],
+                y[:, sl] if y.ndim == 3 else y,
+                None if mask is None else mask[:, sl],
+                None if label_mask is None else label_mask[:, sl], carries)
+            self._score = loss
+            self._last_grad_stats = gstats
+            self.iteration += 1
+
+    def _init_carries(self, batch: int) -> Dict[str, Any]:
+        """Zero carries (f32) for every layer with ``HAS_CARRY``, keyed
+        ``layer_i``."""
+        return {f"layer_{i}": lc.init_carry(batch, torch.float32,
+                                            self.device)
+                for i, lc in enumerate(self.layer_confs) if lc.HAS_CARRY}
 
     def fit_batch(self, batch) -> float:
         """One train step on one batch, without epoch bookkeeping."""
@@ -206,3 +299,46 @@ class MultiLayerNetwork(Network):
                                         self._on_device(x),
                                         self._on_device(y), train=False)
         return float(loss)
+
+    # ---------------------------------------------------- stateful RNN API
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Streaming inference with state kept across calls (reference
+        ``rnnTimeStep``): x is ``[b, t, f]``, or ``[b, f]`` for one step
+        (then the result is ``[b, n_out]``).  State persists until
+        ``rnn_clear_previous_state``, or until the batch size changes."""
+        from .layers.feedforward import EmbeddingSequenceLayer
+        from .layers.recurrent import Bidirectional
+        if any(isinstance(lc, Bidirectional) for lc in self.layer_confs):
+            raise ValueError(
+                "rnn_time_step does not support bidirectional layers — the "
+                "backward pass needs the full sequence (reference throws "
+                "likewise)")
+        self._validate_input_ids(x)
+        x = self._on_device(x)
+        # [b, f] is one feature step, made [b, 1, f]; except for an
+        # embedding-first network, whose 2-D input is ids [b, t]
+        squeeze = x.ndim == 2 and not (
+            self.layer_confs and
+            isinstance(self.layer_confs[0], EmbeddingSequenceLayer))
+        if squeeze:
+            x = x[:, None, :]
+        if self._rnn_carries is None or self._rnn_carry_batch != x.shape[0]:
+            self._rnn_carries = self._init_carries(int(x.shape[0]))
+            self._rnn_carry_batch = int(x.shape[0])
+        with torch.inference_mode():
+            y = _stack_forward(self.conf, self.params, self.state, x,
+                               train=False, carries=self._rnn_carries)[0]
+        return y[:, 0] if squeeze and y.ndim == 3 else y
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+        self._rnn_carry_batch = -1
+
+    def rnn_get_previous_state(self, layer: int):
+        c = self._rnn_carries
+        return None if c is None else c.get(f"layer_{layer}")
+
+    def rnn_set_previous_state(self, layer: int, state) -> None:
+        if self._rnn_carries is None:
+            raise ValueError("no rnn state yet — call rnn_time_step first")
+        self._rnn_carries[f"layer_{layer}"] = state

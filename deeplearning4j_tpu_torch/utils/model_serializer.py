@@ -20,6 +20,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 
 from ..nn._common import Network
+from ..nn.layers.base import flatten_group
 from ..nn.computation_graph import ComputationGraph
 from ..nn.conf.computation_graph import ComputationGraphConfiguration
 from ..nn.conf.multi_layer import MultiLayerConfiguration
@@ -91,7 +92,9 @@ def updater_state_from_jax(net: Network, opt_state) -> Network:
     (``TraceState(trace)``) and ``Sgd`` (no state), whether one transform
     serves the whole network or ``multi_transform`` partitions it by
     updater label, as ``nn/_common.build_tx`` does; slots are keyed by
-    layer (``layer_i``) or vertex name, as the params."""
+    layer (``layer_i``) or vertex name, as the params, and a nested group
+    (``Bidirectional``'s ``fwd``/``bwd``) is read through the port's flat
+    names (``fwd/W``)."""
     import torch
     tx = net._tx
     inner = getattr(opt_state, "inner_states", None)
@@ -113,7 +116,8 @@ def updater_state_from_jax(net: Network, opt_state) -> Network:
                     continue
                 slots = state["slots"][layer][name]
                 for slot in u.SLOTS:
-                    src = np.asarray(getattr(node, slot)[layer][name])
+                    src = np.asarray(flatten_group(
+                        dict(getattr(node, slot)[layer]))[name])
                     if src.shape != tuple(slots[slot].shape):
                         raise ValueError(
                             f"{layer}/{name}/{slot}: shape {src.shape} != "

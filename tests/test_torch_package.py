@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
-from deeplearning4j_tpu_torch.models.zoo import ResNet50, TransformerLM
+from deeplearning4j_tpu_torch.models.zoo import (ResNet50, TextGenerationLSTM,
+                                                 TransformerLM)
 from deeplearning4j_tpu_torch.nn.computation_graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
@@ -119,3 +120,24 @@ def test_graph_entry_points_refuse_a_silent_cpu_default(no_cuda):
     assert net.device.type == "cpu"
     assert all(t.device.type == "cpu" for g in net.state.values()
                for t in g.values())
+
+
+def test_rnn_slice_modules_are_checked():
+    for m in ("ops.pallas_lstm", "nn.layers.recurrent", "nn.multilayer",
+              "nn.activations", "nn.layers.base", "models.zoo"):
+        assert f"deeplearning4j_tpu_torch.{m}" in MODULES
+    assert (PKG / "csrc" / "lstm_fwd.cu").is_file()
+
+
+def test_rnn_entry_points_refuse_a_silent_cpu_default(no_cuda):
+    small = TextGenerationLSTM(num_classes=6, timesteps=4, hidden=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        small.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(small.conf())
+    net = small.init(device="cpu")
+    x = np.eye(6, dtype=np.float32)[np.zeros((2, 4), np.int64)]
+    y = net.rnn_time_step(x)
+    assert y.device.type == "cpu" and y.shape == (2, 4, 6)
+    carries = net.rnn_get_previous_state(0)
+    assert all(t.device.type == "cpu" for t in carries.values())
