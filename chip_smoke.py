@@ -11,8 +11,10 @@ if any phase fails:
    ``deeplearning4j_tpu_torch/csrc`` into ``build/kernels/``, one ``nvcc``
    per source, all started together;
 2. ``kernel_vs_plain``: holds the flash-attention forward kernel against
-   its plain PyTorch version on the card at the model's attention shape,
-   f32 and bf16, causal and full;
+   its plain PyTorch version on the card at the model's attention shape
+   and at ``[16, 512, d]`` for every other head_dim the kernels take
+   (128, 192, 256) and a ragged ``[16, 100, 64]``, f32 and bf16, causal
+   and full;
 3. ``bwd_kernel_vs_plain``: the same for the two backward kernels (dq;
    dk and dv);
 4. ``serve``: serves a full-width TransformerLM (vocab 8192, seq 512,
@@ -48,7 +50,7 @@ if any phase fails:
    the step (convolutions and matrix products / the BN kernel / the rest
    / idle), and the kernel at each geometry beside its plain version, its
    bound and ``torch.addcmul(shift, x, scale)``, which the port never
-   calls;
+   calls, each launch after a read of 64 MB that leaves L2 clean;
 10. ``lstm_kernel_vs_plain``: holds the LSTM-recurrence kernel against its
     plain version on ``ys``, ``hT`` and ``cT`` at (t, b, h) = (64, 128,
     256), (256, 32, 256), (1, 16, 256) from a nonzero state and the ragged
@@ -76,6 +78,7 @@ limit, the ``kernels`` record (the line before the last) and, last,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -93,15 +96,23 @@ VOCAB, SEQ, EMBED, LAYERS, HEADS = 8192, 512, 512, 8, 8
 MAX_BATCH = 16
 REQUEST_SIZES = (1, 5, 16)
 HEAD_DIM = EMBED // HEADS
+# the kernels vs plain beyond the model's shape: every other head_dim the
+# kernels take, and a ragged t (not a multiple of any tile)
+CHECK_SHAPES = ((16, 512, 128), (16, 512, 192), (16, 512, 256),
+                (16, 100, 64))
 TRAIN_BATCH = 16
 TRAIN_STEPS = 5
 TIMED_TRAIN_STEPS = 20
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM rate and the
-# operation rate for each input type.  f32 attention runs on the CUDA
-# cores (no TF32), so its peak is the non-tensor f32 rate.
+# operation rate for each kind of work.  Work shaped as matrix products
+# (attention, the LSTM's recurrent product) can be done at f32 accuracy
+# on the tensor cores in three TF32 passes, 495 / 3 = 165 TFLOP/s: the
+# least time the card could take for it in f32.  Elementwise f32 work
+# runs on the CUDA cores, 67 TFLOP/s.  bf16 products: 989 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "float32_products": 495e12 / 3,
+                  "bfloat16": 989e12}
 
 # Kernel vs plain twin, same inputs on the card.  Both widen to f32 and
 # keep f32 statistics; only the order of the f32 sums differs (FMA
@@ -169,8 +180,20 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, torch, runs: int = TIMED_RUNS, before=None) -> float:
-    """Median of ``runs`` single calls, each between CUDA events;
+# GPU clock cycles (~0.5 ms) the card spins ahead of a call timed with
+# ``spin``, so that the host has enqueued the call before the start event
+# fires.  Without it an idle card records the start event at once and
+# the time includes the host's Python and ctypes launch work (10-25 µs a
+# call beside an H100), which the port pays on every launch: ``ms`` keeps
+# it, and ``ms_device_only`` is the same call timed with the spin.
+SPIN_CYCLES = 1_000_000
+
+
+def median_ms(fn, torch, runs: int = TIMED_RUNS, before=None,
+              spin: bool = False) -> float:
+    """Median of ``runs`` single calls, each between CUDA events, host
+    launch work included.  With ``spin`` the card reaches the start event
+    only after a spin, so the host's enqueue of the call is hidden.
     ``before()`` runs ahead of each call, outside the events."""
     for _ in range(3):
         fn()
@@ -181,6 +204,8 @@ def median_ms(fn, torch, runs: int = TIMED_RUNS, before=None) -> float:
         end = torch.cuda.Event(enable_timing=True)
         if before is not None:
             before()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -189,9 +214,9 @@ def median_ms(fn, torch, runs: int = TIMED_RUNS, before=None) -> float:
     return statistics.median(times)
 
 
-def _bound(nbytes: float, ops: float, dtype: str) -> tuple:
+def _bound(nbytes: float, ops: float, rate: str) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[rate] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -211,7 +236,8 @@ def attention_bound_ms(kernel: str, bh: int, t: int, d: int, causal: bool,
                         "bwd_dq": (5 * mat + 2 * row, 6),
                         "bwd_dkv": (6 * mat + 2 * row, 8)}[kernel]
     pairs = t * (t + 1) // 2 if causal else t * t
-    return _bound(nbytes, per_pair * d * bh * pairs, dtype)
+    rate = "float32_products" if dtype == "float32" else dtype
+    return _bound(nbytes, per_pair * d * bh * pairs, rate)
 
 
 def bn_bound_ms(m: int, c: int, dtype: str) -> tuple:
@@ -423,10 +449,10 @@ def lstm_bound_ms(t: int, b: int, h: int) -> tuple:
     h0 and c0 read once, ys [t, b, h], hT and cT written once, all f32;
     per step and row, the [h] x [h, 4h] product (8h² operations), the 4h
     adds of xz, the cell's 4h multiply-adds and 5h sigmoids and tanhs,
-    on the CUDA cores."""
+    all counted at the f32 rate of products (three TF32 passes)."""
     nbytes = 4 * (t * b * 4 * h + 4 * h * h + 2 * b * h + t * b * h
                   + 2 * b * h)
-    return _bound(nbytes, t * b * h * (8 * h + 13), "float32")
+    return _bound(nbytes, t * b * h * (8 * h + 13), "float32_products")
 
 
 def lstm_phases(args, torch, dev, card):
@@ -713,6 +739,8 @@ def lstm_phases(args, torch, dev, card):
         # straight through the binding: timing launches are not counted
         kern = median_ms(lambda: pl._launch(xz, U, h0, c0, ys, hT, cT, p),
                          torch)
+        kern_dev = median_ms(lambda: pl._launch(xz, U, h0, c0, ys, hT, cT,
+                                                p), torch, spin=True)
         with_proj = median_ms(lambda: pl._launch(
             pl.input_projection(x, W, bias), U, h0, c0, ys, hT, cT, p),
             torch)
@@ -739,10 +767,11 @@ def lstm_phases(args, torch, dev, card):
             lib_ms = median_ms(lambda: lib(x, (h0[None], c0[None])), torch)
         bound, bound_by = lstm_bound_ms(t, b, h)
         timings[(t, b, h)] = (kern, plain, lib_ms, bound, bound_by,
-                              with_proj)
+                              with_proj, kern_dev)
         print(json.dumps({"phase": "kernel_time", "kernel": "lstm_fwd",
                           "t": t, "batch": b, "hidden": h, "features": f,
                           "plan": p.__dict__, "ms": kern,
+                          "ms_device_only": kern_dev,
                           "ms_with_projection": with_proj,
                           "serial_ms_at_batch_1": serial,
                           "plain_ms": plain, "library_ms": lib_ms,
@@ -752,7 +781,7 @@ def lstm_phases(args, torch, dev, card):
                           "bound_ms": bound, "bound_by": bound_by,
                           "card": card}), flush=True)
         del x, xz, ys, lib
-    kern, plain, lib_ms, bound, bound_by, with_proj = \
+    kern, plain, lib_ms, bound, bound_by, with_proj, kern_dev = \
         timings[LSTM_TIME_SHAPES[0]]
     return {"name": "lstm_fwd", "route": "cuda",
             "source": f"{SRC_DIR}/{pl.SOURCE}",
@@ -760,7 +789,7 @@ def lstm_phases(args, torch, dev, card):
             "launches": train_launches, "max_abs_err": lstm_err,
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,
-            "ms_with_projection": with_proj,
+            "ms_device_only": kern_dev, "ms_with_projection": with_proj,
             "launches_by_path": {"output": output_launches,
                                  "stream": stream_launches,
                                  "fit": train_launches},
@@ -1007,11 +1036,18 @@ def cnn_phases(args, torch, dev, card):
     del net, xs, ys
     torch.cuda.empty_cache()
 
-    # BN apply at each geometry: kernel, plain version, torch.addcmul,
-    # each launch with the 50 MB L2 flushed (a 64 MB write) before it
-    flush_buf = torch.empty(16 << 20, dtype=torch.float32, device=dev)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bound_ms": 0.0}
+    # BN apply at each geometry: kernel, plain version, torch.addcmul.
+    # Each timed launch follows a 64 MB read, which evicts the 50 MB L2
+    # and leaves it clean (a write flush would leave dirty lines whose
+    # writeback the timed launch pays for).
+    flush_buf = torch.zeros(16 << 20, dtype=torch.float32, device=dev)
+    flush_out = torch.empty((), dtype=torch.float32, device=dev)
+
+    def flush():
+        torch.sum(flush_buf, dim=0, out=flush_out)
+
+    totals = {"ms": 0.0, "ms_device_only": 0.0, "plain_ms": 0.0,
+              "library_ms": 0.0, "bound_ms": 0.0}
     bound_by_all = set()
     for (m, c, act), count in sorted(geoms.items()):
         x = torch.randn((m, c), generator=gen, device=dev)
@@ -1019,35 +1055,47 @@ def cnn_phases(args, torch, dev, card):
         shift = torch.randn(c, generator=gen, device=dev)
         out = torch.empty_like(x)
         relu = act == "relu"
+        p = pb.device_plan(x, scale, shift, out)
+        row = {}
         # straight through the binding: timing launches are not counted
-        kern = median_ms(lambda: pb._launch(x, scale, shift, out, relu),
-                         torch, before=flush_buf.zero_)
-        plain = median_ms(lambda: pb.bn_apply_plain(x, scale, shift, relu),
-                          torch, runs=10, before=flush_buf.zero_)
-        lib = median_ms(lambda: torch.addcmul(shift, x, scale), torch,
-                        before=flush_buf.zero_)
+        row["ms"] = median_ms(lambda: pb._launch(x, scale, shift, out, relu),
+                              torch, before=flush)
+        row["ms_device_only"] = median_ms(
+            lambda: pb._launch(x, scale, shift, out, relu), torch,
+            before=flush, spin=True)
+        row["library_ms"] = median_ms(lambda: torch.addcmul(shift, x, scale),
+                                      torch, before=flush)
+        row["plain_ms"] = median_ms(
+            lambda: pb.bn_apply_plain(x, scale, shift, relu), torch, runs=10,
+            before=flush)
         bound, bound_by = bn_bound_ms(m, c, "float32")
+        row["bound_ms"] = bound
         bound_by_all.add(bound_by)
-        for key, v in (("ms", kern), ("plain_ms", plain),
-                       ("library_ms", lib), ("bound_ms", bound)):
-            totals[key] += count * v
+        for key in totals:
+            totals[key] += count * row[key]
+        nbytes = 2 * m * c * 4 + 2 * c * 4
         print(json.dumps({"phase": "kernel_time", "kernel": "bn_apply",
                           "dtype": "float32", "rows": m, "channels": c,
                           "activation": act, "layers_per_step": count,
-                          "ms": kern, "plain_ms": plain, "library_ms": lib,
+                          "plan": dataclasses.asdict(p), **row,
+                          "gbps": nbytes / row["ms"] / 1e6,
+                          "bound_share": bound / row["ms"],
                           "library_call": "torch.addcmul(shift, x, scale)"
                           + (" (relu would need a second call)"
                              if relu else ""),
-                          "bound_ms": bound, "bound_by": bound_by,
-                          "card": card}), flush=True)
+                          "bound_by": bound_by, "card": card}), flush=True)
         del x, out
+    in_step = splits["pallas"]["device_ms_per_step"]["bn_apply"]
     return {"name": "bn_apply", "route": "cuda",
             "source": f"{SRC_DIR}/{pb.SOURCE}",
             "replaces": "deeplearning4j_tpu/ops/pallas_bn.py:82",
             "launches": launches["bn_apply"], "max_abs_err": bn_err,
-            **totals, "bound_by": "/".join(sorted(bound_by_all)),
+            **totals, "bound_share": totals["bound_ms"] / totals["ms"],
+            "bound_by": "/".join(sorted(bound_by_all)),
+            "in_step_profiled_ms": in_step,
             "per": "one ResNet50 training step at batch 64, f32: the 53 "
-                   "launches at their shapes, summed"}, None
+                   "launches at their shapes, summed, each after a clean "
+                   "L2 flush"}, None
 
 
 def main(argv=None) -> int:
@@ -1088,66 +1136,68 @@ def main(argv=None) -> int:
         time.perf_counter() - t0, 3), "sources": {
             f"{src_dir}/{s}": v for s, v in built.items()}}), flush=True)
 
-    # ---- 2. forward kernel vs plain on the card -------------------------
+    # ---- 2-3. forward and backward kernels vs plain on the card --------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     bh = MAX_BATCH * HEADS
     shape = (bh, SEQ, HEAD_DIM)
     scale = HEAD_DIM ** -0.5
-    inputs = {}
-    max_err = {}
+    inputs, saved, max_err = {}, {}, {}
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
-        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                       for _ in range(4))
-        inputs[dname] = (q, k, v, do)
-        for causal in (True, False):
-            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                            scale=scale)
-            po, plse = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
-            torch.cuda.synchronize()
-            err_o = (o.float() - po.float()).abs().max().item()
-            err_l = (lse - plse).abs().max().item()
-            finite = bool(torch.isfinite(o.float()).all())
-            print(json.dumps({"phase": "kernel_vs_plain", "dtype": dname,
-                              "causal": causal, "shape": list(shape),
-                              "max_abs_err_o": err_o,
-                              "max_abs_err_lse": err_l,
-                              "tol_o": TOL_O[dname], "tol_lse": TOL_LSE}),
-                  flush=True)
-            if not finite or err_o > TOL_O[dname] or err_l > TOL_LSE:
-                return fail(f"kernel disagrees with plain ({dname}, causal="
-                            f"{causal}): O {err_o}, lse {err_l}")
-            max_err[("fwd", dname, causal)] = max(err_o, err_l)
-
-    # ---- 3. backward kernels vs plain on the card -----------------------
-    saved = {}
-    for dname, (q, k, v, do) in inputs.items():
-        for causal in (True, False):
-            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                            scale=scale)
-            saved[(dname, causal)] = (o, lse)
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
-            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                                scale)
-            torch.cuda.synchronize()
-            rel, absolute = {}, {}
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                if not bool(torch.isfinite(g.float()).all()):
-                    return fail(f"{name} not finite ({dname}, causal="
-                                f"{causal})")
-                diff = (g.float() - w.float()).abs().max().item()
-                absolute[name] = diff
-                rel[name] = diff / w.float().abs().max().item()
-            print(json.dumps({"phase": "bwd_kernel_vs_plain", "dtype": dname,
-                              "causal": causal, "shape": list(shape),
-                              "max_abs_err": absolute, "rel_err": rel,
-                              "tol_rel": TOL_BWD[dname]}), flush=True)
-            if max(rel.values()) > TOL_BWD[dname]:
-                return fail(f"backward kernels disagree with plain ({dname},"
-                            f" causal={causal}): {rel}")
-            max_err[("bwd_dq", dname, causal)] = absolute["dq"]
-            max_err[("bwd_dkv", dname, causal)] = max(absolute["dk"],
-                                                      absolute["dv"])
+        for shp in (shape, *CHECK_SHAPES):
+            sc = shp[2] ** -0.5
+            q, k, v, do = (torch.randn(shp, generator=gen, device=dev).to(dt)
+                           for _ in range(4))
+            main_shape = shp == shape
+            if main_shape:
+                inputs[dname] = (q, k, v, do)
+            for causal in (True, False):
+                o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                scale=sc)
+                po, plse = fa.flash_attention_fwd_plain(q, k, v, causal, sc)
+                torch.cuda.synchronize()
+                err_o = (o.float() - po.float()).abs().max().item()
+                err_l = (lse - plse).abs().max().item()
+                finite = bool(torch.isfinite(o.float()).all())
+                print(json.dumps({"phase": "kernel_vs_plain", "dtype": dname,
+                                  "causal": causal, "shape": list(shp),
+                                  "max_abs_err_o": err_o,
+                                  "max_abs_err_lse": err_l,
+                                  "tol_o": TOL_O[dname], "tol_lse": TOL_LSE}),
+                      flush=True)
+                if not finite or err_o > TOL_O[dname] or err_l > TOL_LSE:
+                    return fail(f"kernel disagrees with plain ({dname}, "
+                                f"causal={causal}, {list(shp)}): O {err_o}, "
+                                f"lse {err_l}")
+                got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc)
+                want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    causal, sc)
+                torch.cuda.synchronize()
+                rel, absolute = {}, {}
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    if not bool(torch.isfinite(g.float()).all()):
+                        return fail(f"{name} not finite ({dname}, causal="
+                                    f"{causal}, {list(shp)})")
+                    diff = (g.float() - w.float()).abs().max().item()
+                    absolute[name] = diff
+                    rel[name] = diff / w.float().abs().max().item()
+                print(json.dumps({"phase": "bwd_kernel_vs_plain",
+                                  "dtype": dname, "causal": causal,
+                                  "shape": list(shp), "max_abs_err": absolute,
+                                  "rel_err": rel,
+                                  "tol_rel": TOL_BWD[dname]}), flush=True)
+                if max(rel.values()) > TOL_BWD[dname]:
+                    return fail(f"backward kernels disagree with plain "
+                                f"({dname}, causal={causal}, {list(shp)}): "
+                                f"{rel}")
+                if main_shape:
+                    saved[(dname, causal)] = (o, lse)
+                    max_err[("fwd", dname, causal)] = max(err_o, err_l)
+                    max_err[("bwd_dq", dname, causal)] = absolute["dq"]
+                    max_err[("bwd_dkv", dname, causal)] = max(
+                        absolute["dk"], absolute["dv"])
+                del o, lse, po, plse, got, want
+            del q, k, v, do
 
     # ---- 4. full-width serve ---------------------------------------------
     lm = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
@@ -1349,20 +1399,22 @@ def main(argv=None) -> int:
                     lse.data_ptr(), dd.data_ptr())
             # launched straight through the bindings: timing launches are
             # not counted
-            kern = {
-                "fwd": median_ms(lambda: fa._launch(
+            calls = {
+                "fwd": lambda: fa._launch(
                     "flash_attn_fwd", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), o_buf.data_ptr(), lse_buf.data_ptr(), bh, SEQ,
                     SEQ, HEAD_DIM, int(causal), float(scale),
                     fa.KERNEL_DTYPES[q.dtype],
-                    torch.cuda.current_stream().cuda_stream), torch),
-                "bwd_dq": median_ms(lambda: fa._launch(
+                    torch.cuda.current_stream().cuda_stream),
+                "bwd_dq": lambda: fa._launch(
                     "flash_attn_bwd_dq", *ptrs, dq.data_ptr(), *dims),
-                    torch),
-                "bwd_dkv": median_ms(lambda: fa._launch(
+                "bwd_dkv": lambda: fa._launch(
                     "flash_attn_bwd_dkv", *ptrs, dk.data_ptr(),
-                    dv.data_ptr(), *dims), torch),
+                    dv.data_ptr(), *dims),
             }
+            kern = {n: median_ms(f, torch) for n, f in calls.items()}
+            kern_dev = {n: median_ms(f, torch, spin=True)
+                        for n, f in calls.items()}
             plain_fwd = median_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, causal, scale), torch, runs=10)
             plain_bwd = median_ms(lambda: fa.flash_attention_bwd_plain(
@@ -1383,11 +1435,13 @@ def main(argv=None) -> int:
                 bound, bound_by = attention_bound_ms(name, bh, SEQ, HEAD_DIM,
                                                      causal, dname)
                 timings[(name, dname, causal)] = (kern[name], plain[name],
-                                                  lib[name], bound, bound_by)
+                                                  lib[name], bound, bound_by,
+                                                  kern_dev[name])
                 print(json.dumps({"phase": "kernel_time",
                                   "kernel": f"flash_attn_{name}",
                                   "dtype": dname, "causal": causal,
                                   "shape": list(shape), "ms": kern[name],
+                                  "ms_device_only": kern_dev[name],
                                   "plain_ms": plain[name],
                                   "library_ms": lib[name],
                                   "bound_ms": bound, "bound_by": bound_by,
@@ -1415,7 +1469,7 @@ def main(argv=None) -> int:
                 "bwd_dkv": "deeplearning4j_tpu/ops/flash_attention.py:194"}
     records = []
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
-        kern, plain, lib_ms, bound, bound_by = \
+        kern, plain, lib_ms, bound, bound_by, kern_dev = \
             timings[(name, "float32", True)]
         records.append({
             "name": f"flash_attn_{name}", "route": "cuda",
@@ -1424,7 +1478,8 @@ def main(argv=None) -> int:
             "launches": train_launches[name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": lib_ms})
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "ms_device_only": kern_dev})
     records.append(bn_record)
     records.append(lstm_record)
     print(card, flush=True)

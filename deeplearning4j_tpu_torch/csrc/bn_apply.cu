@@ -8,20 +8,32 @@
 // What bounds it.  One multiply-add per element against 2 * itemsize
 // bytes moved: far below the card's ~20 FLOP/byte f32 balance point, so
 // the bytes bound it (x read once, y written once; scale and shift are
-// 2 * C more).  The design moves nothing else: no lane folding and no
-// tiling as the TPU kernel's (8, 128) VMEM blocks need, just a
-// grid-stride loop over 16-byte vectors (4 f32 or 8 bf16 elements, all
-// in one row because C is a multiple of the vector width) with enough
-// blocks resident to keep loads in flight on every SM.  Shapes whose C is
-// not a multiple of the vector width, or pointers not 16-byte aligned,
-// take the same loop one element at a time.
+// 2 * C more).  The design moves nothing else and keeps enough loads in
+// flight to reach the memory rate:
 //
-// Scale and shift.  Each block stages both as f32 in shared memory (8
-// bytes per channel: 16 KB at C = 2048; above 48 KB the launch asks for
-// the larger dynamic allowance, up to the 227 KB a block may have).  A
-// thread reads its vector's channels as 16-byte shared loads, which are
-// free of bank conflicts.  Its channel index advances by the grid stride
-// modulo the row's vector count each iteration, so the loop divides once.
+// - A grid-stride loop over 16-byte vectors (4 f32 or 8 bf16 elements,
+//   all in one row because C is a multiple of the vector width); shapes
+//   whose C is not, or pointers not 16-byte aligned, take the same loop
+//   one element at a time.
+// - Each thread issues UNROLL = 4 independent vector loads before it
+//   computes and stores any of them: 64 bytes in flight per thread.  The
+//   last round is predicated, not a one-vector-at-a-time tail.
+// - The launch is planned on the host (`ops/pallas_bn.plan`) and passed
+//   in as plain ints: the vector width, the grid (whole waves of resident
+//   blocks, fewer for small tensors so each thread still has UNROLL
+//   vectors) and whether the grid stride is a multiple of the row's
+//   vector count.  When it is (every ResNet50
+//   geometry), each thread's channels are the same for its whole loop: it
+//   reads its scale and shift once, into registers, through the read-only
+//   path.  Otherwise (large C that no resident grid divides) the channel
+//   index rolls by the grid stride modulo the row's vector count, and
+//   scale and shift are read per vector through the read-only cache.
+//   Either way there is no shared-memory staging and no block barrier.
+// - x is read through the read-only path with the default cache policy:
+//   the evict-first hint (`__ldcs`) measured within 2.5 % of it at every
+//   ResNet50 geometry of >= 50 MB (the tensors outsize L2, so the hint has
+//   nothing to protect).  y is stored with the default policy: the next
+//   convolution reads it.
 //
 // Arithmetic.  f32 FMA (one rounding); bf16 is widened to f32 on load
 // and rounded once to nearest-even on store.  relu keeps NaN as NaN, as
@@ -33,10 +45,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;  // 2048 resident threads per SM
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kUnroll = 4;
+constexpr int kBlocksPerSm = 4;  // <= 64 registers a thread: 1024 per SM
 
 // One 16-byte (or one-element) vector of x/y and its f32 lanes.
 struct F32x4 {
@@ -89,76 +99,66 @@ struct Bf16x1 {
   __device__ static V pack(const float* f) { return __float2bfloat16(f[0]); }
 };
 
-// N consecutive f32 from shared memory (16-byte loads when N % 4 == 0).
-template <int N>
-__device__ __forceinline__ void load_smem(const float* p, float* f) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + i);
-      f[i] = q.x; f[i + 1] = q.y; f[i + 2] = q.z; f[i + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) f[i] = p[i];
-  }
+// The N f32 lanes of scale or shift for row vector cv.
+template <class P>
+__device__ __forceinline__ void load_param(const typename P::T* p, long long cv, float* f) {
+  P::unpack(__ldg(reinterpret_cast<const typename P::V*>(p) + cv), f);
 }
 
 template <class P, bool RELU>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ typename P::V apply(const typename P::V& xv,
+                                               const float* sc, const float* sh) {
+  float f[P::N];
+  P::unpack(xv, f);
+#pragma unroll
+  for (int i = 0; i < P::N; ++i) {
+    const float r = fmaf(f[i], sc[i], sh[i]);
+    f[i] = (RELU && r < 0.f) ? 0.f : r;
+  }
+  return P::pack(f);
+}
+
+template <class P, bool RELU, bool FIXED>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 bn_apply_kernel(const typename P::V* __restrict__ x,
                 const typename P::T* __restrict__ scale,
                 const typename P::T* __restrict__ shift,
                 typename P::V* __restrict__ y, long long n_vec, int c) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_scale = smem;
-  float* s_shift = smem + c;  // c % N == 0 keeps 16-byte alignment
-  for (int i = threadIdx.x; i < c; i += blockDim.x) {
-    s_scale[i] = to_f32(scale[i]);
-    s_shift[i] = to_f32(shift[i]);
-  }
-  __syncthreads();
-
   const long long row_vecs = c / P::N;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long step = stride % row_vecs;
   long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long cv = v % row_vecs;  // this vector's place in its row
-  for (; v < n_vec; v += stride) {
-    float f[P::N], sc[P::N], sh[P::N];
-    P::unpack(x[v], f);
-    load_smem<P::N>(s_scale + cv * P::N, sc);
-    load_smem<P::N>(s_shift + cv * P::N, sh);
+  long long cv = v % row_vecs;   // this vector's place in its row
+  const long long step = stride % row_vecs;   // 0 when FIXED
+  float sc[P::N], sh[P::N];
+  if constexpr (FIXED) {
+    load_param<P>(scale, cv, sc);
+    load_param<P>(shift, cv, sh);
+  }
+  // kUnroll vectors per round, all loads issued before any store; the
+  // last round is predicated rather than a one-at-a-time tail, so a
+  // thread with few vectors still waits on memory once per round
+  for (; v < n_vec; v += kUnroll * stride) {
+    typename P::V xv[kUnroll];
 #pragma unroll
-    for (int i = 0; i < P::N; ++i) {
-      const float r = fmaf(f[i], sc[i], sh[i]);
-      f[i] = (RELU && r < 0.f) ? 0.f : r;
+    for (int u = 0; u < kUnroll; ++u)
+      if (v + u * stride < n_vec) xv[u] = __ldg(x + v + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if constexpr (!FIXED) {
+        load_param<P>(scale, cv, sc);
+        load_param<P>(shift, cv, sh);
+        cv += step;
+        if (cv >= row_vecs) cv -= row_vecs;
+      }
+      if (v + u * stride < n_vec) y[v + u * stride] = apply<P, RELU>(xv[u], sc, sh);
     }
-    y[v] = P::pack(f);
-    cv += step;
-    if (cv >= row_vecs) cv -= row_vecs;
   }
 }
 
-template <class P, bool RELU>
-int launch_act(const void* x, const void* scale, const void* shift, void* y,
-           long long n, int c, cudaStream_t stream) {
-  const long long n_vec = n / P::N;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  long long blocks = (n_vec + kThreads - 1) / kThreads;
-  if (blocks > (long long)sms * kBlocksPerSm) blocks = (long long)sms * kBlocksPerSm;
-  const size_t smem = 2 * (size_t)c * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute((const void*)bn_apply_kernel<P, RELU>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  bn_apply_kernel<P, RELU><<<(unsigned)blocks, kThreads, smem, stream>>>(
+template <class P, bool RELU, bool FIXED>
+int launch3(const void* x, const void* scale, const void* shift, void* y,
+            long long n_vec, int c, int grid, cudaStream_t stream) {
+  bn_apply_kernel<P, RELU, FIXED><<<(unsigned)grid, kThreads, 0, stream>>>(
       static_cast<const typename P::V*>(x),
       static_cast<const typename P::T*>(scale),
       static_cast<const typename P::T*>(shift),
@@ -166,35 +166,55 @@ int launch_act(const void* x, const void* scale, const void* shift, void* y,
   return (int)cudaGetLastError();
 }
 
+template <class P, bool RELU>
+int launch2(const void* x, const void* scale, const void* shift, void* y,
+            long long n_vec, int c, int grid, int fixed, cudaStream_t s) {
+  return fixed ? launch3<P, RELU, true>(x, scale, shift, y, n_vec, c, grid, s)
+               : launch3<P, RELU, false>(x, scale, shift, y, n_vec, c, grid, s);
+}
+
 template <class P>
 int launch(const void* x, const void* scale, const void* shift, void* y,
-           long long n, int c, int relu, cudaStream_t stream) {
-  return relu ? launch_act<P, true>(x, scale, shift, y, n, c, stream)
-              : launch_act<P, false>(x, scale, shift, y, n, c, stream);
+           long long m, int c, int relu, int grid, int fixed, cudaStream_t s) {
+  const long long row_vecs = c / P::N;
+  // a fixed-channel plan needs a stride that is a whole number of rows
+  if (fixed && ((long long)grid * kThreads) % row_vecs != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_vec = m * row_vecs;
+  return relu ? launch2<P, true>(x, scale, shift, y, n_vec, c, grid, fixed, s)
+              : launch2<P, false>(x, scale, shift, y, n_vec, c, grid, fixed, s);
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// x, y: [m, c] contiguous; scale, shift: [c]; all of one dtype
-// (0 float32, 1 bfloat16).  Returns a cudaError_t (0 on success).
+// x, y: [m, c] contiguous; scale, shift: [c]; all of one dtype (0 float32,
+// 1 bfloat16).  The launch plan (ops/pallas_bn.plan): vec (16 / itemsize,
+// or 1), grid (blocks of kThreads) and fixed (the grid stride is a
+// multiple of c / vec).  Returns a cudaError_t (0 on success).
 extern "C" int bn_apply(const void* x, const void* scale, const void* shift,
                         void* y, long long m, int c, int relu, int dtype,
-                        void* stream) {
-  if (m < 0 || c <= 0) return (int)cudaErrorInvalidValue;
+                        int vec, int grid, int fixed, void* stream) {
+  if (m < 0 || c <= 0 || grid <= 0)
+    return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
-  const long long n = m * (long long)c;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const int wide = dtype == 0 ? F32x4::N : Bf16x8::N;
+  if (vec == wide && (c % wide != 0 || !aligned16(x) || !aligned16(y) ||
+                      !aligned16(scale) || !aligned16(shift)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (aligned && c % F32x4::N == 0)
-      return launch<F32x4>(x, scale, shift, y, n, c, relu, s);
-    return launch<F32x1>(x, scale, shift, y, n, c, relu, s);
+    if (vec == F32x4::N)
+      return launch<F32x4>(x, scale, shift, y, m, c, relu, grid, fixed, s);
+    if (vec == 1)
+      return launch<F32x1>(x, scale, shift, y, m, c, relu, grid, fixed, s);
   }
   if (dtype == 1) {
-    if (aligned && c % Bf16x8::N == 0)
-      return launch<Bf16x8>(x, scale, shift, y, n, c, relu, s);
-    return launch<Bf16x1>(x, scale, shift, y, n, c, relu, s);
+    if (vec == Bf16x8::N)
+      return launch<Bf16x8>(x, scale, shift, y, m, c, relu, grid, fixed, s);
+    if (vec == 1)
+      return launch<Bf16x1>(x, scale, shift, y, m, c, relu, grid, fixed, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -40,21 +40,22 @@
 // and the design keeps every operand in shared memory or registers so
 // that the FMA pipes are the only limit.
 //
-// Blocks.  64x64 tiles, 256 threads: each thread owns a 4x4 patch of the
-// 64x64 score tile (rows ty+16i, cols tx+16j) and a 4 x d/16 patch of
-// its output tile.  Rows are padded by one word so that the 16 lanes
-// sharing a row read distinct banks.  Shared memory: dq ~83 KB at d=64,
-// ~149 KB at d=128; dk/dv ~100 KB and ~166 KB; all inside the 227 KB a
-// block may use.
+// Blocks.  BT x BT tiles, 256 threads: each thread owns an R x R patch
+// (R = BT/16) of the score tile (rows ty+16i, cols tx+16j) and an
+// R x d/16 patch of its output tile.  Rows are padded by one word so that
+// the 16 lanes sharing a row read distinct banks.  BT = 64 at d = 64 and
+// 128; at d = 192 and 256 four 64-row f32 tiles would overflow the 227 KB
+// a block may use, so the tiles there have 32 rows.  Shared memory: dq
+// ~83 KB at d=64, ~149 KB at d=128, ~103 KB at d=192, ~136 KB at d=256;
+// dk/dv ~100, ~166, ~107 and ~140 KB.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BT = 64;     // q and k tile rows
 constexpr int NT = 256;    // threads per block
-constexpr int LDP = BT + 1;
+template <int D> struct TileRows { static constexpr int value = D <= 128 ? 64 : 32; };
 constexpr float NEG_INF = -1e30f;  // finite, as in ops/attention.NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -62,9 +63,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// Copy rows [row0, row0+64) of a [t, D] matrix into an f32 tile with row
+// Copy rows [row0, row0+BT) of a [t, D] matrix into an f32 tile with row
 // stride D+1; rows past t read as zero.
-template <typename T, int D>
+template <typename T, int D, int BT>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
                                           int t) {
   for (int idx = threadIdx.x; idx < BT * D; idx += NT) {
@@ -74,42 +75,42 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
-// acc[i][j] += sum_kk A[ty+16i][kk] * B[tx+16j][kk]: the 4x4 patch of a
-// 64x64 product of two row-major [64][D] tiles (row stride D+1), the
+// acc[i][j] += sum_kk A[ty+16i][kk] * B[tx+16j][kk]: the R x R patch of
+// a BT x BT product of two row-major [BT][D] tiles (row stride D+1), the
 // second one transposed.
-template <int D>
-__device__ __forceinline__ void patch_abt(float (&acc)[4][4], const float* A,
+template <int D, int R>
+__device__ __forceinline__ void patch_abt(float (&acc)[R][R], const float* A,
                                           const float* B, int ty, int tx) {
 #pragma unroll 8
   for (int kk = 0; kk < D; ++kk) {
-    float a[4], b[4];
+    float a[R], b[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + kk];
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + kk];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + kk];
+    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + kk];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
-// acc[i][j] += sum_kk P[ty+16i][kk] * B[kk][tx+16j]: a [64][64] tile
-// (row stride LDP) times a row-major [64][D] tile (row stride D+1), onto
-// this thread's 4 x D/16 patch.
-template <int D>
-__device__ __forceinline__ void patch_pb(float (&acc)[4][D / 16],
+// acc[i][j] += sum_kk P[ty+16i][kk] * B[kk][tx+16j]: a [BT][BT] tile
+// (row stride BT+1) times a row-major [BT][D] tile (row stride D+1), onto
+// this thread's R x D/16 patch.
+template <int D, int BT, int R = BT / 16>
+__device__ __forceinline__ void patch_pb(float (&acc)[R][D / 16],
                                          const float* P, const float* B,
                                          int ty, int tx) {
 #pragma unroll 8
   for (int kk = 0; kk < BT; ++kk) {
-    float p[4], b[D / 16];
+    float p[R], b[D / 16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * LDP + kk];
+    for (int i = 0; i < R; ++i) p[i] = P[(ty + 16 * i) * (BT + 1) + kk];
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) b[j] = B[kk * (D + 1) + tx + 16 * j];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p[i], b[j], acc[i][j]);
   }
@@ -122,14 +123,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse, const float* __restrict__ dd,
                     T* __restrict__ dq, int t_q, int t_k, int causal,
                     float scale) {
+  constexpr int BT = TileRows<D>::value, R = BT / 16, LDP = BT + 1;
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
-  float* sQ = smem;              // [64][LD]
-  float* sO = sQ + BT * LD;      // dO tile [64][LD]
-  float* sK = sO + BT * LD;      // [64][LD]
-  float* sV = sK + BT * LD;      // [64][LD]
-  float* sS = sV + BT * LD;      // dS tile [64][LDP]
+  float* sQ = smem;              // [BT][LD]
+  float* sO = sQ + BT * LD;      // dO tile [BT][LD]
+  float* sK = sO + BT * LD;      // [BT][LD]
+  float* sV = sK + BT * LD;      // [BT][LD]
+  float* sS = sV + BT * LD;      // dS tile [BT][LDP]
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BT;
@@ -138,20 +140,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qoff = (int64_t)bh * t_q * D;
   const int64_t koff = (int64_t)bh * t_k * D;
 
-  load_tile<T, D>(sQ, q + qoff, q0, t_q);
-  load_tile<T, D>(sO, dout + qoff, q0, t_q);
+  load_tile<T, D, BT>(sQ, q + qoff, q0, t_q);
+  load_tile<T, D, BT>(sO, dout + qoff, q0, t_q);
 
-  float row_lse[4], row_dd[4];
+  float row_lse[R], row_dd[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     row_lse[i] = row < t_q ? lse[(int64_t)bh * t_q + row] : 0.f;
     row_dd[i] = row < t_q ? dd[(int64_t)bh * t_q + row] : 0.f;
   }
 
-  float acc[4][DJ];
+  float acc[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
@@ -161,23 +163,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // previous iteration done with sK/sV/sS
-    load_tile<T, D>(sK, k + koff, k0, t_k);
-    load_tile<T, D>(sV, v + koff, k0, t_k);
+    load_tile<T, D, BT>(sK, k + koff, k0, t_k);
+    load_tile<T, D, BT>(sV, v + koff, k0, t_k);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    patch_abt<D>(s, sQ, sK, ty, tx);
-    patch_abt<D>(dp, sO, sV, ty, tx);
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
+    patch_abt<D, R>(s, sQ, sK, ty, tx);
+    patch_abt<D, R>(dp, sO, sV, ty, tx);
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int qpos = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
         if (kpos >= t_k || (causal && qpos < kpos)) x = NEG_INF;
@@ -188,11 +190,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    patch_pb<D>(acc, sS, sK, ty, tx);  // dq += dS K
+    patch_pb<D, BT>(acc, sS, sK, ty, tx);  // dq += dS K
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= t_q) continue;
 #pragma unroll
@@ -208,17 +210,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ dd,
                      T* __restrict__ dk, T* __restrict__ dv, int t_q, int t_k,
                      int causal, float scale) {
+  constexpr int BT = TileRows<D>::value, R = BT / 16, LDP = BT + 1;
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
-  float* sK = smem;              // [64][LD]
-  float* sV = sK + BT * LD;      // [64][LD]
-  float* sQ = sV + BT * LD;      // [64][LD]
-  float* sO = sQ + BT * LD;      // dO tile [64][LD]
-  float* sP = sO + BT * LD;      // P^T tile [k][q], [64][LDP]
-  float* sS = sP + BT * LDP;     // dS^T tile [k][q], [64][LDP]
-  float* sL = sS + BT * LDP;     // lse of the visited q tile [64]
-  float* sD = sL + BT;           // D of the visited q tile [64]
+  float* sK = smem;              // [BT][LD]
+  float* sV = sK + BT * LD;      // [BT][LD]
+  float* sQ = sV + BT * LD;      // [BT][LD]
+  float* sO = sQ + BT * LD;      // dO tile [BT][LD]
+  float* sP = sO + BT * LD;      // P^T tile [k][q], [BT][LDP]
+  float* sS = sP + BT * LDP;     // dS^T tile [k][q], [BT][LDP]
+  float* sL = sS + BT * LDP;     // lse of the visited q tile [BT]
+  float* sD = sL + BT;           // D of the visited q tile [BT]
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BT;
@@ -227,24 +230,24 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qoff = (int64_t)bh * t_q * D;
   const int64_t koff = (int64_t)bh * t_k * D;
 
-  load_tile<T, D>(sK, k + koff, k0, t_k);
-  load_tile<T, D>(sV, v + koff, k0, t_k);
+  load_tile<T, D, BT>(sK, k + koff, k0, t_k);
+  load_tile<T, D, BT>(sV, v + koff, k0, t_k);
 
-  float acc_k[4][DJ], acc_v[4][DJ];
+  float acc_k[R][DJ], acc_v[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
   const int n_qt = (t_q + BT - 1) / BT;
-  // causal: q tile qt is live iff its last row qt*64+63 >= k0 (equal tiles)
+  // causal: q tile qt is live iff its last row qt*BT+BT-1 >= k0 (equal tiles)
   const int qt0 = causal ? k0 / BT : 0;
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BT;
     __syncthreads();  // previous iteration done with sQ/sO/sP/sS/sL/sD
-    load_tile<T, D>(sQ, q + qoff, q0, t_q);
-    load_tile<T, D>(sO, dout + qoff, q0, t_q);
+    load_tile<T, D, BT>(sQ, q + qoff, q0, t_q);
+    load_tile<T, D, BT>(sO, dout + qoff, q0, t_q);
     if (threadIdx.x < BT) {
       const int row = q0 + threadIdx.x;
       sL[threadIdx.x] = row < t_q ? lse[(int64_t)bh * t_q + row] : 0.f;
@@ -253,21 +256,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // S^T and dP^T on this thread's patch: k rows ty+16i, q cols tx+16j
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    patch_abt<D>(s, sK, sQ, ty, tx);
-    patch_abt<D>(dp, sV, sO, ty, tx);
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
+    patch_abt<D, R>(s, sK, sQ, ty, tx);
+    patch_abt<D, R>(dp, sV, sO, ty, tx);
 
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int qc = tx + 16 * j;
       const int qpos = q0 + qc;
       const float l = sL[qc], dq_row = sD[qc];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int kpos = k0 + ty + 16 * i;
         float x = s[i][j] * scale;
         if (kpos >= t_k || (causal && qpos < kpos)) x = NEG_INF;
@@ -277,12 +280,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    patch_pb<D>(acc_v, sP, sO, ty, tx);  // dv += P^T dO
-    patch_pb<D>(acc_k, sS, sQ, ty, tx);  // dk += dS^T Q
+    patch_pb<D, BT>(acc_v, sP, sO, ty, tx);  // dv += P^T dO
+    patch_pb<D, BT>(acc_k, sS, sQ, ty, tx);  // dk += dS^T Q
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= t_k) continue;
 #pragma unroll
@@ -299,7 +302,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* dd,
                       void* dq, int bh, int t_q, int t_k, int causal,
                       float scale, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * (size_t)(4 * BT * (D + 1) + BT * LDP);
+  constexpr int BT = TileRows<D>::value;
+  constexpr size_t smem = sizeof(float) * (size_t)(4 * BT * (D + 1) + BT * (BT + 1));
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -317,8 +321,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* dd,
                        void* dk, void* dv, int bh, int t_q, int t_k,
                        int causal, float scale, cudaStream_t stream) {
+  constexpr int BT = TileRows<D>::value;
   constexpr size_t smem =
-      sizeof(float) * (size_t)(4 * BT * (D + 1) + 2 * BT * LDP + 2 * BT);
+      sizeof(float) * (size_t)(4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -332,15 +337,42 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 bool bad_dims(int bh, int t_q, int t_k) {
-  return bh <= 0 || t_q <= 0 || t_k <= 0 || (t_q + BT - 1) / BT > 65535 ||
-         (t_k + BT - 1) / BT > 65535;
+  // grid.y counts tiles of 32 rows at most
+  return bh <= 0 || t_q <= 0 || t_k <= 0 || (t_q + 31) / 32 > 65535 ||
+         (t_k + 31) / 32 > 65535;
+}
+
+template <typename T>
+int dq_d(int d, const void* q, const void* k, const void* v, const void* dout,
+         const float* lse, const float* dd, void* dq, int bh, int t_q, int t_k,
+         int causal, float scale, cudaStream_t s) {
+  switch (d) {
+    case 64: return (int)launch_dq<T, 64>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
+    case 128: return (int)launch_dq<T, 128>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
+    case 192: return (int)launch_dq<T, 192>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
+    case 256: return (int)launch_dq<T, 256>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dkv_d(int d, const void* q, const void* k, const void* v, const void* dout,
+          const float* lse, const float* dd, void* dk, void* dv, int bh,
+          int t_q, int t_k, int causal, float scale, cudaStream_t s) {
+  switch (d) {
+    case 64: return (int)launch_dkv<T, 64>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
+    case 128: return (int)launch_dkv<T, 128>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
+    case 192: return (int)launch_dkv<T, 192>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
+    case 256: return (int)launch_dkv<T, 256>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 64 or 128.  q, k, v, dout, dq, dk,
-// dv contiguous [bh, t, d]; lse and dd (= rowsum(dout * out)) f32
-// [bh, t_q].  Each returns a cudaError_t; 0 is success.
+// dtype: 0 = float32, 1 = bfloat16.  d: 64, 128, 192 or 256.  q, k, v,
+// dout, dq, dk, dv contiguous [bh, t, d]; lse and dd (= rowsum(dout *
+// out)) f32 [bh, t_q].  Each returns a cudaError_t; 0 is success.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* dd, void* dq, int bh, int t_q,
@@ -348,14 +380,10 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, t_q, t_k)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64)
-    return (int)launch_dq<float, 64>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 0 && d == 128)
-    return (int)launch_dq<float, 128>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 1 && d == 64)
-    return (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 1 && d == 128)
-    return (int)launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 0)
+    return dq_d<float>(d, q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 1)
+    return dq_d<__nv_bfloat16>(d, q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -366,13 +394,9 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, t_q, t_k)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64)
-    return (int)launch_dkv<float, 64>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 0 && d == 128)
-    return (int)launch_dkv<float, 128>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 1 && d == 64)
-    return (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 1 && d == 128)
-    return (int)launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 0)
+    return dkv_d<float>(d, q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 1)
+    return dkv_d<__nv_bfloat16>(d, q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

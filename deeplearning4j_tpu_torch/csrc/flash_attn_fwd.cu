@@ -3,193 +3,446 @@
 // Replaces the Pallas kernel `_flash_kernel` launched by `_flash_fwd_call`
 // in deeplearning4j_tpu/ops/flash_attention.py: causal or full
 // online-softmax attention over [b*h, t, d], writing O (input dtype) and
-// the per-row logsumexp (f32, [b*h, t]).
+// the per-row logsumexp (f32, [b*h, t]).  Fully masked rows give zeros
+// and lse = NEG_INF; ragged t (not a multiple of the tile) is masked.
 //
-// Work split.  One CTA per (b*h, 64-row q-tile); the TPU kernel's
-// sequential key-block grid axis becomes a loop inside the CTA, which
-// carries the running max m, row sum l and the O accumulator in
-// registers (f32).  Under `causal` the loop stops at the diagonal tile;
-// that is `_block_live`'s skip.  Ragged edges (t not a multiple of 64)
-// load zeros and mask the scores, so every t the wrapper's `supports`
-// rule admits runs here.
+// Work split.  One CTA per (b*h, BQ-row q tile); the TPU kernel's
+// sequential key-block grid axis becomes a loop inside the CTA.  Each
+// warp owns 16 query rows (the FlashAttention-2 split) and carries their
+// running max m, row sum l and O accumulator in mma fragments (f32).
+// Under `causal` the loop stops at the CTA's diagonal tile (that is
+// `_block_live`'s skip) and a warp skips the key tiles wholly above its
+// own rows.  The grid is 1-D and issues the q tiles from the last (the
+// longest key loop under `causal`) to the first, so the final wave holds
+// the cheap tiles and not the diagonal ones.
 //
-// Arithmetic.  Q, K, V tiles are staged in shared memory as f32 (bf16 is
-// widened on load, as the TPU kernel widens to f32) and both products
-// run as f32 FMAs on the CUDA cores.  The f32 path deliberately does not
-// use TF32 tensor cores: at the serving shape TF32 would lose about three
-// decimal digits against the f32 reference.  wgmma, TMA and warp
-// specialisation are later work.
+// Arithmetic: tensor cores at f32 accuracy.  Both products run as
+// mma.sync m16n8k8 TF32 with f32 accumulation.  One TF32 pass keeps 10
+// mantissa bits of each operand, about three decimal digits; so each f32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest (`cvt.rna`), and each product is taken as lo*hi +
+// hi*lo + hi*hi, the small terms first (CUTLASS's 3xTF32,
+// cutlass/gemm/warp/mma_tensor_op_fast_f32.h; CUTLASS rounds hi toward
+// zero, which at the same cost leaves lo twice as large and the dropped
+// lo*lo term four times as large).  The dropped term and lo's rounding
+// are ~2^-22 of each product.  P (f32, in [0, 1]) is split the same way.
+// The tensor cores do not round their f32 sums to nearest (they drop the
+// low bits), so three mma per k-step straight into the running S or O
+// accumulator bias it by up to three of its ulps per step: over 512 keys
+// that put O 7e-6 from the plain f32 forward on the card, several times
+// the old CUDA-core kernel's error and enough to move the TransformerLM's
+// noise-only gradients past their gate.  So each k-step's three products
+// go into a zeroed 16x8 tile, whose own magnitude is small, and that tile
+// is added to the accumulator in f32 (round to nearest): 4 adds per 3
+// mma.  bf16 inputs are exact in TF32, so their Q*K^T is one pass and
+// their P*V two (P hi and lo against V), straight into the accumulators
+// (their tolerance is a bf16 ulp).  `ops/flash_attention._tf32_split` is the same split in
+// torch; the CPU tests run the plain tiled forward through it.
+// Why mma.sync and not wgmma: wgmma takes TF32 only with both operands
+// K-major, and V [key, d] is the MN-major B of P*V, so it would need a
+// transposed copy of every V tile; mma.sync reads V as it lies.
 //
-// What bounds it.  At the serving shape ([128, 512, 64], causal) the
-// work is ~4.3 GFLOP.  In f32 that is ~64 us at the card's 67 TFLOP/s of
-// non-tensor f32 against ~20 us to move q/k/v/o (67 MB), so operations
-// bound it, and the design keeps every operand in shared memory or
-// registers so that the FMA pipes are the only limit.  In bf16 the bytes
-// bound it (34 MB, ~10 us, against ~4 us of bf16 tensor-core work); this
-// version leaves the tensor cores idle and does not reach that bound.
+// Fragments without shuffles.  In m16n8k8 TF32, lane (g = lane/4,
+// t = lane%4) holds A at (g, t), (g+8, t), (g, t+4), (g+8, t+4), B at
+// (k = t, n = g), (t+4, g), and C at (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1).  The order of the 8 k values inside one mma is free as
+// long as A and B agree, so k = t stands for element 2t and k = t+4 for
+// 2t+1 of each group of 8.  Then
+//  - Q*K^T: A = Q and B = K^T read (row, 2t..2t+1) as one 8-byte load;
+//  - P*V: the C fragment of S for keys 8j..8j+7 IS the A fragment of P
+//    for k-step j (no exchange between lanes), and B = V reads rows
+//    8j+2t and 8j+2t+1 at column g.
+// Shared-memory strides keep every fragment load free of bank conflicts:
+// Q and K rows are D+8 floats (8-byte loads: lanes 8g+2t in each half
+// warp), V rows D+4 (lanes 2t*(D+4)+g = 8t+g, and 8t+4+g).  Both keep
+// 16-byte rows for cp.async.
 //
-// Blocks.  BLOCK_Q = BLOCK_K = 64 with 256 threads: each thread owns a
-// 4x4 patch of the 64x64 score tile (rows ty+16i, cols tx+16j) and a
-// 4 x d/16 patch of O.  Staging Q, K, V (padded rows to dodge bank
-// conflicts) plus the P tile in f32 takes ~66 KB at d=64 (three CTAs per
-// SM) and ~115 KB at d=128 (one), inside the 227 KB a block may use;
-// larger tiles would cut the CTAs per SM at d=64 without cutting loads.
+// Asynchronous copies, operands split once.  K and V tiles are fetched
+// with cp.async (16 bytes per thread, zero-filled past t_k by a source
+// size of 0) into a staging buffer in the input type.  At the top of each
+// iteration the CTA converts the staged tile once into the f32 tiles the
+// fragments read: the TF32 hi and lo parts of f32 input, or bf16 widened;
+// then the next tile's copy is issued into the staging buffer and lands
+// while this one is multiplied.  Splitting each K and V element once per
+// CTA, not once per warp that reads it, matters: the split's three ALU
+// instructions per operand, taken in every warp, made an earlier version
+// bound by instruction issue (on the card, dropping the splits saved far
+// more time than dropping one of the three mma passes).
+// Q is loaded once, widened and kept in shared memory (at d > 64 its
+// fragments would not fit in registers beside the O accumulator); its
+// A fragments are split as they are read, 4 values per k-step against
+// the BK/8 B fragments they meet.
+//
+// What bounds it.  At the serving shape ([128, 512, 64], causal, f32) the
+// work is 4.3 GFLOP, 0.026 ms at the card's 165 TFLOP/s of f32-accurate
+// tensor work (495 TFLOP/s TF32 over three passes), against 0.020 ms to
+// move q/k/v/o (67 MB): operations bound it.  In bf16 the bytes do.
+//
+// Tiles (BQ query rows, BK keys, threads = 2 * BQ) and shared memory
+// (f32 / bf16), all inside the 227 KB a block may use:
+//   d = 64:  BQ 128, BK 64   138 / 87 KB
+//   d = 128: BQ 128, BK 32   167 / 117.5 KB
+//   d = 192: BQ 64,  BK 32   197 / 123.5 KB
+//   d = 256: BQ 64,  BK 16   163.5 / 115 KB
+// One CTA per SM at f32; up to 8 warps with their accumulators in
+// registers (up to 255 a thread).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;  // finite, as in ops/attention.NEG_INF
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+template <int D> struct Tiles;
+template <> struct Tiles<64> { static constexpr int BQ = 128, BK = 64; };
+template <> struct Tiles<128> { static constexpr int BQ = 128, BK = 32; };
+template <> struct Tiles<192> { static constexpr int BQ = 64, BK = 32; };
+template <> struct Tiles<256> { static constexpr int BQ = 64, BK = 16; };
 
-// Copy rows [row0, row0+64) of a [t, D] matrix into an f32 tile with row
-// stride `ld`; rows past t read as zero.
+template <typename T> struct IsBf16 { static constexpr bool value = false; };
+template <> struct IsBf16<__nv_bfloat16> { static constexpr bool value = true; };
+
+// Shared-memory layout of one instance: Q (f32), then K and V as f32 hi
+// parts and, for f32 inputs, lo parts, then the raw staging buffer of the
+// next K and V tiles in the input type.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int row0, int t) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, c = idx - r * D;
+struct Layout {
+  static constexpr bool BF16 = IsBf16<T>::value;
+  static constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
+  static constexpr int NT = 2 * BQ;           // BQ / 16 warps
+  static constexpr int LDQ = D + 8, LDK = D + 8, LDV = D + 4;
+  static constexpr int PARTS = BF16 ? 1 : 2;  // hi (and lo) of K and V
+  static constexpr int Q_FLOATS = BQ * LDQ;
+  static constexpr int K_FLOATS = BK * LDK;
+  static constexpr int V_FLOATS = BK * LDV;
+  static constexpr size_t RAW_BYTES = 2 * BK * D * sizeof(T);
+  static constexpr size_t BYTES =
+      sizeof(float) * (size_t)(Q_FLOATS + PARTS * (K_FLOATS + V_FLOATS)) + RAW_BYTES;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x = hi + lo to ~2^-22 relative: hi is x rounded to nearest TF32, lo
+// the remainder (exact in f32) rounded to nearest TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// d = a * b on one 16x8x8 TF32 tile (a zero accumulator).
+__device__ __forceinline__ void mma_tf32_zc(float (&d)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// d += a * b on one 16x8x8 TF32 tile.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&t)[4]) {
+  acc[0] += t[0]; acc[1] += t[1]; acc[2] += t[2]; acc[3] += t[3];
+}
+
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p, int i) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p + i);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Rows [row0, row0 + ROWS) of a [t, D] global matrix into a dense
+// [ROWS][D] staging buffer, issued as cp.async; rows past t read as zero.
+template <typename T, int ROWS, int D, int NT>
+__device__ __forceinline__ void issue_raw(T* dst, const T* src, int row0, int t) {
+  constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * EPC;
     const int row = row0 + r;
-    dst[r * ld + c] = row < t ? to_f32(src[(int64_t)row * D + c]) : 0.f;
+    const bool ok = row < t;
+    cp_async16(dst + r * D + c, src + (int64_t)(ok ? row : 0) * D + c, ok);
   }
 }
 
+// Dense staging [ROWS][D] -> f32 tiles with row stride LD: the TF32 hi
+// and lo parts of f32 input, or bf16 input widened (exact in TF32, no lo).
+template <int ROWS, int D, int LD, int NT>
+__device__ __forceinline__ void convert_tile(float* hi, float* lo, const float* src) {
+  constexpr int CPR = D / 4;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(src + r * D + c);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + r * LD + c) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + r * LD + c) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+template <int ROWS, int D, int LD, int NT>
+__device__ __forceinline__ void convert_tile(float* hi, float*, const __nv_bfloat16* src) {
+  constexpr int CPR = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * 8;
+    float4* o = reinterpret_cast<float4*>(hi + r * LD + c);
+    o[0] = widen4(src, r * D + c);
+    o[1] = widen4(src, r * D + c + 4);
+  }
+}
+
+// Q rows [q0, q0 + BQ) into sQ as f32, zeros past t_q (synchronous; once).
+template <typename T, int D, int BQ, int LD, int NT>
+__device__ __forceinline__ void load_q(float* sQ, const T* q, int q0, int t_q) {
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;
+  for (int i = threadIdx.x; i < BQ * CPR; i += NT) {
+    const int r = i / CPR, c = (i - r * CPR) * EPC;
+    const int row = q0 + r;
+    float* o = sQ + r * LD + c;
+    if constexpr (IsBf16<T>::value) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (row < t_q) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(q + (int64_t)row * D + c);
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        a = widen4(h, 0);
+        b = widen4(h, 4);
+      }
+      reinterpret_cast<float4*>(o)[0] = a;
+      reinterpret_cast<float4*>(o)[1] = b;
+    } else {
+      *reinterpret_cast<float4*>(o) =
+          row < t_q ? *reinterpret_cast<const float4*>(q + (int64_t)row * D + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Layout<T, D>::NT, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int t_q, int t_k, int causal,
+                 float* __restrict__ lse, int bh, int t_q, int t_k, int causal,
                  float scale) {
-  constexpr int LDQ = D + 1;   // +1 word: lanes tx read distinct banks
-  constexpr int LDP = BK + 1;
-  constexpr int DJ = D / 16;   // O columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                 // [BQ][LDQ]
-  float* sK = sQ + BQ * LDQ;        // [BK][LDQ]
-  float* sV = sK + BK * LDQ;        // [BK][D]
-  float* sP = sV + BK * D;          // [BQ][LDP]
+  using L = Layout<T, D>;
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT;
+  constexpr int LDQ = L::LDQ, LDK = L::LDK, LDV = L::LDV;
+  constexpr bool SPLIT = !L::BF16;   // Q, K, V need a lo term (f32 only)
+  constexpr int NS = BK / 8;         // n-tiles of S per warp
+  constexpr int NO = D / 8;          // n-tiles of O per warp
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                               // [BQ][LDQ]
+  float* sKh = sQ + L::Q_FLOATS;                  // [BK][LDK]
+  float* sKl = sKh + (SPLIT ? L::K_FLOATS : 0);   // f32 only
+  float* sVh = sKl + L::K_FLOATS;                 // [BK][LDV]
+  float* sVl = sVh + (SPLIT ? L::V_FLOATS : 0);   // f32 only
+  T* rawK = reinterpret_cast<T*>(sVl + L::V_FLOATS);   // [BK][D] each
+  T* rawV = rawK + BK * D;
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const T* qb = q + (int64_t)bh * t_q * D;
-  const T* kb = k + (int64_t)bh * t_k * D;
-  const T* vb = v + (int64_t)bh * t_k * D;
-
-  load_tile<T, D>(sQ, LDQ, qb, q0, t_q);
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+  // heaviest q tiles first: block i -> (q tile n_qt-1-i/bh, head i%bh)
+  const int n_qt = (t_q + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / bh);
+  const int head = (int)(blockIdx.x % bh);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = warp * 16;               // the warp's first row in the tile
+  const int64_t qoff = (int64_t)head * t_q * D;
+  const int64_t koff = (int64_t)head * t_k * D;
 
   int n_kt = (t_k + BK - 1) / BK;
-  if (causal) {
-    // last key tile with any key <= the tile's last query row
-    const int live = (min(q0 + BQ, t_q) - 1) / BK + 1;
-    n_kt = min(n_kt, live);
-  }
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, t_q) - 1) / BK + 1);
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous iteration done with sK/sV/sP
-    load_tile<T, D>(sK, LDQ, kb, k0, t_k);
-    load_tile<T, D>(sV, D, vb, k0, t_k);
-    __syncthreads();
+  // tile 0 in flight while Q is staged
+  issue_raw<T, BK, D, NT>(rawK, k + koff, 0, t_k);
+  issue_raw<T, BK, D, NT>(rawV, v + koff, 0, t_k);
+  cp_async_commit();
+  load_q<T, D, BQ, LDQ, NT>(sQ, q + qoff, q0, t_q);
 
-    // S = scale * Q K^T on this thread's 4x4 patch
-    float s[4][4];
+  const float c = scale * LOG2E;    // scores in log2 units
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int row_a = q0 + wrow + g;          // this lane's two rows
+  const int row_b = row_a + 8;
+  const bool warp_live = q0 + wrow < t_q;
+  const float* qa = sQ + (wrow + g) * LDQ + 2 * t4;
+  const float* qb = qa + 8 * LDQ;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * BK;
+    cp_async_wait_all();
+    __syncthreads();            // tile j staged; iteration j-1 is done
+    convert_tile<BK, D, LDK, NT>(sKh, sKl, rawK);
+    convert_tile<BK, D, LDV, NT>(sVh, sVl, rawV);
+    __syncthreads();            // tiles ready; staging free
+    if (j + 1 < n_kt) {         // tile j+1 lands while tile j is multiplied
+      issue_raw<T, BK, D, NT>(rawK, k + koff, k0 + BK, t_k);
+      issue_raw<T, BK, D, NT>(rawV, v + koff, k0 + BK, t_k);
+    }
+    cp_async_commit();
+    // warp-uniform: nothing of this tile reaches the warp's rows
+    if (!warp_live || (causal && k0 > q0 + wrow + 15)) continue;
+
+    // ---- S = Q K^T (16 x BK per warp) ----
+    float s[NS][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      float a[4], b[4];
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 8) {
+      const float2 xa = *reinterpret_cast<const float2*>(qa + kk);
+      const float2 xb = *reinterpret_cast<const float2*>(qb + kk);
+      uint32_t ah[4], al[4];
+      if constexpr (SPLIT) {
+        split_tf32(xa.x, ah[0], al[0]);
+        split_tf32(xb.x, ah[1], al[1]);
+        split_tf32(xa.y, ah[2], al[2]);
+        split_tf32(xb.y, ah[3], al[3]);
+      } else {
+        ah[0] = __float_as_uint(xa.x);
+        ah[1] = __float_as_uint(xb.x);
+        ah[2] = __float_as_uint(xa.y);
+        ah[3] = __float_as_uint(xb.y);
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * LDQ + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sK[(tx + 16 * j) * LDQ + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      for (int n = 0; n < NS; ++n) {
+        const int at = (n * 8 + g) * LDK + kk + 2 * t4;
+        const uint2 bh = *reinterpret_cast<const uint2*>(sKh + at);
+        if constexpr (SPLIT) {
+          const uint2 bl = *reinterpret_cast<const uint2*>(sKl + at);
+          float t[4];
+          mma_tf32_zc(t, al, bh.x, bh.y);
+          mma_tf32(t, ah, bl.x, bl.y);
+          mma_tf32(t, ah, bh.x, bh.y);
+          add4(s[n], t);
+        } else {
+          mma_tf32(s[n], ah, bh.x, bh.y);
+        }
+      }
     }
 
+    // ---- online softmax on the fragments: rows g (r=0) and g+8 (r=1) ----
+    const bool edge = k0 + BK > t_k || (causal && k0 + BK - 1 > q0 + wrow);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kpos >= t_k || (causal && qpos < kpos)) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      // the 16 lanes that share a row are one half-warp
+      for (int n = 0; n < NS; ++n) {
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+        for (int e = 0; e < 2; ++e) {
+          float x = s[n][2 * r + e] * c;
+          if (edge) {
+            const int kpos = k0 + n * 8 + 2 * t4 + e;
+            if (kpos >= t_k || (causal && row < kpos)) x = NEG_INF;
+          }
+          s[n][2 * r + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      // the 4 lanes of a quad share the row
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f(m[r] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] > NEG_INF * 0.5f ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-        rs += p;
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[n][2 * r + e];
+          const float p = x > NEG_INF * 0.5f ? exp2f(x - m_new) : 0.f;
+          s[n][2 * r + e] = p;
+          rs += p;
+        }
       }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[r] = l[r] * alpha + rs;
+      m[r] = m_new;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
     }
-    __syncthreads();
 
-    // O += P V on this thread's 4 x D/16 patch
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], b[DJ];
+    // ---- O += P V: S's C fragment of keys 8j..8j+7 is P's A fragment ----
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * LDP + kk];
+    for (int jj = 0; jj < NS; ++jj) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[jj][0], ph[0], pl[0]);   // (g,   key 2t)
+      split_tf32(s[jj][2], ph[1], pl[1]);   // (g+8, key 2t)
+      split_tf32(s[jj][1], ph[2], pl[2]);   // (g,   key 2t+1)
+      split_tf32(s[jj][3], ph[3], pl[3]);   // (g+8, key 2t+1)
+      const int v0 = (jj * 8 + 2 * t4) * LDV + g;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) b[j] = sV[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p[i], b[j], acc[i][j]);
+      for (int n = 0; n < NO; ++n) {
+        const uint32_t vh0 = __float_as_uint(sVh[v0 + n * 8]);
+        const uint32_t vh1 = __float_as_uint(sVh[v0 + LDV + n * 8]);
+        if constexpr (SPLIT) {
+          const uint32_t vl0 = __float_as_uint(sVl[v0 + n * 8]);
+          const uint32_t vl1 = __float_as_uint(sVl[v0 + LDV + n * 8]);
+          float t[4];
+          mma_tf32_zc(t, pl, vh0, vh1);
+          mma_tf32(t, ph, vl0, vl1);
+          mma_tf32(t, ph, vh0, vh1);
+          add4(acc[n], t);
+        } else {
+          mma_tf32(acc[n], pl, vh0, vh1);
+          mma_tf32(acc[n], ph, vh0, vh1);
+        }
+      }
     }
   }
 
-  T* ob = o + (int64_t)bh * t_q * D;
+  T* ob = o + qoff;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row_b : row_a;
     if (row >= t_q) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];  // fully-masked row -> zeros
+    const float li = l[r] == 0.f ? 1.f : l[r];   // fully masked row -> zeros
     const float inv = 1.f / li;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      from_f32(&ob[(int64_t)row * D + tx + 16 * j], acc[i][j] * inv);
-    if (tx == 0) lse[(int64_t)bh * t_q + row] = m[i] + logf(li);
+    for (int n = 0; n < NO; ++n)
+      store2(ob + (int64_t)row * D + n * 8 + 2 * t4, acc[n][2 * r] * inv,
+             acc[n][2 * r + 1] * inv);
+    if (t4 == 0)
+      lse[(int64_t)head * t_q + row] = l[r] == 0.f ? NEG_INF : m[r] * LN2 + logf(l[r]);
   }
 }
 
@@ -197,36 +450,47 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int bh, int t_q, int t_k, int causal,
                    float scale, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+  using L = Layout<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (t_q + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const long long blocks = (long long)bh * ((t_q + L::BQ - 1) / L::BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_kernel<T, D><<<(unsigned)blocks, L::NT, L::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, t_q, t_k, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, bh, t_q, t_k, causal,
+      scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(int d, const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int t_q, int t_k, int causal, float scale,
+             cudaStream_t s) {
+  switch (d) {
+    case 64: return (int)launch<T, 64>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
+    case 128: return (int)launch<T, 128>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
+    case 192: return (int)launch<T, 192>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
+    case 256: return (int)launch<T, 256>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 64 or 128.  All tensors contiguous
-// [bh, t, d] (lse [bh, t_q]).  Returns a cudaError_t; 0 is success.
+// dtype: 0 = float32, 1 = bfloat16.  d: 64, 128, 192 or 256.  All tensors
+// contiguous [bh, t, d] and 16-byte aligned (lse [bh, t_q]).  Returns a
+// cudaError_t; 0 is success.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int bh, int t_q, int t_k,
                               int d, int causal, float scale, int dtype,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || t_q <= 0 || t_k <= 0 || (t_q + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64)
-    return (int)launch<float, 64>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 0 && d == 128)
-    return (int)launch<float, 128>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 1 && d == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
-  if (dtype == 1 && d == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
+  if (bh <= 0 || t_q <= 0 || t_k <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_d<float>(d, q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(d, q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,11 @@ CUDA tensors and the plain versions on CPU tensors; on a CUDA tensor they
 launch or raise.  ``flash_attention_fwd_plain`` and
 ``flash_attention_bwd_plain`` are the same tiled loops in plain torch
 (64-row tiles, stop at the causal diagonal, f32 statistics): the CPU path
-and the oracle the kernels are held against on the card.  The reference's
+and the oracle the kernels are held against on the card.  The kernels pick
+their own tile rows for the card's shared memory.  ``_tf32_split`` is the
+forward kernel's split of an f32 operand into two TF32 terms; the CPU
+tests run the plain forward through it (its ``matmul`` argument) to show
+that three TF32 products keep f32 accuracy and one does not.  The reference's
 ``custom_vjp`` becomes ``_FlashAttention``, a ``torch.autograd.Function``.
 ``flash_attention`` keeps the reference's ``supports`` rule and its
 fallback to ``sdpa_reference``, which autograd differentiates.
@@ -23,14 +27,18 @@ fallback to ``sdpa_reference``, which autograd differentiates.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from .attention import NEG_INF, sdpa_reference
 
-BLOCK = 64            # q and k tile rows, in the kernels and the plain twins
-KERNEL_HEAD_DIMS = (64, 128)
+BLOCK = 64            # q and k tile rows of the plain twins
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+# The kernels are built for head_dim up to 256; their f32 tiles already
+# take up to 197 KB (the forward at d = 192) of the 227 KB (232,448 bytes)
+# a block may use on Hopper.
+MAX_KERNEL_HEAD_DIM = 256
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SOURCE = "flash_attn_fwd.cu"
 BWD_SOURCE = "flash_attn_bwd.cu"
@@ -65,10 +73,30 @@ def _causal_live(q0: int, rows: int, n_k: int) -> int:
     return min(n_k, (q0 + rows - 1) // BLOCK + 1)
 
 
-def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float
+def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi + lo ≈ x`` (f32) to ~2⁻²² relative, both
+    exact in TF32 (10 mantissa bits): hi is x rounded to nearest TF32, lo
+    the remainder rounded the same way, ties away from zero.  The same
+    split as ``split_tf32`` in csrc/flash_attn_fwd.cu (two
+    ``cvt.rna.tf32.f32``)."""
+    hi = _tf32_rna(x.float())
+    return hi, _tf32_rna(x.float() - hi)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to nearest TF32, ties away from zero: add half of
+    the 13 dropped bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    # -0x2000 is 0xffffe000 as int32: it clears the 13 low bits
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float,
+                              matmul: Callable = torch.matmul
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tiled online-softmax attention over ``[bh, t, d]``; returns
-    ``(O, lse)`` with O in the input dtype and lse ``[bh, t_q]`` in f32."""
+    ``(O, lse)`` with O in the input dtype and lse ``[bh, t_q]`` in f32.
+    ``matmul`` takes both products (S = Q·Kᵀ and P·V)."""
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     acc_dt = torch.promote_types(q.dtype, torch.float32)
@@ -86,7 +114,7 @@ def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float
         qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
         for k0 in range(0, live * BLOCK, BLOCK):
             kt, vt = kf[:, k0:k0 + BLOCK], vf[:, k0:k0 + BLOCK]
-            s = torch.matmul(qt, kt.transpose(1, 2)) * scale
+            s = matmul(qt, kt.transpose(1, 2)) * scale
             if causal:
                 kpos = torch.arange(k0, k0 + kt.shape[1],
                                     device=q.device)[None, :]
@@ -95,7 +123,7 @@ def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float
             p = torch.exp(s - m_new) * (s > NEG_INF / 2)
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.matmul(p, vt)
+            acc = acc * alpha + matmul(p, vt)
             m = m_new
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         out[:, q0:q0 + rows] = (acc / l).to(q.dtype)
@@ -190,10 +218,18 @@ def _check_kernel_inputs(q, k, v, extra=(), who: str = "flash_attention_fwd"
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must start on a 16-byte "
+                             f"boundary (the kernels copy 16-byte chunks)")
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{who}: the kernel takes float32 or bfloat16, "
                          f"got {q.dtype}")
     bh, _, d = q.shape
+    if d > MAX_KERNEL_HEAD_DIM:
+        raise ValueError(f"{who}: head_dim {d} > {MAX_KERNEL_HEAD_DIM}: the "
+                         "kernels are built for head_dim up to 256, whose "
+                         "f32 tiles already take up to 197 KB of the 227 KB "
+                         "of shared memory a block may use on Hopper")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{who}: the kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
@@ -223,11 +259,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float
     tensors, ``flash_attention_fwd_plain`` for CPU tensors."""
     # Replaces the Pallas `_flash_kernel` (deeplearning4j_tpu/ops/
     # flash_attention.py, launched by `_flash_fwd_call`).  On the H100 the
-    # f32 kernel is bound by operations: it runs both products as f32 FMAs
-    # (no TF32) from shared-memory tiles, one CTA per 64-row q-tile with
-    # the key loop inside, stopping at the causal diagonal.  In bf16 the
-    # bytes bound it and this first version, without tensor cores, does
-    # not reach that bound.  Details in csrc/flash_attn_fwd.cu.
+    # f32 kernel is bound by operations: both products run on the tensor
+    # cores as three TF32 mma.sync passes (hi·lo + lo·hi + hi·hi, f32
+    # accuracy; bf16 needs one pass for Q·Kᵀ and two for P·V), each warp
+    # owning 16 query rows, K/V tiles fetched by cp.async a tile ahead,
+    # the longest causal q tiles issued first.  Details in
+    # csrc/flash_attn_fwd.cu.
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
     _cuda_or_raise(q, "flash_attention_fwd")

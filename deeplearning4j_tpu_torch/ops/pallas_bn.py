@@ -13,6 +13,10 @@ bound with ``ctypes``.
   where the JAX package does (the fused and unfused paths round
   differently).  The TPU's lane geometry only decides *where*: the
   kernel itself reads the ``[M, C]`` view with no lane folding.
+- ``plan`` chooses the kernel's launch on the host (vector width, grid,
+  fixed or rolling channels), a pure function of the
+  shape and the card's SM count (asked once per process); ``device_plan``
+  applies it to the tensors at hand.
 - ``bn_apply`` runs the kernel on CUDA tensors and ``bn_apply_plain`` on
   CPU tensors; on a CUDA tensor it launches or raises.
 - ``bn_act_train`` is the reference's ``custom_vjp`` as a
@@ -24,21 +28,30 @@ bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
 
 SOURCE = "bn_apply.cu"
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# scale and shift sit in one block's shared memory as f32: 8 bytes per
-# channel within the 227 KB a block may have on Hopper
+# The widest C the kernel door admits: the plan's index walk is checked up
+# to it (tests/test_torch_bn_kernel.py).  It was the shared-memory limit
+# of the first design, which staged scale and shift per block.
 MAX_CHANNELS = 232448 // 8
+# The kernel's launch constants (csrc/bn_apply.cu kThreads, kUnroll,
+# kBlocksPerSm: __launch_bounds__ caps a thread at 64 registers so that
+# four blocks of 256 threads stay resident on an SM).
+THREADS, UNROLL, BLOCKS_PER_SM = 256, 4, 4
 _ACTS = ("identity", "relu")
 
 # Kernel launches; the wrapper adds one where it launches and nowhere else.
 launches = {"bn_apply": 0}
 
 _fn = []
+_sms = {}
 
 
 def reset_launches() -> None:
@@ -97,13 +110,67 @@ def bn_apply_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return y.to(x.dtype)
 
 
+@dataclass(frozen=True)
+class Plan:
+    """One launch of ``csrc/bn_apply.cu``: ``vec`` elements per vector (16
+    bytes, or 1), ``grid`` blocks of ``THREADS`` threads; ``fixed`` when
+    the grid stride is a whole number of rows (each thread keeps its
+    channels)."""
+    vec: int
+    grid: int
+    fixed: bool
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, c: int, itemsize: int, sms: int,
+         aligned: bool = True) -> Plan:
+    """The launch for ``[m, c]`` of ``itemsize`` bytes on ``sms`` SMs.
+
+    16-byte vectors where C is a multiple of the width and the pointers are
+    aligned, else single elements.  The grid is one wave of resident blocks
+    (``BLOCKS_PER_SM`` per SM), fewer for small tensors so that each
+    thread still has ``UNROLL`` vectors.  Where a grid of whole blocks
+    makes the stride (grid · ``THREADS`` vectors) a multiple of the row's
+    ``c / vec`` vectors, it is rounded down to one (never below the least
+    such grid) and the plan is ``fixed``; otherwise the kernel rolls the
+    channel index."""
+    wide = 16 // itemsize
+    vec = wide if aligned and c % wide == 0 else 1
+    row_vecs = c // vec
+    resident = sms * BLOCKS_PER_SM
+    want = max(1, min(resident, -(-(m * row_vecs) // (THREADS * UNROLL))))
+    # the least grid whose stride is a whole number of rows
+    least = row_vecs // math.gcd(row_vecs, THREADS)
+    if least <= resident:
+        return Plan(vec, max(least, want // least * least), True)
+    return Plan(vec, want, False)
+
+
+def _sm_count(device) -> int:
+    """SMs of ``device``'s card, asked once per process."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
+def device_plan(x, scale, shift, out) -> Plan:
+    """``plan`` for these tensors on their card."""
+    c = x.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, shift, out))
+    return plan(x.numel() // c, c, x.element_size(), _sm_count(x.device),
+                aligned)
+
+
 def _kernel():
     if not _fn:
         from ..utils.kernel_build import load
         fn = load(SOURCE).bn_apply
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn.append(fn)
     return _fn[0]
@@ -132,17 +199,29 @@ def _check_kernel_inputs(x, scale, shift) -> None:
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _launch(x, scale, shift, out, relu: bool) -> None:
-    """One launch into ``out`` through the binding, on the current stream;
-    no checks and no count (``bn_apply`` checks and counts)."""
+def _launch(x, scale, shift, out, relu: bool, p: Plan = None) -> None:
+    """One launch into ``out`` through the binding, on the current stream
+    of x's card (``device_plan`` unless ``p`` is given); no checks and no
+    count (``bn_apply`` checks and counts)."""
+    # A ResNet50 step makes 53 of these launches, many of them only a few
+    # µs of device time, so the host path is kept short: the raw stream
+    # handle rather than a Stream object, and a device switch only when x
+    # is not on the current card.
     c = x.shape[-1]
-    with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                        out.data_ptr(), x.numel() // c, c, int(relu),
-                        KERNEL_DTYPES[x.dtype],
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    if p is None:
+        p = device_plan(x, scale, shift, out)
+    index = x.get_device()
+    args = (x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
+            x.numel() // c, c, int(relu), KERNEL_DTYPES[x.dtype], p.vec,
+            p.grid, int(p.fixed), torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = _kernel()(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(*args)
     if err != 0:
-        raise RuntimeError(f"bn_apply kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"bn_apply kernel failed: cudaError_t {err} "
+                           f"(plan {p})")
 
 
 def bn_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -153,8 +232,9 @@ def bn_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     # Replaces the Pallas `_apply_kernel` (deeplearning4j_tpu/ops/
     # pallas_bn.py, launched by `_apply`).  One elementwise pass: bound by
     # the bytes it moves (x read once, y written once), so the kernel is
-    # a grid-stride loop of 16-byte loads and stores with scale and shift
-    # staged in shared memory.  Details in csrc/bn_apply.cu.
+    # a grid-stride loop of 16-byte loads, four in flight per thread, on a
+    # launch planned here (``plan``) so that each thread keeps its
+    # channels' scale and shift in registers.  Details in csrc/bn_apply.cu.
     if x.device.type == "cpu":
         return bn_apply_plain(x, scale, shift, relu)
     if x.device.type != "cuda":

@@ -169,3 +169,88 @@ def test_kernel_door_refuses_what_the_kernel_does_not_take():
         tbn.bn_apply(meta, torch.zeros(64, device="meta"),
                      torch.zeros(64, device="meta"), False)
     assert tbn.launches["bn_apply"] == 0
+
+
+def _resnet50_geometries():
+    """{(rows, channels, activation): layers} of ResNet50's BatchNorms at
+    batch 64, as chip_smoke drives them."""
+    from chip_smoke import bn_geometries
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    return bn_geometries(ResNet50().conf(), 64)
+
+
+def _walk(p, m, c):
+    """The kernel's index walk (csrc/bn_apply.cu ``bn_apply_kernel``) for
+    every thread of plan ``p`` at once: returns, per row vector of the
+    ``[m, c]`` view, how often it was visited and the row-vector channel
+    index it was given."""
+    row_vecs = c // p.vec
+    n_vec = m * row_vecs
+    stride = p.grid * tbn.THREADS
+    v = np.arange(stride, dtype=np.int64)
+    cv = v % row_vecs
+    step = stride % row_vecs
+    seen = np.zeros(n_vec, dtype=np.int64)
+    chan = np.full(n_vec, -1, dtype=np.int64)
+
+    live = v < n_vec
+    while live.any():       # rounds of UNROLL vectors, the last predicated
+        for u in range(tbn.UNROLL):
+            idx = v + u * stride
+            ok = live & (idx < n_vec)
+            np.add.at(seen, idx[ok], 1)
+            chan[idx[ok]] = cv[ok]
+            if not p.fixed:                  # the rolling channel index
+                cv[live] += step
+                cv[live] -= np.where(cv[live] >= row_vecs, row_vecs, 0)
+        v[live] += tbn.UNROLL * stride
+        live = v < n_vec
+    return seen, chan
+
+
+def _plan_cases():
+    geo = sorted(_resnet50_geometries())
+    assert len(geo) == 9
+    cases = [(m, c, True) for m, c, _ in geo]
+    # ragged: tiny C, C not a multiple of the vector width, the widest C,
+    # and a C that no resident grid divides (the rolling channel index)
+    cases += [(1000, 3, False), (777, 100, False), (513, 102, False),
+              (300, 36, False), (40, tbn.MAX_CHANNELS, False),
+              (3000, 4229, False)]
+    return cases
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("m,c,resnet", _plan_cases())
+def test_plan_walk_visits_every_vector_once_with_its_channel(m, c, resnet,
+                                                             itemsize):
+    sms = 132
+    p = tbn.plan(m, c, itemsize, sms)
+    assert 1 <= p.grid <= sms * tbn.BLOCKS_PER_SM       # one resident wave
+    assert p.vec == (16 // itemsize if c % (16 // itemsize) == 0 else 1)
+    row_vecs = c // p.vec
+    stride = p.grid * tbn.THREADS
+    # fixed exactly where a resident grid makes the stride whole rows
+    assert p.fixed == (row_vecs // np.gcd(row_vecs, tbn.THREADS)
+                       <= sms * tbn.BLOCKS_PER_SM)
+    if p.fixed:
+        assert stride % row_vecs == 0
+    if resnet:
+        assert p.fixed          # every ResNet50 geometry keeps its channels
+    # the walk at a reduced m: a few strides of each thread, ragged
+    m_walk = min(m, 3 * stride * tbn.UNROLL // row_vecs + 7)
+    seen, chan = _walk(p, m_walk, c)
+    assert (seen == 1).all()
+    assert (chan == np.arange(m_walk * row_vecs) % row_vecs).all()
+
+
+def test_plan_falls_back_to_single_elements_and_rolls_where_it_must():
+    assert tbn.plan(1024, 64, 4, 132, aligned=False).vec == 1
+    assert tbn.plan(1024, 64, 2, 132).vec == 8
+    # 4229 single elements: no grid of <= 528 blocks of 256 threads has a
+    # stride that is a multiple of 4229
+    p = tbn.plan(3000, 4229, 4, 132)
+    assert p.vec == 1 and not p.fixed and p.grid == 132 * tbn.BLOCKS_PER_SM
+    # small tensors get fewer blocks, so each thread has UNROLL vectors
+    p = tbn.plan(64, 256, 4, 132)
+    assert p.fixed and p.grid == 4

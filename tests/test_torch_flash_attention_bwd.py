@@ -41,7 +41,7 @@ def _port_grads(q, k, v, do, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t,d", [(100, 64), (128, 64), (256, 64),
-                                 (128, 128)])
+                                 (128, 128), (128, 256)])
 def test_autograd_matches_pallas_backward_interpret(t, d, causal):
     q, k, v, do = _arrays(t=t, d=d, seed=t + d + causal)
 
