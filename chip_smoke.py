@@ -16,7 +16,11 @@ if any phase fails:
    (128, 192, 256) and a ragged ``[16, 100, 64]``, f32 and bf16, causal
    and full;
 3. ``bwd_kernel_vs_plain``: the same for the two backward kernels (dq;
-   dk and dv);
+   dk and dv), and a second launch of both on the same inputs, which must
+   give the same bits; ``wide_head_dim``: head_dim 320, which the
+   reference's kernel takes and the port's do not, runs through
+   ``flash_attention`` on the card by its shape rule (``sdpa_reference``,
+   no kernel launch) and matches the plain forward;
 4. ``serve``: serves a full-width TransformerLM (vocab 8192, seq 512,
    embed 512, 8 layers, 8 heads; random weights from the seed) through the
    port's ``ServingEngine`` for requests of 1, 5 and 16 rows, checks the
@@ -32,10 +36,12 @@ if any phase fails:
    paths) with a ``torch.profiler`` split of the step's device time, and
    each kernel beside its plain version, its bound and a PyTorch
    yardstick (``scaled_dot_product_attention``, forward or backward),
-   which the port never calls;
+   which the port never calls; the backward rows add the pair (dq +
+   dk/dv) beside SDPA's backward, which computes all three;
 7. ``bn_kernel_vs_plain``: holds the BatchNorm-apply kernel against its
    plain version at every BN geometry of ResNet50 at batch 64 and
-   224x224, f32 and bf16, relu and identity;
+   224x224 and at a wide [64, 32768] (a C the first design refused), f32
+   and bf16, relu and identity;
 8. ``cnn_train``: trains the zoo ResNet50 at its published widths
    (224x224x3, 1000 classes, the full 50-layer graph; random weights from
    the seed) through ``ComputationGraph.fit`` for 5 Nesterovs steps of
@@ -80,6 +86,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -100,6 +107,9 @@ HEAD_DIM = EMBED // HEADS
 # kernels take, and a ragged t (not a multiple of any tile)
 CHECK_SHAPES = ((16, 512, 128), (16, 512, 192), (16, 512, 256),
                 (16, 100, 64))
+# a head_dim the reference's Pallas kernel takes and the port's kernels do
+# not: flash_attention sends it to sdpa_reference by its shape rule
+WIDE_HEAD_DIM_SHAPE = (2, 8, 512, 320)
 TRAIN_BATCH = 16
 TRAIN_STEPS = 5
 TIMED_TRAIN_STEPS = 20
@@ -165,6 +175,9 @@ CNN_EVAL_ROWS = 16
 # within 2**-23 of max(|x·scale| + |shift|).  bf16: both round the f32
 # result once more, and may land one bf16 ulp (2**-7 of |y|) apart.
 BN_TOL_F32, BN_TOL_BF16 = 2.0 ** -23, 2.0 ** -23 + 2.0 ** -7
+# beside ResNet50's geometries: a BN over 32,768 channels, which
+# ``pallas_bn.supports`` admits (the door takes C up to 131,072 in f32)
+BN_WIDE_GEOMETRY = (64, 32768, "relu")
 
 
 def fail(msg: str) -> int:
@@ -331,17 +344,34 @@ def profile_steps(torch, net, batches, classes) -> dict:
             "device_ms_total_per_step": sum(per_class.values()) / n}
 
 
+def ptxas_report(log: str) -> list:
+    """``"<kernel><mangled template arguments>: Used N registers, ..."``
+    per compiled kernel instance of an ``nvcc -Xptxas -v`` log."""
+    out, entry = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+            # the kernel's length-prefixed name, then its template arguments
+            for k in re.finditer(r"(?=(\d\d?)([a-z]\w*?_kernel)I(\w+?)EEv)",
+                                 entry):
+                if int(k.group(1)) == len(k.group(2)):
+                    entry = f"{k.group(2)}<{k.group(3)}>"
+                    break
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{entry}: {ln.split(':', 1)[1].strip()}")
+    return out
+
+
 def build_all(kernel_build, sources) -> dict:
     """Build every source at once (one nvcc each); returns per-source
     seconds and the ptxas register lines."""
     def one(src):
         t0 = time.perf_counter()
         lib = kernel_build.build(src)
-        ptxas = [ln.split(":", 1)[1].strip()
-                 for ln in lib.with_suffix(".log").read_text().splitlines()
-                 if "Used" in ln and "registers" in ln]
         return src, {"seconds": round(time.perf_counter() - t0, 3),
-                     "ptxas": ptxas}
+                     "ptxas": ptxas_report(
+                         lib.with_suffix(".log").read_text())}
 
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         return dict(pool.map(one, sources))
@@ -817,7 +847,8 @@ def cnn_phases(args, torch, dev, card):
     # ---- 7. BN apply kernel vs plain at every geometry -------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
     bn_err = 0.0
-    for (m, c, act), count in sorted(geoms.items()):
+    for (m, c, act), count in sorted(geoms.items()) + [(BN_WIDE_GEOMETRY,
+                                                         0)]:
         for dname, dt, tol_rel in (("float32", torch.float32, BN_TOL_F32),
                                    ("bfloat16", torch.bfloat16,
                                     BN_TOL_BF16)):
@@ -1170,9 +1201,13 @@ def main(argv=None) -> int:
                                 f"causal={causal}, {list(shp)}): O {err_o}, "
                                 f"lse {err_l}")
                 got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sc)
+                again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                               sc)
                 want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                     causal, sc)
                 torch.cuda.synchronize()
+                # one CTA owns each output tile: no atomics, the same bits
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
                 rel, absolute = {}, {}
                 for name, g, w in zip(("dq", "dk", "dv"), got, want):
                     if not bool(torch.isfinite(g.float()).all()):
@@ -1185,19 +1220,50 @@ def main(argv=None) -> int:
                                   "dtype": dname, "causal": causal,
                                   "shape": list(shp), "max_abs_err": absolute,
                                   "rel_err": rel,
-                                  "tol_rel": TOL_BWD[dname]}), flush=True)
+                                  "tol_rel": TOL_BWD[dname],
+                                  "deterministic": same}), flush=True)
                 if max(rel.values()) > TOL_BWD[dname]:
                     return fail(f"backward kernels disagree with plain "
                                 f"({dname}, causal={causal}, {list(shp)}): "
                                 f"{rel}")
+                if not same:
+                    return fail(f"two backward launches on the same inputs "
+                                f"differ ({dname}, causal={causal}, "
+                                f"{list(shp)})")
                 if main_shape:
                     saved[(dname, causal)] = (o, lse)
                     max_err[("fwd", dname, causal)] = max(err_o, err_l)
                     max_err[("bwd_dq", dname, causal)] = absolute["dq"]
                     max_err[("bwd_dkv", dname, causal)] = max(
                         absolute["dk"], absolute["dv"])
-                del o, lse, po, plse, got, want
+                del o, lse, po, plse, got, again, want
             del q, k, v, do
+
+    # head_dim 320: flash_attention takes sdpa_reference by its shape rule
+    # (kernel_supports); no kernel launches, and the plain forward agrees
+    b, h, t, d = WIDE_HEAD_DIM_SHAPE
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev)
+               for _ in range(3))
+    fa.reset_launches()
+    for causal in (True, False):
+        out = fa.flash_attention(q, k, v, causal=causal)
+        want, _ = fa.flash_attention_fwd_plain(
+            *(x.reshape(b * h, t, d) for x in (q, k, v)), causal, d ** -0.5)
+        torch.cuda.synchronize()
+        err = (out.reshape(b * h, t, d) - want).abs().max().item()
+        wide_launches = dict(fa.launches)
+        print(json.dumps({"phase": "wide_head_dim", "shape": [b, h, t, d],
+                          "causal": causal, "supports": fa.supports(t, t, d),
+                          "kernel_supports": fa.kernel_supports(t, t, d),
+                          "kernel_launches": wide_launches,
+                          "max_abs_err": err, "tol": TOL_O["float32"]}),
+              flush=True)
+        if any(wide_launches.values()) or not fa.supports(t, t, d) or \
+                not bool(torch.isfinite(out).all()) or \
+                err > TOL_O["float32"]:
+            return fail(f"head_dim {d} through flash_attention: launches "
+                        f"{wide_launches}, error {err}")
+    del q, k, v, out, want
 
     # ---- 4. full-width serve ---------------------------------------------
     lm = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
@@ -1437,6 +1503,12 @@ def main(argv=None) -> int:
                 timings[(name, dname, causal)] = (kern[name], plain[name],
                                                   lib[name], bound, bound_by,
                                                   kern_dev[name])
+                # the pair computes what SDPA's backward computes
+                pair = {} if name == "fwd" else {
+                    "pair_ms": kern["bwd_dq"] + kern["bwd_dkv"],
+                    "pair_ms_device_only": kern_dev["bwd_dq"]
+                    + kern_dev["bwd_dkv"],
+                    "library_pair_ms": lib_fwd_bwd - lib_fwd}
                 print(json.dumps({"phase": "kernel_time",
                                   "kernel": f"flash_attn_{name}",
                                   "dtype": dname, "causal": causal,
@@ -1445,7 +1517,7 @@ def main(argv=None) -> int:
                                   "plain_ms": plain[name],
                                   "library_ms": lib[name],
                                   "bound_ms": bound, "bound_by": bound_by,
-                                  "card": card}), flush=True)
+                                  **pair, "card": card}), flush=True)
 
     del tnet, inputs, saved
     torch.cuda.empty_cache()

@@ -6,293 +6,512 @@
 //   `_flash_bwd_dkv_kernel` -> flash_bwd_dkv_kernel (dk, dv)
 // Both replay the softmax block from the forward's logsumexp, as
 // `_replay_p_ds` does:
-//   S  = scale * Q K^T, causal positions above the diagonal -> NEG_INF
-//   P  = exp(S - lse) where S > NEG_INF/2, else 0
+//   S  = scale * Q K^T, causal positions above the diagonal masked
+//   P  = exp(S - lse) where unmasked, else 0
 //   dP = dO V^T
 //   dS = P * (dP - D) * scale,      D = rowsum(dO * O), computed outside
 // and accumulate dq = dS K, dk = dS^T Q, dv = P^T dO in f32.
 //
 // Work split.  The TPU kernels carry their accumulators in VMEM scratch
 // across a sequential grid axis.  CUDA blocks run in no order, so each
-// block owns one output tile and walks the other axis in a loop:
-//   dq:  one CTA per (b*h, 64-row q tile), looping over k tiles up to the
-//        causal diagonal;
-//   dkv: one CTA per (b*h, 64-row k tile), looping over q tiles from the
-//        diagonal to the end (`_block_live` seen from the k side).  It
-//        reads lse and D of the q tile it visits, not of its own k tile.
-// No block writes another's output, so there are no atomics and the
-// results are the same from run to run.
+// CTA owns one output tile and walks the other axis in a loop, and no CTA
+// writes another's output: no atomics, and the results are the same bits
+// from run to run.
+//   dq:  a CTA owns BQ query rows, each warp 16 of them (the
+//        FlashAttention-2 split), and loops over the key tiles up to the
+//        causal diagonal.  The 1-D grid issues the last q tiles (the
+//        longest loops under `causal`) first.
+//   dkv: a CTA owns BK keys, each warp 16, and loops over the query tiles
+//        from the diagonal to the end, reading lse and D of the visited
+//        tile.  The grid issues the first k tiles (the longest loops)
+//        first.  At d >= 192 a CTA computes dv or dk, not both (two CTAs
+//        per key tile): two 16 x d f32 accumulators are d registers a
+//        lane, more than the 255 a thread may have at d = 256.  The dv
+//        CTA skips dP; the pair costs 10 d operations per live (q, k)
+//        pair instead of 8 d.
+// Under `causal` a warp skips the tiles wholly masked for its 16 rows.
 //
-// Arithmetic.  Tiles are staged in shared memory as f32 (bf16 widens on
-// load, as the TPU kernels' `.astype(jnp.float32)`) and every product is
-// an f32 FMA on the CUDA cores: TF32 would lose about three decimal
-// digits at head_dim 64.  wgmma, TMA and warp specialisation are later
-// work.  Ragged tiles (t not a multiple of 64) load zero rows; masked or
-// out-of-range positions give P = 0 and dS = 0, and rows past t are
-// never written.  A fully masked row has lse = NEG_INF; the select on
-// S > NEG_INF/2 keeps its P at 0, not exp(0) = 1.
+// Arithmetic: the five products on the tensor cores at f32 accuracy, as
+// in flash_attn_fwd.cu.  Each f32 operand is split into hi = tf32(x) and
+// lo = tf32(x - hi) (`split_tf32`, both `cvt.rna`) and each product taken
+// as lo*hi + hi*lo + hi*hi on mma.sync m16n8k8.  Each k-step's three
+// products go into a zeroed 16x8 tile that is then added to the
+// accumulator in f32: the tensor cores truncate their own sums, and three
+// mma straight into a running accumulator bias it by up to three of its
+// ulps per step.  That matters more here than in the forward: the
+// TransformerLM's key-bias gradient is sum_j dk_j = sum_i q_i sum_j dS_ij,
+// zero in exact arithmetic (sum_j dS_ij = scale (D_i - D_i)), so it is
+// pure rounding noise and this kernel is where the noise is made.  bf16
+// inputs are exact in TF32: Q K^T and dO V^T take one pass, and the
+// products with the f32 P or dS operand two (P's hi and lo against the
+// exact B), straight into the accumulators (their tolerance is a bf16
+// ulp).  `ops/flash_attention.flash_attention_bwd_plain(matmul=...)` runs
+// the same products in torch for the CPU tests.
 //
-// What bounds it.  Per live (q, k) pair the dq kernel does 6*d
-// operations (S, dP, dS K) and the dk/dv kernel 8*d (S, dP, P^T dO,
-// dS^T Q).  At the training shape ([128, 512, 64], causal, f32) that is
-// ~6.5 and ~8.6 GFLOP, ~0.10 and ~0.13 ms at the 67 TFLOP/s non-tensor
-// f32 rate, against ~0.025 ms to move the bytes: operations bound both,
-// and the design keeps every operand in shared memory or registers so
-// that the FMA pipes are the only limit.
+// Fragments without shuffles (fragment layout in flash_common.cuh).  The
+// order of the 8 k values inside one mma is free as long as A and B
+// agree, so k = t stands for element 2t and k = t+4 for 2t+1: then the C
+// fragment of S or dP for 8 columns IS the A fragment of the next
+// product's k-step over those columns.  dq: S = Q K^T and dP = dO V^T
+// (A = Q, dO rows as 8-byte pairs along d), dS on the C fragments, then
+// dq += dS K with B = K read down its columns, one word at rows 2t and
+// 2t+1 of the k-step.  dkv: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T
+// on the fragments (lse and D of the query columns from shared memory),
+// then dv += P^T dO and dk += dS^T Q, B = dO and Q down their columns.
+// So K (dq), and Q and dO (dkv) are each read both ways, 8-byte pairs
+// along d and single words down a column, from one copy: with row stride
+// D+8 (8 mod 32 words) the pairs of 16 lanes at rows g = 0..3 fall in
+// distinct banks, but single words at rows 2t of a group of 8 do not
+// (rows 0 and 2 share a bank).  The rows of each group of 8 are therefore
+// taken in the order perm8(n) = n ^ ((n >> 2) & 1) = 0 1 2 3 5 4 7 6:
+// column n of an S tile is row perm8(n) of K (resp. Q, dO), and then
+// both the pair loads (rows perm8(g)) and the word loads (rows
+// perm8(2t), perm8(2t+1)) are free of bank conflicts.
 //
-// Blocks.  BT x BT tiles, 256 threads: each thread owns an R x R patch
-// (R = BT/16) of the score tile (rows ty+16i, cols tx+16j) and an
-// R x d/16 patch of its output tile.  Rows are padded by one word so that
-// the 16 lanes sharing a row read distinct banks.  BT = 64 at d = 64 and
-// 128; at d = 192 and 256 four 64-row f32 tiles would overflow the 227 KB
-// a block may use, so the tiles there have 32 rows.  Shared memory: dq
-// ~83 KB at d=64, ~149 KB at d=128, ~103 KB at d=192, ~136 KB at d=256;
-// dk/dv ~100, ~166, ~107 and ~140 KB.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Asynchronous copies, operands split once.  The tiles the loop walks (K
+// and V in dq, Q and dO in dkv) are fetched with cp.async (16 bytes a
+// thread, zero-filled past t) into a staging buffer in the input type one
+// tile ahead, and converted once per CTA into the f32 hi and lo tiles the
+// fragments read.  The CTA's own rows (Q and dO in dq, K and V in dkv)
+// are loaded once, widened to f32 and split as they are read: each warp
+// reads only its own 16 rows, 4 values per k-step against the NS B
+// fragments they meet.
+//
+// What bounds it.  Per live (q, k) pair dq does 6 d operations (S, dP,
+// dS K) and dkv 8 d (S, dP, P^T dO, dS^T Q).  At the training shape
+// ([128, 512, 64], causal, f32) that is 6.45 and 8.6 GFLOP, 0.039 and
+// 0.052 ms at the card's 165 TFLOP/s of f32-accurate tensor work (495
+// TFLOP/s TF32 over three passes), against 0.03 ms to move the bytes:
+// operations bound both.  Beside the mma the kernels issue the splits,
+// the add of each zeroed tile (4 adds per 3 mma), the shared-memory loads
+// of the B fragments (16 bytes a lane per three mma) and the elementwise
+// softmax replay.  With one CTA of 255-register threads per SM (two warps
+// a scheduler) the likeliest limit is the latency of each k-step's three
+// dependent mma, a hypothesis no profiler has checked.  The tiles below
+// were chosen by timing variants on the card; the k-step loops are not
+// unrolled (unrolled by 2 they spilled more and ran 3-4 % slower at
+// d = 64 on an H100).
+//
+// Tiles (rows a CTA owns x rows of a loop tile, threads = 32 per 16 owned
+// rows), shared memory and registers a thread (f32 / bf16; ptxas for
+// sm_90a), inside the 227 KB a block may use; one CTA per SM:
+//   dq   d = 64:  BQ 128, BK 64   176 / 124 KB     254 / 155
+//        d = 128: BQ 128, BK 16   186 / 161 KB     230 / 141
+//        d = 192: BQ 64,  BK 16   174 / 137 KB     255 / 200
+//        d = 256: BQ 64,  BK 8    181 / 156.5 KB   254 / 222
+//   dkv  d = 64:  BK 128, BQ 32   124.2 / 98.2 KB  255 (32 B stack) / 152
+//        d = 128: BK 128, BQ 16   186.1 / 161.1 KB 255 (96 B stack) / 220
+//        d = 192: BK 64,  BQ 16   174.1 / 137.1 KB 255 (32 B stack) / 200
+//                                                  (dv or dk a CTA)
+//        d = 256: BK 64,  BQ 8    181.1 / 156.6 KB 255 / 231 (dv or dk a CTA)
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;    // threads per block
-template <int D> struct TileRows { static constexpr int value = D <= 128 ? 64 : 32; };
-constexpr float NEG_INF = -1e30f;  // finite, as in ops/attention.NEG_INF
+template <int D> struct DqTiles;
+template <> struct DqTiles<64> { static constexpr int BQ = 128, BK = 64; };
+template <> struct DqTiles<128> { static constexpr int BQ = 128, BK = 16; };
+template <> struct DqTiles<192> { static constexpr int BQ = 64, BK = 16; };
+template <> struct DqTiles<256> { static constexpr int BQ = 64, BK = 8; };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// SPLIT_OUT: a CTA computes dv or dk, not both
+template <int D> struct DkvTiles;
+template <> struct DkvTiles<64> {
+  static constexpr int BK = 128, BQ = 32; static constexpr bool SPLIT_OUT = false; };
+template <> struct DkvTiles<128> {
+  static constexpr int BK = 128, BQ = 16; static constexpr bool SPLIT_OUT = false; };
+template <> struct DkvTiles<192> {
+  static constexpr int BK = 64, BQ = 16; static constexpr bool SPLIT_OUT = true; };
+template <> struct DkvTiles<256> {
+  static constexpr int BK = 64, BQ = 8; static constexpr bool SPLIT_OUT = true; };
 
-// Copy rows [row0, row0+BT) of a [t, D] matrix into an f32 tile with row
-// stride D+1; rows past t read as zero.
-template <typename T, int D, int BT>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int t) {
-  for (int idx = threadIdx.x; idx < BT * D; idx += NT) {
-    const int r = idx / D, c = idx - r * D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + c] = row < t ? to_f32(src[(int64_t)row * D + c]) : 0.f;
-  }
-}
+// Shared memory of dq: Q and dO (f32), K and V as f32 hi and (f32 input)
+// lo parts, then the staging buffer of the next K and V tiles.
+template <typename T, int D>
+struct DqLayout {
+  static constexpr bool BF16 = IsBf16<T>::value;
+  static constexpr int BQ = DqTiles<D>::BQ, BK = DqTiles<D>::BK;
+  static constexpr int NT = 2 * BQ;            // BQ / 16 warps
+  static constexpr int LD = D + 8;
+  static constexpr int PARTS = BF16 ? 1 : 2;
+  static constexpr int Q_FLOATS = BQ * LD, K_FLOATS = BK * LD;
+  static constexpr size_t BYTES =
+      sizeof(float) * (size_t)(2 * Q_FLOATS + 2 * PARTS * K_FLOATS) +
+      2 * (size_t)BK * D * sizeof(T);
+};
 
-// acc[i][j] += sum_kk A[ty+16i][kk] * B[tx+16j][kk]: the R x R patch of
-// a BT x BT product of two row-major [BT][D] tiles (row stride D+1), the
-// second one transposed.
-template <int D, int R>
-__device__ __forceinline__ void patch_abt(float (&acc)[R][R], const float* A,
-                                          const float* B, int ty, int tx) {
-#pragma unroll 8
-  for (int kk = 0; kk < D; ++kk) {
-    float a[R], b[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + kk];
-#pragma unroll
-    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + kk];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
+// Shared memory of dkv: K and V (f32), Q and dO as hi and lo parts, lse
+// (log2 units) and D of the visited q tile, then the staging buffer.
+template <typename T, int D>
+struct DkvLayout {
+  static constexpr bool BF16 = IsBf16<T>::value;
+  static constexpr int BK = DkvTiles<D>::BK, BQ = DkvTiles<D>::BQ;
+  static constexpr bool SPLIT_OUT = DkvTiles<D>::SPLIT_OUT;
+  static constexpr int NPART = SPLIT_OUT ? 2 : 1;   // CTAs per key tile
+  static constexpr int NT = 2 * BK;                  // BK / 16 warps
+  static constexpr int LD = D + 8;
+  static constexpr int PARTS = BF16 ? 1 : 2;
+  static constexpr int K_FLOATS = BK * LD, Q_FLOATS = BQ * LD;
+  static constexpr size_t BYTES =
+      sizeof(float) * (size_t)(2 * K_FLOATS + 2 * PARTS * Q_FLOATS + 2 * BQ) +
+      2 * (size_t)BQ * D * sizeof(T);
+};
 
-// acc[i][j] += sum_kk P[ty+16i][kk] * B[kk][tx+16j]: a [BT][BT] tile
-// (row stride BT+1) times a row-major [BT][D] tile (row stride D+1), onto
-// this thread's R x D/16 patch.
-template <int D, int BT, int R = BT / 16>
-__device__ __forceinline__ void patch_pb(float (&acc)[R][D / 16],
-                                         const float* P, const float* B,
-                                         int ty, int tx) {
-#pragma unroll 8
-  for (int kk = 0; kk < BT; ++kk) {
-    float p[R], b[D / 16];
+// Row of a group of 8 that stands for column n of a product tile.
+__device__ __forceinline__ int perm8(int n) { return n ^ ((n >> 2) & 1); }
+
+// acc[n] += A * B[:, 8n..8n+7] over one k-step of 8 rows of B (row
+// stride LD): B read down its columns, one word at each of rows r0 and r1
+// (the rows standing for k = t and k = t+4), column 8n + g.
+template <bool SPLIT, int NO, int LD>
+__device__ __forceinline__ void mma_rows(float (&acc)[NO][4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], const float* bh,
+                                         const float* bl, int r0, int r1, int g) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) p[i] = P[(ty + 16 * i) * (BT + 1) + kk];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) b[j] = B[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p[i], b[j], acc[i][j]);
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + g;
+    const uint32_t h0 = __float_as_uint(bh[r0 * LD + c]);
+    const uint32_t h1 = __float_as_uint(bh[r1 * LD + c]);
+    if constexpr (SPLIT) {
+      const uint32_t l0 = __float_as_uint(bl[r0 * LD + c]);
+      const uint32_t l1 = __float_as_uint(bl[r1 * LD + c]);
+      mma3(acc[n], ah, al, h0, h1, l0, l1);
+    } else {
+      mma_tf32(acc[n], al, h0, h1);
+      mma_tf32(acc[n], ah, h0, h1);
+    }
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(DqLayout<T, D>::NT, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dd,
-                    T* __restrict__ dq, int t_q, int t_k, int causal,
+                    T* __restrict__ dq, int bh, int t_q, int t_k, int causal,
                     float scale) {
-  constexpr int BT = TileRows<D>::value, R = BT / 16, LDP = BT + 1;
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;              // [BT][LD]
-  float* sO = sQ + BT * LD;      // dO tile [BT][LD]
-  float* sK = sO + BT * LD;      // [BT][LD]
-  float* sV = sK + BT * LD;      // [BT][LD]
-  float* sS = sV + BT * LD;      // dS tile [BT][LDP]
+  using L = DqLayout<T, D>;
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT, LD = L::LD;
+  constexpr bool SPLIT = !L::BF16;   // f32 operands need a lo term
+  constexpr int NS = BK / 8;         // n-tiles of S and dP per warp
+  constexpr int NO = D / 8;          // n-tiles of dq per warp
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                               // [BQ][LD]
+  float* sO = sQ + L::Q_FLOATS;                   // dO, [BQ][LD]
+  float* sKh = sO + L::Q_FLOATS;                  // [BK][LD]
+  float* sKl = sKh + (SPLIT ? L::K_FLOATS : 0);   // f32 only
+  float* sVh = sKl + L::K_FLOATS;
+  float* sVl = sVh + (SPLIT ? L::K_FLOATS : 0);
+  T* rawK = reinterpret_cast<T*>(sVl + L::K_FLOATS);   // [BK][D] each
+  T* rawV = rawK + BK * D;
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BT;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int64_t qoff = (int64_t)bh * t_q * D;
-  const int64_t koff = (int64_t)bh * t_k * D;
+  // heaviest q tiles first: block i -> (q tile n_qt-1-i/bh, head i%bh)
+  const int n_qt = (t_q + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / bh);
+  const int head = (int)(blockIdx.x % bh);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = warp * 16;
+  const int64_t qoff = (int64_t)head * t_q * D;
+  const int64_t koff = (int64_t)head * t_k * D;
 
-  load_tile<T, D, BT>(sQ, q + qoff, q0, t_q);
-  load_tile<T, D, BT>(sO, dout + qoff, q0, t_q);
+  int n_kt = (t_k + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, t_q) - 1) / BK + 1);
 
-  float row_lse[R], row_dd[R];
+  // tile 0 in flight while Q and dO are staged
+  issue_raw<T, BK, D, NT>(rawK, k + koff, 0, t_k);
+  issue_raw<T, BK, D, NT>(rawV, v + koff, 0, t_k);
+  cp_async_commit();
+  load_rows_f32<T, BQ, D, LD, NT>(sQ, q + qoff, q0, t_q);
+  load_rows_f32<T, BQ, D, LD, NT>(sO, dout + qoff, q0, t_q);
+
+  const int row_a = q0 + wrow + g;           // this lane's two rows
+  const int row_b = row_a + 8;
+  const float c = scale * LOG2E;             // scores in log2 units
+  float l2[2], dr[2];                        // lse (log2 units) and D
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    row_lse[i] = row < t_q ? lse[(int64_t)bh * t_q + row] : 0.f;
-    row_dd[i] = row < t_q ? dd[(int64_t)bh * t_q + row] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row_b : row_a;
+    const bool ok = row < t_q;
+    l2[r] = ok ? lse[(int64_t)head * t_q + row] * LOG2E : 0.f;
+    dr[r] = ok ? dd[(int64_t)head * t_q + row] : 0.f;
   }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const bool warp_live = q0 + wrow < t_q;
+  const float* qa = sQ + (wrow + g) * LD + 2 * t4;
+  const float* qb = qa + 8 * LD;
+  const float* oa = sO + (wrow + g) * LD + 2 * t4;
+  const float* ob = oa + 8 * LD;
+  const int pg = perm8(g);                   // key row of B column g
+  const int p0 = perm8(2 * t4), p1 = perm8(2 * t4 + 1);   // C columns 2t, 2t+1
 
-  float acc[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * BK;
+    cp_async_wait_all();
+    __syncthreads();            // tile j staged; iteration j-1 is done
+    convert_tile<BK, D, LD, NT>(sKh, sKl, rawK);
+    convert_tile<BK, D, LD, NT>(sVh, sVl, rawV);
+    __syncthreads();            // tiles ready; staging free
+    if (j + 1 < n_kt) {         // tile j+1 lands while tile j is multiplied
+      issue_raw<T, BK, D, NT>(rawK, k + koff, k0 + BK, t_k);
+      issue_raw<T, BK, D, NT>(rawV, v + koff, k0 + BK, t_k);
+    }
+    cp_async_commit();
+    // warp-uniform: nothing of this tile reaches the warp's rows
+    if (!warp_live || (causal && k0 > q0 + wrow + 15)) continue;
 
-  int n_kt = (t_k + BT - 1) / BT;
-  if (causal) n_kt = min(n_kt, (min(q0 + BT, t_q) - 1) / BT + 1);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // previous iteration done with sK/sV/sS
-    load_tile<T, D, BT>(sK, k + koff, k0, t_k);
-    load_tile<T, D, BT>(sV, v + koff, k0, t_k);
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
+    // ---- S = Q K^T and dP = dO V^T (16 x BK per warp) ----
+    float s[NS][4], dp[NS][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    }
+#pragma unroll 1
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      load_a<SPLIT>(qa + kk, qb + kk, qh, ql);
+      load_a<SPLIT>(oa + kk, ob + kk, oh, ol);
 #pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-    patch_abt<D, R>(s, sQ, sK, ty, tx);
-    patch_abt<D, R>(dp, sO, sV, ty, tx);
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kpos >= t_k || (causal && qpos < kpos)) x = NEG_INF;
-        const float p = (x > NEG_INF * 0.5f && qpos < t_q)
-                            ? expf(x - row_lse[i]) : 0.f;
-        sS[(ty + 16 * i) * LDP + tx + 16 * j] =
-            p * (dp[i][j] - row_dd[i]) * scale;
+      for (int n = 0; n < NS; ++n) {
+        const int at = (n * 8 + pg) * LD + kk + 2 * t4;
+        const uint2 kh = *reinterpret_cast<const uint2*>(sKh + at);
+        const uint2 vh = *reinterpret_cast<const uint2*>(sVh + at);
+        if constexpr (SPLIT) {
+          const uint2 kl = *reinterpret_cast<const uint2*>(sKl + at);
+          const uint2 vl = *reinterpret_cast<const uint2*>(sVl + at);
+          mma3(s[n], qh, ql, kh.x, kh.y, kl.x, kl.y);
+          mma3(dp[n], oh, ol, vh.x, vh.y, vl.x, vl.y);
+        } else {
+          mma_tf32(s[n], qh, kh.x, kh.y);
+          mma_tf32(dp[n], oh, vh.x, vh.y);
+        }
       }
     }
-    __syncthreads();
-    patch_pb<D, BT>(acc, sS, sK, ty, tx);  // dq += dS K
+
+    // ---- dS = P (dP - D) scale on the fragments: rows g, g+8 ----
+    const bool edge = k0 + BK > t_k || (causal && k0 + BK - 1 > q0 + wrow);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? row_b : row_a;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + n * 8 + (e ? p1 : p0);
+          float p = exp2f(fmaf(s[n][2 * r + e], c, -l2[r]));
+          if (edge && (key >= t_k || (causal && row < key))) p = 0.f;
+          s[n][2 * r + e] = p * (dp[n][2 * r + e] - dr[r]) * scale;
+        }
+      }
+    }
+
+    // ---- dq += dS K: dS's C fragment of keys 8jj.. is the A fragment ----
+#pragma unroll
+    for (int jj = 0; jj < NS; ++jj) {
+      uint32_t ah[4], al[4];
+      c_to_a(s[jj], ah, al);
+      mma_rows<SPLIT, NO, LD>(acc, ah, al, sKh, sKl, jj * 8 + p0, jj * 8 + p1, g);
+    }
   }
 
+  T* out = dq + qoff;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row_b : row_a;
     if (row >= t_q) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      from_f32(&dq[qoff + (int64_t)row * D + tx + 16 * j], acc[i][j]);
+    for (int n = 0; n < NO; ++n)
+      store2(out + (int64_t)row * D + n * 8 + 2 * t4, acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(DkvLayout<T, D>::NT, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ dd,
-                     T* __restrict__ dk, T* __restrict__ dv, int t_q, int t_k,
-                     int causal, float scale) {
-  constexpr int BT = TileRows<D>::value, R = BT / 16, LDP = BT + 1;
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;              // [BT][LD]
-  float* sV = sK + BT * LD;      // [BT][LD]
-  float* sQ = sV + BT * LD;      // [BT][LD]
-  float* sO = sQ + BT * LD;      // dO tile [BT][LD]
-  float* sP = sO + BT * LD;      // P^T tile [k][q], [BT][LDP]
-  float* sS = sP + BT * LDP;     // dS^T tile [k][q], [BT][LDP]
-  float* sL = sS + BT * LDP;     // lse of the visited q tile [BT]
-  float* sD = sL + BT;           // D of the visited q tile [BT]
+                     T* __restrict__ dk, T* __restrict__ dv, int bh, int t_q,
+                     int t_k, int causal, float scale) {
+  using L = DkvLayout<T, D>;
+  constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT, LD = L::LD;
+  constexpr bool SPLIT = !L::BF16;
+  constexpr int NQ = BQ / 8;         // n-tiles of S^T and dP^T per warp
+  constexpr int NO = D / 8;          // n-tiles of dk and dv per warp
+  constexpr int NACC = L::SPLIT_OUT ? 1 : 2;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                               // [BK][LD]
+  float* sV = sK + L::K_FLOATS;                   // [BK][LD]
+  float* sQh = sV + L::K_FLOATS;                  // [BQ][LD]
+  float* sQl = sQh + (SPLIT ? L::Q_FLOATS : 0);   // f32 only
+  float* sOh = sQl + L::Q_FLOATS;                 // dO
+  float* sOl = sOh + (SPLIT ? L::Q_FLOATS : 0);
+  float* sL = sOl + L::Q_FLOATS;                  // [BQ] lse * log2(e)
+  float* sD = sL + BQ;                            // [BQ]
+  T* rawQ = reinterpret_cast<T*>(sD + BQ);        // [BQ][D] each
+  T* rawO = rawQ + BQ * D;
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BT;
-  const int tx = threadIdx.x & 15;   // q column of the score patch
-  const int ty = threadIdx.x >> 4;   // k row of the score patch
-  const int64_t qoff = (int64_t)bh * t_q * D;
-  const int64_t koff = (int64_t)bh * t_k * D;
+  // heaviest k tiles first: block i -> (k tile i / (bh*NPART), head, part)
+  const int per_tile = bh * L::NPART;
+  const int kt = (int)(blockIdx.x / per_tile);
+  const int rem = (int)(blockIdx.x % per_tile);
+  const int head = rem % bh;
+  const int part = rem / bh;                 // SPLIT_OUT: 0 -> dv, 1 -> dk
+  const bool want_v = !L::SPLIT_OUT || part == 0;
+  const bool want_k = !L::SPLIT_OUT || part == 1;
+  const int k0 = kt * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wk = warp * 16;
+  const int tid = threadIdx.x;
+  const int64_t qoff = (int64_t)head * t_q * D;
+  const int64_t koff = (int64_t)head * t_k * D;
+  const float* lse_h = lse + (int64_t)head * t_q;
+  const float* dd_h = dd + (int64_t)head * t_q;
 
-  load_tile<T, D, BT>(sK, k + koff, k0, t_k);
-  load_tile<T, D, BT>(sV, v + koff, k0, t_k);
+  const int n_qt = (t_q + BQ - 1) / BQ;
+  // causal: q tile qt is live iff its last row qt*BQ+BQ-1 >= k0
+  const int qt0 = causal ? min(k0 / BQ, n_qt) : 0;
 
-  float acc_k[R][DJ], acc_v[R][DJ];
+  float nl = 0.f, nd = 0.f;      // lse and D of the next tile's row tid
+  if (qt0 < n_qt) {
+    issue_raw<T, BQ, D, NT>(rawQ, q + qoff, qt0 * BQ, t_q);
+    issue_raw<T, BQ, D, NT>(rawO, dout + qoff, qt0 * BQ, t_q);
+    const int row = qt0 * BQ + tid;
+    if (tid < BQ && row < t_q) {
+      nl = lse_h[row] * LOG2E;
+      nd = dd_h[row];
+    }
+  }
+  cp_async_commit();
+  load_rows_f32<T, BK, D, LD, NT>(sK, k + koff, k0, t_k);
+  if (want_k) load_rows_f32<T, BK, D, LD, NT>(sV, v + koff, k0, t_k);
+
+  const int key_a = k0 + wk + g;             // this lane's two keys
+  const int key_b = key_a + 8;
+  const float c = scale * LOG2E;
+  float acc[NACC][NO][4];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int n_qt = (t_q + BT - 1) / BT;
-  // causal: q tile qt is live iff its last row qt*BT+BT-1 >= k0 (equal tiles)
-  const int qt0 = causal ? k0 / BT : 0;
+    for (int n = 0; n < NO; ++n) acc[a][n][0] = acc[a][n][1] = acc[a][n][2] = acc[a][n][3] = 0.f;
+  float (&acc_v)[NO][4] = acc[0];
+  float (&acc_k)[NO][4] = acc[NACC - 1];
+  const bool warp_live = k0 + wk < t_k;
+  const float* ka = sK + (wk + g) * LD + 2 * t4;
+  const float* kb = ka + 8 * LD;
+  const float* va = sV + (wk + g) * LD + 2 * t4;
+  const float* vb = va + 8 * LD;
+  const int pg = perm8(g);
+  const int p0 = perm8(2 * t4), p1 = perm8(2 * t4 + 1);
 
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();  // previous iteration done with sQ/sO/sP/sS/sL/sD
-    load_tile<T, D, BT>(sQ, q + qoff, q0, t_q);
-    load_tile<T, D, BT>(sO, dout + qoff, q0, t_q);
-    if (threadIdx.x < BT) {
-      const int row = q0 + threadIdx.x;
-      sL[threadIdx.x] = row < t_q ? lse[(int64_t)bh * t_q + row] : 0.f;
-      sD[threadIdx.x] = row < t_q ? dd[(int64_t)bh * t_q + row] : 0.f;
+    const int q0 = qt * BQ;
+    cp_async_wait_all();
+    __syncthreads();            // tile qt staged; iteration qt-1 is done
+    convert_tile<BQ, D, LD, NT>(sQh, sQl, rawQ);
+    convert_tile<BQ, D, LD, NT>(sOh, sOl, rawO);
+    if (tid < BQ) {
+      sL[tid] = nl;
+      sD[tid] = nd;
     }
-    __syncthreads();
-
-    // S^T and dP^T on this thread's patch: k rows ty+16i, q cols tx+16j
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-    patch_abt<D, R>(s, sK, sQ, ty, tx);
-    patch_abt<D, R>(dp, sV, sO, ty, tx);
-
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int qc = tx + 16 * j;
-      const int qpos = q0 + qc;
-      const float l = sL[qc], dq_row = sD[qc];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int kpos = k0 + ty + 16 * i;
-        float x = s[i][j] * scale;
-        if (kpos >= t_k || (causal && qpos < kpos)) x = NEG_INF;
-        const float p = (x > NEG_INF * 0.5f && qpos < t_q) ? expf(x - l) : 0.f;
-        sP[(ty + 16 * i) * LDP + qc] = p;
-        sS[(ty + 16 * i) * LDP + qc] = p * (dp[i][j] - dq_row) * scale;
+    __syncthreads();            // tiles ready; staging free
+    if (qt + 1 < n_qt) {        // tile qt+1 lands while tile qt is multiplied
+      issue_raw<T, BQ, D, NT>(rawQ, q + qoff, q0 + BQ, t_q);
+      issue_raw<T, BQ, D, NT>(rawO, dout + qoff, q0 + BQ, t_q);
+      const int row = q0 + BQ + tid;
+      nl = nd = 0.f;
+      if (tid < BQ && row < t_q) {
+        nl = lse_h[row] * LOG2E;
+        nd = dd_h[row];
       }
     }
-    __syncthreads();
-    patch_pb<D, BT>(acc_v, sP, sO, ty, tx);  // dv += P^T dO
-    patch_pb<D, BT>(acc_k, sS, sQ, ty, tx);  // dk += dS^T Q
+    cp_async_commit();
+    // warp-uniform: every query of this tile comes before the warp's keys
+    if (!warp_live || (causal && q0 + BQ - 1 < k0 + wk)) continue;
+
+    // ---- S^T = K Q^T and dP^T = V dO^T (16 keys x BQ queries a warp) ----
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
+    }
+#pragma unroll 1
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      load_a<SPLIT>(ka + kk, kb + kk, kh, kl);
+      if (want_k) load_a<SPLIT>(va + kk, vb + kk, vh, vl);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int at = (n * 8 + pg) * LD + kk + 2 * t4;
+        const uint2 qh = *reinterpret_cast<const uint2*>(sQh + at);
+        if constexpr (SPLIT) {
+          const uint2 ql = *reinterpret_cast<const uint2*>(sQl + at);
+          mma3(st[n], kh, kl, qh.x, qh.y, ql.x, ql.y);
+        } else {
+          mma_tf32(st[n], kh, qh.x, qh.y);
+        }
+        if (want_k) {
+          const uint2 oh = *reinterpret_cast<const uint2*>(sOh + at);
+          if constexpr (SPLIT) {
+            const uint2 ol = *reinterpret_cast<const uint2*>(sOl + at);
+            mma3(dpt[n], vh, vl, oh.x, oh.y, ol.x, ol.y);
+          } else {
+            mma_tf32(dpt[n], vh, oh.x, oh.y);
+          }
+        }
+      }
+    }
+
+    // ---- P^T and dS^T on the fragments: keys g, g+8; query columns ----
+    const bool edge = q0 + BQ > t_q || (causal && q0 < k0 + wk + 15);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + (e ? p1 : p0);
+        const int query = q0 + col;
+        const float lq = sL[col], dq_row = sD[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = r ? key_b : key_a;
+          float p = exp2f(fmaf(st[n][2 * r + e], c, -lq));
+          if (edge && (query >= t_q || (causal && query < key))) p = 0.f;
+          st[n][2 * r + e] = p;
+          dpt[n][2 * r + e] = p * (dpt[n][2 * r + e] - dq_row) * scale;
+        }
+      }
+    }
+
+    // ---- dv += P^T dO, dk += dS^T Q: the C fragments are the A ones ----
+#pragma unroll
+    for (int jj = 0; jj < NQ; ++jj) {
+      uint32_t ah[4], al[4];
+      const int r0 = jj * 8 + p0, r1 = jj * 8 + p1;
+      if (want_v) {
+        c_to_a(st[jj], ah, al);
+        mma_rows<SPLIT, NO, LD>(acc_v, ah, al, sOh, sOl, r0, r1, g);
+      }
+      if (want_k) {
+        c_to_a(dpt[jj], ah, al);
+        mma_rows<SPLIT, NO, LD>(acc_k, ah, al, sQh, sQl, r0, r1, g);
+      }
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= t_k) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? key_b : key_a;
+    if (key >= t_k) continue;
+    const int64_t at = koff + (int64_t)key * D + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int64_t at = koff + (int64_t)row * D + tx + 16 * j;
-      from_f32(&dk[at], acc_k[i][j]);
-      from_f32(&dv[at], acc_v[i][j]);
+    for (int n = 0; n < NO; ++n) {
+      if (want_k) store2(dk + at + n * 8, acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+      if (want_v) store2(dv + at + n * 8, acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
   }
 }
@@ -302,17 +521,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* dd,
                       void* dq, int bh, int t_q, int t_k, int causal,
                       float scale, cudaStream_t stream) {
-  constexpr int BT = TileRows<D>::value;
-  constexpr size_t smem = sizeof(float) * (size_t)(4 * BT * (D + 1) + BT * (BT + 1));
+  using L = DqLayout<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)L::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (t_q + BT - 1) / BT);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const long long blocks = (long long)bh * ((t_q + L::BQ - 1) / L::BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<T, D><<<(unsigned)blocks, L::NT, L::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
-      static_cast<T*>(dq), t_q, t_k, causal, scale);
+      static_cast<T*>(dq), bh, t_q, t_k, causal, scale);
   return cudaGetLastError();
 }
 
@@ -321,25 +540,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* dd,
                        void* dk, void* dv, int bh, int t_q, int t_k,
                        int causal, float scale, cudaStream_t stream) {
-  constexpr int BT = TileRows<D>::value;
-  constexpr size_t smem =
-      sizeof(float) * (size_t)(4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT);
+  using L = DkvLayout<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)L::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (t_k + BT - 1) / BT);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const long long blocks =
+      (long long)bh * L::NPART * ((t_k + L::BK - 1) / L::BK);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dkv_kernel<T, D><<<(unsigned)blocks, L::NT, L::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
-      static_cast<T*>(dk), static_cast<T*>(dv), t_q, t_k, causal, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), bh, t_q, t_k, causal, scale);
   return cudaGetLastError();
-}
-
-bool bad_dims(int bh, int t_q, int t_k) {
-  // grid.y counts tiles of 32 rows at most
-  return bh <= 0 || t_q <= 0 || t_k <= 0 || (t_q + 31) / 32 > 65535 ||
-         (t_k + 31) / 32 > 65535;
 }
 
 template <typename T>
@@ -371,15 +584,16 @@ int dkv_d(int d, const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  d: 64, 128, 192 or 256.  q, k, v,
-// dout, dq, dk, dv contiguous [bh, t, d]; lse and dd (= rowsum(dout *
-// out)) f32 [bh, t_q].  Each returns a cudaError_t; 0 is success.
+// dout, dq, dk, dv contiguous [bh, t, d] and 16-byte aligned; lse and dd
+// (= rowsum(dout * out)) f32 [bh, t_q].  Each returns a cudaError_t; 0 is
+// success.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* dd, void* dq, int bh, int t_q,
                                  int t_k, int d, int causal, float scale,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_dims(bh, t_q, t_k)) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || t_q <= 0 || t_k <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dq_d<float>(d, q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
   if (dtype == 1)
@@ -393,7 +607,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   int t_q, int t_k, int d, int causal,
                                   float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_dims(bh, t_q, t_k)) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || t_q <= 0 || t_k <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dkv_d<float>(d, q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
   if (dtype == 1)

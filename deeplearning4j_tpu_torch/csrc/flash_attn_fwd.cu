@@ -86,24 +86,15 @@
 //   d = 256: BQ 64,  BK 16   163.5 / 115 KB
 // One CTA per SM at f32; up to 8 warps with their accumulators in
 // registers (up to 255 a thread).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;  // finite, as in ops/attention.NEG_INF
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D> struct Tiles;
 template <> struct Tiles<64> { static constexpr int BQ = 128, BK = 64; };
 template <> struct Tiles<128> { static constexpr int BQ = 128, BK = 32; };
 template <> struct Tiles<192> { static constexpr int BQ = 64, BK = 32; };
 template <> struct Tiles<256> { static constexpr int BQ = 64, BK = 16; };
-
-template <typename T> struct IsBf16 { static constexpr bool value = false; };
-template <> struct IsBf16<__nv_bfloat16> { static constexpr bool value = true; };
 
 // Shared-memory layout of one instance: Q (f32), then K and V as f32 hi
 // parts and, for f32 inputs, lo parts, then the raw staging buffer of the
@@ -122,134 +113,6 @@ struct Layout {
   static constexpr size_t BYTES =
       sizeof(float) * (size_t)(Q_FLOATS + PARTS * (K_FLOATS + V_FLOATS)) + RAW_BYTES;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x = hi + lo to ~2^-22 relative: hi is x rounded to nearest TF32, lo
-// the remainder (exact in f32) rounded to nearest TF32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
-// d = a * b on one 16x8x8 TF32 tile (a zero accumulator).
-__device__ __forceinline__ void mma_tf32_zc(float (&d)[4], const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// d += a * b on one 16x8x8 TF32 tile.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void add4(float (&acc)[4], const float (&t)[4]) {
-  acc[0] += t[0]; acc[1] += t[1]; acc[2] += t[2]; acc[3] += t[3];
-}
-
-__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p, int i) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p + i);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Rows [row0, row0 + ROWS) of a [t, D] global matrix into a dense
-// [ROWS][D] staging buffer, issued as cp.async; rows past t read as zero.
-template <typename T, int ROWS, int D, int NT>
-__device__ __forceinline__ void issue_raw(T* dst, const T* src, int row0, int t) {
-  constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
-  constexpr int CPR = D / EPC;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
-    const int r = i / CPR, c = (i - r * CPR) * EPC;
-    const int row = row0 + r;
-    const bool ok = row < t;
-    cp_async16(dst + r * D + c, src + (int64_t)(ok ? row : 0) * D + c, ok);
-  }
-}
-
-// Dense staging [ROWS][D] -> f32 tiles with row stride LD: the TF32 hi
-// and lo parts of f32 input, or bf16 input widened (exact in TF32, no lo).
-template <int ROWS, int D, int LD, int NT>
-__device__ __forceinline__ void convert_tile(float* hi, float* lo, const float* src) {
-  constexpr int CPR = D / 4;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
-    const int r = i / CPR, c = (i - r * CPR) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(src + r * D + c);
-    uint32_t h[4], l[4];
-    split_tf32(x.x, h[0], l[0]);
-    split_tf32(x.y, h[1], l[1]);
-    split_tf32(x.z, h[2], l[2]);
-    split_tf32(x.w, h[3], l[3]);
-    *reinterpret_cast<uint4*>(hi + r * LD + c) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + r * LD + c) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-template <int ROWS, int D, int LD, int NT>
-__device__ __forceinline__ void convert_tile(float* hi, float*, const __nv_bfloat16* src) {
-  constexpr int CPR = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
-    const int r = i / CPR, c = (i - r * CPR) * 8;
-    float4* o = reinterpret_cast<float4*>(hi + r * LD + c);
-    o[0] = widen4(src, r * D + c);
-    o[1] = widen4(src, r * D + c + 4);
-  }
-}
-
-// Q rows [q0, q0 + BQ) into sQ as f32, zeros past t_q (synchronous; once).
-template <typename T, int D, int BQ, int LD, int NT>
-__device__ __forceinline__ void load_q(float* sQ, const T* q, int q0, int t_q) {
-  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int CPR = D / EPC;
-  for (int i = threadIdx.x; i < BQ * CPR; i += NT) {
-    const int r = i / CPR, c = (i - r * CPR) * EPC;
-    const int row = q0 + r;
-    float* o = sQ + r * LD + c;
-    if constexpr (IsBf16<T>::value) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-      if (row < t_q) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(q + (int64_t)row * D + c);
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-        a = widen4(h, 0);
-        b = widen4(h, 4);
-      }
-      reinterpret_cast<float4*>(o)[0] = a;
-      reinterpret_cast<float4*>(o)[1] = b;
-    } else {
-      *reinterpret_cast<float4*>(o) =
-          row < t_q ? *reinterpret_cast<const float4*>(q + (int64_t)row * D + c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(Layout<T, D>::NT, 1)
@@ -290,7 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   issue_raw<T, BK, D, NT>(rawK, k + koff, 0, t_k);
   issue_raw<T, BK, D, NT>(rawV, v + koff, 0, t_k);
   cp_async_commit();
-  load_q<T, D, BQ, LDQ, NT>(sQ, q + qoff, q0, t_q);
+  load_rows_f32<T, BQ, D, LDQ, NT>(sQ, q + qoff, q0, t_q);
 
   const float c = scale * LOG2E;    // scores in log2 units
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -324,31 +187,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 4
     for (int kk = 0; kk < D; kk += 8) {
-      const float2 xa = *reinterpret_cast<const float2*>(qa + kk);
-      const float2 xb = *reinterpret_cast<const float2*>(qb + kk);
       uint32_t ah[4], al[4];
-      if constexpr (SPLIT) {
-        split_tf32(xa.x, ah[0], al[0]);
-        split_tf32(xb.x, ah[1], al[1]);
-        split_tf32(xa.y, ah[2], al[2]);
-        split_tf32(xb.y, ah[3], al[3]);
-      } else {
-        ah[0] = __float_as_uint(xa.x);
-        ah[1] = __float_as_uint(xb.x);
-        ah[2] = __float_as_uint(xa.y);
-        ah[3] = __float_as_uint(xb.y);
-      }
+      load_a<SPLIT>(qa + kk, qb + kk, ah, al);
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         const int at = (n * 8 + g) * LDK + kk + 2 * t4;
         const uint2 bh = *reinterpret_cast<const uint2*>(sKh + at);
         if constexpr (SPLIT) {
           const uint2 bl = *reinterpret_cast<const uint2*>(sKl + at);
-          float t[4];
-          mma_tf32_zc(t, al, bh.x, bh.y);
-          mma_tf32(t, ah, bl.x, bl.y);
-          mma_tf32(t, ah, bh.x, bh.y);
-          add4(s[n], t);
+          mma3(s[n], ah, al, bh.x, bh.y, bl.x, bl.y);
         } else {
           mma_tf32(s[n], ah, bh.x, bh.y);
         }
@@ -405,10 +252,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < NS; ++jj) {
       uint32_t ph[4], pl[4];
-      split_tf32(s[jj][0], ph[0], pl[0]);   // (g,   key 2t)
-      split_tf32(s[jj][2], ph[1], pl[1]);   // (g+8, key 2t)
-      split_tf32(s[jj][1], ph[2], pl[2]);   // (g,   key 2t+1)
-      split_tf32(s[jj][3], ph[3], pl[3]);   // (g+8, key 2t+1)
+      c_to_a(s[jj], ph, pl);
       const int v0 = (jj * 8 + 2 * t4) * LDV + g;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
@@ -417,11 +261,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if constexpr (SPLIT) {
           const uint32_t vl0 = __float_as_uint(sVl[v0 + n * 8]);
           const uint32_t vl1 = __float_as_uint(sVl[v0 + LDV + n * 8]);
-          float t[4];
-          mma_tf32_zc(t, pl, vh0, vh1);
-          mma_tf32(t, ph, vl0, vl1);
-          mma_tf32(t, ph, vh0, vh1);
-          add4(acc[n], t);
+          mma3(acc[n], ph, pl, vh0, vh1, vl0, vl1);
         } else {
           mma_tf32(acc[n], pl, vh0, vh1);
           mma_tf32(acc[n], ph, vh0, vh1);

@@ -123,7 +123,9 @@ class LSTM(BaseRecurrentLayer):
     """LSTM without peepholes (reference ``nn/conf/layers/LSTM``), gates
     IFOG.  ``helper="pallas"`` takes the fused kernel where
     ``pallas_lstm.supports`` accepts the cell (sigmoid gates, tanh
-    activation, no peepholes, no mask) and the plain loop elsewhere."""
+    activation, no peepholes, no mask) and the card has a launch for the
+    shape (``pallas_lstm.kernel_plan_exists``), and the plain loop
+    elsewhere."""
     HAS_CARRY = True
     forget_gate_bias_init: float = 1.0
     gate_activation: str = "sigmoid"
@@ -155,7 +157,8 @@ class LSTM(BaseRecurrentLayer):
                 peepholes=self._PEEPHOLES,
                 gate_activation=self.gate_activation,
                 activation=self.resolved("activation", "tanh"),
-                masked=mask is not None):
+                masked=mask is not None) and pallas_lstm.kernel_plan_exists(
+                    x.shape[0], self.n_out, x.shape[1], x.device):
             f32 = torch.float32
             ys, hT, cT = pallas_lstm.lstm_forward_fast(
                 x.to(f32), params["W"].to(f32), params["U"].to(f32),

@@ -17,12 +17,15 @@ launch or raise.  ``flash_attention_fwd_plain`` and
 (64-row tiles, stop at the causal diagonal, f32 statistics): the CPU path
 and the oracle the kernels are held against on the card.  The kernels pick
 their own tile rows for the card's shared memory.  ``_tf32_split`` is the
-forward kernel's split of an f32 operand into two TF32 terms; the CPU
-tests run the plain forward through it (its ``matmul`` argument) to show
-that three TF32 products keep f32 accuracy and one does not.  The reference's
-``custom_vjp`` becomes ``_FlashAttention``, a ``torch.autograd.Function``.
-``flash_attention`` keeps the reference's ``supports`` rule and its
-fallback to ``sdpa_reference``, which autograd differentiates.
+kernels' split of an f32 operand into two TF32 terms; the CPU tests run
+the plain forward and backward through it (their ``matmul`` argument) to
+show that three TF32 products keep f32 accuracy and one does not.  The
+reference's ``custom_vjp`` becomes ``_FlashAttention``, a
+``torch.autograd.Function``.  ``flash_attention`` keeps the reference's
+``supports`` rule and its fallback to ``sdpa_reference``, which autograd
+differentiates; the kernels' rule is tighter (``kernel_supports``: head_dim
+up to 256), and a shape the reference admits beyond it takes
+``sdpa_reference`` too, on every device.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ BLOCK = 64            # q and k tile rows of the plain twins
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 # The kernels are built for head_dim up to 256; their f32 tiles already
 # take up to 197 KB (the forward at d = 192) of the 227 KB (232,448 bytes)
-# a block may use on Hopper.
+# a block may use on Hopper.  ``flash_attention`` sends the wider head_dims
+# that ``supports`` admits to ``sdpa_reference`` (``kernel_supports``).
 MAX_KERNEL_HEAD_DIM = 256
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SOURCE = "flash_attn_fwd.cu"
@@ -65,6 +69,14 @@ def supports(t_q: int, t_k: int, d: int) -> bool:
     """The reference's rule: sequences that tile and a head_dim that is
     a multiple of 64.  Other shapes take ``sdpa_reference``."""
     return _tile_ok(t_q) and _tile_ok(t_k) and d % 64 == 0
+
+
+def kernel_supports(t_q: int, t_k: int, d: int) -> bool:
+    """Where ``flash_attention`` takes the kernels: ``supports`` and a
+    head_dim the kernels are built for (at most ``MAX_KERNEL_HEAD_DIM``).
+    Tighter than the reference, which runs its Pallas kernel at any
+    multiple of 64."""
+    return supports(t_q, t_k, d) and d <= MAX_KERNEL_HEAD_DIM
 
 
 def _causal_live(q0: int, rows: int, n_k: int) -> int:
@@ -139,13 +151,14 @@ def _rowsum_do_o(do, o) -> torch.Tensor:
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
-                              scale: float
+                              scale: float, matmul: Callable = torch.matmul
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """``(dq, dk, dv)`` for ``[bh, t, d]`` tensors from the forward's
     ``O`` and ``lse`` (``[bh, t_q]``), replaying each 64x64 softmax block
     as ``_replay_p_ds`` does: P = exp(S − lse)·(S > NEG_INF/2),
-    dS = P∘(dP − D)·scale.  Gradients leave in the input dtypes."""
+    dS = P∘(dP − D)·scale.  Gradients leave in the input dtypes.
+    ``matmul`` takes all five products (S, dP, dS·K, dSᵀ·Q, Pᵀ·dO)."""
     bh, t_q, d = q.shape
     t_k = k.shape[1]
     acc_dt = torch.promote_types(q.dtype, torch.float32)
@@ -165,18 +178,18 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
         qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
         for k0 in range(0, live * BLOCK, BLOCK):
             kt, vt = kf[:, k0:k0 + BLOCK], vf[:, k0:k0 + BLOCK]
-            s = torch.matmul(qt, kt.transpose(1, 2)) * scale
+            s = matmul(qt, kt.transpose(1, 2)) * scale
             if causal:
                 kpos = torch.arange(k0, k0 + kt.shape[1],
                                     device=q.device)[None, :]
                 s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
             p = torch.where(s > NEG_INF / 2, torch.exp(s - lse_t),
                             torch.zeros_like(s))
-            dp = torch.matmul(dot, vt.transpose(1, 2))
+            dp = matmul(dot, vt.transpose(1, 2))
             ds = p * (dp - dd_t) * scale
-            dq[:, q0:q0 + rows] += torch.matmul(ds, kt)
-            dk[:, k0:k0 + kt.shape[1]] += torch.matmul(ds.transpose(1, 2), qt)
-            dv[:, k0:k0 + kt.shape[1]] += torch.matmul(p.transpose(1, 2), dot)
+            dq[:, q0:q0 + rows] += matmul(ds, kt)
+            dk[:, k0:k0 + kt.shape[1]] += matmul(ds.transpose(1, 2), qt)
+            dv[:, k0:k0 + kt.shape[1]] += matmul(p.transpose(1, 2), dot)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -287,10 +300,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float
     for CUDA tensors, ``flash_attention_bwd_plain`` for CPU tensors."""
     # Replaces the Pallas `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`
     # (deeplearning4j_tpu/ops/flash_attention.py, launched by `_flash_bwd`).
-    # Both are bound by operations in f32 (6·d and 8·d per live pair, as
-    # f32 FMAs without TF32); one CTA owns one output tile and loops over
-    # the other axis, so neither needs atomics.  Details in
-    # csrc/flash_attn_bwd.cu.
+    # Both are bound by operations (6·d and 8·d per live pair): the five
+    # products run on the tensor cores as three TF32 mma.sync passes at f32
+    # accuracy, each k-step into a zeroed tile, on tiles staged by cp.async
+    # a tile ahead and split once per CTA, the heaviest tiles issued first.
+    # One CTA owns one output tile and loops over the other axis, so
+    # neither needs atomics and the results are the same bits from run to
+    # run.  Details in csrc/flash_attn_bwd.cu.
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
     who = "flash_attention_bwd"
@@ -342,10 +358,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention over ``[b, h, t, d]`` tensors (no key-padding
     mask), differentiable.  Shapes outside ``supports`` take
-    ``sdpa_reference``, as in the reference."""
+    ``sdpa_reference``, as in the reference, and so do those outside
+    ``kernel_supports`` (head_dim above 256)."""
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
-    if not supports(t_q, t_k, d):
+    if not kernel_supports(t_q, t_k, d):
         return sdpa_reference(q, k, v, causal=causal, scale=scale)
     if scale is None:
         scale = d ** -0.5

@@ -37,10 +37,11 @@ import torch
 
 SOURCE = "bn_apply.cu"
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The widest C the kernel door admits: the plan's index walk is checked up
-# to it (tests/test_torch_bn_kernel.py).  It was the shared-memory limit
-# of the first design, which staged scale and shift per block.
-MAX_CHANNELS = 232448 // 8
+# ``_tile_m``'s budget per operand block and its row tiles (the
+# reference's rule); the smallest tile sets the widest C ``supports``
+# admits, which is the widest the kernel door takes (``max_channels``).
+TILE_BUDGET = 4 << 20
+TILE_ROWS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
 # The kernel's launch constants (csrc/bn_apply.cu kThreads, kUnroll,
 # kBlocksPerSm: __launch_bounds__ caps a thread at 64 registers so that
 # four blocks of 256 threads stay resident on an SM).
@@ -78,11 +79,20 @@ def _lane_geometry(shape: Sequence[int]):
 def _tile_m(m: int, c: int, itemsize: int):
     """Largest multiple-of-8 row tile dividing m whose [tm, c] block stays
     within 4 MiB per operand, or None."""
-    budget = (4 << 20) // max(c * itemsize, 1)
-    for tm in (2048, 1024, 512, 256, 128, 64, 32, 16, 8):
+    budget = TILE_BUDGET // max(c * itemsize, 1)
+    for tm in TILE_ROWS:
         if tm <= budget and m % tm == 0:
             return tm
     return None
+
+
+def max_channels(itemsize: int) -> int:
+    """The widest C that ``supports`` admits for ``itemsize``-byte
+    elements: one smallest row tile of ``_tile_m`` within its budget
+    (131,072 in f32, 262,144 in bf16).  The kernel door takes every C up
+    to it; the plan's index walk is checked there
+    (tests/test_torch_bn_kernel.py)."""
+    return TILE_BUDGET // (min(TILE_ROWS) * itemsize)
 
 
 def supports(*, activation: str, shape: Sequence[int],
@@ -188,9 +198,10 @@ def _check_kernel_inputs(x, scale, shift) -> None:
                          "with channels last (strides "
                          f"{tuple(x.stride())})")
     c = x.shape[-1]
-    if not 0 < c <= MAX_CHANNELS:
-        raise ValueError(f"{who}: {c} channels; the kernel takes 1.."
-                         f"{MAX_CHANNELS}")
+    widest = max_channels(x.element_size())
+    if not 0 < c <= widest:
+        raise ValueError(f"{who}: {c} channels; the kernel takes 1..{widest} "
+                         f"in {x.dtype} (the widest C supports admits)")
     for name, t in (("scale", scale), ("shift", shift)):
         if t.shape != (c,) or t.dtype != x.dtype or t.device != x.device \
                 or not t.is_contiguous():

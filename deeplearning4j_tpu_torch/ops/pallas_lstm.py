@@ -9,6 +9,9 @@ launch per sequence, built for ``sm_90a`` at first use and bound with
 
 - ``supports`` is the reference's ``checkSupported`` rule, copied rule for
   rule: the kernel covers the sigmoid/tanh cell without peepholes or mask.
+  Hopper's rule is tighter where the card has no launch that keeps every
+  CTA resident (wide h, ``plan``): ``kernel_plan_exists`` says where, and
+  the layer takes its plain loop there.
 - ``lstm_forward`` hoists the input projection ``x·W + b`` out of the
   recurrence as one matrix product, as the reference does, then runs the
   kernel on CUDA tensors and ``lstm_forward_plain`` on CPU tensors; on a
@@ -125,12 +128,9 @@ def _cost(p: Plan, h: int, t: int, sms: int) -> int:
     return t * step + stage
 
 
-def plan(batch: int, h: int, t: int, sms: int, max_smem: int,
-         blocks_per_sm: Callable[[int, int, int], int]) -> Plan:
-    """The cheapest configuration (by ``_cost``, then the smaller grid)
-    whose CTAs are all resident at once: ``blocks_per_sm(rb, threads,
-    smem)`` is the card's occupancy of that instance.  Raises ValueError,
-    with the numbers, when none is."""
+def _search(batch: int, h: int, t: int, sms: int, max_smem: int,
+            blocks_per_sm: Callable[[int, int, int], int]) -> Optional[Plan]:
+    """``plan``'s search; None when no configuration fits."""
     best, best_key = None, None
     for threads in THREADS:
         for rb in ROWS_PER_THREAD:
@@ -149,12 +149,26 @@ def plan(batch: int, h: int, t: int, sms: int, max_smem: int,
                 key = (_cost(p, h, t, sms), grid)
                 if best_key is None or key < best_key:
                     best, best_key = p, key
+    return best
+
+
+def _no_plan(batch: int, h: int, sms: int, max_smem: int) -> ValueError:
+    return ValueError(
+        f"lstm_fwd: no launch keeps every CTA resident for batch "
+        f"{batch}, h {h}: U [{h}, {4 * h}] f32 is {16 * h * h} bytes "
+        f"and each CTA also stages its batch rows of h, against "
+        f"{sms} SMs x {max_smem} bytes of shared memory per block")
+
+
+def plan(batch: int, h: int, t: int, sms: int, max_smem: int,
+         blocks_per_sm: Callable[[int, int, int], int]) -> Plan:
+    """The cheapest configuration (by ``_cost``, then the smaller grid)
+    whose CTAs are all resident at once: ``blocks_per_sm(rb, threads,
+    smem)`` is the card's occupancy of that instance.  Raises ValueError,
+    with the numbers, when none is."""
+    best = _search(batch, h, t, sms, max_smem, blocks_per_sm)
     if best is None:
-        raise ValueError(
-            f"lstm_fwd: no launch keeps every CTA resident for batch "
-            f"{batch}, h {h}: U [{h}, {4 * h}] f32 is {16 * h * h} bytes "
-            f"and each CTA also stages its batch rows of h, against "
-            f"{sms} SMs x {max_smem} bytes of shared memory per block")
+        raise _no_plan(batch, h, sms, max_smem)
     return best
 
 
@@ -187,20 +201,50 @@ def _occupancy(rb: int, threads: int, smem: int) -> Tuple[int, int, int]:
     return out[0], out[1], out[2]
 
 
-def device_plan(batch: int, h: int, t: int, device) -> Plan:
-    """``plan`` on the card of ``device``, cached per shape."""
+def _card(device) -> Tuple[int, int, Callable[[int, int, int], int]]:
+    """(SMs, shared memory a block may opt in to, occupancy of one
+    configuration) of the card of ``device``."""
+    with torch.cuda.device(device):
+        _, sms, max_smem = _occupancy(1, THREADS[0], 0)
+
+    def blocks_per_sm(rb: int, threads: int, smem: int) -> int:
+        with torch.cuda.device(device):
+            return _occupancy(rb, threads, smem)[0]
+    return sms, max_smem, blocks_per_sm
+
+
+def _device_search(batch: int, h: int, t: int, device):
+    """``(plan or None, SMs, shared memory)`` on the card of ``device``,
+    cached per shape."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     key = (device.index, batch, h, t)
-    p = _plans.get(key)
+    hit = _plans.get(key)
+    if hit is None:
+        sms, max_smem, blocks_per_sm = _card(device)
+        hit = _plans[key] = (_search(batch, h, t, sms, max_smem,
+                                     blocks_per_sm), sms, max_smem)
+    return hit
+
+
+def device_plan(batch: int, h: int, t: int, device) -> Plan:
+    """``plan`` on the card of ``device``, cached per shape; raises as
+    ``plan`` does where the card has no launch."""
+    p, sms, max_smem = _device_search(batch, h, t, device)
     if p is None:
-        with torch.cuda.device(device):
-            _, sms, max_smem = _occupancy(1, THREADS[0], 0)
-            p = plan(batch, h, t, sms, max_smem,
-                     lambda rb, th, sm: _occupancy(rb, th, sm)[0])
-        _plans[key] = p
+        raise _no_plan(batch, h, sms, max_smem)
     return p
+
+
+def kernel_plan_exists(batch: int, h: int, t: int, device) -> bool:
+    """False where the card of ``device`` has no launch for this shape
+    (``device_plan`` raises there): the ``LSTM`` layer then runs its plain
+    loop, as it does where ``supports`` is False.  True off CUDA, where
+    ``lstm_forward`` runs the plain twin at every shape."""
+    if torch.device(device).type != "cuda":
+        return True
+    return _device_search(batch, h, t, device)[0] is not None
 
 
 def _check_kernel_inputs(x, W, U, b, h0, c0) -> None:

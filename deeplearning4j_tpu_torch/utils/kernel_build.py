@@ -3,20 +3,22 @@
 Each kernel source has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/`` at the repository root,
 then loaded with ``ctypes``.  The library's file name carries the hash of
-its source, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here runs at import: the CPU tests import every module
-on a machine without ``nvcc``.
+its source and of every ``csrc`` header it includes (``#include
+"name.cuh"``, followed through the headers), so an edited source or header
+is rebuilt and a stale library is never loaded.  Nothing here runs at
+import: the CPU tests import every module on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -43,10 +45,32 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    """Where the library for ``csrc/<source>`` lands: keyed by content."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources_of(source: str, csrc: Path = CSRC_DIR) -> List[str]:
+    """``source`` and the ``csrc`` headers it includes, directly or through
+    another header, in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        todo += [m.decode() for m in
+                 _LOCAL_INCLUDE.findall((csrc / name).read_bytes())]
+    return seen
+
+
+def library_path(source: str, csrc: Path = CSRC_DIR) -> Path:
+    """Where the library for ``csrc/<source>`` lands: keyed by the content
+    of the source and of the headers it includes."""
+    h = hashlib.sha256()
+    for name in sources_of(source, csrc):
+        data = (csrc / name).read_bytes()
+        h.update(f"{name}\0{len(data)}\0".encode())
+        h.update(data)
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:

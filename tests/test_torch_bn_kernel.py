@@ -157,9 +157,9 @@ def test_kernel_door_refuses_what_the_kernel_does_not_take():
            ((x.double(), ok.double(), ok.double()), "float32 or bfloat16"),
            ((x, torch.zeros(32), ok), "scale"),
            ((x, ok, ok.to(torch.bfloat16)), "shift"),
-           ((torch.zeros(2, tbn.MAX_CHANNELS + 1),
-             torch.zeros(tbn.MAX_CHANNELS + 1),
-             torch.zeros(tbn.MAX_CHANNELS + 1)), "channels")]
+           ((torch.zeros(2, tbn.max_channels(4) + 1),
+             torch.zeros(tbn.max_channels(4) + 1),
+             torch.zeros(tbn.max_channels(4) + 1)), "channels")]
     for args, match in bad:
         with pytest.raises(ValueError, match=match):
             tbn._check_kernel_inputs(*args)
@@ -169,6 +169,40 @@ def test_kernel_door_refuses_what_the_kernel_does_not_take():
         tbn.bn_apply(meta, torch.zeros(64, device="meta"),
                      torch.zeros(64, device="meta"), False)
     assert tbn.launches["bn_apply"] == 0
+
+
+@pytest.mark.parametrize("itemsize,dtype", [(4, torch.float32),
+                                             (2, torch.bfloat16)])
+def test_kernel_door_admits_every_shape_supports_admits(itemsize, dtype):
+    """Where ``supports`` sends a BatchNormalization to the fused path,
+    the kernel door takes it: every C the reference's rule admits at this
+    itemsize, up to the widest (131,072 f32, 262,144 bf16, one 8-row tile
+    within ``_tile_m``'s budget), passes ``_check_kernel_inputs``; one step
+    of 128 channels beyond the widest, ``supports`` and the door refuse it
+    alike."""
+    widest = tbn.max_channels(itemsize)
+    assert widest == {4: 131072, 2: 262144}[itemsize]
+    assert tbn._tile_m(8, widest, itemsize) == 8
+    assert tbn._tile_m(8, widest + 128, itemsize) is None
+    channels = [1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 384, 2048, 29056 + 128,
+                32768, widest // 2, widest - 128, widest]
+    for c in channels:
+        for m in (8, 64, 4096):
+            if not tbn.supports(activation="relu", shape=(m, c),
+                                itemsize=itemsize):
+                continue
+            x = torch.empty((m, c), dtype=dtype)
+            scale = torch.empty(c, dtype=dtype)
+            tbn._check_kernel_inputs(x, scale, scale)
+    assert tbn.supports(activation="relu", shape=(64, widest),
+                        itemsize=itemsize)
+    beyond = widest + 128
+    assert not tbn.supports(activation="relu", shape=(64, beyond),
+                            itemsize=itemsize)
+    x, scale = torch.empty((8, beyond), dtype=dtype), torch.empty(
+        beyond, dtype=dtype)
+    with pytest.raises(ValueError, match="channels"):
+        tbn._check_kernel_inputs(x, scale, scale)
 
 
 def _resnet50_geometries():
@@ -212,11 +246,15 @@ def _plan_cases():
     geo = sorted(_resnet50_geometries())
     assert len(geo) == 9
     cases = [(m, c, True) for m, c, _ in geo]
-    # ragged: tiny C, C not a multiple of the vector width, the widest C,
-    # and a C that no resident grid divides (the rolling channel index)
+    # ragged: tiny C, C not a multiple of the vector width, a wide C that
+    # is not a multiple of 128, a C that no resident grid divides (the
+    # rolling channel index), and the widest C the door takes in f32 and
+    # in bf16 (each walked at both itemsizes)
     cases += [(1000, 3, False), (777, 100, False), (513, 102, False),
-              (300, 36, False), (40, tbn.MAX_CHANNELS, False),
-              (3000, 4229, False)]
+              (300, 36, False), (40, 29056, False),
+              (3000, 4229, False), (64, 32768, False),
+              (8, tbn.max_channels(4), False),
+              (8, tbn.max_channels(2), False)]
     return cases
 
 

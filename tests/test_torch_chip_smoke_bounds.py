@@ -55,3 +55,20 @@ def test_bn_apply_stays_bytes_bound_at_the_cuda_core_rate(m, c):
                                   / 3.35e12 * 1e3)
     # its operations, at the CUDA cores' 67 TFLOP/s, stay well below
     assert 2 * m * c / 67e12 * 1e3 < bound / 5
+
+
+def test_ptxas_report_names_each_kernel_instance():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash"
+        "_bwd_dq_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iiiiif' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 231 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN44_INTERNAL_ff398355_"
+        "17_flash_attn_bwd_cu_dc3b2a6520flash_bwd_dkv_kernelI13__nv_bfloat16"
+        "Li256EEEvPKT_' for 'sm_90a'",
+        "ptxas info    : Used 200 registers, used 1 barriers"])
+    assert chip_smoke.ptxas_report(log) == [
+        "flash_bwd_dq_kernel<fLi64E>: Used 231 registers, used 1 barriers",
+        "flash_bwd_dkv_kernel<13__nv_bfloat16Li256E>: Used 200 registers, "
+        "used 1 barriers"]

@@ -148,6 +148,59 @@ def test_kernel_door_admits_every_head_dim_supports_admits(d, dtype):
                                 who="flash_attention_bwd")
 
 
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384])
+def test_kernel_rule_is_tighter_than_the_reference_above_head_dim_256(
+        d, monkeypatch):
+    """The North star's "same support rules", tightened where Hopper must:
+    the reference runs its Pallas kernel at any head_dim that is a
+    multiple of 64; the port's kernels are built up to 256 (their f32 tiles
+    fill a block's shared memory), so ``flash_attention`` takes
+    ``sdpa_reference`` above it, on every device, by that rule and not by
+    a failed launch."""
+    assert tflash.supports(512, 512, d)
+    assert tflash.kernel_supports(512, 512, d) == (d <= 256)
+    calls = []
+    monkeypatch.setattr(tflash, "flash_attention_fwd",
+                        lambda *a, **k: calls.append("kernel") or
+                        tflash.flash_attention_fwd_plain(
+                            *a, k["causal"], k["scale"]))
+    monkeypatch.setattr(tflash, "sdpa_reference",
+                        lambda *a, **k: calls.append("sdpa") or
+                        tattn.sdpa_reference(*a, **k))
+    q, k, v = (_t(x) for x in _qkv(b=1, h=1, t=128, d=d, seed=d))
+    tflash.flash_attention(q, k, v, causal=True)
+    assert calls == (["kernel"] if d <= 256 else ["sdpa"])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_320_matches_the_reference_forward_and_gradients(causal):
+    """d = 320, which the reference's Pallas kernel takes and the port's
+    kernels do not: ``flash_attention`` (``sdpa_reference`` under
+    autograd) against the reference's ``flash_attention`` in interpret
+    mode, forward and gradients, at the tolerances of the flash path."""
+    import jax
+    from test_torch_flash_attention_bwd import ATOL as ATOL_BWD
+    q, k, v, do = _qkv(b=1, h=2, t=128, d=320, seed=320 + causal) + \
+        _qkv(b=1, h=2, t=128, d=320, seed=1320 + causal)[:1]
+
+    def loss(q_, k_, v_):
+        out = jflash.flash_attention(q_, k_, v_, causal=causal,
+                                     interpret=True)
+        return jnp.sum(out * do), out
+
+    (_, want), want_g = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    got = tflash.flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=0)
+    got_g = torch.autograd.grad((got * _t(do)).sum(), (tq, tk, tv))
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL_BWD,
+                                   rtol=0)
+
+
 def _truncate_f32(x: torch.Tensor) -> torch.Tensor:
     """f64 ``x`` to f32 rounded toward zero, as the tensor cores drop the
     low bits of their f32 sums."""

@@ -188,3 +188,56 @@ def test_planner_spreads_the_main_shape_and_raises_with_numbers():
     with pytest.raises(ValueError, match=r"batch 256, h 2048.*"
                                          r"67108864 bytes.*132 SMs"):
         tpl.plan(256, 2048, 8, H100_SMS, H100_OPTIN, _h100_blocks_per_sm)
+
+
+def test_layer_takes_the_plain_loop_where_the_card_has_no_launch(
+        monkeypatch):
+    """The reference's ``supports`` has no width rule; the port's planner
+    finds no launch where U and the staged rows do not fit resident CTAs
+    (h above 1024 on an H100).  There ``kernel_plan_exists`` is False and
+    ``LSTM(helper="pallas")`` runs its plain loop, as where ``supports``
+    is False, while ``device_plan`` (which ``lstm_forward`` asks before a
+    launch) still raises.  On a fake card of 4 SMs, 4 KB of shared memory
+    a block and one CTA an SM, h = 32 has no launch (U alone is 16 KB)
+    and h = 8 has one."""
+    from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
+    card = torch.device("cuda", 0)
+    monkeypatch.setattr(tpl, "_plans", {})
+    monkeypatch.setattr(tpl, "_card",
+                        lambda device: (4, 4096, lambda rb, th, sm: 1))
+    exists = tpl.kernel_plan_exists
+    asked = []
+
+    def on_the_fake_card(batch, h, t, device):
+        asked.append((batch, h, t, torch.device(device).type))
+        return exists(batch, h, t, card)
+
+    monkeypatch.setattr(tpl, "kernel_plan_exists", on_the_fake_card)
+    fast_calls = []
+    fast = tpl.lstm_forward_fast
+    monkeypatch.setattr(tpl, "lstm_forward_fast",
+                        lambda *a: fast_calls.append(a[2].shape[0]) or
+                        fast(*a))
+    assert exists(3, 32, 5, torch.device("cpu"))    # the plain twin on CPU
+    for h, has_launch in ((8, True), (32, False)):
+        assert exists(3, h, 5, card) == has_launch
+        if not has_launch:
+            with pytest.raises(ValueError, match="no launch keeps"):
+                tpl.device_plan(3, h, 5, card)
+        x, W, U, bias, _, _ = _inputs(3, 5, 4, h, False, seed=h)
+        params = {"W": torch.from_numpy(W), "U": torch.from_numpy(U),
+                  "b": torch.from_numpy(bias)}
+        out = {}
+        for helper in ("pallas", None):
+            layer = trec.LSTM(n_in=4, n_out=h, activation="tanh",
+                              helper=helper)
+            out[helper], _ = layer.forward(params, {}, torch.from_numpy(x))
+        assert asked[-1] == (3, h, 5, "cpu")
+        if has_launch:
+            assert fast_calls == [h]
+            np.testing.assert_allclose(out["pallas"].detach().numpy(),
+                                       out[None].detach().numpy(),
+                                       atol=ATOL_FWD, rtol=0)
+        else:
+            assert fast_calls == [8]        # nothing more: the plain loop
+            assert torch.equal(out["pallas"], out[None])
