@@ -59,23 +59,29 @@ if any phase fails:
    calls, each launch after a read of 64 MB that leaves L2 clean;
 10. ``lstm_kernel_vs_plain``: holds the LSTM-recurrence kernel against its
     plain version on ``ys``, ``hT`` and ``cT`` at (t, b, h) = (64, 128,
-    256), (256, 32, 256), (1, 16, 256) from a nonzero state and the ragged
-    (7, 5, 100), within an error bound derived from each run's data;
+    256), (256, 32, 256), (1, 16, 256) from a nonzero state, the ragged
+    (7, 5, 100), (16, 32, 1024) (the grid tier) and (16, 32, the widest h
+    the cluster tier takes on this card), within an error bound derived
+    from each run's data; each row names its plan and tier, the main
+    shape must run on the cluster tier and h = 1024 on the grid tier, and
+    a second launch at the main shape must give the same bits;
 11. ``lstm_serve`` and ``lstm_train``: the zoo TextGenerationLSTM at its
     width (26 classes, two LSTM-256 layers; random weights from the seed),
     its LSTMs at ``helper="pallas"``, beside a twin at ``helper=None``
     (the plain recurrence on the card) that shares its params: ``output``
     on batch 128 x 64 steps, a 16-character prefix streamed through
-    ``rnn_time_step`` and then 48 greedy single-step calls, and 5 ``fit``
+    ``rnn_time_step`` and then 48 greedy single-step calls (each call
+    timed, beside the twin's on the same characters), and 5 ``fit``
     steps (one-hot next-character labels, Adam 2e-3, clipping at 10;
     step-0 loss and gradients, each step's loss); 2 kernel launches per
     ``output``, per streaming call and per training step;
 12. ``lstm_train_time`` and the ``lstm_fwd`` rows of ``kernel_time``: the
     median step of both nets and tokens/s, a ``torch.profiler`` split of
     the step, the batch-128 ``output`` latency, and the kernel at both
-    long shapes beside its plain version, its bound, its time at batch 1
-    (the serial chain alone) and ``torch.nn.LSTM`` (cuDNN) on the same
-    weights, which the port never calls.
+    long shapes and at the streaming call's (1, 16, 256) beside its plain
+    version, its bound, its time at batch 1 (the serial chain alone) and
+    ``torch.nn.LSTM`` (cuDNN) on the same weights, which the port never
+    calls; each row names its plan and tier.
 
 Each phase prints one JSON line.  Then come the card's name and power
 limit, the ``kernels`` record (the line before the last) and, last,
@@ -406,9 +412,13 @@ LSTM_CLASSES, LSTM_HIDDEN, LSTM_T, LSTM_BATCH = 26, 256, 64, 128
 LSTM_STEPS, LSTM_TIMED_STEPS = 5, 20
 STREAM_BATCH, STREAM_PREFIX = 16, 16
 # kernel vs plain: (t, b, h, f, nonzero initial state)
+# (None: the widest h the cluster tier takes on this card, found by the
+# planner; h = 1024 takes the grid tier)
 LSTM_CHECK_SHAPES = ((64, 128, 256, 256, False), (256, 32, 256, 256, False),
-                     (1, 16, 256, 256, True), (7, 5, 100, 26, True))
-LSTM_TIME_SHAPES = ((64, 128, 256), (256, 32, 256))
+                     (1, 16, 256, 256, True), (7, 5, 100, 26, True),
+                     (16, 32, 1024, 64, True), (16, 32, None, 64, True))
+LSTM_GRID_H = 1024
+LSTM_TIME_SHAPES = ((64, 128, 256), (256, 32, 256), (1, 16, 256))
 # Probabilities of the helper net vs its plain twin (f32, TF32 off).  The
 # two differ only in the order of the recurrence's 256-term sums: h by
 # ~1e-6 (lstm_kernel_vs_plain measures it in the same run).  The output
@@ -430,7 +440,8 @@ TOL_LSTM_OUT = 1e-4
 # relative.
 TOL_LSTM_GRAD_LEAF, TOL_LSTM_GRAD_NET = 1e-4, 1e-6
 TOL_LSTM_LOSS = 1e-5
-LSTM_KERNEL_CLASSES = (("lstm_fwd", ("lstm_fwd_kernel",)),
+LSTM_KERNEL_CLASSES = (("lstm_fwd", ("lstm_fwd_kernel",
+                                     "lstm_fwd_cluster_kernel")),
                        ("matmul", MATMUL_TAGS))
 
 
@@ -511,10 +522,16 @@ def lstm_phases(args, torch, dev, card):
         return x, W, U, bias, h0, c0
 
     # ---- 10. LSTM kernel vs plain ----------------------------------------
-    lstm_err = 0.0
+    lstm_err, tiers = 0.0, {}
+    widest = next(h for h in range(LSTM_GRID_H, 0, -1)
+                  if pl.device_plan(32, h, 16, dev).tier == "cluster")
     for t, b, h, f, nonzero in LSTM_CHECK_SHAPES:
+        h = widest if h is None else h
         args6 = lstm_inputs(t, b, h, f, nonzero)
         got = pl.lstm_forward(*args6)
+        again = pl.lstm_forward(*args6) if (t, b, h) == (LSTM_T, LSTM_BATCH,
+                                                         LSTM_HIDDEN) \
+            else None
         want = pl.lstm_forward_plain(*args6)
         torch.cuda.synchronize()
         tol = lstm_error_bound(torch, *args6)
@@ -525,15 +542,29 @@ def lstm_phases(args, torch, dev, card):
                              f"{tuple(g.shape)} or not finite"
             errs[name] = (g - w).abs().max().item()
         p = pl.device_plan(b, h, t, dev)
-        print(json.dumps({"phase": "lstm_kernel_vs_plain", "t": t,
-                          "batch": b, "hidden": h, "features": f,
-                          "nonzero_state": nonzero, "plan": p.__dict__,
-                          "max_abs_err": errs, "tol": tol}), flush=True)
+        tiers[f"{t}x{b}x{h}"] = p.tier
+        row = {"phase": "lstm_kernel_vs_plain", "t": t, "batch": b,
+               "hidden": h, "features": f, "nonzero_state": nonzero,
+               "tier": p.tier, "plan": p.__dict__, "max_abs_err": errs,
+               "tol": tol}
+        if again is not None:
+            row["second_launch_bitwise_equal"] = all(
+                torch.equal(a, g) for a, g in zip(again, got))
+        print(json.dumps(row), flush=True)
         if max(errs.values()) > tol:
             return None, (f"lstm_fwd disagrees with plain at (t, b, h) = "
                           f"{(t, b, h)}: {errs} > {tol}")
+        if row.get("second_launch_bitwise_equal") is False:
+            return None, (f"lstm_fwd's second launch at {(t, b, h)} differs "
+                          "from the first")
+        # the main shape and the widest h on clusters, h = 1024 on the grid
+        must = "cluster" if again is not None else \
+            {LSTM_GRID_H: "grid", widest: "cluster"}.get(h, p.tier)
+        if p.tier != must:
+            return None, (f"lstm_fwd at {(t, b, h)} planned on the {p.tier} "
+                          f"tier, expected {must}")
         lstm_err = max(lstm_err, *errs.values())
-        del args6, got, want
+        del args6, got, want, again
 
     # ---- 11a. serve and stream -------------------------------------------
     zoo = TextGenerationLSTM(num_classes=LSTM_CLASSES, timesteps=LSTM_T,
@@ -572,15 +603,24 @@ def lstm_phases(args, torch, dev, card):
 
     prefix = torch.randint(0, LSTM_CLASSES, (STREAM_BATCH, STREAM_PREFIX),
                            generator=dgen, device=dev)
+    def timed(fn):
+        """fn() and its milliseconds, host clock, closed by a sync."""
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+
     net.rnn_clear_previous_state()
     torch.cuda.synchronize()
     pl.reset_launches()
     outs = [net.rnn_time_step(onehot(prefix))]
     fed = [prefix]
     nxt = outs[0][:, -1].argmax(-1)
+    call_ms = []
     for _ in range(LSTM_T - STREAM_PREFIX):
         fed.append(nxt[:, None])
-        step = net.rnn_time_step(onehot(nxt))
+        step, ms = timed(lambda: net.rnn_time_step(onehot(nxt)))
+        call_ms.append(ms)
         outs.append(step[:, None])
         nxt = step.argmax(-1)
     torch.cuda.synchronize()
@@ -591,8 +631,11 @@ def lstm_phases(args, torch, dev, card):
     # the twin, fed the same characters
     twin.rnn_clear_previous_state()
     touts = [twin.rnn_time_step(onehot(prefix))]
+    twin_call_ms = []
     for c in fed[1:]:
-        touts.append(twin.rnn_time_step(onehot(c[:, 0]))[:, None])
+        step, ms = timed(lambda: twin.rnn_time_step(onehot(c[:, 0])))
+        twin_call_ms.append(ms)
+        touts.append(step[:, None])
     tstreamed = torch.cat(touts, dim=1)
     stream_err = (streamed - tstreamed).abs().max().item()
     # greedy choices: from the last prefix output on
@@ -624,7 +667,12 @@ def lstm_phases(args, torch, dev, card):
                    "ties_within_2x_err": ties,
                    "max_abs_err_vs_output_of_the_text": whole_err,
                    "kernel_launches": stream_launches,
-                   "expected_launches": 2 * stream_calls},
+                   "expected_launches": 2 * stream_calls,
+                   "single_step_call_ms_median":
+                       statistics.median(call_ms),
+                   "twin_single_step_call_ms_median":
+                       statistics.median(twin_call_ms),
+                   "card": card},
         "tol": TOL_LSTM_OUT}), flush=True)
     if output_launches != 2 or stream_launches != 2 * stream_calls:
         return None, (f"lstm_fwd launched {output_launches} times for one "
@@ -798,9 +846,11 @@ def lstm_phases(args, torch, dev, card):
         bound, bound_by = lstm_bound_ms(t, b, h)
         timings[(t, b, h)] = (kern, plain, lib_ms, bound, bound_by,
                               with_proj, kern_dev)
+        tiers[f"{t}x{b}x{h}"] = p.tier
         print(json.dumps({"phase": "kernel_time", "kernel": "lstm_fwd",
                           "t": t, "batch": b, "hidden": h, "features": f,
-                          "plan": p.__dict__, "ms": kern,
+                          "tier": p.tier, "plan": p.__dict__,
+                          "batch_1_plan": p1.__dict__, "ms": kern,
                           "ms_device_only": kern_dev,
                           "ms_with_projection": with_proj,
                           "serial_ms_at_batch_1": serial,
@@ -823,6 +873,7 @@ def lstm_phases(args, torch, dev, card):
             "launches_by_path": {"output": output_launches,
                                  "stream": stream_launches,
                                  "fit": train_launches},
+            "tier_by_shape": tiers,
             "per": "one launch at t 64, batch 128, h 256; plain_ms and "
                    "library_ms include the input projection, as "
                    "ms_with_projection does"}, None

@@ -3,15 +3,20 @@ twin, and the differentiable wrapper the ``LSTM`` layer's helper calls.
 
 Port of ``deeplearning4j_tpu/ops/pallas_lstm.py``.  Its Pallas ``_kernel``
 (launched by ``_run``) runs the recurrence over time with U resident and
-(h, c) carried on chip; here that is ``csrc/lstm_fwd.cu``, one cooperative
-launch per sequence, built for ``sm_90a`` at first use and bound with
-``ctypes``.
+(h, c) carried on chip; here that is ``csrc/lstm_fwd.cu``, one launch per
+sequence, built for ``sm_90a`` at first use and bound with ``ctypes``.  The
+kernel has two tiers, chosen by ``plan`` from the shape before the launch:
+the cluster tier (a thread-block cluster owns a slice of batch rows; each
+step its CTAs send h into each other's shared memory and wait on a local
+mbarrier, with no barrier across the card) wherever U fits the shared
+memory of a cluster, the grid tier (one cooperative launch, h through L2,
+one grid barrier a step) for the wider h.
 
 - ``supports`` is the reference's ``checkSupported`` rule, copied rule for
   rule: the kernel covers the sigmoid/tanh cell without peepholes or mask.
-  Hopper's rule is tighter where the card has no launch that keeps every
-  CTA resident (wide h, ``plan``): ``kernel_plan_exists`` says where, and
-  the layer takes its plain loop there.
+  Hopper's rule is tighter where the card has no launch in either tier
+  (wide h, above 1024 on an H100; ``plan``): ``kernel_plan_exists`` says
+  where, and the layer takes its plain loop there.
 - ``lstm_forward`` hoists the input projection ``x·W + b`` out of the
   recurrence as one matrix product, as the reference does, then runs the
   kernel on CUDA tensors and ``lstm_forward_plain`` on CPU tensors; on a
@@ -36,11 +41,46 @@ import torch
 
 SOURCE = "lstm_fwd.cu"
 
-# Configurations the planner tries: threads per CTA, rows per thread (the
-# kernel's template instances) and hidden units per CTA.
+# Configurations the planner tries.  Grid tier: threads per CTA, rows per
+# thread (the kernel's template instances) and hidden units per CTA.
 THREADS = (128, 256)
 ROWS_PER_THREAD = (1, 2, 4)
 UNITS_PER_CTA = (8, 16, 32, 64, 128)
+# Cluster tier: batch rows per cluster (the template instances), CTAs per
+# cluster (16 is above the portable 8) and threads per CTA, rounded down
+# to a multiple of its units (384 at most); the planner also tries one
+# column group per row, which gives each cell a thread of its own.
+# Columns go to the groups 16 at a time: the kernel's product loop is
+# unrolled by four steps of 4 columns, and a remainder runs without
+# overlap.
+CLUSTER_ROWS = tuple(range(1, 17))
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_THREADS = (128, 256, 384)
+CLUSTER_K_STEP = 16
+# Shared memory a cluster-tier CTA asks for at least: more than half an
+# SM's 228 KB, so one SM holds one CTA.  Where two fit, the card places a
+# cluster's CTAs two to an SM, which then computes both CTAs' steps.
+ONE_CTA_PER_SM = 116 * 1024
+# (row, unit) cells one thread of the cluster tier owns at most.
+CLUSTER_CELLS = 2
+# SM cycles the cost model charges each step for the exchange of h: the
+# grid barrier with h's round trip through L2 (the grid tier's batch-1
+# chain at h 256 takes ~7 us a step on an H100); for the cluster tier, the
+# wait for the peers' h and the step's global loads and stores (clock
+# counts of chip_lstm_probe.py).
+GRID_BARRIER_CYCLES = 12000
+CLUSTER_EXCHANGE_CYCLES = 600
+# SM cycles of the cluster tier's cell, per cell a thread owns: expf and
+# tanhf and the sends, and per column group one partial sum to load and
+# add (clock counts of chip_lstm_probe.py on an H100).
+CLUSTER_CELL_CYCLES = 900
+CLUSTER_GROUP_CYCLES = 40
+# SM cycles of one 4-column step of the product in one warp when nothing
+# overlaps it: its loads' latency and 4 dependent FMAs a sum.
+CLUSTER_QUAD_LATENCY = 60
+# SM cycles of one round of U's staging gather: each thread has 4 float4
+# (16 loads) in flight, and a round waits on L2 or memory.
+CLUSTER_STAGE_ROUND_CYCLES = 700
 
 # Kernel launches; the wrapper adds one where it launches and nowhere else.
 launches = {"lstm_fwd": 0}
@@ -88,10 +128,19 @@ def lstm_forward_plain(x, W, U, b, h0, c0
 # ----------------------------------------------------------------- planner
 @dataclass(frozen=True)
 class Plan:
-    """One launch configuration of ``csrc/lstm_fwd.cu``: ``rb`` rows per
+    """One launch configuration of ``csrc/lstm_fwd.cu``.
+
+    Grid tier (``tier == "grid"``, ``cluster == 1``): ``rb`` rows per
     thread, ``hu`` hidden units and ``rows`` batch rows per CTA, ``kc``
-    columns of h staged at a time, ``grid`` CTAs of ``threads`` threads
-    and ``smem`` bytes of shared memory."""
+    columns of h staged at a time, ``grid`` CTAs of ``threads`` threads and
+    ``smem`` bytes of shared memory, all resident at once.
+
+    Cluster tier (``tier == "cluster"``): clusters of ``cluster`` CTAs,
+    each cluster ``rows`` batch rows (``rb == rows``, the template
+    instance) and all h units, ``hu`` units per CTA, ``threads`` threads
+    per CTA that split the product's columns into groups of ``kc``,
+    ``grid`` CTAs in all (ceil(batch / rows) clusters), ``smem`` bytes
+    each, one CTA an SM."""
     rb: int
     hu: int
     threads: int
@@ -99,6 +148,8 @@ class Plan:
     kc: int
     grid: int
     smem: int
+    tier: str = "grid"
+    cluster: int = 1
 
 
 def smem_bytes(h: int, hu: int, rows: int, kc: int) -> int:
@@ -118,19 +169,105 @@ def _k_chunk(h: int, hu: int, rows: int, max_smem: int) -> Optional[int]:
 
 
 def _cost(p: Plan, h: int, t: int, sms: int) -> int:
-    """Rough SM cycles of the busiest SM: per step and k, a warp spends 4
-    shared-memory wavefronts on its U float4 and one per row on h; the
-    staging of h_{t-1} is rows·h loads and stores per CTA; U is staged
-    once at ~64 bytes per cycle.  CTAs beyond one per SM share it."""
+    """Grid tier: rough SM cycles of the busiest SM.  Per step and k, a
+    warp spends 4 shared-memory wavefronts on its U float4 and one per row
+    on h; the staging of h_{t-1} is rows·h loads and stores per CTA; U is
+    staged once at ~64 bytes per cycle; CTAs beyond one per SM share it;
+    each step ends in one grid barrier."""
     waves = -(-p.grid // sms)
     step = waves * (h * (p.threads // 32) * (4 + p.rb) + p.rows * h // 16)
     stage = waves * h * p.hu // 4
-    return t * step + stage
+    return t * (step + GRID_BARRIER_CYCLES) + stage
+
+
+def _padded(h: int) -> int:
+    return -(-h // 4) * 4
+
+
+def cluster_smem_bytes(h: int, hu: int, rows: int, threads: int) -> int:
+    """Two mbarriers, the CTA's U columns as float4 (i, f, o, g) per (k,
+    unit), the double buffer of h for the cluster's rows, and the partial
+    sums of the product's column groups, h padded to a multiple of 4; at
+    least ``ONE_CTA_PER_SM``."""
+    hp = _padded(h)
+    used = 16 + 16 * hp * hu + 8 * rows * hp + 16 * rows * threads
+    return max(used, ONE_CTA_PER_SM)
+
+
+def _cluster_cost(p: Plan, h: int, t: int, active: int) -> int:
+    """Cluster tier: rough SM cycles, fitted to per-phase clock counts of
+    the kernel on an H100.  Per step: the product, the larger of 1.1 x its
+    issue (16·rows FMAs a warp per 4 columns of its group, on the busiest
+    of the SM's 4 schedulers, plus the SM's shared-memory wavefronts, 16
+    for the four U float4 and one per row's h) and one warp's chain of
+    4-column steps (``CLUSTER_QUAD_LATENCY`` each); the partial sums, ~35
+    cycles a row; the cell, ``CLUSTER_CELL_CYCLES`` plus
+    ``CLUSTER_GROUP_CYCLES`` per column group, for each cell a thread
+    owns; then the exchange (``CLUSTER_EXCHANGE_CYCLES``).  Clusters
+    beyond those the card runs at once (``active``) run in waves.  U is
+    staged once, a latency-bound gather of 4 float4 a thread a round
+    (``CLUSTER_STAGE_ROUND_CYCLES``): for a short sequence, more threads
+    stage it sooner."""
+    quads = p.kc // 4
+    groups = -(-_padded(h) // p.kc)             # groups that hold columns
+    warps = -(-groups * p.hu // 32)             # warps in the product
+    issue = -(-warps // 4) * quads * 16 * p.rows \
+        + warps * quads * (16 + p.rows)
+    product = max(11 * issue // 10, CLUSTER_QUAD_LATENCY * quads)
+    cells = -(-p.rows * p.hu // p.threads)
+    cell = CLUSTER_CELL_CYCLES + CLUSTER_GROUP_CYCLES * groups
+    step = product + 35 * p.rows + cell * cells + CLUSTER_EXCHANGE_CYCLES
+    waves = -(-(p.grid // p.cluster) // active)
+    stage = -(-_padded(h) * p.hu // (4 * p.threads)) \
+        * CLUSTER_STAGE_ROUND_CYCLES
+    return waves * (t * step + stage)
+
+
+def _search_cluster(batch: int, h: int, t: int, max_smem: int,
+                    clusters_active: Callable[[int, int, int, int], int]
+                    ) -> Optional[Plan]:
+    """The cheapest cluster-tier configuration (by ``_cluster_cost``, then
+    the smaller grid) that the card runs; None where none fits."""
+    best, best_key = None, None
+    hp = _padded(h)
+    top = max(CLUSTER_THREADS)
+    for cl in CLUSTER_SIZES:
+        hu = -(-h // cl)
+        if (cl - 1) * hu >= h:
+            continue            # a CTA without units
+        for rows in CLUSTER_ROWS:
+            # fewer threads first: at equal cost the others wait idle
+            for groups in sorted({n // hu for n in CLUSTER_THREADS}
+                                 | {rows} - {0}):
+                threads = groups * hu
+                if threads > top or rows * hu > CLUSTER_CELLS * threads:
+                    continue
+                kc = CLUSTER_K_STEP * -(-hp // (CLUSTER_K_STEP * groups))
+                smem = cluster_smem_bytes(h, hu, rows, threads)
+                if smem > max_smem:
+                    continue
+                active = clusters_active(rows, cl, threads, smem)
+                if active < 1:
+                    continue
+                p = Plan(rows, hu, threads, rows, kc,
+                         -(-batch // rows) * cl, smem, "cluster", cl)
+                key = (_cluster_cost(p, h, t, active), p.grid)
+                if best_key is None or key < best_key:
+                    best, best_key = p, key
+    return best
 
 
 def _search(batch: int, h: int, t: int, sms: int, max_smem: int,
-            blocks_per_sm: Callable[[int, int, int], int]) -> Optional[Plan]:
-    """``plan``'s search; None when no configuration fits."""
+            blocks_per_sm: Callable[[int, int, int], int],
+            clusters_active: Optional[Callable[[int, int, int, int], int]]
+            = None) -> Optional[Plan]:
+    """``plan``'s search; None when no configuration fits.  The cluster
+    tier where it fits (``clusters_active`` given: the card launches
+    clusters), else the grid tier."""
+    if clusters_active is not None:
+        best = _search_cluster(batch, h, t, max_smem, clusters_active)
+        if best is not None:
+            return best
     best, best_key = None, None
     for threads in THREADS:
         for rb in ROWS_PER_THREAD:
@@ -161,28 +298,41 @@ def _no_plan(batch: int, h: int, sms: int, max_smem: int) -> ValueError:
 
 
 def plan(batch: int, h: int, t: int, sms: int, max_smem: int,
-         blocks_per_sm: Callable[[int, int, int], int]) -> Plan:
-    """The cheapest configuration (by ``_cost``, then the smaller grid)
-    whose CTAs are all resident at once: ``blocks_per_sm(rb, threads,
-    smem)`` is the card's occupancy of that instance.  Raises ValueError,
-    with the numbers, when none is."""
-    best = _search(batch, h, t, sms, max_smem, blocks_per_sm)
+         blocks_per_sm: Callable[[int, int, int], int],
+         clusters_active: Optional[Callable[[int, int, int, int], int]]
+         = None) -> Plan:
+    """The launch for this shape: the cheapest cluster-tier configuration
+    the card runs, where one does (``clusters_active(rows, cluster,
+    threads, smem)`` is the card's count of such clusters at once; None
+    for a card without clusters); else the cheapest grid-tier one (by
+    ``_cost``, then the smaller grid) whose CTAs are all resident at once
+    (``blocks_per_sm(rb, threads, smem)`` is the card's occupancy of that
+    instance).  Raises ValueError, with the numbers, when none is."""
+    best = _search(batch, h, t, sms, max_smem, blocks_per_sm,
+                   clusters_active)
     if best is None:
         raise _no_plan(batch, h, sms, max_smem)
     return best
 
 
 # ----------------------------------------------------------------- binding
+_ARGTYPES = {
+    "lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "lstm_fwd_cluster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "lstm_fwd_occupancy": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    "lstm_fwd_cluster_occupancy": [ctypes.c_int] * 4
+    + [ctypes.POINTER(ctypes.c_int)],
+}
+
+
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         from ..utils.kernel_build import load
         fn = getattr(load(SOURCE), name)
-        if name == "lstm_fwd":
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-                ctypes.c_void_p]
-        else:
-            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -190,7 +340,7 @@ def _kernel(name: str):
 
 def _occupancy(rb: int, threads: int, smem: int) -> Tuple[int, int, int]:
     """(CTAs per SM, SMs, shared memory a block may opt in to) of the
-    current card for one configuration."""
+    current card for one grid-tier configuration."""
     out = (ctypes.c_int * 4)()
     err = _kernel("lstm_fwd_occupancy")(rb, threads, smem, out)
     if err != 0:
@@ -201,16 +351,36 @@ def _occupancy(rb: int, threads: int, smem: int) -> Tuple[int, int, int]:
     return out[0], out[1], out[2]
 
 
-def _card(device) -> Tuple[int, int, Callable[[int, int, int], int]]:
-    """(SMs, shared memory a block may opt in to, occupancy of one
-    configuration) of the card of ``device``."""
+def _cluster_occupancy(rows: int, cl: int, threads: int, smem: int
+                       ) -> Tuple[int, bool]:
+    """(clusters the current card runs at once, whether it launches
+    clusters at all) for one cluster-tier configuration."""
+    out = (ctypes.c_int * 3)()
+    err = _kernel("lstm_fwd_cluster_occupancy")(rows, cl, threads, smem, out)
+    if err != 0:
+        raise RuntimeError(f"lstm_fwd cluster occupancy query failed: "
+                           f"cudaError_t {err}")
+    return out[0], bool(out[1])
+
+
+def _card(device):
+    """(SMs, shared memory a block may opt in to, the grid tier's
+    occupancy of one configuration, the cluster tier's, or None where the
+    card launches no clusters) of the card of ``device``."""
     with torch.cuda.device(device):
         _, sms, max_smem = _occupancy(1, THREADS[0], 0)
+        has_clusters = _cluster_occupancy(CLUSTER_ROWS[0], CLUSTER_SIZES[0],
+                                          32, 0)[1]
 
     def blocks_per_sm(rb: int, threads: int, smem: int) -> int:
         with torch.cuda.device(device):
             return _occupancy(rb, threads, smem)[0]
-    return sms, max_smem, blocks_per_sm
+
+    def clusters_active(rows: int, cl: int, threads: int, smem: int) -> int:
+        with torch.cuda.device(device):
+            return _cluster_occupancy(rows, cl, threads, smem)[0]
+    return sms, max_smem, blocks_per_sm, \
+        clusters_active if has_clusters else None
 
 
 def _device_search(batch: int, h: int, t: int, device):
@@ -222,9 +392,10 @@ def _device_search(batch: int, h: int, t: int, device):
     key = (device.index, batch, h, t)
     hit = _plans.get(key)
     if hit is None:
-        sms, max_smem, blocks_per_sm = _card(device)
+        sms, max_smem, blocks_per_sm, clusters_active = _card(device)
         hit = _plans[key] = (_search(batch, h, t, sms, max_smem,
-                                     blocks_per_sm), sms, max_smem)
+                                     blocks_per_sm, clusters_active),
+                             sms, max_smem)
     return hit
 
 
@@ -273,16 +444,22 @@ def _check_kernel_inputs(x, W, U, b, h0, c0) -> None:
 
 
 def _launch(xz, U, h0, c0, ys, hT, cT, p: Plan) -> None:
-    """One launch into ``ys``/``hT``/``cT`` through the binding, on the
-    current stream; no checks and no count (``lstm_forward`` checks and
-    counts).  xz is [t, batch, 4h] time-major, ys [t, batch, h]."""
+    """One launch of ``p``'s tier into ``ys``/``hT``/``cT`` through the
+    binding, on the current stream; no checks and no count
+    (``lstm_forward`` checks and counts).  xz is [t, batch, 4h]
+    time-major, ys [t, batch, h]."""
     t, batch, h = ys.shape
+    ptrs = (xz.data_ptr(), U.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            ys.data_ptr(), hT.data_ptr(), cT.data_ptr())
     with torch.cuda.device(xz.device):
-        err = _kernel("lstm_fwd")(
-            xz.data_ptr(), U.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            ys.data_ptr(), hT.data_ptr(), cT.data_ptr(), t, batch, h, p.rb,
-            p.hu, p.threads, p.kc,
-            torch.cuda.current_stream(xz.device).cuda_stream)
+        stream = torch.cuda.current_stream(xz.device).cuda_stream
+        if p.tier == "cluster":
+            err = _kernel("lstm_fwd_cluster")(
+                *ptrs, t, batch, h, p.rows, p.cluster, p.hu, p.threads, p.kc,
+                stream)
+        else:
+            err = _kernel("lstm_fwd")(*ptrs, t, batch, h, p.rb, p.hu,
+                                      p.threads, p.kc, stream)
     if err != 0:
         raise RuntimeError(f"lstm_fwd kernel failed: cudaError_t {err} "
                            f"(plan {p})")
@@ -303,8 +480,8 @@ def lstm_forward(x, W, U, b, h0, c0
     time-major output."""
     # Replaces the Pallas `_kernel` (deeplearning4j_tpu/ops/pallas_lstm.py,
     # launched by `_run`).  The serial part: a [batch, h] x [h, 4h] product
-    # and the cell per step, with a device-wide barrier between steps.
-    # Details in csrc/lstm_fwd.cu.
+    # and the cell per step, with one barrier between steps: a cluster's
+    # or, for the widest h, the grid's.  Details in csrc/lstm_fwd.cu.
     if x.device.type == "cpu":
         return lstm_forward_plain(x, W, U, b, h0, c0)
     if x.device.type != "cuda":

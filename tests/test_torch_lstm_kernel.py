@@ -190,21 +190,192 @@ def test_planner_spreads_the_main_shape_and_raises_with_numbers():
         tpl.plan(256, 2048, 8, H100_SMS, H100_OPTIN, _h100_blocks_per_sm)
 
 
+# SMs per GPC of the fake H100: a cluster's CTAs share one GPC.  With one
+# CTA an SM it runs 15 clusters of 8 and 7 of 16, as the card reported.
+H100_GPCS = (18,) * 6 + (16, 8)
+
+
+def _h100_clusters_active(rows, cl, threads, smem):
+    """Clusters of ``cl`` CTAs of the cluster tier the card runs at once,
+    as cudaOccupancyMaxActiveClusters reports them: a cluster's CTAs sit
+    in one GPC; an SM holds as many CTAs as 228 KB of shared memory (1 KB
+    reserved a block), 64K registers (at most 128 a thread) and 2048
+    threads allow."""
+    if smem > H100_OPTIN:
+        return 0
+    per_sm = min(233472 // (smem + 1024), 65536 // (128 * threads),
+                 2048 // threads)
+    return sum(n * per_sm // cl for n in H100_GPCS)
+
+
+def _cluster_plan(b, h, t):
+    return tpl.plan(b, h, t, H100_SMS, H100_OPTIN, _h100_blocks_per_sm,
+                    _h100_clusters_active)
+
+
+def _check_cluster_plan(p, b, h):
+    """The launch rules of ``lstm_fwd_cluster``, and a walk of the
+    kernel's indices: each (row, unit) cell has one owner thread, and each
+    column of the product one group per unit."""
+    hp = -(-h // 4) * 4
+    clusters = p.grid // p.cluster
+    assert p.tier == "cluster" and p.grid == clusters * p.cluster
+    assert p.cluster in tpl.CLUSTER_SIZES and p.cluster <= 16
+    assert p.rb == p.rows and p.rows in tpl.CLUSTER_ROWS
+    assert p.smem == tpl.cluster_smem_bytes(h, p.hu, p.rows, p.threads)
+    assert tpl.ONE_CTA_PER_SM <= p.smem <= H100_OPTIN
+    assert (p.cluster - 1) * p.hu < h <= p.cluster * p.hu
+    assert (clusters - 1) * p.rows < b <= clusters * p.rows
+    assert p.threads <= max(tpl.CLUSTER_THREADS) and p.threads % p.hu == 0
+    assert p.kc % tpl.CLUSTER_K_STEP == 0
+    assert (p.threads // p.hu) * p.kc >= hp
+    assert p.rows * p.hu <= tpl.CLUSTER_CELLS * p.threads
+    assert _h100_clusters_active(p.rows, p.cluster, p.threads, p.smem) >= 1
+    # the cells: thread tid owns cells tid and tid + threads of its CTA
+    cells = np.arange(tpl.CLUSTER_CELLS * p.threads)
+    cells = cells[cells < p.rows * p.hu]
+    owners = np.zeros((clusters * p.rows, p.cluster * p.hu), int)
+    for c in range(clusters):
+        for rank in range(p.cluster):
+            np.add.at(owners, (c * p.rows + cells // p.hu,
+                               rank * p.hu + cells % p.hu), 1)
+    assert (owners[:b, :h] == 1).all()
+    # the product: thread (g, u) sums columns [g·kc, g·kc + kc) of hp
+    kb = np.minimum(np.arange(p.threads // p.hu) * p.kc, hp)
+    cols = np.zeros(hp, int)
+    for k0, k1 in zip(kb, np.minimum(kb + p.kc, hp)):
+        cols[k0:k1] += 1
+    assert (cols == 1).all()
+
+
+@pytest.mark.parametrize("b,h,t", [(128, 256, 64), (1, 256, 64),
+                                   (16, 256, 1), (32, 256, 256),
+                                   (5, 100, 7)])
+def test_planner_takes_the_cluster_tier_at_the_char_lstm_shapes(b, h, t):
+    """The char-LSTM's output (batch 128), its batch-1 chain, a streaming
+    call (batch 16, one step) and the long shape all run on clusters."""
+    _check_cluster_plan(_cluster_plan(b, h, t), b, h)
+
+
+def test_cluster_cost_model_pins_the_main_shapes():
+    """At (batch, h, t) = (128, 256, 64) the cost model spreads the batch
+    over 15 clusters of 8 CTAs, the most clusters of 8 the card runs at
+    once (one wave), 9 rows and 32 units a CTA (128 KB of U): 288 cells,
+    each with a thread of its own among 384, whose 8 column groups of 32
+    columns are a whole number of the product loop's 16, and whose extra
+    threads stage U sooner.  At batch 1 it takes one cluster of 16, whose
+    CTAs read half as much U a step, with 8 groups of 32 columns: fewer
+    partial sums for the one cell a unit.  A one-step call takes more
+    threads to stage U.  The cluster tier's cost is less than half the
+    grid tier's, whose every step pays a grid barrier."""
+    p = _cluster_plan(128, 256, 64)
+    assert p == tpl.Plan(9, 32, 384, 9, 32, 120, 204816, "cluster", 8)
+    p1 = _cluster_plan(1, 256, 64)
+    assert (p1.cluster, p1.rows, p1.grid, p1.hu, p1.threads, p1.kc) == \
+        (16, 1, 16, 16, 128, 32)
+    assert _cluster_plan(16, 256, 1).threads == 384
+    g = tpl.plan(128, 256, 64, H100_SMS, H100_OPTIN, _h100_blocks_per_sm)
+    active = _h100_clusters_active(p.rows, p.cluster, p.threads, p.smem)
+    assert g.tier == "grid" and active == 15
+    assert 2 * tpl._cluster_cost(p, 256, 64, active) < \
+        tpl._cost(g, 256, 64, H100_SMS)
+
+
+def test_cluster_ctas_ask_for_one_sm_each():
+    """A CTA that needs little shared memory still asks for more than
+    half an SM's, so a cluster never puts two of its CTAs on one SM."""
+    p = _cluster_plan(32, 256, 256)
+    used = tpl.cluster_smem_bytes(256, p.hu, p.rows, p.threads)
+    assert p.smem == used == tpl.ONE_CTA_PER_SM
+    assert 2 * (tpl.ONE_CTA_PER_SM + 1024) > 233472
+    assert _h100_clusters_active(1, 16, 256, tpl.ONE_CTA_PER_SM) == 7
+
+
+@pytest.mark.parametrize("b", [1, 32, 128])
+def test_planner_takes_the_grid_tier_at_h_1024(b):
+    """U [1024, 4096] f32 is 16 MiB: 1 MiB a CTA in a cluster of 16, more
+    than a CTA's shared memory, so h = 1024 takes the grid barrier."""
+    p = _cluster_plan(b, 1024, 16)
+    assert p.tier == "grid" and p.cluster == 1
+    assert p == tpl.plan(b, 1024, 16, H100_SMS, H100_OPTIN,
+                         _h100_blocks_per_sm)
+
+
+def test_widest_h_of_the_cluster_tier_on_an_h100():
+    """The cluster tier takes h up to 472 at every batch (16 CTAs of 30
+    units and 120 threads: 226,560 bytes of U, the rest h's buffers and
+    the partial sums at one row a cluster, 232,272 in all); from 473 on
+    the grid tier takes over."""
+    for b in (1, 16, 128):
+        assert _cluster_plan(b, 472, 8).tier == "cluster"
+        assert _cluster_plan(b, 473, 8).tier == "grid"
+    p = _cluster_plan(16, 472, 8)
+    assert p.smem == 232272
+    _check_cluster_plan(p, 16, 472)
+
+
+@pytest.mark.parametrize("h", [1, 12, 100, 256, 472, 473, 512, 1000, 1024])
+def test_planner_with_clusters_covers_the_door_on_an_h100(h):
+    """With the card's clusters, every shape the grid tier takes
+    (``test_planner_covers_the_door_on_an_h100``) still gets a launch:
+    a cluster plan where one fits, else the grid plan, unchanged."""
+    for b, t in itertools.product((1, 5, 16, 32, 128), (1, 64, 256)):
+        p = _cluster_plan(b, h, t)
+        grid = tpl.plan(b, h, t, H100_SMS, H100_OPTIN, _h100_blocks_per_sm)
+        if p.tier == "cluster":
+            _check_cluster_plan(p, b, h)
+        else:
+            assert p == grid
+
+
+def test_launch_passes_each_tier_its_plan(monkeypatch):
+    """``_launch`` calls the tier's entry point with the C signature's
+    argument order (pointers, t, batch, h, then the plan)."""
+    import contextlib
+    import types
+    calls = []
+
+    def entry(name):
+        return lambda *a: calls.append((name, a[7:])) or 0
+
+    monkeypatch.setattr(tpl, "_kernel", entry)
+    monkeypatch.setattr(tpl.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tpl.torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7))
+    t, b, h = 3, 5, 12
+    xz, U = torch.zeros(t * b, 4 * h), torch.zeros(h, 4 * h)
+    h0 = c0 = hT = cT = torch.zeros(b, h)
+    ys = torch.zeros(t, b, h)
+    pc = _cluster_plan(b, h, t)
+    pg = tpl.plan(b, h, t, H100_SMS, H100_OPTIN, _h100_blocks_per_sm)
+    tpl._launch(xz, U, h0, c0, ys, hT, cT, pc)
+    tpl._launch(xz, U, h0, c0, ys, hT, cT, pg)
+    assert calls == [
+        ("lstm_fwd_cluster", (t, b, h, pc.rows, pc.cluster, pc.hu,
+                              pc.threads, pc.kc, 7)),
+        ("lstm_fwd", (t, b, h, pg.rb, pg.hu, pg.threads, pg.kc, 7))]
+    assert len(tpl._ARGTYPES["lstm_fwd_cluster"]) == 7 + 9
+    assert len(tpl._ARGTYPES["lstm_fwd"]) == 7 + 8
+
+
 def test_layer_takes_the_plain_loop_where_the_card_has_no_launch(
         monkeypatch):
     """The reference's ``supports`` has no width rule; the port's planner
-    finds no launch where U and the staged rows do not fit resident CTAs
-    (h above 1024 on an H100).  There ``kernel_plan_exists`` is False and
-    ``LSTM(helper="pallas")`` runs its plain loop, as where ``supports``
-    is False, while ``device_plan`` (which ``lstm_forward`` asks before a
-    launch) still raises.  On a fake card of 4 SMs, 4 KB of shared memory
-    a block and one CTA an SM, h = 32 has no launch (U alone is 16 KB)
-    and h = 8 has one."""
+    finds no launch where U and the staged rows fit neither a cluster nor
+    resident CTAs (h above 1024 on an H100).  There ``kernel_plan_exists``
+    is False and ``LSTM(helper="pallas")`` runs its plain loop, as where
+    ``supports`` is False, while ``device_plan`` (which ``lstm_forward``
+    asks before a launch) still raises.  On a fake card of 4 SMs, 4 KB of shared memory
+    a block and one CTA an SM, h = 32 has no launch (U alone is 16 KB,
+    4 KB a CTA in a cluster of 4) and h = 8 has one."""
     from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
     card = torch.device("cuda", 0)
     monkeypatch.setattr(tpl, "_plans", {})
+    # one CTA an SM in both tiers: clusters of at most 4 CTAs
     monkeypatch.setattr(tpl, "_card",
-                        lambda device: (4, 4096, lambda rb, th, sm: 1))
+                        lambda device: (4, 4096, lambda rb, th, sm: 1,
+                                        lambda rows, cl, th, sm: 4 // cl))
     exists = tpl.kernel_plan_exists
     asked = []
 
