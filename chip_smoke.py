@@ -81,7 +81,33 @@ if any phase fails:
     long shapes and at the streaming call's (1, 16, 256) beside its plain
     version, its bound, its time at batch 1 (the serial chain alone) and
     ``torch.nn.LSTM`` (cuDNN) on the same weights, which the port never
-    calls; each row names its plan and tier.
+    calls; each row names its plan and tier;
+13. ``generate``: the full-width TransformerLM (the serve phase's model
+    and seeded weights, f32, TF32 off) generates through
+    ``ServingEngine(net, generation=GenerationConfig(max_slots=16,
+    max_seq=512, block_size=16))``: 24 requests (prompts of 16-384 tokens
+    from the seed, 64 new tokens each; 20 greedy, 4 sampled at
+    temperature 0.8, top-k 50, top-p 0.95), 8 of them joining a running
+    batch; 6 share a 256-token prefix and one extends a prompt that ends
+    inside a block.  Every greedy token must be the argmax of a
+    teacher-forced ``net.output`` over its own history, except where the
+    oracle's top two are within a margin of twice the largest
+    engine-vs-oracle log-prob difference measured on the agreeing
+    positions (printed, with the ties counted); each sampled request
+    alone on a 16-slot engine must give the same stream; prefix hits and
+    copy-on-writes must both happen and every block not held by the
+    prefix registry must come back; ``stream()`` yields one event per
+    token;
+14. ``generate_time``: time to first token, the prefill program at
+    suffix buckets 128 and 512, the decode step with 16 active slots
+    (median, p99), tokens/s over the run, and the decode step driven
+    directly (16 slots at position 300) with its device busy share from
+    a ``torch.profiler`` trace of 10 steps beside ``decode_bound_ms``;
+15. ``generate_rnn``: an EmbeddingSequenceLayer(64) -> 2 x LSTM(256,
+    ``helper="pallas"``) -> RnnOutputLayer(96) stack generates 8 greedy
+    requests of 48 tokens on 16 slots beside a ``helper=None`` twin with
+    its params (streams equal, ties excepted as in 13); every decode step
+    launches ``lstm_fwd`` twice, the masked prefill never.
 
 Each phase prints one JSON line.  Then come the card's name and power
 limit, the ``kernels`` record (the line before the last) and, last,
@@ -1180,6 +1206,430 @@ def cnn_phases(args, torch, dev, card):
                    "L2 flush"}, None
 
 
+# ---- 13-15. generation -------------------------------------------------
+# The full-width TransformerLM generating through the paged KV engine:
+# 24 requests on 16 slots (8 join a running batch), prompts of 16-384
+# tokens from the seed, 64 new tokens each; 6 share a 256-token prefix and
+# one of those ends inside a block (its tail block is adopted by
+# copy-on-write by a later request that extends it); 20 greedy, 4 sampled.
+GEN_SLOTS, GEN_MAX_SEQ, GEN_BLOCK = 16, 512, 16
+GEN_REQUESTS, GEN_NEW, GEN_PREFIX = 24, 64, 256
+GEN_PROMPT_RANGE = (16, 384)
+GEN_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+GEN_SAMPLED_AT = (3, 9, 13, 20)        # request indices drawn with knobs
+GEN_SHARED_AT = (1, 5, 8, 11, 14)      # first wave; 14 ends inside a block
+GEN_COW_AT = 18                        # extends 14; submitted once 14 ends
+GEN_PROFILED_STEPS, GEN_DIRECT_POS = 10, 300
+PREFILL_TIMED_BUCKETS = (128, 512)
+# kernel classes of a decode step's device time (the first match wins):
+# matrix products, the gathers of K/V blocks through the tables and the
+# pool writes, copies (the gathered blocks' permute into [S, h, V, d])
+DECODE_KERNEL_CLASSES = (("matmul", MATMUL_TAGS),
+                         ("gather_index", ("index", "gather", "scatter")),
+                         ("copy", ("copy", "cat")))
+# The recurrent path: EmbeddingSequenceLayer(64) -> 2 x LSTM(256, pallas)
+# -> RnnOutputLayer(96), 16 slots, 8 greedy requests of 48 new tokens.
+RNN_VOCAB, RNN_EMBED, RNN_HIDDEN = 96, 64, 256
+RNN_REQUESTS, RNN_NEW, RNN_MAX_SEQ = 8, 48, 96
+
+
+def decode_bound_ms(param_bytes: int, kv_tokens: int, layers: int,
+                    heads: int, head_dim: int, slots: int,
+                    vocab: int) -> float:
+    """Least time of one decode step: every parameter read once, the K and
+    V of every written position of every slot read once (``kv_tokens``
+    summed over the slots, f32, each attention layer), and the ``[S, V]``
+    f32 log-probs written once, over the card's memory rate.  (The step's
+    operations, ~2 per parameter per slot, take far less at 67 TFLOP/s.)"""
+    kv = kv_tokens * layers * 2 * heads * head_dim * 4
+    return (param_bytes + kv + slots * vocab * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def _gen_capture(net, gen, torch, greedy_only=None):
+    """Wrap ``net.generation_program`` so that every call records, per
+    occupied slot, the log-probs the sampler drew from, keyed ``(request
+    id, token index)``, and each decode step's time (host clock, closed by
+    a sync) beside its active slots."""
+    orig = net.generation_program
+    logps, steps = {}, []
+
+    def program(kind):
+        fn = orig(kind)
+
+        def run(*a):
+            occ = gen.ring.occupants()
+            t0 = time.perf_counter()
+            tok, logp = fn(*a)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if kind == "paged_decode":
+                steps.append((len(occ), ms))
+                rows = occ.items()
+            else:
+                rows = [(a[6], occ[a[6]])]
+            for slot, req in rows:
+                if greedy_only is None or req.id in greedy_only:
+                    lp = logp if logp.ndim == 1 else logp[slot]
+                    logps[(req.id, len(req.out_tokens))] = lp
+            return tok, logp
+        return run
+
+    net.generation_program = program
+    return logps, steps
+
+
+def _tie_check(torch, tokens, mine, ref, teacher_forced):
+    """Greedy ``tokens`` (one list per request) against reference
+    log-prob rows ``ref`` where ``mine`` are the engine's own rows.  The
+    margin is twice the largest |mine - ref| over each position's
+    reference top-2 tokens, measured where the two agree; a position
+    that disagrees must sit within the margin (a tie).  A teacher-forced
+    reference saw the engine's own history at every position; a twin
+    engine's stream parts from ours at its first difference, so each
+    stream is compared up to there.  Returns (margin, ties, mismatches,
+    positions compared)."""
+    checked = []
+    for toks, m, r in zip(tokens, mine, ref):
+        top2 = r.topk(2, dim=-1)
+        gap = top2.values[:, 0] - top2.values[:, 1]
+        diff = (m.gather(1, top2.indices)
+                - r.gather(1, top2.indices)).abs().max(dim=1).values
+        agree = top2.indices[:, 0] == torch.as_tensor(toks, device=r.device)
+        n = len(toks)
+        if not teacher_forced and not bool(agree.all()):
+            n = int((~agree).nonzero()[0]) + 1
+        checked.append((agree[:n], gap[:n], diff[:n]))
+    margin = 2 * max((float(d[a].max()) for a, _, d in checked
+                      if bool(a.any())), default=0.0)
+    ties = sum(int((~a & (g < margin)).sum()) for a, g, _ in checked)
+    mismatches = sum(int((~a & (g >= margin)).sum()) for a, g, _ in checked)
+    return margin, ties, mismatches, sum(len(a) for a, _, _ in checked)
+
+
+def generation_phases(args, torch, dev, card):
+    """Phases 13-15 (generation).  Returns None, or what failed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.generation import (GenerationConfig,
+                                                     GenerationEngine)
+    from deeplearning4j_tpu_torch.generation.cache import PagedKV
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import \
+        EmbeddingSequenceLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (LSTM,
+                                                              RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+
+    # ---- 13. generate ----------------------------------------------------
+    t_phase = time.perf_counter()
+    net = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                        n_layers=LAYERS, n_heads=HEADS).init(device="cuda")
+    params_from_jax(net, seeded_params(net.param_spec(), args.seed))
+    cfg = dict(max_slots=GEN_SLOTS, max_seq=GEN_MAX_SEQ,
+               block_size=GEN_BLOCK)
+    rng = np.random.default_rng(args.seed + 13)
+    prefix = rng.integers(0, VOCAB, GEN_PREFIX).tolist()
+    prompts, kws = [], []
+    for i in range(GEN_REQUESTS):
+        if i == GEN_COW_AT:
+            p = prompts[GEN_SHARED_AT[-1]] + \
+                rng.integers(0, VOCAB, 20).tolist()
+        elif i == GEN_SHARED_AT[-1]:
+            p = prefix + rng.integers(0, VOCAB, 5).tolist()
+        elif i in GEN_SHARED_AT:
+            p = prefix + rng.integers(0, VOCAB, int(rng.integers(
+                1, GEN_PROMPT_RANGE[1] - GEN_PREFIX + 1))).tolist()
+        else:
+            p = rng.integers(0, VOCAB, int(rng.integers(
+                GEN_PROMPT_RANGE[0], GEN_PROMPT_RANGE[1] + 1))).tolist()
+        prompts.append(p)
+        kw = dict(max_new_tokens=GEN_NEW, seed=1000 + i)
+        if i in GEN_SAMPLED_AT:
+            kw.update(GEN_SAMPLED)
+        kws.append(kw)
+    srv = ServingEngine(net, max_batch_size=MAX_BATCH,
+                        generation=GenerationConfig(**cfg))
+    gen = srv.generation
+    try:
+        warmed = srv.warmup()
+        greedy_ids = set()
+        logps, steps = _gen_capture(net, gen, torch, greedy_only=greedy_ids)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        handles = {}
+
+        def submit(i):
+            handles[i] = gen.submit(prompts[i], **kws[i])
+            if "temperature" not in kws[i]:
+                greedy_ids.add(handles[i].id)
+        for i in range(GEN_REQUESTS):
+            if i != GEN_COW_AT:
+                submit(i)
+        # request 14's tail block registers when it vacates: the request
+        # that extends it then adopts it by copy-on-write
+        handles[GEN_SHARED_AT[-1]].future.result(timeout=300)
+        submit(GEN_COW_AT)
+        handles = [handles[i] for i in range(GEN_REQUESTS)]
+        results = [h.future.result(timeout=300) for h in handles]
+        run_s = time.perf_counter() - t_run
+        del net.generation_program
+        kv = gen.ring
+        kv_stats = kv.stats()
+        pool_back = (kv.active_slots == 0 and kv.blocks_free
+                     + kv_stats["blocks_registered"] == kv.n_blocks - 1)
+        # streaming: one request, its events one at a time
+        events = list(gen.stream(prompts[0], max_new_tokens=GEN_NEW,
+                                 timeout=300))
+        stream_ok = (len(events) == GEN_NEW + 1 and events[-1].get("done")
+                     and [e["index"] for e in events[:-1]]
+                     == list(range(GEN_NEW))
+                     and events[-1]["tokens"]
+                     == [e["token"] for e in events[:-1]])
+        status = gen.status()
+    finally:
+        srv.shutdown()
+    # greedy tokens against the teacher-forced oracle (net.output)
+    oracle, mine, gtoks = [], [], []
+    for h, p, res in zip(handles, prompts, results):
+        if h.id not in greedy_ids:
+            continue
+        full = p + res.tokens
+        with torch.inference_mode():
+            probs = net.output(np.asarray([full[:-1]], np.int64))[0]
+        rows = probs[len(p) - 1:]
+        oracle.append(torch.log(torch.clamp(rows, min=1e-30)))
+        mine.append(torch.stack([logps[(h.id, j)]
+                                 for j in range(len(res.tokens))]))
+        gtoks.append(res.tokens)
+    margin, ties, mismatches, positions = _tie_check(torch, gtoks, mine,
+                                                     oracle, True)
+    # sampled requests alone, on an engine without prefix sharing (the
+    # batch run shared nothing with them either): the same slot count,
+    # so the same shapes
+    solo = GenerationEngine.for_model(
+        net, GenerationConfig(**cfg, prefix_sharing=False))
+    try:
+        solo_equal = [solo.generate(prompts[i], timeout=300,
+                                    **kws[i]).tokens == results[i].tokens
+                      for i in GEN_SAMPLED_AT]
+    finally:
+        solo.shutdown()
+    gen_s = time.perf_counter() - t_phase
+    finite = all(len(r.tokens) == GEN_NEW and all(0 <= t < VOCAB
+                                                  for t in r.tokens)
+                 for r in results)
+    print(json.dumps({
+        "phase": "generate", "model": {
+            "name": "TransformerLM", "vocab": VOCAB, "seq": SEQ,
+            "embed": EMBED, "layers": LAYERS, "heads": HEADS,
+            "num_params": net.num_params(), "dtype": "float32",
+            "tf32": False},
+        "config": cfg, "requests": GEN_REQUESTS,
+        "greedy": len(greedy_ids), "sampled": len(GEN_SAMPLED_AT),
+        "sampling": GEN_SAMPLED, "max_new_tokens": GEN_NEW,
+        "prompt_lens": [len(p) for p in prompts],
+        "shared_prefix": GEN_PREFIX, "warm_calls": warmed,
+        "greedy_positions_checked": positions,
+        "tie_margin": margin, "ties": ties,
+        "greedy_mismatches_outside_ties": mismatches,
+        "sampled_solo_equals_batched": solo_equal,
+        "kv": kv_stats, "pool_blocks_back": pool_back,
+        "stream_events": len(events), "stream_ok": bool(stream_ok),
+        "decode_steps": status["decode_steps"],
+        "seconds": round(gen_s, 3)}), flush=True)
+    if not finite:
+        return "generated tokens out of range or short"
+    if mismatches:
+        return (f"{mismatches} greedy streams leave the oracle's argmax "
+                f"outside the tie margin {margin}")
+    if not all(solo_equal):
+        return f"sampled streams alone differ from batched: {solo_equal}"
+    if kv_stats["prefix_hits"] < 1 or kv_stats["cow_copies"] < 1:
+        return f"no prefix hit or copy-on-write: {kv_stats}"
+    if not pool_back:
+        return f"blocks not returned to the pool: {kv_stats}"
+    if not stream_ok:
+        return "stream() did not yield one event per token"
+
+    # ---- 14. generate_time -----------------------------------------------
+    t_phase = time.perf_counter()
+    ttft = sorted((h.t_first - h.t_submit) * 1e3 for h in handles)
+    full_steps = sorted(ms for n, ms in steps if n == GEN_SLOTS)
+    tokens = sum(len(r.tokens) for r in results)
+    # the programs driven directly on a scratch cache: 16 slots at
+    # position GEN_DIRECT_POS
+    kv = PagedKV(net.conf, GEN_SLOTS, GEN_MAX_SEQ, block_size=GEN_BLOCK,
+                 device=dev)
+    for s in range(GEN_SLOTS):
+        kv.acquire(f"direct-{s}")
+        kv.ensure_blocks(s, f"direct-{s}", GEN_MAX_SEQ)
+    tables = torch.as_tensor(kv.tables, device=dev)
+    one = dict(keys=torch.zeros((1, 2), dtype=torch.int64, device=dev),
+               temp=torch.zeros(1, device=dev),
+               top_k=torch.zeros(1, dtype=torch.int32, device=dev),
+               top_p=torch.ones(1, device=dev))
+    pf = net.generation_program("paged_prefill")
+    prefill_ms = {}
+    for b in PREFILL_TIMED_BUCKETS:
+        toks = torch.randint(0, VOCAB, (1, b), device=dev)
+        mask = torch.ones((1, b), device=dev)
+        prefill_ms[b] = median_ms(lambda: pf(
+            net.params, net.state, toks, mask, kv.caches, tables[0], 0, 0,
+            b, 0, 0, one["keys"], one["temp"], one["top_k"],
+            one["top_p"]), torch, runs=10)
+    dec = net.generation_program("paged_decode")
+    S = GEN_SLOTS
+    dargs = (torch.randint(0, VOCAB, (S,), device=dev), kv.caches, tables,
+             torch.full((S,), GEN_DIRECT_POS, dtype=torch.int32,
+                        device=dev),
+             torch.zeros((S, 2), dtype=torch.int64, device=dev),
+             torch.zeros(S, device=dev),
+             torch.zeros(S, dtype=torch.int32, device=dev),
+             torch.ones(S, device=dev))
+
+    def step():
+        return dec(net.params, net.state, *dargs)[0].cpu()
+    for _ in range(3):
+        step()
+    direct = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        step()
+        direct.append((time.perf_counter() - t1) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t1 = time.perf_counter()
+        for _ in range(GEN_PROFILED_STEPS):
+            step()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    per_class = {name: 0.0 for name, _ in DECODE_KERNEL_CLASSES}
+    per_class["other"] = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if not us or getattr(ev, "device_type", None) is not None and \
+                "CUDA" not in str(ev.device_type):
+            continue
+        key = ev.key.lower()
+        cls = next((name for name, tags in DECODE_KERNEL_CLASSES
+                    if any(t in key for t in tags)), "other")
+        per_class[cls] += us / 1e3 / GEN_PROFILED_STEPS
+    dev_ms = sum(per_class.values())
+    direct_med = statistics.median(direct)
+    param_bytes = sum(p.numel() * 4 for p in net.params.parameters())
+    bound = decode_bound_ms(param_bytes, S * (GEN_DIRECT_POS + 1), LAYERS,
+                            HEADS, HEAD_DIM, S, VOCAB)
+    print(json.dumps({
+        "phase": "generate_time",
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": ttft[-1],
+        "prefill_ms": {str(b): v for b, v in prefill_ms.items()},
+        "decode_step_ms_16_active": {
+            "steps": len(full_steps),
+            "median": statistics.median(full_steps) if full_steps else None,
+            "p99": full_steps[min(len(full_steps) - 1,
+                                  int(0.99 * len(full_steps)))]
+            if full_steps else None},
+        "tokens": tokens, "run_s": run_s, "tokens_per_s": tokens / run_s,
+        "direct_decode": {"slots": S, "pos": GEN_DIRECT_POS,
+                          "step_ms_median": direct_med,
+                          "profiled_steps": GEN_PROFILED_STEPS,
+                          "profiled_wall_ms_per_step":
+                              prof_wall / GEN_PROFILED_STEPS,
+                          "device_ms_per_step": dev_ms,
+                          "device_ms_per_step_by_class": per_class,
+                          # against the unprofiled step: the profiler's
+                          # own host work stretches the profiled steps
+                          "device_busy_share": dev_ms / direct_med},
+        "decode_bound_ms": bound, "bound_by": "bytes",
+        "card": card, "seconds": round(time.perf_counter() - t_phase, 3)}),
+        flush=True)
+    if not full_steps:
+        return "no decode step ran with all 16 slots active"
+    del kv, dargs, tables
+    torch.cuda.empty_cache()
+
+    # ---- 15. generate_rnn ------------------------------------------------
+    t_phase = time.perf_counter()
+
+    def rnn_net(helper):
+        conf = MultiLayerConfiguration(
+            layers=[EmbeddingSequenceLayer(n_out=RNN_EMBED),
+                    LSTM(n_out=RNN_HIDDEN, activation="tanh", helper=helper),
+                    LSTM(n_out=RNN_HIDDEN, activation="tanh", helper=helper),
+                    RnnOutputLayer(n_out=RNN_VOCAB, activation="softmax",
+                                   loss="mcxent")],
+            input_type=InputType.recurrent(RNN_VOCAB, RNN_MAX_SEQ),
+            defaults={"weight_init": "xavier"}, seed=args.seed)
+        return MultiLayerNetwork(conf, device=dev)
+    rnet = rnn_net("pallas")
+    tree = seeded_params(rnet.param_spec(), args.seed + 15)
+    params_from_jax(rnet, tree)
+    twin = params_from_jax(rnn_net(None), tree)
+    rcfg = GenerationConfig(max_slots=GEN_SLOTS, max_seq=RNN_MAX_SEQ,
+                            block_size=GEN_BLOCK)
+    rprompts = [rng.integers(0, RNN_VOCAB, int(rng.integers(8, 41)))
+                .tolist() for _ in range(RNN_REQUESTS)]
+    streams, rows = {}, {}
+    for name, model in (("kernel", rnet), ("twin", twin)):
+        eng = GenerationEngine.for_model(model, rcfg)
+        try:
+            eng.warmup()
+            logps, _ = _gen_capture(model, eng, torch)
+            torch.cuda.synchronize()
+            pl.reset_launches()
+            steps0 = eng.decode_steps
+            hs = [eng.submit(p, max_new_tokens=RNN_NEW, seed=i)
+                  for i, p in enumerate(rprompts)]
+            streams[name] = [h.future.result(timeout=300).tokens
+                             for h in hs]
+            launches = pl.launches["lstm_fwd"]
+            dsteps = eng.decode_steps - steps0
+            rows[name] = [torch.stack([logps[(h.id, j)]
+                                       for j in range(RNN_NEW)])
+                          for h in hs]
+            del model.generation_program
+        finally:
+            eng.shutdown()
+        if name == "kernel":
+            kernel_launches, kernel_steps = launches, dsteps
+        else:
+            twin_launches = launches
+    margin_r, ties_r, mism_r, pos_r = _tie_check(
+        torch, streams["kernel"], rows["kernel"], rows["twin"], False)
+    print(json.dumps({
+        "phase": "generate_rnn", "model": {
+            "layers": f"EmbeddingSequenceLayer({RNN_EMBED}), 2 x LSTM("
+                      f"{RNN_HIDDEN}, helper=pallas), RnnOutputLayer("
+                      f"{RNN_VOCAB}, softmax)",
+            "num_params": rnet.num_params()},
+        "slots": GEN_SLOTS, "requests": RNN_REQUESTS,
+        "max_new_tokens": RNN_NEW,
+        "decode_steps": kernel_steps, "lstm_fwd_launches": kernel_launches,
+        "expected_launches": 2 * kernel_steps,
+        "twin_lstm_fwd_launches": twin_launches,
+        "positions_checked": pos_r, "tie_margin": margin_r, "ties": ties_r,
+        "mismatches_outside_ties": mism_r,
+        "streams_equal_twin": streams["kernel"] == streams["twin"],
+        "seconds": round(time.perf_counter() - t_phase, 3)}), flush=True)
+    if kernel_launches != 2 * kernel_steps or kernel_steps == 0 or \
+            twin_launches:
+        return (f"lstm_fwd launched {kernel_launches} times over "
+                f"{kernel_steps} decode steps (twin {twin_launches}); "
+                "expected 2 per step")
+    if mism_r:
+        return (f"{mism_r} recurrent streams leave the twin's argmax "
+                f"outside the tie margin {margin_r}")
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1581,6 +2031,12 @@ def main(argv=None) -> int:
 
     # ---- 10-12. char-LSTM: kernel vs plain, serve, stream, train, times --
     lstm_record, err = lstm_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+
+    # ---- 13-15. generation: full-width TransformerLM, LSTM stack -------
+    err = generation_phases(args, torch, dev, card)
     if err:
         return fail(err)
 

@@ -1,0 +1,961 @@
+"""GenerationEngine: iteration-level continuous batching over the paged
+KV cache (port of ``generation/engine.py``).
+
+One decode thread owns the cache and runs a boundary loop; every loop
+iteration is one *step boundary*, where all scheduling happens:
+
+1. **Weight sync**: if the serving slot was swapped since the last step,
+   every active sequence *migrates*: its full history (prompt + tokens so
+   far) re-prefills under the new weights into the same slot, so no
+   sequence mixes two weight versions in its cache.  Reported versions
+   never move backwards.
+2. **Joins**: queued requests prefill into free slots (one bucketed
+   prefill call each, the first token sampled inside it) and are part of
+   the very next decode batch.  A late request joins a RUNNING batch.
+3. **Decode**: one call of the decode program advances every active slot
+   by one token (inactive slots compute rows nothing reads).  Finished
+   sequences (EOS, token budget, client gone) vacate at this boundary.
+
+Determinism: sampling keys are ``(request seed, token index)``, so a
+request's tokens are the same whether it runs alone or joins a busy
+batch (row-independent stacks only; MoE is refused).
+
+The decode thread runs the programs under ``torch.inference_mode()``,
+entered in that thread.  Block tables and positions stay host numpy
+mirrors, copied to the device once per program call; a decode step reads
+back exactly one thing, its ``[S]`` token vector.
+
+The reference's metrics registry, health monitor, flight recorder and
+step profiler are not ported yet: the engine keeps its counters (tokens,
+steps, errors, sheds, time to first token and inter-token latency
+windows) in ``status()``, and a failed decode step's occupancy trail in
+``last_decode_failure``.  The port runs eagerly and compiles nothing, so
+it has no steady-state recompiles to count.
+"""
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeout
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..data.shapes import suffix_prefill_buckets
+from ..observability import clock
+from ..observability.quantiles import LatencyWindow
+from ..parallel.inference import InvalidInputError
+from .cache import PagedKV
+
+__all__ = ["GenerationConfig", "GenerationEngine", "GenerationResult",
+           "StaticSlotSource"]
+
+log = logging.getLogger("deeplearning4j_tpu_torch.generation")
+
+_UNSET = object()
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    """Engine shape and policy.  ``max_slots`` (the decode batch) and
+    ``max_seq`` (per-slot capacity) size the cache; the rest is data or
+    host policy."""
+
+    max_slots: int = 8
+    max_seq: int = 256                 # per-slot KV capacity (prompt+gen)
+    prefill_ladder: Optional[Sequence[int]] = None
+    queue_limit: int = 64              # join-queue bound (shed past it)
+    default_max_new_tokens: int = 64
+    eos_id: Optional[int] = None       # default per-request EOS
+    retry_after_s: float = 1.0
+    itl_slo_ms: Optional[float] = None  # decode SLO for readiness
+    slo_window: int = 256
+    slo_min_samples: int = 16
+    # paged-KV knobs (cache.PagedKV): tokens per physical block, pool
+    # size (None = full provision: max_slots * ceil(max_seq/block_size)
+    # + trash), and the prefix-sharing registry toggle
+    block_size: int = 16
+    n_blocks: Optional[int] = None
+    prefix_sharing: bool = True
+
+
+@dataclass
+class GenerationResult:
+    """One finished request: the generated tokens, the slot version that
+    produced each token, and why it stopped."""
+
+    tokens: List[int]
+    versions: List[int]
+    finish: str                        # eos | length | cancelled
+    request_id: str
+    prompt_len: int = 0
+
+
+class _GenRequest:
+    """Internal per-request state; the public faces are the Future
+    (blocking ``generate``) and the bounded event queue (streaming)."""
+
+    __slots__ = ("id", "prompt", "max_new_tokens", "temperature", "top_k",
+                 "top_p", "seed", "eos_id", "out_tokens", "versions",
+                 "future", "events", "cancelled", "slot",
+                 "t_submit", "t_first", "t_last")
+
+    def __init__(self, rid: str, prompt: List[int], max_new_tokens: int,
+                 temperature: float, top_k: int, top_p: float, seed: int,
+                 eos_id: Optional[int]):
+        self.id = rid
+        self.prompt = prompt
+        self.max_new_tokens = max_new_tokens
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.seed = int(seed) & 0xFFFFFFFF
+        self.eos_id = eos_id
+        self.out_tokens: List[int] = []
+        self.versions: List[int] = []
+        self.future: Future = Future()
+        # one event per token + done/error sentinels; bounded so a wedged
+        # stream consumer can never grow host memory (the producer drops,
+        # the blocking future still completes)
+        self.events: "queue.Queue[dict]" = queue.Queue(
+            maxsize=max_new_tokens + 2)
+        self.cancelled = threading.Event()
+        self.slot: Optional[int] = None
+        self.t_submit = clock.monotonic_s()
+        self.t_first: Optional[float] = None
+        self.t_last: Optional[float] = None
+
+    def history(self) -> List[int]:
+        """Prompt + everything generated so far: what a weight migration
+        re-prefills."""
+        return self.prompt + self.out_tokens
+
+    def export_state(self) -> dict:
+        """Host-only session snapshot another engine can
+        ``import_session``: since sampling keys are ``(seed,
+        token_index)``, history and sampling knobs are the whole decode
+        state."""
+        return {"request_id": self.id, "prompt": list(self.prompt),
+                "tokens": list(self.out_tokens),
+                "versions": list(self.versions),
+                "max_new_tokens": self.max_new_tokens,
+                "temperature": self.temperature, "top_k": self.top_k,
+                "top_p": self.top_p, "seed": self.seed,
+                "eos_id": self.eos_id}
+
+    def push_event(self, ev: dict) -> None:
+        try:
+            self.events.put_nowait(ev)
+        except queue.Full:      # slow stream consumer: drop, never block
+            pass
+
+    def debug_id(self) -> str:
+        return (f"{self.id}[prompt={len(self.prompt)},"
+                f"out={len(self.out_tokens)}/{self.max_new_tokens}]")
+
+
+class StaticSlotSource:
+    """Slot provider for a standalone engine: wraps a model as a versioned
+    slot; :meth:`swap` installs a new model under the next version."""
+
+    class _Slot:
+        __slots__ = ("model", "version")
+
+        def __init__(self, model, version: int):
+            self.model = model
+            self.version = version
+
+    def __init__(self, model):
+        self._lock = threading.Lock()
+        self._slot = self._Slot(model, 1)
+
+    def __call__(self):
+        with self._lock:
+            return self._slot
+
+    def swap(self, model) -> int:
+        with self._lock:
+            self._slot = self._Slot(model, self._slot.version + 1)
+            return self._slot.version
+
+
+def _dev(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(a).to(device)
+
+
+class GenerationEngine:
+    """Continuous-batching autoregressive decode over one served model.
+
+    ``slot_source`` is a zero-argument callable returning the current
+    serving slot (an object with ``.model`` and ``.version``) or None;
+    ``ServingEngine`` passes its own slot, a standalone engine wraps a
+    model in :class:`StaticSlotSource` (or uses :meth:`for_model`).  The
+    model is a ``MultiLayerNetwork``; the cache lives on its device.
+    """
+
+    def __init__(self, slot_source: Callable[[], Any],
+                 config: Optional[GenerationConfig] = None, *,
+                 start: bool = True):
+        self.config = config or GenerationConfig()
+        if self.config.max_slots < 1:
+            raise ValueError("max_slots must be >= 1")
+        if self.config.default_max_new_tokens < 1:
+            raise ValueError("default_max_new_tokens must be >= 1")
+        self._slot_source = slot_source
+        # suffix ladder: shared-prefix admissions prefill only their
+        # unshared tail; the top bucket stays max_seq so a migration's
+        # re-prefill of a full history always fits
+        self.buckets = suffix_prefill_buckets(
+            self.config.max_seq, self.config.block_size,
+            self.config.prefill_ladder)
+        self.ring: Optional[PagedKV] = None
+        self._ring_sig: Optional[str] = None
+        self._pending: "queue.Queue[_GenRequest]" = queue.Queue(
+            maxsize=self.config.queue_limit)
+        self._serving_version: Optional[int] = None
+        self._warm = False
+        self._stats_lock = threading.Lock()
+        self._tokens_generated = 0
+        self._decode_steps = 0
+        self._decode_errors = 0
+        self._tick_failures = 0
+        self._shed_counts: Dict[str, int] = {}
+        self._req_counter = 0
+        self._ttft_w = LatencyWindow(self.config.slo_window)
+        self._itl_w = LatencyWindow(self.config.slo_window)
+        # error and occupancy snapshot of the last failed decode step
+        self.last_decode_failure: Optional[dict] = None
+        self._submit_lock = threading.Lock()
+        self._step_lock = threading.Lock()
+        self._shutdown = threading.Event()
+        self._wake = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="dl4j-torch-generate")
+        if start:
+            self._thread.start()
+
+    @classmethod
+    def for_model(cls, model, config: Optional[GenerationConfig] = None,
+                  **kw) -> "GenerationEngine":
+        return cls(StaticSlotSource(model), config, **kw)
+
+    # ------------------------------------------------------------- counters
+    @property
+    def queue_depth(self) -> int:
+        """Join-queue depth."""
+        return self._pending.qsize()
+
+    @property
+    def tokens_generated(self) -> int:
+        with self._stats_lock:
+            return self._tokens_generated
+
+    @property
+    def decode_steps(self) -> int:
+        with self._stats_lock:
+            return self._decode_steps
+
+    def _shed(self, reason: str) -> None:
+        with self._stats_lock:
+            self._shed_counts[reason] = self._shed_counts.get(reason, 0) + 1
+
+    # ----------------------------------------------------------- model/ring
+    def _model_of(self, slot_obj):
+        model = getattr(slot_obj, "model", None)
+        if model is None or not hasattr(model, "generation_program"):
+            raise TypeError(
+                f"{type(slot_obj).__name__}.model is not generatable: the "
+                "decode engine needs a MultiLayerNetwork "
+                "(generation_program)")
+        return model
+
+    def _ensure_ring(self, model):
+        """(Re)build the cache for the served topology.  A same-topology
+        swap keeps it (weights changed, shapes did not); a different
+        topology rebuilds it."""
+        sig = model.topology_sig()
+        if self.ring is None or self._ring_sig != sig:
+            for lc in model.conf.layers:
+                if getattr(lc, "AUX_LOSS", False):
+                    raise ValueError(
+                        "generation requires a row-independent stack: an "
+                        "AUX_LOSS (MoE) layer couples rows through expert "
+                        "capacity, breaking per-slot determinism")
+            if not any(getattr(lc, "HAS_CARRY", False)
+                       for lc in model.conf.layers):
+                raise ValueError(
+                    "generation needs at least one carry-capable layer "
+                    "(attention/transformer/RNN) — a pure feed-forward "
+                    "stack has nothing to cache")
+            self.ring = self._new_ring(model)
+            self._ring_sig = sig
+        return self.ring
+
+    def _new_ring(self, model):
+        return PagedKV(model.conf, self.config.max_slots,
+                       self.config.max_seq,
+                       block_size=self.config.block_size,
+                       n_blocks=self.config.n_blocks,
+                       prefix_sharing=self.config.prefix_sharing,
+                       device=model.device)
+
+    # -------------------------------------------------------------- warmup
+    def warmup(self) -> int:
+        """Run one prefill per suffix bucket and one decode step against
+        an all-trash table (writes land in block 0), so the cache, the
+        allocator's pools and any kernel builds exist before the first
+        request.  A re-warm while sequences decode runs against a scratch
+        cache and never touches the live one.  Returns the number of
+        program calls."""
+        slot_obj = self._slot_source()
+        if slot_obj is None:
+            raise RuntimeError("no model installed to warm")
+        model = self._model_of(slot_obj)
+        with self._step_lock:
+            ring = self._ensure_ring(model)
+            caches = self._new_ring(model).caches \
+                if ring.active_slots > 0 else ring.caches
+            dev = ring.device
+            S = self.config.max_slots
+            nb = ring.blocks_per_slot
+            one = dict(keys=torch.zeros((1, 2), dtype=torch.int64,
+                                        device=dev),
+                       temp=torch.zeros(1, device=dev),
+                       top_k=torch.zeros(1, dtype=torch.int32, device=dev),
+                       top_p=torch.ones(1, device=dev))
+            pf = model.generation_program("paged_prefill")
+            trow = torch.zeros(nb, dtype=torch.int32, device=dev)
+            warmed = 0
+            for b in self.buckets:
+                pf(model.params, model.state,
+                   torch.zeros((1, b), dtype=torch.int64, device=dev),
+                   torch.ones((1, b), device=dev), caches, trow, 0, 0, b,
+                   0, 0, one["keys"], one["temp"], one["top_k"],
+                   one["top_p"])
+                warmed += 1
+            dec = model.generation_program("paged_decode")
+            out, _ = dec(model.params, model.state,
+                         torch.zeros(S, dtype=torch.int64, device=dev),
+                         caches, torch.zeros((S, nb), dtype=torch.int32,
+                                             device=dev),
+                         torch.zeros(S, dtype=torch.int32, device=dev),
+                         torch.zeros((S, 2), dtype=torch.int64, device=dev),
+                         torch.zeros(S, device=dev),
+                         torch.zeros(S, dtype=torch.int32, device=dev),
+                         torch.ones(S, device=dev))
+            out.cpu()       # the warm calls have finished on the device
+            warmed += 1
+            if self._serving_version is None:
+                # first warm only: a later version change must go
+                # through the tick's migration pass
+                self._serving_version = slot_obj.version
+            self._warm = True
+        return warmed
+
+    # ----------------------------------------------------------- public API
+    def submit(self, tokens, *, max_new_tokens: Optional[int] = None,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0, seed: Optional[int] = None,
+               eos_id=_UNSET) -> _GenRequest:
+        """Admit one generation request; returns the live request handle
+        (``.future`` for the blocking result, ``.events`` for the
+        per-token stream).  Raises ``serving.engine.ShedError`` when
+        admission refuses (503 no model, 429 queue full) and
+        :class:`InvalidInputError` on a bad prompt or budget."""
+        from ..serving.engine import ShedError
+        slot_obj = self._slot_source()
+        if slot_obj is None:
+            self._shed("unready")
+            raise ShedError("no model installed", status=503,
+                            retry_after_s=self.config.retry_after_s)
+        try:
+            prompt = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        except (TypeError, ValueError) as e:
+            # client-shaped garbage is a 400-class error, never a 500
+            raise InvalidInputError(
+                f"prompt must be integer token ids: {e}")
+        if not prompt:
+            raise InvalidInputError("empty prompt")
+        mnt = self.config.default_max_new_tokens \
+            if max_new_tokens is None else int(max_new_tokens)
+        if mnt < 1:
+            raise InvalidInputError(
+                f"max_new_tokens must be >= 1, got {mnt}")
+        if len(prompt) + mnt > self.config.max_seq:
+            raise InvalidInputError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({mnt}) exceeds "
+                f"the cache capacity max_seq={self.config.max_seq}")
+        eos = self.config.eos_id if eos_id is _UNSET else eos_id
+        with self._submit_lock:
+            if self._shutdown.is_set():
+                raise RuntimeError("GenerationEngine shut down")
+            self._req_counter += 1
+            rid = f"gen-{self._req_counter}"
+            if seed is None:
+                seed = self._req_counter
+            req = _GenRequest(rid, prompt, mnt, temperature, top_k, top_p,
+                              seed, eos)
+            try:
+                self._pending.put_nowait(req)
+            except queue.Full:
+                # every slot busy AND the join backlog full: shed before
+                # the request can queue into a timeout storm
+                self._shed("no_slots")
+                raise ShedError(
+                    f"no free generation slots (queue at "
+                    f"{self.config.queue_limit})", status=429,
+                    retry_after_s=self.config.retry_after_s)
+        self._wake.set()
+        return req
+
+    def import_session(self, state: dict) -> _GenRequest:
+        """Re-home a session exported from another engine: a request with
+        its generated-so-far tokens pre-seeded, queued for ordinary
+        admission, which re-prefills the full history and continues the
+        ``(seed, token_index)`` key schedule at the next index."""
+        from ..serving.engine import ShedError
+        try:
+            prompt = [int(t) for t in state["prompt"]]
+            tokens = [int(t) for t in state.get("tokens", ())]
+            mnt = int(state["max_new_tokens"])
+            seed = int(state["seed"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise InvalidInputError(f"malformed session state: {e}")
+        if not prompt:
+            raise InvalidInputError("empty prompt in imported session")
+        if len(tokens) >= mnt:
+            raise InvalidInputError(
+                f"imported session already finished "
+                f"({len(tokens)}/{mnt} tokens)")
+        if len(prompt) + mnt > self.config.max_seq:
+            raise InvalidInputError(
+                f"imported session needs {len(prompt) + mnt} cache rows, "
+                f"exceeds max_seq={self.config.max_seq}")
+        with self._submit_lock:
+            if self._shutdown.is_set():
+                raise RuntimeError("GenerationEngine shut down")
+            self._req_counter += 1
+            rid = state.get("request_id") or f"gen-{self._req_counter}"
+            req = _GenRequest(rid, prompt, mnt,
+                              state.get("temperature", 0.0),
+                              state.get("top_k", 0),
+                              state.get("top_p", 1.0), seed,
+                              state.get("eos_id"))
+            req.out_tokens = tokens
+            vers = [int(v) for v in state.get("versions", ())]
+            # one version per already-emitted token: a mirror that lost
+            # them pads with 0 ("unknown origin version"), never guesses
+            req.versions = (vers + [0] * len(tokens))[:len(tokens)]
+            try:
+                self._pending.put_nowait(req)
+            except queue.Full:
+                self._shed("no_slots")
+                raise ShedError(
+                    f"no free generation slots for imported session "
+                    f"(queue at {self.config.queue_limit})", status=429,
+                    retry_after_s=self.config.retry_after_s)
+        self._wake.set()
+        return req
+
+    def export_sessions(self) -> List[dict]:
+        """Detach every live session (active slots AND the join queue) as
+        importable host-only state.  The local handles fail with a marker
+        error, so no client hangs on a drained engine."""
+        states: List[dict] = []
+        err = RuntimeError("session exported for cross-replica migration")
+        with self._step_lock:
+            ring = self.ring
+            if ring is not None:
+                for slot, req in sorted(ring.occupants().items()):
+                    ring.release(slot)
+                    ring.note("vacate", slot, req.id, reason="exported")
+                    states.append(req.export_state())
+                    self._fail(req, err)
+            while True:
+                try:
+                    req = self._pending.get_nowait()
+                except queue.Empty:
+                    break
+                if req.cancelled.is_set():
+                    self._finish(req, None, "cancelled")
+                    continue
+                states.append(req.export_state())
+                self._fail(req, err)
+        return states
+
+    def generate(self, tokens, timeout: Optional[float] = 60.0,
+                 **kw) -> GenerationResult:
+        """Submit and block for the finished sequence.  A timeout CANCELS
+        the request: its slot stops decoding for nobody."""
+        req = self.submit(tokens, **kw)
+        try:
+            return req.future.result(timeout=timeout)
+        except FuturesTimeout:
+            req.cancelled.set()
+            self._wake.set()
+            raise
+
+    def stream(self, tokens, timeout: Optional[float] = 60.0, **kw):
+        """Submit and yield per-token events as the decode loop emits
+        them: ``{"token", "index", "model_version"}`` per step, then one
+        ``{"done": True, "finish", "tokens", "model_versions"}`` (or
+        ``{"error": ...}``).  Closing the generator early cancels the
+        request; its slot vacates at the next step boundary."""
+        req = self.submit(tokens, **kw)
+        try:
+            while True:
+                ev = req.events.get(timeout=timeout)
+                yield ev
+                if ev.get("done") or "error" in ev:
+                    return
+        finally:
+            req.cancelled.set()     # no-op after normal completion
+            self._wake.set()
+
+    # --------------------------------------------------------------- status
+    def decode_slo_ok(self) -> bool:
+        target = self.config.itl_slo_ms
+        if target is None or len(self._itl_w) < self.config.slo_min_samples:
+            return True
+        p99 = self._itl_w.quantile(0.99)
+        return p99 is None or p99 * 1e3 <= target
+
+    def ready(self) -> bool:
+        """Model installed AND the join queue below its shed limit AND
+        the inter-token p99 inside its SLO AND the scheduling tick not
+        persistently failing."""
+        with self._stats_lock:
+            wedged = self._tick_failures >= self._TICK_FAILURE_LIMIT
+        return (self._slot_source() is not None
+                and not wedged
+                and self._pending.qsize() < self.config.queue_limit
+                and self.decode_slo_ok())
+
+    def status(self) -> dict:
+        ring = self.ring
+        ttft = self._ttft_w.snapshot()
+        itl = self._itl_w.snapshot()
+        with self._stats_lock:
+            counters = dict(tokens_generated=self._tokens_generated,
+                            decode_steps=self._decode_steps,
+                            decode_errors=self._decode_errors,
+                            tick_failures=self._tick_failures,
+                            shed=dict(self._shed_counts))
+
+        def ms(v):
+            return None if v is None else round(v * 1e3, 3)
+        return {
+            "ready": self.ready(),
+            "active_slots": 0 if ring is None else ring.active_slots,
+            "free_slots": self.config.max_slots if ring is None
+            else ring.free_slots,
+            "max_slots": self.config.max_slots,
+            "max_seq": self.config.max_seq,
+            "prefill_buckets": list(self.buckets),
+            "queued": self._pending.qsize(),
+            "queue_limit": self.config.queue_limit,
+            "decode_slo_ok": self.decode_slo_ok(),
+            "itl_slo_ms": self.config.itl_slo_ms,
+            "ttft_p50_ms": ms(ttft["p50"]), "ttft_p99_ms": ms(ttft["p99"]),
+            "itl_p50_ms": ms(itl["p50"]), "itl_p99_ms": ms(itl["p99"]),
+            **counters,
+            # eager programs: nothing is compiled, so nothing recompiles
+            "steady_recompiles": None,
+            "warm": self._warm,
+            "kv_paged": True,
+            "kv": None if ring is None else ring.stats(),
+            "cache_bytes": None if ring is None else ring.cache_bytes,
+            "device": None if ring is None else str(ring.device),
+        }
+
+    # ---------------------------------------------------------- decode loop
+    # consecutive scheduling-tick failures before the engine declares
+    # itself unready and fails the join queue (a decode-step fault is
+    # handled INSIDE the tick and never counts here)
+    _TICK_FAILURE_LIMIT = 4
+
+    def _loop(self) -> None:
+        # inference mode is thread-local: enter it in the decode thread
+        with torch.inference_mode():
+            self._run_loop()
+
+    def _run_loop(self) -> None:
+        err_backoff = 0.0
+        while not self._shutdown.is_set():
+            try:
+                worked = self._tick()
+            except Exception as e:
+                # the loop survives with a growing breather, but repeated
+                # failures flip ready() and fail the queued requests with
+                # the cause instead of letting clients hang
+                log.exception("generation tick failed")
+                with self._stats_lock:
+                    self._tick_failures += 1
+                    failures = self._tick_failures
+                if failures >= self._TICK_FAILURE_LIMIT:
+                    self._drain_pending(e)
+                err_backoff = min(0.25, err_backoff * 2 or 0.01)
+                self._shutdown.wait(err_backoff)
+                continue
+            with self._stats_lock:
+                self._tick_failures = 0
+            err_backoff = 0.0
+            if not worked:
+                # fully idle: block on the wake event (submit, cancel and
+                # shutdown set it) instead of polling
+                idle = self._pending.empty() and (
+                    self.ring is None or self.ring.active_slots == 0)
+                self._wake.wait(None if idle else 0.005)
+                self._wake.clear()
+
+    def _tick(self) -> bool:
+        slot_obj = self._slot_source()
+        if slot_obj is None:
+            return False
+        with self._step_lock:
+            worked = False
+            if slot_obj.version != self._serving_version:
+                if self._serving_version is None or self.ring is None \
+                        or self.ring.active_slots == 0:
+                    # nothing to migrate: adopt the version, dropping the
+                    # registry's old-version K/V
+                    if self.ring is not None:
+                        self.ring.invalidate_shared()
+                    self._serving_version = slot_obj.version
+                else:
+                    model = self._model_of(slot_obj)
+                    prev = self._serving_version
+                    worked = self._migrate(model, slot_obj, prev)
+                    self._serving_version = slot_obj.version
+            worked = self._admit(slot_obj) or worked
+            worked = self._decode_guarded(slot_obj) or worked
+        return worked
+
+    def _drain_pending(self, e: Exception) -> None:
+        """Fail everything queued with the underlying fault."""
+        while True:
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            self._fail(req, e)
+
+    def _migrate(self, model, slot_obj, prev: Optional[int]) -> bool:
+        """Move every active sequence onto the new weights at a step
+        boundary by re-prefilling its full history (the sampled token is
+        the sequence's next emission: the key schedule continues at the
+        same token index)."""
+        old_ring = self.ring
+        occupants = {} if old_ring is None else old_ring.occupants()
+        if prev is None or not occupants:
+            return False
+        # the registry holds prev-version K/V: flush it before any
+        # re-prefill can publish or adopt under the new version
+        old_ring.invalidate_shared()
+        ring = self._ensure_ring(model)
+        for slot, req in sorted(occupants.items()):
+            if ring is not old_ring:
+                # topology changed: re-home the sequence into the new
+                # cache (same config, so every old occupant finds a slot)
+                old_ring.release(slot)
+                slot = ring.acquire(req)
+                req.slot = slot
+            else:
+                # same pool, new weights: drop the slot's stale blocks;
+                # the re-prefill writes fresh ones
+                ring.reset_slot(slot)
+            ring.note("migrate", slot, req.id, pos=len(req.history()),
+                      from_version=prev, to_version=slot_obj.version)
+            try:
+                tok = self._prefill_into(model, req, slot, req.history())
+            except Exception as e:
+                ring.release(slot)
+                ring.note("migrate_error", slot, req.id, error=str(e))
+                self._fail(req, e)
+                continue
+            self._emit(req, tok, slot_obj.version, slot)
+        return True
+
+    def _admit(self, slot_obj) -> bool:
+        """Joins: drain queued requests into free slots; each becomes
+        part of the very next decode batch."""
+        model = None
+        ring = self.ring
+        worked = False
+        while ring is None or ring.free_slots > 0:
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                break
+            if req.cancelled.is_set():
+                self._finish(req, None, "cancelled")
+                worked = True
+                continue
+            if model is None:
+                try:
+                    model = self._model_of(slot_obj)
+                    ring = self._ensure_ring(model)
+                except Exception as e:
+                    # the POPPED request must not vanish: fail it with
+                    # the real reason (un-generatable stack, bad slot)
+                    self._fail(req, e)
+                    model = None
+                    worked = True
+                    continue
+                if ring.free_slots == 0:
+                    self._requeue_or_fail(req)
+                    break
+            slot = ring.acquire(req)
+            if slot is None:
+                self._requeue_or_fail(req)
+                break
+            try:
+                # history(), not prompt: an imported session re-prefills
+                # its already-generated tokens too
+                tok = self._prefill_into(model, req, slot, req.history())
+            except Exception as e:
+                # the failed prefill wrote only this slot's own blocks
+                # (and the trash block): the cache stays good for the
+                # other occupants
+                ring.release(slot)
+                ring.note("prefill_error", slot, req.id, error=str(e))
+                self._fail(req, e)
+                worked = True
+                continue
+            req.slot = slot
+            ring.note("install", slot, req.id, pos=len(req.history()),
+                      version=slot_obj.version)
+            self._emit(req, tok, slot_obj.version, slot)
+            worked = True
+        return worked
+
+    def _requeue_or_fail(self, req: _GenRequest) -> None:
+        try:
+            self._pending.put_nowait(req)
+        except queue.Full:
+            self._fail(req, RuntimeError("generation queue overflow"))
+
+    def _prefill_into(self, model, req: _GenRequest, slot: int,
+                      history: List[int]) -> int:
+        """Paged admission: match the longest registered prompt prefix,
+        adopt its blocks (copy-on-write for a partial tail), allocate
+        private blocks for the rest, and run ONE suffix-bucketed prefill
+        that writes only the unshared tail.  Cold prompts and migrations
+        are the same call with ``start = 0``."""
+        kv: PagedKV = self.ring
+        L = len(history)
+        full, partial = kv.match_prefix(history)
+        # largest shareable start whose padded suffix still fits the
+        # virtual axis (suffix writes run [start, start + bucket))
+        plans = ([(len(full), partial)] if partial else []) + \
+            [(nf, None) for nf in range(len(full), -1, -1)]
+        for nf, pt in plans:
+            start = nf * kv.block_size + (pt[1] if pt else 0)
+            suffix = L - start
+            bucket = next(b for b in self.buckets if suffix <= b)
+            if start + bucket <= kv.virtual_seq:
+                break
+        kv.adopt(slot, req.id, full[:nf])
+        cow_src = cow_dst = 0
+        if pt is not None:
+            dst = kv.cow_begin(slot, req.id, pt[0])
+            if dst is None:
+                raise RuntimeError(
+                    f"KV block pool exhausted admitting {req.id} (COW): "
+                    f"{kv.n_blocks} blocks, 0 free/evictable")
+            cow_src, cow_dst = pt[0], dst
+        try:
+            if not kv.ensure_blocks(slot, req.id, L):
+                raise RuntimeError(
+                    f"KV block pool exhausted admitting {req.id}: needs "
+                    f"{-(-L // kv.block_size)} blocks, pool of "
+                    f"{kv.n_blocks} has {kv.blocks_free} free")
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :suffix] = history[start:]
+            mask = np.zeros((1, bucket), np.float32)
+            mask[0, :suffix] = 1.0
+            keys = np.array([[req.seed, len(req.out_tokens)]], np.int64)
+            knobs = np.array([req.temperature, req.top_p], np.float32)
+            dev = kv.device
+            fn = model.generation_program("paged_prefill")
+            tok_dev, _ = fn(
+                model.params, model.state, _dev(toks, dev), _dev(mask, dev),
+                kv.caches, _dev(kv.tables[slot].copy(), dev), slot, start,
+                suffix, cow_src, cow_dst, _dev(keys, dev),
+                _dev(knobs[:1], dev),
+                torch.tensor([req.top_k], dtype=torch.int32, device=dev),
+                _dev(knobs[1:], dev))
+            tok = int(tok_dev.cpu()[0])
+        finally:
+            if cow_dst:
+                kv.cow_end(cow_src)
+        kv.pos[slot] = L
+        if start > 0:
+            kv.note_shared_hit(slot, req.id, start)
+        kv.register_prefix(slot, req.prompt)
+        return tok
+
+    def _decode_guarded(self, slot_obj) -> bool:
+        try:
+            return self._decode_step(slot_obj)
+        except Exception as e:
+            self._decode_failure(e)
+            return True
+
+    def _decode_step(self, slot_obj) -> bool:
+        ring = self.ring
+        if ring is None:
+            return False
+        occupants = ring.occupants()
+        for slot, req in sorted(occupants.items()):
+            if req.cancelled.is_set():
+                self._finish(req, slot, "cancelled")
+                del occupants[slot]
+        if not occupants:
+            return False
+        # grow each slot's table across its next block boundary (host
+        # bookkeeping, no device work) and enforce the COW invariant
+        # before any write can alias a shared block; a slot the pool
+        # cannot grow fails alone
+        starved = [(slot, req) for slot, req in
+                   sorted(occupants.items())
+                   if not ring.ensure_blocks(slot, req.id,
+                                             int(ring.pos[slot]) + 1)]
+        for slot, req in starved:
+            del occupants[slot]
+            pos = int(ring.pos[slot])
+            ring.release(slot)
+            ring.note("vacate", slot, req.id, reason="blocks_exhausted")
+            self._fail(req, RuntimeError(
+                f"KV block pool exhausted mid-decode for {req.id} at "
+                f"pos {pos}: raise n_blocks (pool={ring.n_blocks})"))
+        if not occupants:
+            return bool(starved)
+        for slot in occupants:
+            ring.check_writable(slot)
+        model = self._model_of(slot_obj)
+        S = self.config.max_slots
+        toks = np.zeros((S,), np.int64)
+        keys = np.zeros((S, 2), np.int64)
+        temp = np.zeros((S,), np.float32)
+        top_k = np.zeros((S,), np.int32)
+        top_p = np.ones((S,), np.float32)
+        for slot, req in occupants.items():
+            toks[slot] = req.out_tokens[-1]
+            keys[slot] = (req.seed, len(req.out_tokens))
+            temp[slot] = req.temperature
+            top_k[slot] = req.top_k
+            top_p[slot] = req.top_p
+        dev = ring.device
+        fn = model.generation_program("paged_decode")
+        out_dev, _ = fn(model.params, model.state, _dev(toks, dev),
+                        ring.caches, _dev(ring.tables.copy(), dev),
+                        _dev(ring.pos.copy(), dev), _dev(keys, dev),
+                        _dev(temp, dev), _dev(top_k, dev), _dev(top_p, dev))
+        # the ONE host read of the step: the [S] token vector
+        out = out_dev.cpu().numpy()
+        with self._stats_lock:
+            self._decode_steps += 1
+        # the step wrote one token per active slot: advance the host
+        # position mirrors BEFORE emission (a finishing request releases
+        # its slot inside _emit, which resets its mirror)
+        for slot in occupants:
+            ring.pos[slot] += 1
+        for slot, req in sorted(occupants.items()):
+            self._emit(req, int(out[slot]), slot_obj.version, slot)
+        return True
+
+    def _decode_failure(self, e: Exception) -> None:
+        """A failed decode step: some layers may have written their pools
+        and others not, so every active request fails (the batch died
+        together) and the cache is dropped; admission builds a fresh one
+        for the next request.  The occupancy snapshot goes to the log."""
+        with self._stats_lock:
+            self._decode_errors += 1
+        ring = self.ring
+        snapshot = None if ring is None else ring.occupancy_snapshot()
+        log.exception("decode step failed (%s active slots)",
+                      0 if snapshot is None else snapshot["active"])
+        self.last_decode_failure = {"error": f"{type(e).__name__}: {e}",
+                                    "occupancy": snapshot}
+        if ring is None:
+            return
+        for slot, req in sorted(ring.occupants().items()):
+            ring.release(slot)
+            ring.note("vacate", slot, req.id, reason="decode_error")
+            self._fail(req, e)
+        self.ring = None
+        self._ring_sig = None
+
+    # ------------------------------------------------------------- emission
+    def _emit(self, req: _GenRequest, tok: int, version: int,
+              slot: Optional[int]) -> bool:
+        now = clock.monotonic_s()
+        if req.t_first is None:
+            req.t_first = now
+            self._ttft_w.observe(now - req.t_submit)
+        else:
+            self._itl_w.observe(now - req.t_last)
+        req.t_last = now
+        req.out_tokens.append(tok)
+        req.versions.append(version)
+        with self._stats_lock:
+            self._tokens_generated += 1
+        req.push_event({"token": tok, "index": len(req.out_tokens) - 1,
+                        "model_version": version})
+        finish = None
+        if req.eos_id is not None and tok == req.eos_id:
+            finish = "eos"
+        elif len(req.out_tokens) >= req.max_new_tokens:
+            finish = "length"
+        elif req.cancelled.is_set():
+            finish = "cancelled"
+        if finish is not None:
+            self._finish(req, slot, finish)
+            return True
+        return False
+
+    def _finish(self, req: _GenRequest, slot: Optional[int],
+                finish: str) -> None:
+        ring = self.ring
+        if slot is not None and ring is not None:
+            ring.release(slot)
+            ring.note("vacate", slot, req.id,
+                      pos=len(req.history()), reason=finish)
+        result = GenerationResult(tokens=list(req.out_tokens),
+                                  versions=list(req.versions),
+                                  finish=finish, request_id=req.id,
+                                  prompt_len=len(req.prompt))
+        req.push_event({"done": True, "finish": finish,
+                        "tokens": result.tokens,
+                        "model_versions": result.versions})
+        if not req.future.done():
+            req.future.set_result(result)
+
+    def _fail(self, req: _GenRequest, e: Exception) -> None:
+        req.push_event({"error": f"{type(e).__name__}: {e}"})
+        if not req.future.done():
+            req.future.set_exception(e)
+
+    # ------------------------------------------------------------ lifecycle
+    def shutdown(self) -> None:
+        with self._submit_lock:
+            self._shutdown.set()
+        self._wake.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=5)
+        err = RuntimeError("GenerationEngine shut down")
+        while True:
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                break
+            self._fail(req, err)
+        if self.ring is not None:
+            for slot, req in sorted(self.ring.occupants().items()):
+                self.ring.release(slot)
+                self._fail(req, err)

@@ -9,8 +9,18 @@ Attention implementations (``attn_impl``):
   'ring'/'ulysses' (sequence parallelism) are not ported yet.
 
 The flash path is differentiable: its backward runs the two Hopper
-backward kernels on CUDA tensors.  KV-cache decoding and the MoE
-feed-forward come in later slices.
+backward kernels on CUDA tensors.
+
+Incremental decoding carries a KV cache through ``init_carry`` /
+``apply_with_carry`` (``rnn_time_step``, tBPTT, the generation engine).
+A dense carry holds ``k``/``v`` ``[b, h, L, d]``, the validity ``m``
+``[b, L]`` and the stream position ``pos``, a 0-d tensor (every row at
+one position) or a ``[b]`` vector (one-token decode, each slot at its
+own position).  A carry holding ``kp``/``vp`` block pools attends
+through a block table (``_attend_paged``, the generation engine's paged
+cache).  Positions stay on the device: no host read inside the layer
+walk.  The cached paths always attend through ``sdpa_reference``, as the
+reference does.  The MoE feed-forward comes in a later slice.
 """
 from __future__ import annotations
 
@@ -84,17 +94,13 @@ def _run_attention(q, k, v, *, impl: str, causal: bool, mask=None,
     return sdpa_reference(q, k, v, mask=mask, causal=causal)
 
 
-def _no_kv_cache(layer) -> NotImplementedError:
-    """The JAX package carries a KV cache (the stream position, for the
-    positional encoding) through these layers for incremental decoding.
-    That comes with generation (ROADMAP queue 1, item 3): until then
-    ``rnn_time_step`` and tBPTT refuse such a stack rather than recompute
-    it without the cache."""
-    return NotImplementedError(
-        f"layer '{layer.name}' ({type(layer).__name__}) carries a KV cache "
-        "(stream position) across calls in the JAX package; that comes "
-        "with generation (ROADMAP queue 1, item 3) and is not ported yet, "
-        "so rnn_time_step and tBPTT do not run through it")
+def _clamped_start(pos, hi: int):
+    """Where ``lax.dynamic_update_slice`` starts a write at ``pos``: it
+    clamps the start into ``[0, hi]`` (``hi`` = capacity - rows
+    written).  ``pos`` is an int or a tensor, kept on its device."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(torch.int64).clamp(0, hi)
+    return min(max(int(pos), 0), hi)
 
 
 @register_serde
@@ -116,9 +122,6 @@ class MultiHeadAttention(BaseLayerConf):
     max_cache_len: int = 512
 
     HAS_CARRY = True
-
-    def init_carry(self, batch, dtype, device):
-        raise _no_kv_cache(self)
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
         if self.n_in == 0 or override:
@@ -185,6 +188,169 @@ class MultiHeadAttention(BaseLayerConf):
     def forward(self, params, state, x, *, train=False, mask=None):
         return self.apply(params, x, train=train, mask=mask), state
 
+    # ---- KV-cache incremental decoding -----------------------------------
+    def init_carry(self, batch, dtype, device, max_len=None):
+        """Zero dense carry.  ``max_len`` overrides the cache capacity
+        (``max_cache_len`` by default); ``attend_cached`` reads the
+        capacity from the carry."""
+        h, d = self._dims()
+        L = self.max_cache_len if max_len is None else int(max_len)
+        return {"k": torch.zeros((batch, h, L, d), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((batch, h, L, d), dtype=dtype,
+                                 device=device),
+                "m": torch.zeros((batch, L), dtype=torch.float32,
+                                 device=device),
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def attend_cached(self, p, x, carry, *, mask=None):
+        """Project the t new steps, write them into the cache, attend q
+        against the written prefix.  Masked steps are recorded invalid
+        and their outputs zeroed.  Returns ``(y [b, t, n_out],
+        new_carry)``; the dense carry is rebuilt, not written in place,
+        so tBPTT can differentiate through it.  A vector ``pos`` takes
+        t == 1 only: the written-prefix mask is then the causal mask.  A
+        carry with ``kp`` goes to ``_attend_paged``."""
+        if "kp" in carry:
+            return self._attend_paged(p, x, carry, mask=mask)
+        q = self._heads(x, p, "Wq", "bq")                 # [b,h,t,d]
+        k_new = self._heads(x, p, "Wk", "bk")
+        v_new = self._heads(x, p, "Wv", "bv")
+        pos = carry["pos"]
+        kc, vc = carry["k"], carry["v"]
+        b_, h, t = q.shape[0], q.shape[1], q.shape[2]
+        L = kc.shape[2]
+        dev = x.device
+        chunk_valid = (torch.ones((b_, t), dtype=torch.float32, device=dev)
+                       if mask is None else mask.to(torch.float32))
+        ar_l = torch.arange(L, device=dev)
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            if t != 1:
+                raise ValueError(
+                    "per-row vector pos carries support single-token decode "
+                    f"only (t=1), got a {t}-step chunk")
+            at = _clamped_start(pos, L - 1)               # [b]
+            rows = torch.arange(b_, device=dev)[:, None]
+            heads = torch.arange(h, device=dev)[None, :]
+            k = kc.index_put((rows, heads, at[:, None]),
+                             k_new[:, :, 0].to(kc.dtype))
+            v = vc.index_put((rows, heads, at[:, None]),
+                             v_new[:, :, 0].to(vc.dtype))
+            m = carry["m"].index_put((rows[:, 0], at), chunk_valid[:, 0])
+            written = (ar_l[None, :] < (pos + t)[:, None]).to(torch.float32)
+            o = sdpa_reference(q, k.to(q.dtype), v.to(q.dtype),
+                               mask=m * written, causal=False)
+        else:
+            idx = _clamped_start(pos, L - t) + torch.arange(t, device=dev)
+            k = kc.index_copy(2, idx, k_new.to(kc.dtype))
+            v = vc.index_copy(2, idx, v_new.to(vc.dtype))
+            m = carry["m"].index_copy(1, idx, chunk_valid)
+            written = (ar_l < pos + t).to(torch.float32)
+            o = sdpa_reference(q, k.to(q.dtype), v.to(q.dtype),
+                               mask=m * written[None, :], causal=self.causal,
+                               q_offset=pos)
+        y = self._project_out(p, o, mask)
+        return y, {"k": k, "v": v, "m": m, "pos": pos + t}
+
+    def _project_out(self, p, o, mask):
+        b_, _, t, _ = o.shape
+        y = o.transpose(1, 2).reshape(b_, t, -1) @ p["Wo"]
+        if self.has_bias:
+            y = y + p["bo"]
+        if mask is not None:   # zero outputs at padded query steps
+            y = y * mask.to(y.dtype)[:, :, None]
+        return y
+
+    @staticmethod
+    def _gather_pool(pool, table, dtype):
+        """``[S, h, NB * block, d]`` keys or values gathered through an
+        ``[S, NB]`` block table (virtual position == token position)."""
+        g = pool[table.to(torch.int64)]                # [S, NB, h, blk, d]
+        s_, nb, h, blk, d = g.shape
+        return g.permute(0, 2, 1, 3, 4).reshape(s_, h, nb * blk,
+                                                d).to(dtype)
+
+    def _attend_paged(self, p, x, carry, *, mask=None):
+        """Attention through the paged block pool of the generation
+        engine (``generation/cache.PagedKV``).  The carry holds the pools
+        ``kp``/``vp`` ``[n_blocks, h, block, d]``, the block ``table``
+        and ``pos``: an ``[S, NB]`` table with ``[S]`` positions for the
+        one-token decode step, or an ``[NB]`` row with a scalar start for
+        a prompt suffix (batch 1).
+
+        The pools are written IN PLACE at ``table[pos // block], pos %
+        block``; padded and inactive lanes write into physical block 0,
+        the trash block, which is never allocated and never read through
+        the written-prefix mask (duplicate writes there may land in any
+        order).  Reads gather the whole virtual axis, so masked tail
+        entries contribute exact zeros to the softmax."""
+        q = self._heads(x, p, "Wq", "bq")                 # [b,h,t,d]
+        k_new = self._heads(x, p, "Wk", "bk")
+        v_new = self._heads(x, p, "Wv", "bv")
+        kp, vp = carry["kp"], carry["vp"]
+        table, pos = carry["table"], carry["pos"]
+        blk = kp.shape[2]
+        t = q.shape[2]
+        dev = x.device
+        chunk_valid = (torch.ones((x.shape[0], t), dtype=torch.float32,
+                                  device=dev)
+                       if mask is None else mask.to(torch.float32))
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            # decode: one token per slot, per-slot positions, [S, NB]
+            if t != 1:
+                raise ValueError(
+                    "per-slot vector pos supports single-token decode "
+                    f"only (t=1), got a {t}-step chunk")
+            nb = table.shape[1]
+            bidx = (pos // blk).clamp(0, nb - 1).to(torch.int64)
+            phys = torch.gather(table, 1, bidx[:, None])[:, 0]
+            off = pos % blk
+            kw, vw = k_new[:, :, 0, :], v_new[:, :, 0, :]   # [S, h, d]
+            tab2 = table
+            written = (torch.arange(nb * blk, device=dev)[None, :]
+                       < (pos + t)[:, None]).to(torch.float32)
+            causal, q_offset = False, 0
+        else:
+            # prompt suffix: batch 1, t steps from `pos`
+            nb = table.shape[0]
+            p_j = pos + torch.arange(t, device=dev)
+            bidx = (p_j // blk).clamp(0, nb - 1)
+            phys = torch.where(chunk_valid[0] > 0, table[bidx], 0)
+            off = p_j % blk
+            kw = k_new[0].transpose(0, 1)                  # [t, h, d]
+            vw = v_new[0].transpose(0, 1)
+            tab2 = table[None, :]
+            v_ax = nb * blk
+            ar_v = torch.arange(v_ax, device=dev)
+            chunk_m = torch.zeros(v_ax, dtype=torch.float32,
+                                  device=dev).index_copy(
+                0, _clamped_start(pos, v_ax - t)
+                + torch.arange(t, device=dev), chunk_valid[0])
+            written = ((ar_v < pos).to(torch.float32)
+                       + chunk_m).clamp(0.0, 1.0)[None, :]
+            causal, q_offset = self.causal, pos
+        phys = phys.to(torch.int64)
+        off = off.to(torch.int64)
+        kp[phys, :, off, :] = kw.to(kp.dtype)
+        vp[phys, :, off, :] = vw.to(vp.dtype)
+        k = self._gather_pool(kp, tab2, q.dtype)
+        v = self._gather_pool(vp, tab2, q.dtype)
+        o = sdpa_reference(q, k, v, mask=written, causal=causal,
+                           q_offset=q_offset)
+        return self._project_out(p, o, mask), dict(carry, pos=pos + t)
+
+    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
+        if carry is None:
+            carry = self.init_carry(x.shape[0], x.dtype, x.device)
+        params = self.maybe_noise_weights(params, train)
+        x = self.maybe_dropout_input(x, train)
+        if train and self.attn_dropout:
+            raise NotImplementedError(
+                f"layer '{self.name}': attn_dropout={self.attn_dropout!r} "
+                "is not ported yet; train with attn_dropout unset")
+        y, new_carry = self.attend_cached(params, x, carry, mask=mask)
+        return self.act_fn(y), new_carry
+
 
 @register_serde
 @dataclass
@@ -205,9 +371,6 @@ class TransformerBlock(BaseLayerConf):
     aux_loss_weight: float = 0.01
 
     HAS_CARRY = True
-
-    def init_carry(self, batch, dtype, device):
-        raise _no_kv_cache(self)
 
     def __post_init__(self):
         if self.moe_experts:
@@ -263,25 +426,56 @@ class TransformerBlock(BaseLayerConf):
     def forward(self, params, state, x, *, train=False, mask=None):
         return self.apply(params, x, train=train, mask=mask), state
 
+    # ---- KV-cache incremental decoding -----------------------------------
+    def init_carry(self, batch, dtype, device, max_len=None):
+        return self._mha().init_carry(batch, dtype, device, max_len=max_len)
+
+    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
+        if carry is None:
+            carry = self.init_carry(x.shape[0], x.dtype, x.device)
+        p = self.maybe_noise_weights(params, train)
+        x = self.maybe_dropout_input(x, train)
+        mha_p = {k[4:]: v for k, v in p.items() if k.startswith("mha_")}
+        xn = _layer_norm(x, p["ln1_g"], p["ln1_b"], self.eps)
+        attn, new_carry = self._mha().attend_cached(mha_p, xn, carry,
+                                                    mask=mask)
+        x = x + attn
+        xn = _layer_norm(x, p["ln2_g"], p["ln2_b"], self.eps)
+        return x + gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"], \
+            new_carry
+
 
 @register_serde
 @dataclass
 class PositionalEncodingLayer(LayerConf):
     """Adds the sinusoidal table ``pos / 10000**(2*(i//2)/e)`` (sin on
-    even i, cos on odd i).  No params."""
+    even i, cos on odd i).  No params.  The carry is the stream position,
+    so incremental decoding keeps absolute positions."""
     HAS_CARRY = True
 
-    def init_carry(self, batch, dtype, device):
-        raise _no_kv_cache(self)
-
     @staticmethod
-    def _pe(t, e, dtype, device):
-        pos = torch.arange(t, dtype=torch.float32, device=device)
+    def _pe(t, e, offset, dtype, device):
+        """The table for ``t`` steps from ``offset``: an int or 0-d tensor
+        (``[t, e]``) or a ``[b]`` vector of per-row positions (``[b, t,
+        e]``, the slot-batched decode step)."""
+        offset = torch.as_tensor(offset, device=device).to(torch.float32)
+        pos = offset[..., None] + torch.arange(t, dtype=torch.float32,
+                                               device=device)
         i = torch.arange(e, dtype=torch.float32, device=device)
-        angle = pos[:, None] / torch.pow(10000.0, (2 * (i // 2)) / e)
+        angle = pos[..., None] / torch.pow(10000.0, (2 * (i // 2)) / e)
         return torch.where(i % 2 == 0, torch.sin(angle),
                            torch.cos(angle)).to(dtype)
 
     def apply(self, params, x, *, train=False):
         _, t, e = x.shape
-        return x + self._pe(t, e, x.dtype, x.device)
+        return x + self._pe(t, e, 0, x.dtype, x.device)
+
+    def init_carry(self, batch, dtype, device, max_len=None):
+        return {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
+        if carry is None:
+            carry = self.init_carry(x.shape[0], x.dtype, x.device)
+        _, t, e = x.shape
+        y = x + self._pe(t, e, carry["pos"], x.dtype, x.device)
+        return y, {"pos": carry["pos"] + t}

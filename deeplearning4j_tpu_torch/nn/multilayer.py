@@ -17,7 +17,10 @@ Recurrent layers carry state across calls as ``carries`` (``{layer_i:
 carry}``): ``rnn_time_step`` keeps them between calls (reference
 ``rnnTimeStep``), and tBPTT (``backprop_type="tbptt"``) carries them from
 one ``tbptt_fwd_length`` chunk of a sequence to the next with gradients
-stopped at the boundary.
+stopped at the boundary.  Attention stacks carry their KV cache and
+stream position the same way.  ``generation_program`` hands the
+generation engine its two programs, paged prefill and paged decode, as
+plain functions over this configuration.
 
 Training (``fit``) takes the JAX package's SGD path: forward to the
 output layer's loss plus l1/l2, gradients by autograd (through the
@@ -170,6 +173,25 @@ class MultiLayerNetwork(Network):
         self._id_layer = None
         self._rnn_carries: Optional[Dict[str, Any]] = None
         self._rnn_carry_batch = -1
+        self._gen_programs: Dict[str, Any] = {}
+
+    def topology_sig(self) -> str:
+        """Value signature of the layer stack: equal for two networks
+        that differ only in their weights (a hot swap keeps the
+        generation cache when it is equal)."""
+        return repr((type(self).__name__, self.conf.layers))
+
+    def generation_program(self, kind: str):
+        """``"paged_prefill"`` or ``"paged_decode"`` over this network's
+        configuration (``generation/programs.build_generation_fn``): the
+        counterpart of the reference's ``_get_jitted`` for these kinds.
+        Built once per network; the port runs them eagerly."""
+        fn = self._gen_programs.get(kind)
+        if fn is None:
+            from ..generation.programs import build_generation_fn
+            fn = self._gen_programs[kind] = build_generation_fn(self.conf,
+                                                                kind)
+        return fn
 
     def _layers(self):
         return [(f"layer_{i}", lc, self.conf.layer_input_types[i])

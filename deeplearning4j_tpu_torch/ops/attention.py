@@ -14,10 +14,11 @@ import torch
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 
-def causal_mask(t_q: int, t_k: int, q_offset: int = 0, k_offset: int = 0,
+def causal_mask(t_q: int, t_k: int, q_offset=0, k_offset=0,
                 device=None) -> torch.Tensor:
     """Boolean ``[t_q, t_k]`` mask, True = attend.  Offsets place the
-    blocks inside the full sequence."""
+    blocks inside the full sequence; each is an int or a 0-d tensor (a
+    cached stream position on the device, read without a host sync)."""
     qi = torch.arange(t_q, device=device)[:, None] + q_offset
     ki = torch.arange(t_k, device=device)[None, :] + k_offset
     return qi >= ki
@@ -29,7 +30,7 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def sdpa_reference(q, k, v, *, mask=None, causal: bool = False,
                    scale: Optional[float] = None,
-                   q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
+                   q_offset=0, k_offset=0) -> torch.Tensor:
     """Reference attention.  q, k, v: ``[b, h, t, d]``; ``mask`` is a
     ``[b, t_k]`` key-padding mask (1 = valid) or a full
     ``[b, 1, t_q, t_k]`` mask."""

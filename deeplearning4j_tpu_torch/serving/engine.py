@@ -8,8 +8,15 @@ the network's forward on the device and hands each caller its row.
 Admission sheds a request before it queues once the queue is at
 ``queue_limit`` rows (``ShedError``, status 429).
 
-The reference engine's HTTP tier, hot swap, checkpoint watch, SLO
-tracking and generation are not ported yet.
+``generation=`` (a ``GenerationConfig``, a dict of its fields, or True
+for the defaults) starts the continuous-batching decode engine of
+``generation/engine.py`` over this engine's model slot: ``warmup`` warms
+it too, ``ready`` includes its readiness and ``generation_status`` reports
+it.
+
+The reference engine's HTTP tier, hot swap, checkpoint watch and SLO
+tracking are not ported yet: the slot holds the one model the engine was
+built with, at version 1.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..data.shapes import serving_buckets
+from ..generation.engine import StaticSlotSource
 from ..ops import flash_attention as _flash
 from ..parallel.inference import InvalidInputError
 from ..utils.device import resolve_device
@@ -92,12 +100,14 @@ class ServingEngine:
     """
 
     def __init__(self, model, *, device="cuda", max_batch_size: int = 32,
-                 queue_limit: int = 256):
+                 queue_limit: int = 256, generation=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, the engine on "
                              f"{self.device}")
         self.model = model
+        self.generation = None
+        self._slot = StaticSlotSource(model)
         self.feature_shape: Tuple[int, ...] = tuple(
             model.conf.input_type.shape(-1)[1:])
         self.buckets = serving_buckets(max_batch_size)
@@ -115,6 +125,23 @@ class ServingEngine:
             target=self._serve_loop, daemon=True,
             name="dl4j-torch-serve-dispatch")
         self._dispatcher.start()
+        if generation is not None:
+            # built last: its decode thread reads the slot from the start
+            from ..generation.engine import (GenerationConfig,
+                                             GenerationEngine)
+            if isinstance(generation, GenerationConfig):
+                cfg = generation
+            elif isinstance(generation, dict):
+                cfg = GenerationConfig(**generation)
+            else:
+                cfg = GenerationConfig()
+            self.generation = GenerationEngine(lambda: self.slot, cfg)
+
+    @property
+    def slot(self):
+        """The served model slot (``.model``, ``.version``) the
+        generation engine follows; None once shut down."""
+        return None if self._shutdown.is_set() else self._slot()
 
     # ------------------------------------------------------------ counters
     @property
@@ -134,7 +161,21 @@ class ServingEngine:
             "queue_depth": self._queue.qsize(),
             "queue_limit": self.admission.queue_limit,
             "flash_attention_launches": _flash.launches["fwd"],
+            "generation": self.generation_status(),
         }
+
+    def ready(self) -> bool:
+        """Not shut down, the queue below its shed limit and, with
+        generation on, the decode engine ready."""
+        ok = (not self._shutdown.is_set()
+              and self._queue.qsize() < self.admission.queue_limit)
+        if self.generation is not None:
+            ok = ok and self.generation.ready()
+        return ok
+
+    def generation_status(self) -> Optional[dict]:
+        """The generation engine's ``status()``; None without generation."""
+        return None if self.generation is None else self.generation.status()
 
     # ------------------------------------------------------------- serving
     def _forward(self, batch: np.ndarray) -> np.ndarray:
@@ -143,11 +184,15 @@ class ServingEngine:
 
     def warmup(self) -> int:
         """Run one forward per bucket (allocator and kernel build happen
-        here, not on a client request); returns the buckets warmed."""
+        here, not on a client request), and with generation on its
+        prefill ladder and decode step; returns the calls made."""
         probe = np.zeros((1, *self.feature_shape), np.float32)
         for b in self.buckets:
             self._forward(_pad_rows_np(probe, b))
-        return len(self.buckets)
+        warmed = len(self.buckets)
+        if self.generation is not None:
+            warmed += self.generation.warmup()
+        return warmed
 
     def predict(self, x, timeout: Optional[float] = 60.0) -> np.ndarray:
         """Serve ``x`` (one example or a batch); blocks for the result.
@@ -242,6 +287,8 @@ class ServingEngine:
     def shutdown(self) -> None:
         with self._submit_lock:
             self._shutdown.set()
+        if self.generation is not None:
+            self.generation.shutdown()
         try:
             self._queue.put_nowait(None)     # wake the dispatcher
         except queue.Full:

@@ -72,3 +72,19 @@ def test_ptxas_report_names_each_kernel_instance():
         "flash_bwd_dq_kernel<fLi64E>: Used 231 registers, used 1 barriers",
         "flash_bwd_dkv_kernel<13__nv_bfloat16Li256E>: Used 200 registers, "
         "used 1 barriers"]
+
+
+def test_decode_bound_at_the_generation_shape():
+    # the full-width TransformerLM's decode step, 16 slots at position 300:
+    # 134.5 MB of params + 157.8 MB of K/V (16 x 301 written positions, 8
+    # layers, K and V, 8 heads x 64, f32) + the [16, 8192] f32 log-probs
+    params = 33_615_872 * 4
+    kv = 16 * 301 * 8 * 2 * 8 * 64 * 4
+    assert kv == 157_810_688
+    ms = chip_smoke.decode_bound_ms(params, 16 * 301, 8, 8, 64, 16, 8192)
+    assert ms == pytest.approx(
+        (params + kv + 16 * 8192 * 4) / 3.35e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.087402, abs=1e-6)
+    # no written position: the params and the log-probs alone
+    assert chip_smoke.decode_bound_ms(params, 0, 8, 8, 64, 16, 8192) == \
+        pytest.approx((params + 16 * 8192 * 4) / 3.35e12 * 1e3, rel=1e-12)

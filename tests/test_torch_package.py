@@ -141,3 +141,32 @@ def test_rnn_entry_points_refuse_a_silent_cpu_default(no_cuda):
     assert y.device.type == "cpu" and y.shape == (2, 4, 6)
     carries = net.rnn_get_previous_state(0)
     assert all(t.device.type == "cpu" for t in carries.values())
+
+
+def test_generation_slice_modules_are_checked():
+    for m in ("generation", "generation.engine", "generation.cache",
+              "generation.programs", "generation.sampling",
+              "generation._random", "observability.clock",
+              "observability.quantiles", "data.shapes"):
+        assert f"deeplearning4j_tpu_torch.{m}" in MODULES
+
+
+def test_generation_entry_points_refuse_a_silent_cpu_default(no_cuda):
+    from deeplearning4j_tpu_torch.generation import (GenerationConfig,
+                                                     GenerationEngine)
+    from deeplearning4j_tpu_torch.generation.cache import PagedKV
+    lm = TransformerLM(vocab_size=8, seq_len=8, embed=8, n_layers=1,
+                       n_heads=1)
+    net = lm.init(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKV(net.conf, max_slots=1, max_seq=8)
+    kv = PagedKV(net.conf, max_slots=1, max_seq=8, device="cpu")
+    assert kv.caches["layer_2"]["kp"].device.type == "cpu"
+    eng = GenerationEngine.for_model(net, GenerationConfig(max_slots=1,
+                                                           max_seq=8))
+    try:
+        res = eng.generate([1, 2], max_new_tokens=2, timeout=60)
+        assert len(res.tokens) == 2
+        assert eng.status()["device"] == "cpu"
+    finally:
+        eng.shutdown()

@@ -154,15 +154,19 @@ def test_helper_is_set_on_the_built_configuration():
 
 
 def test_rnn_time_step_refuses_attention_stacks():
+    """Attention stacks used to be refused here until their KV cache was
+    ported; now they stream and train by tBPTT (the carries are held
+    against the JAX package in ``test_torch_generation_carries.py``)."""
     lm = TransformerLM(vocab_size=8, seq_len=4, embed=8, n_layers=1,
                        n_heads=1).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        lm.rnn_time_step(np.zeros((1, 4), np.int64))
-    assert lm.rnn_get_previous_state(0) is None
-    # tBPTT through the same stack refuses too, before any step
+    ids = np.arange(4, dtype=np.int64)[None] % 8
+    y = lm.rnn_time_step(ids[:, :3])
+    y = torch.cat([y, lm.rnn_time_step(ids[:, 3:])], dim=1)
+    torch.testing.assert_close(y, lm.output(ids), atol=1e-6, rtol=0)
+    assert int(lm.rnn_get_previous_state(1)["pos"]) == 4
+    # tBPTT through the same stack takes one step per chunk
     lm.conf.backprop_type = "tbptt"
     lm.conf.tbptt_fwd_length = 2
-    ids = np.eye(8, dtype=np.float32)[np.zeros((1, 4), np.int64)]
-    with pytest.raises(NotImplementedError, match="KV cache"):
-        lm.fit(ids, ids)
-    assert lm.iteration == 0
+    x = np.eye(8, dtype=np.float32)[np.zeros((1, 4), np.int64)]
+    lm.fit(x, x)
+    assert lm.iteration == 2

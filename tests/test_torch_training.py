@@ -278,13 +278,14 @@ def test_unported_training_options_raise():
         edit(tn.conf)
         with pytest.raises(NotImplementedError, match=match):
             tn.fit(ids, y)
-    # tBPTT is ported, but through attention it needs the KV cache that
-    # comes with generation: a one-hot batch longer than the chunk refuses
-    tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
+    # tBPTT through attention carries the KV cache now: a one-hot batch
+    # longer than the chunk trains chunk by chunk instead of raising
+    tn = TransformerLM(**SMALL).init(device="cpu")
     tn.conf.backprop_type = "tbptt"
-    with pytest.raises(NotImplementedError, match="KV cache"):
-        tn.fit(np.eye(VOCAB, dtype=np.float32)[ids], y)
-    assert tn.iteration == 0
+    tn.conf.tbptt_fwd_length = SEQ // 2
+    eye = np.eye(VOCAB, dtype=np.float32)
+    tn.fit(eye[ids], eye[y])
+    assert tn.iteration == 2 and np.isfinite(tn.get_score())
 
 
 def test_features_mask_trains_as_jax():
