@@ -107,9 +107,41 @@ if any phase fails:
     ``helper="pallas"``) -> RnnOutputLayer(96) stack generates 8 greedy
     requests of 48 tokens on 16 slots beside a ``helper=None`` twin with
     its params (streams equal, ties excepted as in 13); every decode step
-    launches ``lstm_fwd`` twice, the masked prefill never.
+    launches ``lstm_fwd`` twice, the masked prefill never;
+16. ``random_on_card``: the threefry key stream (``utils/_random``) on the
+    card gives the CPU's bits: ``split`` and ``fold_in`` of keys from
+    ``--seed``, ``bernoulli`` at the dropout masks' own shapes
+    (GoogLeNet's [64, 1024], VGG16's [32, 25088] and [32, 4096], the
+    TransformerLM's [16, 512, 512]), each draw timed; ``normal`` within
+    its stated tolerance;
+17. ``zoo_serve``: each of the eight zoo CNNs (LeNet 28x28x1 / 10,
+    SimpleCNN 48x48x3 / 10, AlexNet, VGG16, VGG19 and GoogLeNet 224x224x3
+    / 1000, InceptionResNetV1 160x160x3 / 1000 with 5/10/5 blocks,
+    FaceNetNN4Small2 96x96x3 / 100; random weights from the seed, f32,
+    TF32 off) serves a batch of 8 through ``output``; two rows are held
+    against the port's own CPU run on the same params; median latency;
+18. ``zoo_train``: GoogLeNet (``ComputationGraph``, DropoutLayer 0.4,
+    Adam) at batch 64 and VGG16 (MLN, dense dropout 0.5 twice,
+    Nesterovs) at batch 32 take 5 ``fit`` steps on one seeded batch with
+    dropout on: step-0 loss and gradients against a float64 twin with the
+    same params, batch and key (so the same masks), step 0's masks drawn
+    on the card equal to the CPU's for that key, every loss finite and the
+    5th below the 1st; the path launches no kernel;
+19. ``zoo_train_time``: both nets' median step and images/s, a
+    ``torch.profiler`` split of the step (convolutions and matrix
+    products / other / idle), and the step's model FLOPs (convolutions
+    and dense layers, 3x the forward) as a share of the f32 peak
+    (67 TFLOP/s without TF32);
+20. ``train_dropout``: the full-width TransformerLM of phase 5 with
+    input dropout 0.9 on every block, and the same width as an attention
+    LM of 8 MultiHeadAttention layers that also drop their output
+    (``attn_dropout`` 0.9; the JAX package's TransformerBlock builds its
+    attention without it), each 3 ``fit`` steps beside a
+    reference-attention twin on the same keys: step-0 gradients and
+    losses within phase 5's tolerances, each flash kernel 8 launches per
+    step.
 
-Each phase prints one JSON line.  Then come the card's name and power
+Each phase prints one JSON line (phases 17-20 one per model).  Then come the card's name and power
 limit, the ``kernels`` record (the line before the last) and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -1630,6 +1662,501 @@ def generation_phases(args, torch, dev, card):
     return None
 
 
+# The conv zoo (phases 16-19) and the attention stacks with dropout
+# (phase 20).  Every zoo model at its published input; random weights
+# from the seed (the port's seeded init); f32 with TF32 off.
+ZOO_SERVE = (("LeNet", {}), ("SimpleCNN", {}), ("AlexNet", {}),
+             ("VGG16", {}), ("VGG19", {}), ("GoogLeNet", {}),
+             ("InceptionResNetV1", {"blocks_a": 5, "blocks_b": 10,
+                                    "blocks_c": 5}),
+             ("FaceNetNN4Small2", {}))
+ZOO_SERVE_BATCH, ZOO_CHECK_ROWS, ZOO_SERVE_RUNS = 8, 2, 10
+# Served rows (softmax probabilities <= 1) against the port's own CPU run
+# on the same params and rows: cuDNN (TF32 off) and oneDNN sum each conv
+# and matmul in another f32 order, ~1e-6 relative per layer over up to
+# ~60 layers; a probability moves by p times the logit error, and the
+# logits of these random nets are O(10): 1e-4 abs.
+TOL_ZOO_ROWS = 1e-4
+# The two trained nets: GoogLeNet (ComputationGraph, DropoutLayer 0.4,
+# the zoo's Adam 1e-3) at batch 64, VGG16 (MLN, dense dropout 0.5, the
+# zoo's Nesterovs 1e-2 / 0.9) at batch 32, 5 fit steps on one seeded
+# batch.
+ZOO_TRAIN = (("GoogLeNet", 64, {}), ("VGG16", 32, {}))
+ZOO_STEPS, ZOO_TIMED_STEPS = 5, 10
+# Step 0 against a float64 twin (same params, batch and key, so the same
+# masks).  Loss (a mean of -log p over the batch): f32 rounding through
+# ~20 layers of sums over up to 25,088 terms, ~1e-6 relative: 1e-5.
+# Gradients: f32 arithmetic itself lands far from f64 on these random
+# nets.  Measured with this phase's nets and batches on an H100 (80GB
+# HBM3, 700 W): the port's f32 step-0 gradients are 2.9e-3 (VGG16) and
+# 2.6e-4 (GoogLeNet) from f64 in relative L2 over the net, up to 1.7e-2 of a
+# leaf's largest |g| (VGG16's last conv); the same computation with
+# cuDNN off (PyTorch's own im2col + GEMM convolution, another f32
+# summation) is 1.1e-3 and 1.7e-4 from f64 and 2.8e-3 and 2.4e-4 from
+# cuDNN's; rows reversed (wgrad sums reordered, masks reversed with
+# them) move the gradients by only ~3e-6, so the error is in how each
+# row's f32 values are formed, not in the batch reduction.  The phase
+# prints the cuDNN-off distance beside each run's.  A wrong mask, a wrong
+# path or TF32 (2^-11 per product, ~1e4 times f32's 2^-24) would move
+# the gradients by O(1) of their size.  Per parameter: 5e-2 of the
+# leaf's largest |g| plus 1e-5 of the net's; over the net, relative L2
+# within 1e-2.
+ZOO_TOL_LOSS, ZOO_TOL_GRAD_LEAF, ZOO_TOL_GRAD_NET = 1e-5, 5e-2, 1e-5
+ZOO_TOL_GRAD_L2 = 1e-2
+# f32 peak on the CUDA cores without TF32 (H100 SXM data sheet, dense):
+# the rate model FLOPs are set against
+F32_PEAK_FLOPS = 67e12
+ZOO_KERNEL_CLASSES = (("conv_and_matmul", MATMUL_TAGS + (
+    "conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop")),)
+# The key stream on the card: the masks' own shapes (GoogLeNet's
+# dropout, VGG16's two dense dropouts, the TransformerLM's block input)
+RANDOM_MASKS = (("GoogLeNet dropout", (64, 1024), 0.4),
+                ("VGG16 dense 1", (32, 25088), 0.5),
+                ("VGG16 dense 2", (32, 4096), 0.5),
+                ("TransformerLM block", (16, 512, 512), 0.9))
+# normal on the card against the CPU: both sqrt(2)·erfinv(u) on the same
+# float32 u; the two erfinv implementations are f32 approximations a
+# few ulps apart, steeper in the tails: 2e-6 abs plus 1e-5 relative.
+TOL_NORMAL_ABS, TOL_NORMAL_REL = 2e-6, 1e-5
+DROPOUT_STEPS = 3
+
+
+def model_flops(conf, batch: int) -> float:
+    """Model FLOPs of one training step (forward + backward = 3x the
+    forward's multiply-adds x 2) over the convolutions and dense layers
+    of a configuration."""
+    def layer_flops(lc, itype):
+        kind = type(lc).__name__
+        if kind == "ConvolutionLayer":
+            out = lc.output_type(itype)
+            kh, kw = (lc.kernel_size if isinstance(lc.kernel_size,
+                                                   (list, tuple))
+                      else (lc.kernel_size,) * 2)
+            return 2.0 * kh * kw * lc.n_in * lc.n_out * out.height \
+                * out.width
+        if kind in ("DenseLayer", "OutputLayer", "CenterLossOutputLayer"):
+            return 2.0 * lc.n_in * lc.n_out
+        return 0.0
+    fwd = 0.0
+    if hasattr(conf, "vertices"):
+        for name in conf.topological_order:
+            v = conf.vertices[name]
+            if hasattr(v, "layer"):
+                fwd += layer_flops(v.layer, v._itype(
+                    conf.vertex_input_types[name]))
+    else:
+        for lc, it in zip(conf.layers, conf.layer_input_types):
+            fwd += layer_flops(lc, it)
+    return 3.0 * fwd * batch
+
+
+def random_phase(args, torch, dev, card):
+    """Phase 16.  Returns None, or what failed."""
+    from deeplearning4j_tpu_torch.utils import _random
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    keys = {d: _random.prng_key(args.seed, device=d) for d in (dev, cpu)}
+    same = {}
+    split = {d: _random.split(k, 3) for d, k in keys.items()}
+    same["split"] = torch.equal(split[dev].cpu(), split[cpu])
+    folds = (0, 7, 10_000, 12_345)
+    same["fold_in"] = all(torch.equal(
+        _random.fold_in(keys[dev], d).cpu(), _random.fold_in(keys[cpu], d))
+        for d in folds)
+    masks = []
+    for i, (what, shape, p) in enumerate(RANDOM_MASKS):
+        k = {d: _random.fold_in(split[d][1], i) for d in (dev, cpu)}
+        got = _random.bernoulli(k[dev], p, shape)
+        want = _random.bernoulli(k[cpu], p, shape)
+        eq = torch.equal(got.cpu(), want)
+        ms = median_ms(lambda: _random.bernoulli(k[dev], p, shape), torch,
+                       runs=10)
+        masks.append({"mask": what, "shape": list(shape), "p": p,
+                      "equal": eq, "kept_share":
+                      got.float().mean().item(), "draw_ms": ms})
+        same[what] = eq
+    k = {d: _random.fold_in(split[d][2], 1) for d in (dev, cpu)}
+    zg = _random.normal(k[dev], (64, 1024)).cpu()
+    zc = _random.normal(k[cpu], (64, 1024))
+    normal_err = (zg - zc).abs().max().item()
+    normal_ok = bool(((zg - zc).abs() <= TOL_NORMAL_ABS
+                      + TOL_NORMAL_REL * zc.abs()).all())
+    # host cost of the key work of one dropout draw on the card
+    key_ms = median_ms(lambda: _random.fold_in(keys[dev], 3), torch,
+                       runs=10)
+    split_ms = median_ms(lambda: _random.split(keys[dev]), torch, runs=10)
+    print(json.dumps({"phase": "random_on_card", "seed": args.seed,
+                      "bit_equal": same, "masks": masks,
+                      "normal_max_abs_err": normal_err,
+                      "tol_normal": [TOL_NORMAL_ABS, TOL_NORMAL_REL],
+                      "fold_in_ms": key_ms, "split_ms": split_ms,
+                      "card": card, "seconds": round(
+                          time.perf_counter() - t_phase, 3)}), flush=True)
+    if not all(same.values()):
+        return f"draws on the card differ from the CPU's: {same}"
+    if not normal_ok:
+        return f"normal on the card differs from the CPU's by {normal_err}"
+    return None
+
+
+def _zoo_input(zoo, batch, gen, dev, torch):
+    h, w, c = zoo.input_shape
+    x = torch.randn((batch, h, w, c), generator=gen, device=dev)
+    return x.reshape(batch, -1) if type(zoo).__name__ == "LeNet" else x
+
+
+def zoo_serve_phase(args, torch, dev, card):
+    """Phase 17.  Returns None, or what failed."""
+    from deeplearning4j_tpu_torch.models import zoo as tzoo
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    rows = []
+    for name, kw in ZOO_SERVE:
+        t_model = time.perf_counter()
+        zoo = getattr(tzoo, name)(seed=args.seed, **kw)
+        net = zoo.init(device=dev)
+        cpu_net = type(net)(zoo.conf(), device="cpu").load_params(
+            {k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+             for k, g in net.params.items()})
+        x = _zoo_input(zoo, ZOO_SERVE_BATCH, gen, dev, torch)
+        y = net.output(x)
+        torch.cuda.synchronize()
+        want = cpu_net.output(x[:ZOO_CHECK_ROWS].cpu())
+        err = (y[:ZOO_CHECK_ROWS].cpu() - want).abs().max().item()
+        finite = bool(torch.isfinite(y).all())
+        sums = (y.sum(-1) - 1).abs().max().item()
+        ms = median_ms(lambda: net.output(x), torch, runs=ZOO_SERVE_RUNS)
+        row = {"model": name, "net": type(net).__name__,
+               "input": list(zoo.input_shape), "classes": zoo.num_classes,
+               "batch": ZOO_SERVE_BATCH, "num_params": net.num_params(),
+               "max_abs_err_vs_cpu": err, "rows_checked": ZOO_CHECK_ROWS,
+               "tol": TOL_ZOO_ROWS, "max_prob": y.max().item(),
+               "latency_ms_median": ms,
+               "images_per_s": ZOO_SERVE_BATCH / ms * 1e3,
+               "seconds": round(time.perf_counter() - t_model, 3)}
+        rows.append(row)
+        print(json.dumps({"phase": "zoo_serve", **row, "card": card}),
+              flush=True)
+        del net, cpu_net, x, y
+        torch.cuda.empty_cache()
+        if tuple(want.shape) != (ZOO_CHECK_ROWS, zoo.num_classes) or \
+                not finite or sums > 1e-4:
+            return f"{name}: served rows not distributions of the shape"
+        if err > TOL_ZOO_ROWS:
+            return (f"{name}: served rows differ from the CPU run by {err} "
+                    f"> {TOL_ZOO_ROWS}")
+    return None
+
+
+def _dropout_masks(net, key, x, torch):
+    """``{where: bool mask}`` of every dropout the first fit step on
+    ``key`` draws, redrawn from the key stream as the layers draw them."""
+    from deeplearning4j_tpu_torch.nn.conf import dropout as tdrop
+    from deeplearning4j_tpu_torch.utils import _random
+    conf, out = net.conf, {}
+    if hasattr(conf, "vertices"):
+        for vi, name in enumerate(conf.topological_order):
+            lc = getattr(conf.vertices[name], "layer", None)
+            d = tdrop.resolve(getattr(lc, "dropout", None))
+            if d is not None:
+                it = conf.vertex_input_types[name][0]
+                out[name] = _random.bernoulli(_random.fold_in(key, vi), d.p,
+                                              (x.shape[0], it.flat_size()))
+    else:
+        for i, lc in enumerate(conf.layers):
+            d = tdrop.resolve(getattr(lc, "dropout", None))
+            if d is not None:
+                out[f"layer_{i}"] = _random.bernoulli(
+                    _random.fold_in(key, i), d.p,
+                    (x.shape[0], conf.layer_input_types[i].flat_size()))
+    return out
+
+
+def _loss_fn(net):
+    from deeplearning4j_tpu_torch.nn.computation_graph import _graph_loss
+    from deeplearning4j_tpu_torch.nn.multilayer import _stack_loss_state
+    if hasattr(net.conf, "vertices"):
+        return lambda p, s, x, y, key: _graph_loss(
+            net.conf, p, s, [x], [y], train=True, key=key)[0]
+    return lambda p, s, x, y, key: _stack_loss_state(
+        net.conf, p, s, x, y, train=True, key=key)[0]
+
+
+def zoo_train_phases(args, torch, dev, card):
+    """Phases 18-19.  Returns None, or what failed."""
+    import numpy as np
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.models import zoo as tzoo
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+    from deeplearning4j_tpu_torch.utils import _random
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 18)
+    for name, batch, kw in ZOO_TRAIN:
+        t_phase = time.perf_counter()
+        zoo = getattr(tzoo, name)(seed=args.seed, **kw)
+        net = zoo.init(device=dev)
+        x = _zoo_input(zoo, batch, gen, dev, torch)
+        y = F.one_hot(torch.randint(0, zoo.num_classes, (batch,),
+                                    generator=gen, device=dev),
+                      zoo.num_classes).float()
+        # ---- 18. step 0 against the float64 twin, masks, 5 fit steps --
+        key = _random.split(net._rng)[1]          # the first step's key
+        cpu_key = key.cpu()
+        masks = _dropout_masks(net, key, x, torch)
+        cpu_masks = _dropout_masks(net, cpu_key, x.cpu(), torch)
+        masks_equal = {k: torch.equal(m.cpu(), cpu_masks[k])
+                       for k, m in masks.items()}
+        loss_of = _loss_fn(net)
+        params = net._param_tree()
+        keys = [(k, n) for k in params for n in params[k]]
+        loss32 = loss_of(params, net.state, x, y, key)
+        g32 = torch.autograd.grad(loss32, [params[k][n] for k, n in keys])
+        loss32 = loss32.item()
+        p64 = {k: {n: p.detach().double().requires_grad_(True)
+                   for n, p in g.items()} for k, g in params.items()}
+        loss64 = loss_of(p64, net.state, x.double(), y.double(), key)
+        g64 = torch.autograd.grad(loss64, [p64[k][n] for k, n in keys])
+        loss64 = loss64.item()
+        del p64
+        # the same f32 step with cuDNN off: another f32 summation of the
+        # convolutions (PyTorch's im2col + GEMM), its distance to f64
+        # printed beside the port's
+        torch.backends.cudnn.enabled = False
+        try:
+            g_nat = torch.autograd.grad(
+                loss_of(params, net.state, x, y, key),
+                [params[k][n] for k, n in keys])
+        finally:
+            torch.backends.cudnn.enabled = True
+        nat_err = nat_ref = 0.0
+        for a, b in zip(g_nat, g64):
+            d = a.double() - b
+            nat_err += float((d * d).sum())
+            nat_ref += float((b * b).sum())
+        rel_l2_native = (nat_err / nat_ref) ** 0.5
+        del g_nat
+        net_max = max(g.abs().max().item() for g in g64)
+        worst, worst_name, sq_err, sq_ref, leaf_rel = 0.0, "", 0.0, 0.0, []
+        for (k, n), a, b in zip(keys, g32, g64):
+            d = a.double() - b
+            tol = ZOO_TOL_GRAD_LEAF * b.abs().max().item() \
+                + ZOO_TOL_GRAD_NET * net_max
+            ratio = d.abs().max().item() / tol
+            if not bool(torch.isfinite(a).all()) or ratio >= worst:
+                worst, worst_name = ratio, f"{k}/{n}"
+            sq_err += float((d * d).sum())
+            sq_ref += float((b * b).sum())
+            leaf_rel.append((d.abs().max().item()
+                             / max(b.abs().max().item(), 1e-30),
+                             f"{k}/{n}"))
+        rel_l2 = (sq_err / sq_ref) ** 0.5
+        leaf_rel.sort(reverse=True)
+        del g32, g64
+        loss_err = abs(loss32 - loss64) / abs(loss64)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        pb.reset_launches()
+        losses = []
+        t_fit = time.perf_counter()
+        for _ in range(ZOO_STEPS):
+            net.fit(x, y)
+            losses.append(net._score)            # device scalars
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        launches = {**dict(fa.launches), **dict(pb.launches)}
+        losses = [float(v) for v in losses]
+        print(json.dumps({
+            "phase": "zoo_train", "model": {
+                "name": name, "net": type(net).__name__,
+                "input": list(zoo.input_shape), "classes": zoo.num_classes,
+                "batch": batch, "dtype": "float32", "tf32": False,
+                "updater": repr(net._default_updater()),
+                "num_params": net.num_params()},
+            "dropout_masks": {k: list(m.shape) for k, m in masks.items()},
+            "masks_equal_cpu": masks_equal,
+            "step0_loss": loss32, "step0_loss_f64": loss64,
+            "step0_loss_rel_err": loss_err, "tol_loss": ZOO_TOL_LOSS,
+            "step0_grad_worst_err_over_tol": worst,
+            "step0_grad_worst_param": worst_name,
+            "step0_grad_max_err_over_leaf_max_top5": leaf_rel[:5],
+            "step0_grad_rel_l2": rel_l2,
+            "step0_grad_rel_l2_cudnn_off": rel_l2_native,
+            "tol_grad": [ZOO_TOL_GRAD_LEAF, ZOO_TOL_GRAD_NET],
+            "tol_grad_rel_l2": ZOO_TOL_GRAD_L2,
+            "steps": ZOO_STEPS, "losses": losses,
+            "kernel_launches": launches, "seconds_fit": round(fit_s, 4),
+            "seconds": round(time.perf_counter() - t_phase, 3)}),
+            flush=True)
+        if not masks or not all(masks_equal.values()):
+            return f"{name}: dropout masks on the card differ: {masks_equal}"
+        if loss_err > ZOO_TOL_LOSS or worst > 1.0 or \
+                rel_l2 > ZOO_TOL_GRAD_L2:
+            return (f"{name}: step 0 differs from the f64 twin: loss "
+                    f"{loss_err}, gradient {worst_name} at {worst} x tol, "
+                    f"relative L2 {rel_l2}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            return f"{name}: losses {losses} not finite or not falling"
+        if any(launches.values()):
+            return f"{name}: the zoo path launched kernels {launches}"
+
+        # ---- 19. times ----------------------------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(ZOO_TIMED_STEPS + 2):
+            t1 = time.perf_counter()
+            net.fit(x, y)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t1) * 1e3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = statistics.median(times)
+        split = profile_steps(torch, net, [(x, y)] * PROFILED_STEPS,
+                              ZOO_KERNEL_CLASSES)
+        dev_ms = split["device_ms_total_per_step"]
+        busy = dev_ms / step_ms if dev_ms else None
+        split["device_busy_share"] = busy
+        split["device_idle_share"] = None if busy is None else 1 - busy
+        flops = model_flops(net.conf, batch)
+        print(json.dumps({
+            "phase": "zoo_train_time", "model": name, "batch": batch,
+            "steps": ZOO_TIMED_STEPS, "step_ms_median": step_ms,
+            "step_ms": times, "images_per_s": batch / step_ms * 1e3,
+            "model_flops_per_step": flops,
+            "model_flops_share_of_f32_peak":
+                flops / (step_ms * 1e-3) / F32_PEAK_FLOPS,
+            "f32_peak_flops": F32_PEAK_FLOPS, "peak_memory_gb": peak_gb,
+            "profile": split, "card": card}), flush=True)
+        del net, x, y
+        torch.cuda.empty_cache()
+    return None
+
+
+def dropout_phase(args, torch, dev, card):
+    """Phase 20.  Returns ``(launches per kernel over the run, None)`` or
+    ``(None, what failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        MultiHeadAttention, PositionalEncodingLayer)
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import \
+        EmbeddingSequenceLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
+                                                        _stack_loss)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.utils import _random
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+
+    def transformer_lm(impl):
+        net = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                            n_layers=LAYERS, n_heads=HEADS, attn_impl=impl,
+                            sparse_labels=True, seed=args.seed).init(
+                                device=dev)
+        for lc in net.conf.layers[2:-1]:
+            lc.dropout = 0.9
+        return net
+
+    def attention_lm(impl):
+        layers = [EmbeddingSequenceLayer(n_out=EMBED),
+                  PositionalEncodingLayer()]
+        layers += [MultiHeadAttention(n_heads=HEADS, causal=True,
+                                      attn_impl=impl, attn_dropout=0.9,
+                                      dropout=0.9, activation="identity")
+                   for _ in range(LAYERS)]
+        layers.append(RnnOutputLayer(n_out=VOCAB, activation="softmax",
+                                     loss="sparse_mcxent"))
+        for i, lc in enumerate(layers):
+            lc.name = f"layer{i}"
+        conf = MultiLayerConfiguration(
+            layers=layers, input_type=InputType.recurrent(VOCAB, SEQ),
+            defaults={"updater": Adam(learning_rate=3e-4),
+                      "weight_init": "xavier"}, seed=args.seed)
+        return MultiLayerNetwork(conf, device=dev).init()
+
+    trng = np.random.default_rng(args.seed + 20)
+    tokens = trng.integers(0, VOCAB, (DROPOUT_STEPS, TRAIN_BATCH, SEQ + 1))
+    batches = [(b[:, :-1], b[:, 1:]) for b in tokens]
+    total = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    for what, build in (("transformer_lm_block_dropout", transformer_lm),
+                        ("attention_lm_attn_dropout", attention_lm)):
+        t_phase = time.perf_counter()
+        net = build("auto")
+        tree = seeded_params(net.param_spec(), args.seed)
+        params_from_jax(net, tree)
+        twin = params_from_jax(build("reference"), tree)
+        # step 0 on the first fit step's key: the same masks on both
+        key = _random.split(net._rng)[1]
+        x0, y0 = (torch.as_tensor(a, device=dev) for a in batches[0])
+        grads, loss0 = [], []
+        for m in (net, twin):
+            params = m._param_tree()
+            keys = [(k, n) for k in params for n in params[k]]
+            loss = _stack_loss(m.conf, params, x0, y0, train=True, key=key)
+            grads.append(dict(zip(keys, torch.autograd.grad(
+                loss, [params[k][n] for k, n in keys]))))
+            loss0.append(loss.item())
+        net_max = max(g.abs().max().item() for g in grads[1].values())
+        worst, worst_name = 0.0, ""
+        for k, g in grads[0].items():
+            w = grads[1][k]
+            tol = TOL_GRAD_LEAF * w.abs().max().item() \
+                + TOL_GRAD_NET * net_max
+            ratio = (g - w).abs().max().item() / tol
+            if not bool(torch.isfinite(g).all()) or ratio >= worst:
+                worst, worst_name = ratio, "/".join(k)
+        del grads
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        losses = []
+        for x, y in batches:
+            net.fit(x, y)
+            losses.append(net._score)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        losses = [float(v) for v in losses]
+        ref_losses = []
+        for x, y in batches:
+            twin.fit(x, y)
+            ref_losses.append(twin.get_score())
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        expected = {n: LAYERS * DROPOUT_STEPS for n in launches}
+        print(json.dumps({
+            "phase": "train_dropout", "model": what,
+            "width": {"vocab": VOCAB, "seq": SEQ, "embed": EMBED,
+                      "layers": LAYERS, "heads": HEADS,
+                      "batch": TRAIN_BATCH},
+            "dropout": 0.9, "attn_dropout": 0.9 if "attn" in what else None,
+            "step0_loss": loss0, "step0_grad_worst_err_over_tol": worst,
+            "step0_grad_worst_param": worst_name,
+            "tol_grad": [TOL_GRAD_LEAF, TOL_GRAD_NET],
+            "losses": losses, "reference_losses": ref_losses,
+            "max_rel_loss_diff": diff, "tol_loss": TOL_TRAIN_LOSS,
+            "kernel_launches": launches, "expected_launches": expected,
+            "card": card, "seconds": round(time.perf_counter() - t_phase,
+                                           3)}), flush=True)
+        if worst > 1.0 or abs(loss0[0] - loss0[1]) > \
+                TOL_TRAIN_LOSS * abs(loss0[1]):
+            return None, (f"{what}: step 0 differs from the reference "
+                          f"path: {worst_name} at {worst} x tol, losses "
+                          f"{loss0}")
+        if not all(np.isfinite(losses)) or diff > TOL_TRAIN_LOSS:
+            return None, (f"{what}: losses {losses} vs reference "
+                          f"{ref_losses}: {diff} > {TOL_TRAIN_LOSS}")
+        if launches != expected:
+            return None, (f"{what}: launches {launches}, expected "
+                          f"{expected} ({LAYERS} per kernel per step)")
+        for n in total:
+            total[n] += launches[n]
+        del net, twin
+        torch.cuda.empty_cache()
+    return total, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2039,6 +2566,17 @@ def main(argv=None) -> int:
     err = generation_phases(args, torch, dev, card)
     if err:
         return fail(err)
+    torch.cuda.empty_cache()
+
+    # ---- 16-20. the key stream, the conv zoo, dropout ------------------
+    for phase in (random_phase, zoo_serve_phase, zoo_train_phases):
+        err = phase(args, torch, dev, card)
+        if err:
+            return fail(err)
+        torch.cuda.empty_cache()
+    dropout_launches, err = dropout_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
 
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
@@ -2055,6 +2593,7 @@ def main(argv=None) -> int:
             "source": f"{src_dir}/{sources[name]}",
             "replaces": replaces[name],
             "launches": train_launches[name],
+            "launches_train_dropout": dropout_launches[name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _random
+from ..utils import _random
 
 __all__ = ["sample_tokens"]
 

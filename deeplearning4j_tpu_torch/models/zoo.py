@@ -1,21 +1,38 @@
-"""Zoo models (port of ``models/zoo.py``): ``TransformerLM``,
-``ResNet50`` and ``TextGenerationLSTM`` so far."""
+"""Zoo models (port of ``models/zoo.py``): the conv zoo (``LeNet``,
+``SimpleCNN``, ``AlexNet``, ``VGG16``, ``VGG19``, ``ResNet50``,
+``GoogLeNet``, ``InceptionResNetV1``, ``FaceNetNN4Small2``),
+``TextGenerationLSTM``, ``TransformerLM``, ``ALL_MODELS`` and
+``ModelSelector``.
+
+Each model has the JAX zoo model's fields, defaults, layers, vertex
+names and updater; ``conf()`` gives its configuration and
+``init(device=...)`` the network with fresh seeded parameters (torch's
+numbers, not JAX's: parity runs load the JAX package's).  Pretrained
+weights (``pretrained``, ``import_pretrained``) are not ported: the
+repository holds no weights files and the Keras import bridge is not
+ported yet.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, ClassVar, Dict, List, Optional, Tuple
 
 from ..nn.computation_graph import ComputationGraph
 from ..nn.conf.computation_graph import (ComputationGraphConfiguration,
-                                         ElementWiseVertex, GraphBuilder)
+                                         ElementWiseVertex, GraphBuilder,
+                                         L2NormalizeVertex, MergeVertex,
+                                         ScaleVertex)
 from ..nn.conf.input_type import InputType
 from ..nn.conf.multi_layer import MultiLayerConfiguration
 from ..nn.conf.updaters import Adam, Nesterovs, UpdaterConf
 from ..nn.layers.attention import PositionalEncodingLayer, TransformerBlock
+from ..nn.layers.base import LayerConf
 from ..nn.layers.convolution import ConvolutionLayer, SubsamplingLayer
-from ..nn.layers.feedforward import (ActivationLayer, EmbeddingSequenceLayer,
-                                     OutputLayer)
-from ..nn.layers.normalization import BatchNormalization
+from ..nn.layers.feedforward import (ActivationLayer, CenterLossOutputLayer,
+                                     DenseLayer, DropoutLayer,
+                                     EmbeddingSequenceLayer, OutputLayer)
+from ..nn.layers.normalization import (BatchNormalization,
+                                       LocalResponseNormalization)
 from ..nn.layers.pooling import GlobalPoolingLayer
 from ..nn.layers.recurrent import LSTM, RnnOutputLayer
 from ..nn.multilayer import MultiLayerNetwork
@@ -39,11 +56,209 @@ def _max_pool(g: GraphBuilder, name: str, inp: str, kernel=(3, 3),
     return name
 
 
+def _inception_block(g: GraphBuilder, name: str, inp: str, c1: int, c3r: int,
+                     c3: int, c5r: int, c5: int, pp: int) -> str:
+    """GoogLeNet-style inception module: 1x1 / 3x3 / 5x5 / pool-projection
+    branches merged on the channel axis."""
+    a = _conv_block(g, f"{name}_1x1", inp, c1, (1, 1))
+    b = _conv_block(g, f"{name}_3x3r", inp, c3r, (1, 1))
+    b = _conv_block(g, f"{name}_3x3", b, c3, (3, 3))
+    d = _conv_block(g, f"{name}_5x5r", inp, c5r, (1, 1))
+    d = _conv_block(g, f"{name}_5x5", d, c5, (5, 5))
+    g.add_layer(f"{name}_pool", SubsamplingLayer(
+        pooling_type="max", kernel_size=(3, 3), stride=(1, 1),
+        convolution_mode="same"), inp)
+    p = _conv_block(g, f"{name}_poolproj", f"{name}_pool", pp, (1, 1))
+    g.add_vertex(name, MergeVertex(), a, b, d, p)
+    return name
+
+
+@dataclass
+class ZooModel:
+    """Base of the conv zoo models (reference ``ZooModel``): fields and
+    defaults as the JAX package's; ``model_type`` is ``ModelSelector``'s
+    filter key."""
+    model_type: ClassVar[str] = "cnn"
+    num_classes: int = 1000
+    seed: int = 123
+    input_shape: Tuple[int, int, int] = (224, 224, 3)   # (h, w, c)
+    updater: Optional[UpdaterConf] = None
+    compute_dtype: Optional[str] = None
+
+    def conf(self):
+        raise NotImplementedError
+
+    def _refuse_precision(self) -> None:
+        if self.compute_dtype:
+            raise NotImplementedError("compute_dtype (precision policies) "
+                                      "is not ported yet")
+
+    def _stack(self, layers: List[LayerConf], defaults: Dict[str, Any],
+               itype: InputType) -> MultiLayerConfiguration:
+        """A layer stack as the JAX package's ``ListBuilder`` makes it:
+        layers named ``layer{i}``."""
+        self._refuse_precision()
+        for i, lc in enumerate(layers):
+            if lc.name is None:
+                lc.name = f"layer{i}"
+        return MultiLayerConfiguration(layers=layers, input_type=itype,
+                                       defaults=defaults, seed=self.seed)
+
+    def _graph(self, default_updater: UpdaterConf) -> GraphBuilder:
+        """A graph builder with the conv graphs' defaults (relu, relu
+        init) and one NHWC input ``in``."""
+        self._refuse_precision()
+        h, w, c = self.input_shape
+        g = GraphBuilder({"activation": "relu", "weight_init": "relu",
+                          "updater": self.updater or default_updater},
+                         seed=self.seed)
+        g.add_inputs("in").set_input_types(InputType.convolutional(h, w, c))
+        return g
+
+    def init(self, device="cuda"):
+        """The network on ``device`` with fresh seeded parameters."""
+        conf = self.conf()
+        cls = ComputationGraph if isinstance(
+            conf, ComputationGraphConfiguration) else MultiLayerNetwork
+        return cls(conf, device=device).init()
+
+
+@dataclass
+class LeNet(ZooModel):
+    """LeNet-5 (reference ``LeNet.java``): flat 28x28x1 input reshaped to
+    NHWC by the automatic preprocessor, as the reference's
+    ``InputType.convolutionalFlat``."""
+    num_classes: int = 10
+    input_shape: Tuple[int, int, int] = (28, 28, 1)
+
+    def conf(self) -> MultiLayerConfiguration:
+        h, w, c = self.input_shape
+        return self._stack(
+            [ConvolutionLayer(n_out=20, kernel_size=(5, 5), stride=(1, 1),
+                              convolution_mode="same"),
+             SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                              stride=(2, 2)),
+             ConvolutionLayer(n_out=50, kernel_size=(5, 5), stride=(1, 1),
+                              convolution_mode="same"),
+             SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                              stride=(2, 2)),
+             DenseLayer(n_out=500),
+             OutputLayer(n_out=self.num_classes, activation="softmax",
+                         loss="mcxent")],
+            {"updater": self.updater or Nesterovs(learning_rate=0.01,
+                                                  momentum=0.9),
+             "activation": "relu", "weight_init": "xavier"},
+            InputType.convolutional_flat(h, w, c))
+
+
+@dataclass
+class SimpleCNN(ZooModel):
+    """Compact CNN with BatchNormalization (reference ``SimpleCNN.java``)."""
+    num_classes: int = 10
+    input_shape: Tuple[int, int, int] = (48, 48, 3)
+
+    def conf(self) -> MultiLayerConfiguration:
+        h, w, c = self.input_shape
+
+        def conv(n):
+            return ConvolutionLayer(n_out=n, kernel_size=(3, 3),
+                                    convolution_mode="same")
+
+        def pool():
+            return SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2))
+        return self._stack(
+            [conv(16), BatchNormalization(), conv(16), BatchNormalization(),
+             pool(),
+             conv(32), BatchNormalization(), conv(32), BatchNormalization(),
+             pool(),
+             DropoutLayer(dropout=0.5),
+             DenseLayer(n_out=256),
+             OutputLayer(n_out=self.num_classes, activation="softmax",
+                         loss="mcxent")],
+            {"updater": self.updater or Adam(learning_rate=1e-3),
+             "activation": "relu", "weight_init": "relu"},
+            InputType.convolutional(h, w, c))
+
+
+@dataclass
+class AlexNet(ZooModel):
+    """AlexNet, one tower (reference ``AlexNet.java``): LRN after the
+    first two convolutions, dropout 0.5 on both dense layers."""
+
+    def conf(self) -> MultiLayerConfiguration:
+        h, w, c = self.input_shape
+
+        def conv(n, k, stride=(1, 1)):
+            return ConvolutionLayer(n_out=n, kernel_size=k, stride=stride,
+                                    convolution_mode="same")
+
+        def pool():
+            return SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                    stride=(2, 2))
+        return self._stack(
+            [conv(96, (11, 11), (4, 4)), LocalResponseNormalization(),
+             pool(),
+             conv(256, (5, 5)), LocalResponseNormalization(), pool(),
+             conv(384, (3, 3)), conv(384, (3, 3)), conv(256, (3, 3)),
+             pool(),
+             DenseLayer(n_out=4096, dropout=0.5),
+             DenseLayer(n_out=4096, dropout=0.5),
+             OutputLayer(n_out=self.num_classes, activation="softmax",
+                         loss="mcxent")],
+            {"updater": self.updater or Nesterovs(learning_rate=1e-2,
+                                                  momentum=0.9),
+             "activation": "relu", "weight_init": "relu", "l2": 5e-4},
+            InputType.convolutional(h, w, c))
+
+
+def _vgg_blocks(cfg) -> List[LayerConf]:
+    """cfg: (number of 3x3 convolutions, channels) per block, each block
+    ending in a 2x2 max pool."""
+    layers: List[LayerConf] = []
+    for n, ch in cfg:
+        for _ in range(n):
+            layers.append(ConvolutionLayer(n_out=ch, kernel_size=(3, 3),
+                                           convolution_mode="same"))
+        layers.append(SubsamplingLayer(pooling_type="max",
+                                       kernel_size=(2, 2), stride=(2, 2)))
+    return layers
+
+
+@dataclass
+class VGG16(ZooModel):
+    """VGG-16 (reference ``VGG16.java``): dropout 0.5 on both dense
+    layers."""
+    BLOCKS: ClassVar[Tuple] = ((2, 64), (2, 128), (3, 256), (3, 512),
+                               (3, 512))
+
+    def conf(self) -> MultiLayerConfiguration:
+        h, w, c = self.input_shape
+        return self._stack(
+            _vgg_blocks(self.BLOCKS) + [
+                DenseLayer(n_out=4096, dropout=0.5),
+                DenseLayer(n_out=4096, dropout=0.5),
+                OutputLayer(n_out=self.num_classes, activation="softmax",
+                            loss="mcxent")],
+            {"updater": self.updater or Nesterovs(learning_rate=1e-2,
+                                                  momentum=0.9),
+             "activation": "relu", "weight_init": "xavier"},
+            InputType.convolutional(h, w, c))
+
+
+@dataclass
+class VGG19(VGG16):
+    """VGG-19 (reference ``VGG19.java``)."""
+    BLOCKS: ClassVar[Tuple] = ((2, 64), (2, 128), (4, 256), (4, 512),
+                               (4, 512))
+
+
 @dataclass
 class TransformerLM:
     """Decoder-only transformer LM: embedding, positional encoding,
     ``n_layers`` pre-norm causal blocks, softmax head over the
     vocabulary.  Same fields and configuration as the JAX zoo model."""
+    model_type: ClassVar[str] = "rnn"
     vocab_size: int = 256
     seq_len: int = 128
     embed: int = 256
@@ -90,6 +305,7 @@ class ResNet50:
     """ResNet-50: conv/identity bottleneck blocks as a ComputationGraph
     with element-wise residual adds, NHWC.  Same fields, graph and vertex
     names as the JAX zoo model (reference ``model/ResNet50.java``)."""
+    model_type: ClassVar[str] = "cnn"
     num_classes: int = 1000
     seed: int = 123
     input_shape: Tuple[int, int, int] = (224, 224, 3)   # (h, w, c)
@@ -148,6 +364,144 @@ class ResNet50:
 
 
 @dataclass
+class GoogLeNet(ZooModel):
+    """GoogLeNet / Inception-v1 (reference ``GoogLeNet.java``): nine
+    inception modules, global average pooling, dropout 0.4."""
+
+    def conf(self) -> ComputationGraphConfiguration:
+        g = self._graph(Adam(learning_rate=1e-3))
+        x = _conv_block(g, "conv1", "in", 64, (7, 7), (2, 2))
+        x = _max_pool(g, "pool1", x)
+        x = _conv_block(g, "conv2r", x, 64, (1, 1))
+        x = _conv_block(g, "conv2", x, 192, (3, 3))
+        x = _max_pool(g, "pool2", x)
+        x = _inception_block(g, "i3a", x, 64, 96, 128, 16, 32, 32)
+        x = _inception_block(g, "i3b", x, 128, 128, 192, 32, 96, 64)
+        x = _max_pool(g, "pool3", x)
+        x = _inception_block(g, "i4a", x, 192, 96, 208, 16, 48, 64)
+        x = _inception_block(g, "i4b", x, 160, 112, 224, 24, 64, 64)
+        x = _inception_block(g, "i4c", x, 128, 128, 256, 24, 64, 64)
+        x = _inception_block(g, "i4d", x, 112, 144, 288, 32, 64, 64)
+        x = _inception_block(g, "i4e", x, 256, 160, 320, 32, 128, 128)
+        x = _max_pool(g, "pool4", x)
+        x = _inception_block(g, "i5a", x, 256, 160, 320, 32, 128, 128)
+        x = _inception_block(g, "i5b", x, 384, 192, 384, 48, 128, 128)
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("dropout", DropoutLayer(dropout=0.4), "avgpool")
+        g.add_layer("out", OutputLayer(n_out=self.num_classes,
+                                       activation="softmax", loss="mcxent"),
+                    "dropout")
+        g.set_outputs("out")
+        return g.build()
+
+
+@dataclass
+class InceptionResNetV1(ZooModel):
+    """Inception-ResNet v1, the JAX package's compact rendition
+    (reference ``InceptionResNetV1.java``): stem, scaled residual
+    inception blocks A/B/C with reductions, an L2-normalised embedding
+    and a softmax head."""
+    num_classes: int = 1000
+    input_shape: Tuple[int, int, int] = (160, 160, 3)
+    blocks_a: int = 5
+    blocks_b: int = 10
+    blocks_c: int = 5
+    embedding_size: int = 128
+
+    def conf(self) -> ComputationGraphConfiguration:
+        g = self._graph(Adam(learning_rate=1e-3))
+
+        def conv(name, inp, n_out, kernel, stride=(1, 1), act="relu"):
+            return _conv_block(g, name, inp, n_out, kernel, stride, act=act)
+
+        def res_block(name, inp, branches, channels, scale=0.17):
+            """out = relu(in + scale * conv1x1(concat(branches)))."""
+            outs = []
+            for i, spec in enumerate(branches):
+                x = inp
+                for j, (n_out, kernel) in enumerate(spec):
+                    x = conv(f"{name}_br{i}_{j}", x, n_out, kernel)
+                outs.append(x)
+            if len(outs) > 1:
+                g.add_vertex(f"{name}_cat", MergeVertex(), *outs)
+                cat = f"{name}_cat"
+            else:
+                cat = outs[0]
+            up = conv(f"{name}_up", cat, channels, (1, 1), act="identity")
+            g.add_vertex(f"{name}_scale", ScaleVertex(scale_factor=scale), up)
+            g.add_vertex(f"{name}_add", ElementWiseVertex(op="add"),
+                         inp, f"{name}_scale")
+            g.add_layer(f"{name}", ActivationLayer(activation="relu"),
+                        f"{name}_add")
+            return name
+
+        x = conv("stem1", "in", 32, (3, 3), (2, 2))
+        x = conv("stem2", x, 64, (3, 3))
+        x = _max_pool(g, "stempool", x)
+        x = conv("stem3", x, 128, (3, 3), (2, 2))
+        x = conv("stem4", x, 256, (3, 3), (2, 2))
+        for i in range(self.blocks_a):
+            x = res_block(f"a{i}", x,
+                          [[(32, (1, 1))],
+                           [(32, (1, 1)), (32, (3, 3))],
+                           [(32, (1, 1)), (32, (3, 3)), (32, (3, 3))]], 256)
+        x = conv("redA", x, 384, (3, 3), (2, 2))
+        for i in range(self.blocks_b):
+            x = res_block(f"b{i}", x,
+                          [[(128, (1, 1))],
+                           [(128, (1, 1)), (128, (1, 7)), (128, (7, 1))]],
+                          384, scale=0.10)
+        x = conv("redB", x, 512, (3, 3), (2, 2))
+        for i in range(self.blocks_c):
+            x = res_block(f"c{i}", x,
+                          [[(192, (1, 1))],
+                           [(192, (1, 1)), (192, (1, 3)), (192, (3, 1))]],
+                          512, scale=0.20)
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("bottleneck", DenseLayer(n_out=self.embedding_size,
+                                             activation="identity"),
+                    "avgpool")
+        g.add_vertex("embeddings", L2NormalizeVertex(), "bottleneck")
+        g.add_layer("out", OutputLayer(n_out=self.num_classes,
+                                       activation="softmax", loss="mcxent"),
+                    "embeddings")
+        g.set_outputs("out")
+        return g.build()
+
+
+@dataclass
+class FaceNetNN4Small2(ZooModel):
+    """FaceNet NN4-small2 style embedding net (reference
+    ``FaceNetNN4Small2.java``): inception trunk, L2-normalised embedding,
+    center-loss softmax head."""
+    num_classes: int = 100
+    input_shape: Tuple[int, int, int] = (96, 96, 3)
+    embedding_size: int = 128
+
+    def conf(self) -> ComputationGraphConfiguration:
+        g = self._graph(Adam(learning_rate=1e-3))
+        x = _conv_block(g, "conv1", "in", 64, (7, 7), (2, 2))
+        x = _max_pool(g, "pool1", x)
+        x = _conv_block(g, "conv2", x, 192, (3, 3))
+        x = _max_pool(g, "pool2", x)
+        x = _inception_block(g, "i3a", x, 64, 96, 128, 16, 32, 32)
+        x = _inception_block(g, "i3b", x, 64, 96, 128, 32, 64, 64)
+        x = _max_pool(g, "pool3", x)
+        x = _inception_block(g, "i4a", x, 256, 96, 192, 32, 64, 128)
+        x = _inception_block(g, "i4e", x, 160, 112, 224, 24, 64, 128)
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("bottleneck", DenseLayer(n_out=self.embedding_size,
+                                             activation="identity"),
+                    "avgpool")
+        g.add_vertex("embeddings", L2NormalizeVertex(), "bottleneck")
+        g.add_layer("out", CenterLossOutputLayer(
+            n_out=self.num_classes, activation="softmax", loss="mcxent",
+            alpha=0.9, lambda_=5e-3), "embeddings")
+        g.set_outputs("out")
+        return g.build()
+
+
+@dataclass
 class TextGenerationLSTM:
     """Char-level text generation LSTM (reference
     ``TextGenerationLSTM.java:34``): two tanh LSTM layers of ``hidden``
@@ -156,6 +510,7 @@ class TextGenerationLSTM:
     at 10.  Same fields and configuration as the JAX zoo model.  The
     LSTMs' ``helper`` is left unset: a caller that wants the Hopper kernel
     sets ``helper="pallas"`` on each ``LSTM`` of ``conf()``."""
+    model_type: ClassVar[str] = "rnn"
     num_classes: int = 26          # vocab size
     timesteps: int = 40
     hidden: int = 256
@@ -183,3 +538,35 @@ class TextGenerationLSTM:
     def init(self, device="cuda") -> MultiLayerNetwork:
         """The network on ``device`` with fresh seeded parameters."""
         return MultiLayerNetwork(self.conf(), device=device).init()
+
+
+ALL_MODELS = [LeNet, SimpleCNN, AlexNet, VGG16, VGG19, ResNet50, GoogLeNet,
+              InceptionResNetV1, FaceNetNN4Small2, TextGenerationLSTM,
+              TransformerLM]
+
+
+class ModelSelector:
+    """Select zoo models by name or type (reference ``ModelSelector``)."""
+
+    @staticmethod
+    def select(*names, **init_kwargs) -> Dict[str, Any]:
+        """``names``: model class names (any case), a model type ("cnn",
+        "rnn") or "all"; returns ``{name: instance}``, not initialised."""
+        by_name = {cls.__name__.lower(): cls for cls in ALL_MODELS}
+        out = {}
+        for name in names:
+            key = name.lower()
+            if key == "all":
+                out.update({cls.__name__: cls(**init_kwargs)
+                            for cls in ALL_MODELS})
+            elif key in ("cnn", "rnn"):
+                out.update({cls.__name__: cls(**init_kwargs)
+                            for cls in ALL_MODELS
+                            if cls.model_type == key})
+            elif key in by_name:
+                out[by_name[key].__name__] = by_name[key](**init_kwargs)
+            else:
+                raise ValueError(
+                    f"unknown zoo model '{name}'; available: "
+                    f"{sorted(by_name)} or 'all'/'cnn'/'rnn'")
+        return out

@@ -1,8 +1,9 @@
 """Machinery shared by the network types (port of ``nn/_common.py``):
-the updater groups (``build_tx``), gradient normalization, the
-constraint pass, the backward-and-update half of a train step, and
-``Network``, the base of ``MultiLayerNetwork`` and ``ComputationGraph``
-(parameter and state storage, init, loading, the fit loop).
+the updater groups (``build_tx``), gradient normalization, the refusal
+of the train-step branches the port lacks, the backward-and-update half
+of a train step, and ``Network``, the base of ``MultiLayerNetwork`` and
+``ComputationGraph`` (parameter and state storage, init, loading, the
+dropout key stream, the fit loop).
 
 Gradients and parameters are ``{layer_i: {name: tensor}}`` dicts, as the
 JAX package's pytrees.  ``build_tx`` returns an ``UpdaterGroups`` in
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import _random
 from ..utils.device import resolve_device
 from .conf.updaters import Sgd, UpdaterConf
 from .layers.base import BaseLayerConf, LayerConf, flatten_group
@@ -177,22 +179,13 @@ def apply_gradient_norm_all(grads: Tree,
     return grads
 
 
-def apply_constraints_all(params: Tree,
-                          confs: Dict[str, Optional[LayerConf]]) -> Tree:
-    """The reference applies layer constraints after each step.  They
-    are not ported: any layer that sets them raises."""
-    for name, lc in confs.items():
-        hc = hyperparam_conf(lc)
-        if getattr(hc, "constraints", None):
-            raise NotImplementedError(
-                f"layer '{getattr(hc, 'name', name)}': constraints are not "
-                "ported yet")
-    return params
-
-
 def refuse_unported_training(conf, layers: Iterable[Optional[LayerConf]]
                              ) -> None:
-    """The JAX train step's branches this port does not have."""
+    """The JAX train step's branches this port does not have, refused
+    when the train step is built: precision policies, remat, the legacy
+    solvers, the sparse-embedding gradient, layer constraints (the
+    reference applies them after each update) and weight noise
+    (``DropConnect``/``WeightNoise``).  Dropout is ported."""
     d = conf.defaults
     if d.get("precision") is not None or \
             str(d.get("compute_dtype") or "float32") != "float32":
@@ -211,6 +204,17 @@ def refuse_unported_training(conf, layers: Iterable[Optional[LayerConf]]
             raise NotImplementedError(
                 f"layer '{lc.name}': sparse_grad=True (the sparse-embedding "
                 "gradient) is not ported yet")
+        hc = hyperparam_conf(lc)
+        if getattr(hc, "constraints", None):
+            raise NotImplementedError(
+                f"layer '{hc.name}': constraints={hc.constraints!r} are "
+                "not ported yet (the reference applies them after each "
+                "update); train with constraints unset")
+        if getattr(hc, "weight_noise", None) is not None:
+            raise NotImplementedError(
+                f"layer '{hc.name}': weight_noise={hc.weight_noise!r} "
+                "(DropConnect / WeightNoise) is not ported yet; train with "
+                "weight_noise unset (dropout is ported)")
 
 
 def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
@@ -295,6 +299,16 @@ class Network(nn.Module):
         self._last_grad_stats: Optional[Dict[str, Any]] = None
         self._tx = None
         self._step = None
+        # the dropout key stream: jax.random.PRNGKey(seed), as the
+        # reference's ``_rng``, on the network's device
+        self._rng = _random.prng_key(conf.seed, self.device)
+
+    def _next_key(self) -> torch.Tensor:
+        """``self._rng, key = split(self._rng)``: the key of one training
+        step (or one ``train=True`` forward)."""
+        new_rng, key = _random.split(self._rng)
+        self._rng = new_rng
+        return key
 
     def _layers(self) -> List[Tuple[str, Any, Any]]:
         """``(key, conf, input types)`` of every layer, in order; ``conf``

@@ -3,17 +3,27 @@ init, output, the loss, the train step, fit and score.
 
 The forward walks the configuration's topological order eagerly, one
 vertex at a time; fan-in gradients (the residual adds) are summed by
-autograd.  Parameters live in one ``nn.ParameterDict`` per vertex, keyed
-by vertex name and named as in the JAX package; state (BatchNorm running
+autograd.  Features masks ride the walk as in the JAX package: each
+vertex gets its inputs' masks (``LastTimeStepVertex`` the mask of the
+network input it names) and hands its consumers ``feed_forward_mask`` of
+them; an output's label mask defaults to the mask that reaches it.
+Parameters live in one ``nn.ParameterDict`` per vertex, keyed by vertex
+name and named as in the JAX package; state (BatchNorm running
 statistics) in ``state``, replaced by each training step.
+
+Dropout draws from the JAX package's threefry stream: the network keeps
+``_rng = PRNGKey(seed)``, each training step splits it into the next
+``_rng`` and the step's key, vertex ``vi`` of the topological order draws
+from ``fold_in(key, vi)`` and output ``oi``'s loss from
+``fold_in(key, 10000 + oi)``.
 
 Training takes the JAX package's SGD path: forward to the output layers'
 summed loss plus l1/l2, gradients by autograd (through the hand-written
 BatchNorm kernel's ``autograd.Function`` where a layer selects it),
 gradient normalization, then the updaters.  The step leaves the loss on
 the device.  Not ported, and refused when configured: precision policies,
-the sparse-embedding gradient, tBPTT, remat, the legacy solvers, layer
-constraints, dropout, weight noise and features masks.
+the sparse-embedding gradient, remat, the legacy solvers, layer
+constraints and weight noise; tBPTT is not ported for graphs.
 """
 from __future__ import annotations
 
@@ -21,8 +31,10 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from ._common import (Network, apply_constraints_all, backward_and_update,
-                      batch_factory, refuse_unported_training)
+from ..utils import _random
+from ._common import (Network, backward_and_update, batch_factory,
+                      refuse_unported_training)
+from .layers.base import draws
 
 
 def _as_list(x) -> List:
@@ -43,42 +55,68 @@ def _is_loss_output(conf, name: str) -> bool:
         hasattr(getattr(conf.vertices[name], "layer", None), "compute_loss")
 
 
+def _vertex_key(key, index: int, v):
+    """``fold_in(key, index)`` where the vertex draws, else None."""
+    if key is None or not draws(getattr(v, "layer", None)):
+        return None
+    return _random.fold_in(key, index)
+
+
 def _graph_forward(conf, params, state, inputs: List[torch.Tensor], *,
-                   train: bool, exclude_outputs: bool = False
-                   ) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """Walk the topological order; returns ``(acts, new_state)``, acts
-    keyed by vertex name (plus the network inputs).  With
-    ``exclude_outputs``, output layers that nothing consumes are skipped:
-    the loss applies them itself."""
+                   train: bool, key=None, masks=None,
+                   exclude_outputs: bool = False
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict, Dict]:
+    """Walk the topological order; returns ``(acts, new_state,
+    mask_of)``, acts and masks keyed by vertex name (plus the network
+    inputs).  With ``exclude_outputs``, output layers that nothing
+    consumes are skipped: the loss applies them itself."""
     acts = dict(zip(conf.network_inputs, inputs))
+    mask_of = {n: (masks[i] if masks and i < len(masks) else None)
+               for i, n in enumerate(conf.network_inputs)}
     new_state = dict(state)
     consumed = {src for ins in conf.vertex_inputs.values() for src in ins}
-    for name in conf.topological_order:
+    for vi, name in enumerate(conf.topological_order):
+        v = conf.vertices[name]
         if exclude_outputs and name not in consumed and \
                 _is_loss_output(conf, name):
             continue
-        xs = [acts[s] for s in conf.vertex_inputs[name]]
-        acts[name], new_state[name] = conf.vertices[name].forward(
-            params.get(name, {}), state.get(name, {}), xs, train=train)
-    return acts, new_state
+        ins = conf.vertex_inputs[name]
+        xs = [acts[s] for s in ins]
+        ms = [mask_of.get(s) for s in ins]
+        # LastTimeStepVertex keys the lengths off a named input's mask
+        mi = getattr(v, "mask_input", None)
+        if mi:
+            ms = [mask_of.get(mi)] + ms[1:]
+        acts[name], new_state[name] = v.forward(
+            params.get(name, {}), state.get(name, {}), xs, train=train,
+            key=_vertex_key(key, vi, v), masks=ms)
+        mask_of[name] = v.feed_forward_mask(ms, xs)
+    return acts, new_state, mask_of
 
 
 def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
-                label_masks=None) -> Tuple[torch.Tensor, Dict]:
+                label_masks=None, key=None, masks=None
+                ) -> Tuple[torch.Tensor, Dict]:
     """Sum of the output layers' losses plus regularization; returns
-    ``(loss, new_state)``."""
-    acts, new_state = _graph_forward(conf, params, state, inputs,
-                                     train=train, exclude_outputs=True)
+    ``(loss, new_state)``.  An output's label mask defaults to the
+    features mask that reaches it."""
+    acts, new_state, mask_of = _graph_forward(
+        conf, params, state, inputs, train=train, key=key, masks=masks,
+        exclude_outputs=True)
     total = None
     for oi, name in enumerate(conf.network_outputs):
         if not _is_loss_output(conf, name):
             raise ValueError(
                 f"network output '{name}' is not an output layer vertex")
+        src = conf.vertex_inputs[name][0]
         lm = label_masks[oi] if label_masks and oi < len(label_masks) \
             else None
-        loss = conf.vertices[name].compute_loss(
-            params.get(name, {}), acts[conf.vertex_inputs[name][0]],
-            labels[oi], train=train, mask=lm)
+        if lm is None:
+            lm = mask_of.get(src)
+        v = conf.vertices[name]
+        loss = v.compute_loss(
+            params.get(name, {}), acts[src], labels[oi], train=train,
+            key=_vertex_key(key, 10_000 + oi, v), mask=lm)
         total = loss if total is None else total + loss
     reg = torch.zeros((), dtype=total.dtype, device=total.device)
     for name, v in conf.vertices.items():
@@ -89,20 +127,22 @@ def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
 
 
 def _build_graph_train_step(conf, tx):
-    """``step(params, state, opt_state, xs, ys, label_masks) -> (loss,
-    new_state, gstats)``, updating ``params`` and ``opt_state`` in place.
-    Port of the reference's graph train step without its precision,
-    sparse-gradient and remat branches."""
+    """``step(params, state, opt_state, xs, ys, label_masks, key=None,
+    masks=None) -> (loss, new_state, gstats)``, updating ``params`` and
+    ``opt_state`` in place, drawing dropout from ``key``.  Port of the
+    reference's graph train step without its precision, sparse-gradient
+    and remat branches."""
     confs = _vertex_confs(conf)
     refuse_unported_training(conf, confs.values())
     gn_mode = conf.defaults.get("gradient_normalization")
     gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
                                      1.0))
 
-    def step(params, state, opt_state, xs, ys, label_masks):
-        apply_constraints_all(params, confs)
+    def step(params, state, opt_state, xs, ys, label_masks, key=None,
+             masks=None):
         loss, new_state = _graph_loss(conf, params, state, xs, ys,
-                                      train=True, label_masks=label_masks)
+                                      train=True, label_masks=label_masks,
+                                      key=key, masks=masks)
         gstats = backward_and_update(loss, params, opt_state, tx, confs,
                                      gn_mode, gn_thr)
         return loss.detach(), new_state, gstats
@@ -142,22 +182,45 @@ class ComputationGraph(Network):
     def _hyper_confs(self):
         return _vertex_confs(self.conf)
 
-    def forward(self, *inputs: torch.Tensor) -> List[torch.Tensor]:
-        """Inference activations of the network outputs."""
+    def forward(self, *inputs: torch.Tensor, train: bool = False,
+                masks=None) -> List[torch.Tensor]:
+        """Activations of the network outputs; ``train=True`` keeps
+        dropout on with a fresh key from the network's stream."""
         if not self.params:
             raise RuntimeError("network has no params: call init() or "
                                "load_params() first")
-        acts, _ = _graph_forward(self.conf, self._param_tree(), self.state,
-                                 list(inputs), train=False)
+        acts, _, _ = _graph_forward(
+            self.conf, self._param_tree(), self.state, list(inputs),
+            train=train, key=self._next_key() if train else None,
+            masks=masks)
         return [acts[o] for o in self.conf.network_outputs]
 
-    def output(self, *inputs):
-        """Inference forward on a batch (numpy arrays or tensors): the
-        output activation, or a list of them for several outputs.  Results
-        stay on the network's device."""
+    def _masks_on_device(self, masks):
+        return None if masks is None else [self._on_device(m)
+                                           for m in _as_list(masks)]
+
+    def output(self, *inputs, train: bool = False, masks=None):
+        """Forward on a batch (numpy arrays or tensors): the output
+        activation, or a list of them for several outputs.  Results stay
+        on the network's device.  ``train=True`` draws dropout as
+        training does and advances the network's key stream; ``masks``
+        are the inputs' features masks."""
         with torch.inference_mode():
-            ys = self(*[self._on_device(x) for x in inputs])
+            ys = self(*[self._on_device(x) for x in inputs], train=train,
+                      masks=self._masks_on_device(masks))
         return ys[0] if len(ys) == 1 else ys
+
+    def feed_forward(self, *inputs, train: bool = False, masks=None
+                     ) -> Dict[str, torch.Tensor]:
+        """Every vertex's activation keyed by name; ``train=True`` keeps
+        dropout on with a fresh key."""
+        with torch.inference_mode():
+            acts, _, _ = _graph_forward(
+                self.conf, self._param_tree(), self.state,
+                [self._on_device(x) for x in inputs], train=train,
+                key=self._next_key() if train else None,
+                masks=self._masks_on_device(masks))
+        return acts
 
     # ------------------------------------------------------------ training
     def fit(self, data=None, labels=None, *, epochs: int = 1, masks=None,
@@ -172,9 +235,6 @@ class ComputationGraph(Network):
     def _fit_one(self, xs, ys, ms, lms) -> torch.Tensor:
         """One train step; returns (and keeps in ``_score``) the loss as a
         device scalar, without waiting for the device."""
-        if ms is not None and any(m is not None for m in _as_list(ms)):
-            raise NotImplementedError(
-                "features masks in training are not ported yet")
         xs = [self._on_device(x) for x in _as_list(xs)]
         self.last_batch_size = int(xs[0].shape[0])
         if self._step is None:
@@ -185,7 +245,8 @@ class ComputationGraph(Network):
                                         for m in _as_list(lms)]
         loss, self.state, gstats = self._step(
             self._param_tree(), self.state, self.opt_state, xs,
-            [self._on_device(y) for y in _as_list(ys)], lms)
+            [self._on_device(y) for y in _as_list(ys)], lms,
+            self._next_key(), self._masks_on_device(ms))
         self._score = loss
         self._last_grad_stats = gstats
         self.iteration += 1
@@ -202,11 +263,14 @@ class ComputationGraph(Network):
         recent training batch."""
         if dataset is None and inputs is None:
             return float(self._score)
+        ms = lms = None
         if dataset is not None:
-            inputs, labels, _, _ = _normalize_batch(dataset)
+            inputs, labels, ms, lms = _normalize_batch(dataset)
         with torch.no_grad():
             loss, _ = _graph_loss(
                 self.conf, self._param_tree(), self.state,
                 [self._on_device(x) for x in _as_list(inputs)],
-                [self._on_device(y) for y in _as_list(labels)], train=False)
+                [self._on_device(y) for y in _as_list(labels)], train=False,
+                label_masks=self._masks_on_device(lms),
+                masks=self._masks_on_device(ms))
         return float(loss)

@@ -1,18 +1,25 @@
 """ComputationGraph configuration: vertices and the fluent GraphBuilder
-(port of the parts of ``nn/conf/computation_graph.py`` that ResNet50
-uses).
+(port of ``nn/conf/computation_graph.py``).
 
 The graph is data: a dict of named vertex configs, each vertex's input
 names, and the network inputs and outputs.  ``resolve`` fills network
 defaults into each layer, orders the vertices topologically (Kahn's
-algorithm with a sorted ready list, so the order is the JAX package's)
-and infers every vertex's input types.
+algorithm with a sorted ready list, so the order is the JAX package's),
+gives a layer vertex the reshape preprocessor its layer family needs
+(as the JAX package's builder does) and infers every vertex's input
+types.
 
-Ported vertices: ``LayerVertex`` (without a preprocessor) and
-``ElementWiseVertex``.  Any other vertex class, or a layer vertex whose
-preprocessor is set, raises when the JSON is read.  A vertex runs as
-``forward(params, state, inputs, train) -> (y, new_state)``, the layer
-protocol of ``nn/layers/base``; fan-in gradients are summed by autograd.
+Vertices: ``LayerVertex`` (with an optional preprocessor),
+``ElementWiseVertex``, ``MergeVertex`` (concatenation on the last axis:
+features, or NHWC channels), ``SubsetVertex``, ``StackVertex``,
+``UnstackVertex``, ``ScaleVertex``, ``ShiftVertex``,
+``L2NormalizeVertex``, ``L2Vertex``, ``ReshapeVertex``,
+``PreprocessorVertex``, ``PoolHelperVertex``, ``LastTimeStepVertex`` and
+``DuplicateToTimeSeriesVertex``.  A vertex runs as ``forward(params,
+state, inputs, train, key, masks) -> (y, new_state)``, the layer protocol
+of ``nn/layers/base`` over a list of inputs and their features masks,
+and ``feed_forward_mask(masks, inputs)`` gives the mask its consumers
+see; fan-in gradients are summed by autograd.
 """
 from __future__ import annotations
 
@@ -24,10 +31,12 @@ import torch
 from ...utils import serde
 from ...utils.serde import register_serde
 from ..layers import (attention, convolution, feedforward,  # noqa: F401
-                      normalization, pooling, recurrent)  # (@class registry)
+                      misc, normalization, pooling,  # (@class registry)
+                      recurrent)
 from ..layers.base import LayerConf
-from . import updaters  # noqa: F401  (@class registry)
+from . import dropout, updaters  # noqa: F401  (@class registry)
 from .input_type import InputType
+from .preprocessors import InputPreProcessor, auto_preprocessor
 
 
 @dataclass
@@ -48,38 +57,69 @@ class GraphVertexConf:
         return {}
 
     def forward(self, params, state, inputs: List[torch.Tensor], *,
-                train: bool = False):
+                train: bool = False, key=None, masks=None):
+        return self.apply(params, inputs, train=train, key=key,
+                          masks=masks), state
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
         raise NotImplementedError
+
+    def feed_forward_mask(self, masks, inputs=None):
+        """The mask this vertex's consumers see: the first given one."""
+        for m in masks:
+            if m is not None:
+                return m
+        return None
 
 
 @register_serde
 @dataclass
 class LayerVertex(GraphVertexConf):
-    """Wraps a LayerConf."""
+    """Wraps a LayerConf, with the preprocessor its input needs."""
     layer: LayerConf = None
-    preprocessor: Optional[Any] = None
+    preprocessor: Optional[InputPreProcessor] = None
 
-    def __post_init__(self):
+    def _itype(self, itypes):
+        it = itypes[0]
         if self.preprocessor is not None:
-            raise NotImplementedError(
-                f"layer vertex '{getattr(self.layer, 'name', None)}': input "
-                f"preprocessors are not ported yet: {self.preprocessor!r}")
+            it = self.preprocessor.output_type(it)
+        return it
 
     def output_type(self, itypes):
-        return self.layer.output_type(itypes[0])
+        return self.layer.output_type(self._itype(itypes))
 
     def init(self, generator, itypes, device):
-        return self.layer.init(generator, itypes[0], device)
+        return self.layer.init(generator, self._itype(itypes), device)
 
     def init_state(self, itypes, device):
-        return self.layer.init_state(itypes[0], device)
+        return self.layer.init_state(self._itype(itypes), device)
 
-    def forward(self, params, state, inputs, *, train=False):
-        return self.layer.forward(params, state, inputs[0], train=train)
+    def _pre(self, x, mask):
+        if self.preprocessor is not None:
+            x = self.preprocessor.pre_process(x, mask)
+            if mask is not None:
+                mask = self.preprocessor.feed_forward_mask(mask, None)
+        return x, mask
 
-    def compute_loss(self, params, x, labels, *, train=False, mask=None):
+    def forward(self, params, state, inputs, *, train=False, key=None,
+                masks=None):
+        x, mask = self._pre(inputs[0], masks[0] if masks else None)
+        return self.layer.forward(params, state, x, train=train, key=key,
+                                  mask=mask)
+
+    def compute_loss(self, params, x, labels, *, train=False, key=None,
+                     mask=None):
+        x, mask = self._pre(x, mask)
         return self.layer.compute_loss(params, x, labels, train=train,
-                                       mask=mask)
+                                       key=key, mask=mask)
+
+    def feed_forward_mask(self, masks, inputs=None):
+        mask = masks[0] if masks else None
+        if mask is not None and self.preprocessor is not None:
+            mask = self.preprocessor.feed_forward_mask(mask, None)
+        if mask is not None:
+            mask = self.layer.feed_forward_mask(mask, None)
+        return mask
 
     def regularization_score(self, params):
         return self.layer.regularization_score(params)
@@ -94,7 +134,7 @@ class ElementWiseVertex(GraphVertexConf):
     def n_inputs(self):
         return (2, 2) if self.op == "subtract" else (2, -1)
 
-    def forward(self, params, state, inputs, *, train=False):
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
         op = self.op.lower()
         out = inputs[0]
         if op == "add":
@@ -112,7 +152,263 @@ class ElementWiseVertex(GraphVertexConf):
                 out = torch.maximum(out, x)
         else:
             raise ValueError(f"unknown elementwise op '{self.op}'")
-        return out, state
+        return out
+
+
+@register_serde
+@dataclass
+class MergeVertex(GraphVertexConf):
+    """Concatenate along the last axis: features for FF/RNN, channels
+    for NHWC images (the reference's NCHW dim 1)."""
+
+    def n_inputs(self):
+        return (1, -1)
+
+    def output_type(self, itypes):
+        first = itypes[0]
+        if first.kind == "ff":
+            return InputType.feed_forward(sum(t.size for t in itypes))
+        if first.kind == "rnn":
+            return InputType.recurrent(sum(t.size for t in itypes),
+                                       first.timesteps)
+        if first.kind == "cnn":
+            return InputType.convolutional(first.height, first.width,
+                                           sum(t.channels for t in itypes))
+        raise ValueError(f"MergeVertex: unsupported input kind {first.kind}")
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return torch.cat(inputs, dim=-1)
+
+
+@register_serde
+@dataclass
+class SubsetVertex(GraphVertexConf):
+    """Feature range ``[from_idx, to_idx]`` (inclusive) of the last
+    axis."""
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def output_type(self, itypes):
+        n = self.to_idx - self.from_idx + 1
+        t = itypes[0]
+        if t.kind == "ff":
+            return InputType.feed_forward(n)
+        if t.kind == "rnn":
+            return InputType.recurrent(n, t.timesteps)
+        if t.kind == "cnn":
+            return InputType.convolutional(t.height, t.width, n)
+        raise ValueError(t.kind)
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return inputs[0][..., self.from_idx:self.to_idx + 1]
+
+
+@register_serde
+@dataclass
+class StackVertex(GraphVertexConf):
+    """Concatenate along the batch axis (one layer shared by several
+    inputs)."""
+
+    def n_inputs(self):
+        return (1, -1)
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return torch.cat(inputs, dim=0)
+
+    def feed_forward_mask(self, masks, inputs=None):
+        if all(m is None for m in masks):
+            return None
+        # unmasked inputs contribute all-ones rows (reference semantics)
+        proto = next(m for m in masks if m is not None)
+        out = []
+        for i, m in enumerate(masks):
+            if m is None:
+                if inputs is None:
+                    raise ValueError(
+                        "StackVertex: mixed masked/unmasked inputs need "
+                        "runtime shapes to synthesize all-ones masks")
+                out.append(torch.ones((inputs[i].shape[0],)
+                                      + tuple(proto.shape[1:]),
+                                      dtype=proto.dtype,
+                                      device=proto.device))
+            else:
+                out.append(m)
+        return torch.cat(out, dim=0)
+
+
+@register_serde
+@dataclass
+class UnstackVertex(GraphVertexConf):
+    """Batch slab ``from_idx`` of ``stack_size`` equal slabs."""
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def _slab(self, x):
+        step = x.shape[0] // self.stack_size
+        return x[self.from_idx * step:(self.from_idx + 1) * step]
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return self._slab(inputs[0])
+
+    def feed_forward_mask(self, masks, inputs=None):
+        m = masks[0] if masks else None
+        return None if m is None else self._slab(m)
+
+
+@register_serde
+@dataclass
+class ScaleVertex(GraphVertexConf):
+    """Multiply by a fixed scalar."""
+    scale_factor: float = 1.0
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return inputs[0] * self.scale_factor
+
+
+@register_serde
+@dataclass
+class ShiftVertex(GraphVertexConf):
+    """Add a fixed scalar."""
+    shift_factor: float = 0.0
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return inputs[0] + self.shift_factor
+
+
+@register_serde
+@dataclass
+class L2NormalizeVertex(GraphVertexConf):
+    """``x / (||x||_2 + eps)`` per example."""
+    eps: float = 1e-8
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        x = inputs[0]
+        dims = tuple(range(1, x.ndim))
+        norm = torch.sqrt(torch.sum(x * x, dim=dims, keepdim=True))
+        return x / (norm + self.eps)
+
+
+@register_serde
+@dataclass
+class L2Vertex(GraphVertexConf):
+    """L2 distance between two activations per example: ``[b, 1]``; eps
+    inside the root keeps the gradient finite at 0."""
+    eps: float = 1e-8
+
+    def n_inputs(self):
+        return (2, 2)
+
+    def output_type(self, itypes):
+        return InputType.feed_forward(1)
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        a = inputs[0].reshape(inputs[0].shape[0], -1)
+        b = inputs[1].reshape(inputs[1].shape[0], -1)
+        d = a - b
+        return torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + self.eps)
+
+
+def _itype_of(shape) -> InputType:
+    s = [int(d) for d in shape]
+    if len(s) == 1:
+        return InputType.feed_forward(s[0])
+    if len(s) == 2:
+        return InputType.recurrent(s[1], s[0])
+    if len(s) == 3:
+        return InputType.convolutional(s[0], s[1], s[2])
+    raise ValueError(f"bad per-example shape {s}")
+
+
+@register_serde
+@dataclass
+class ReshapeVertex(GraphVertexConf):
+    """Reshape per example (``shape`` excludes the batch dim)."""
+    shape: List[int] = field(default_factory=list)
+
+    def output_type(self, itypes):
+        return _itype_of(self.shape)
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        x = inputs[0]
+        return x.reshape((x.shape[0],) + tuple(int(d) for d in self.shape))
+
+
+@register_serde
+@dataclass
+class PreprocessorVertex(GraphVertexConf):
+    """An input preprocessor as a vertex."""
+    preprocessor: InputPreProcessor = None
+
+    def output_type(self, itypes):
+        return self.preprocessor.output_type(itypes[0])
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return self.preprocessor.pre_process(inputs[0],
+                                             masks[0] if masks else None)
+
+
+@register_serde
+@dataclass
+class PoolHelperVertex(GraphVertexConf):
+    """Drop the first row and column of an NHWC activation (the
+    imported-GoogLeNet shim)."""
+
+    def output_type(self, itypes):
+        t = itypes[0]
+        return InputType.convolutional(t.height - 1, t.width - 1, t.channels)
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        return inputs[0][:, 1:, 1:, :]
+
+
+@register_serde
+@dataclass
+class LastTimeStepVertex(GraphVertexConf):
+    """RNN ``[b, t, f]`` -> ``[b, f]`` at each row's last unmasked step;
+    ``mask_input`` names the network input whose mask gives the
+    lengths."""
+    mask_input: Optional[str] = None
+
+    def output_type(self, itypes):
+        return InputType.feed_forward(itypes[0].size)
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        x = inputs[0]
+        mask = masks[0] if masks else None
+        if mask is None:
+            return x[:, -1, :]
+        # the index of the last nonzero mask entry of each row
+        idx = x.shape[1] - 1 - torch.argmax((mask.flip(1) != 0).to(
+            torch.int32), dim=1)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+    def feed_forward_mask(self, masks, inputs=None):
+        return None  # the time axis is consumed
+
+
+@register_serde
+@dataclass
+class DuplicateToTimeSeriesVertex(GraphVertexConf):
+    """FF ``[b, f]`` -> RNN ``[b, t, f]`` by repetition; t from the
+    optional second input (the series whose length to copy), else
+    ``timesteps``, resolved from ``ts_input``'s input type."""
+    ts_input: str = ""
+    timesteps: int = -1
+
+    def n_inputs(self):
+        return (1, 2)
+
+    def output_type(self, itypes):
+        return InputType.recurrent(itypes[0].size, self.timesteps)
+
+    def apply(self, params, inputs, *, train=False, key=None, masks=None):
+        x = inputs[0]
+        t = inputs[1].shape[1] if len(inputs) > 1 else self.timesteps
+        if t is None or t < 0:
+            raise ValueError(
+                "DuplicateToTimeSeriesVertex needs static timesteps or the "
+                "ts_input wired as a second graph input")
+        return x[:, None, :].expand(-1, t, -1).contiguous()
 
 
 @register_serde
@@ -197,7 +493,13 @@ class ComputationGraphConfiguration:
                     f"inputs, got {len(ins)}")
             itypes = [it_by_name[src] for src in ins]
             if isinstance(v, LayerVertex):
-                v.layer.set_n_in(itypes[0], override=False)
+                if v.preprocessor is None:
+                    v.preprocessor = auto_preprocessor(itypes[0], v.layer)
+                v.layer.set_n_in(v._itype(itypes), override=False)
+            if isinstance(v, DuplicateToTimeSeriesVertex):
+                ref = it_by_name.get(v.ts_input)
+                if ref is not None:
+                    v.timesteps = ref.timesteps
             self.vertex_input_types[name] = itypes
             it_by_name[name] = v.output_type(itypes)
 

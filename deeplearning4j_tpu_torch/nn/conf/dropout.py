@@ -1,0 +1,92 @@
+"""Dropout configurations (port of the activation half of
+``nn/conf/dropout.py``): ``Dropout``, ``GaussianDropout``,
+``GaussianNoise`` and ``AlphaDropout``, and ``resolve``.
+
+Each ``apply(key, x)`` draws from the JAX package's threefry stream
+(``utils/_random``) on the key's device, so for one key the port keeps
+or drops the same units as the JAX package does with x64 off: the
+Bernoulli masks of ``Dropout`` and ``AlphaDropout`` are bit-equal, and
+``Dropout`` divides by p (``x / p``, not ``x * (1/p)``) so its kept
+values are too.  ``GaussianDropout`` and ``GaussianNoise`` go through
+``erfinv`` and agree within float32 rounding.  Training only: the layers
+call ``apply`` when ``train`` and a key are given.  The weight-noise
+half (``DropConnect``, ``WeightNoise``) is not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ...utils import _random
+from ...utils.serde import register_serde
+
+
+@dataclass
+class IDropout:
+    def apply(self, key: torch.Tensor, x: torch.Tensor, iteration: int = 0
+              ) -> torch.Tensor:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+@register_serde
+@dataclass
+class Dropout(IDropout):
+    """Inverted dropout with retain probability p (reference
+    Dropout.java)."""
+    p: float = 0.5  # probability of *retaining* a unit, as in DL4J
+
+    def apply(self, key, x, iteration=0):
+        keep = _random.bernoulli(key, self.p, x.shape)
+        return torch.where(keep, x / self.p, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+
+@register_serde
+@dataclass
+class GaussianDropout(IDropout):
+    rate: float = 0.5
+
+    def apply(self, key, x, iteration=0):
+        std = (self.rate / (1.0 - self.rate)) ** 0.5
+        return x * (1.0 + std * _random.normal(key, x.shape).to(x.dtype))
+
+
+@register_serde
+@dataclass
+class GaussianNoise(IDropout):
+    stddev: float = 0.1
+
+    def apply(self, key, x, iteration=0):
+        return x + self.stddev * _random.normal(key, x.shape).to(x.dtype)
+
+
+@register_serde
+@dataclass
+class AlphaDropout(IDropout):
+    """SELU-compatible dropout (reference AlphaDropout.java)."""
+    p: float = 0.95
+    alpha: float = -1.7580993408473766  # -alpha*lambda of SELU
+
+    def apply(self, key, x, iteration=0):
+        p = self.p
+        a = (p + self.alpha ** 2 * p * (1 - p)) ** -0.5
+        b = -a * (1 - p) * self.alpha
+        keep = _random.bernoulli(key, p, x.shape)
+        return a * torch.where(keep, x, torch.full((), self.alpha,
+                                                   dtype=x.dtype,
+                                                   device=x.device)) + b
+
+
+def resolve(d) -> Optional[IDropout]:
+    """Accept None, a float retain probability (DL4J style) or an
+    ``IDropout``; a float outside (0, 1) is off."""
+    if d is None:
+        return None
+    if isinstance(d, IDropout):
+        return d
+    p = float(d)
+    if p <= 0.0 or p >= 1.0:
+        return None
+    return Dropout(p)

@@ -1,10 +1,10 @@
 """Sequential network configuration (port of ``nn/conf/multi_layer.py``).
 
 Reads a ``MultiLayerConfiguration`` JSON written by the JAX package and
-resolves it: network defaults into each layer, input sizes inferred
-layer by layer from the declared input type.  The builder DSL and input
-preprocessors come later; a configuration that names a preprocessor
-raises.
+resolves it: network defaults into each layer, the reshape preprocessor
+inserted where layer families change (``preprocessor(i)``, as the JAX
+package's builder does), input sizes inferred layer by layer from the
+declared input type.  The builder DSL comes later.
 """
 from __future__ import annotations
 
@@ -14,10 +14,12 @@ from typing import Any, Dict, List, Optional
 from ...utils import serde
 from ...utils.serde import register_serde
 from ..layers import (attention, convolution, feedforward,  # noqa: F401
-                      normalization, pooling, recurrent)  # (@class registry)
+                      misc, normalization, pooling,  # (@class registry)
+                      recurrent)
 from ..layers.base import LayerConf
-from . import updaters  # noqa: F401  (@class registry)
+from . import dropout, updaters  # noqa: F401  (@class registry)
 from .input_type import InputType
+from .preprocessors import InputPreProcessor, auto_preprocessor
 
 
 @register_serde
@@ -25,7 +27,9 @@ from .input_type import InputType
 class MultiLayerConfiguration:
     layers: List[LayerConf] = field(default_factory=list)
     input_type: Optional[InputType] = None
-    input_preprocessors: Dict[str, Any] = field(default_factory=dict)
+    # int-keyed in meaning; str keys, as the JSON has them
+    input_preprocessors: Dict[str, InputPreProcessor] = field(
+        default_factory=dict)
     backprop_type: str = "standard"
     tbptt_fwd_length: int = 20
     tbptt_back_length: int = 20
@@ -41,12 +45,12 @@ class MultiLayerConfiguration:
                              f"{type(conf).__name__}")
         return conf
 
+    def preprocessor(self, i: int) -> Optional[InputPreProcessor]:
+        return self.input_preprocessors.get(str(i))
+
     def resolve(self) -> None:
-        """Apply defaults, infer n_in, record each layer's input type."""
-        if self.input_preprocessors:
-            raise NotImplementedError(
-                "input preprocessors are not ported yet: "
-                f"{sorted(self.input_preprocessors)}")
+        """Apply defaults, insert preprocessors, infer n_in, record each
+        layer's input type."""
         if self.input_type is None:
             raise NotImplementedError(
                 "configurations without a declared input type are not "
@@ -56,7 +60,14 @@ class MultiLayerConfiguration:
                 lc.apply_global_defaults(self.defaults)
         self.layer_input_types = []
         itype = self.input_type
-        for lc in self.layers:
+        for i, lc in enumerate(self.layers):
+            if str(i) not in self.input_preprocessors:
+                pp = auto_preprocessor(itype, lc)
+                if pp is not None:
+                    self.input_preprocessors[str(i)] = pp
+            pp = self.preprocessor(i)
+            if pp is not None:
+                itype = pp.output_type(itype)
             lc.set_n_in(itype, override=False)
             self.layer_input_types.append(itype)
             itype = lc.output_type(itype)

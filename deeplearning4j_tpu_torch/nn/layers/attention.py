@@ -9,7 +9,10 @@ Attention implementations (``attn_impl``):
   'ring'/'ulysses' (sequence parallelism) are not ported yet.
 
 The flash path is differentiable: its backward runs the two Hopper
-backward kernels on CUDA tensors.
+backward kernels on CUDA tensors.  ``attn_dropout`` (a retain
+probability) drops the attention output in training with a mask drawn
+from ``fold_in(key, 7)``, as the JAX package does;
+``TransformerBlock`` builds its attention without it, as there.
 
 Incremental decoding carries a KV cache through ``init_carry`` /
 ``apply_with_carry`` (``rnn_time_step``, tBPTT, the generation engine).
@@ -31,6 +34,7 @@ import torch
 
 from ...ops.attention import sdpa_reference
 from ...ops.flash_attention import flash_attention
+from ...utils import _random
 from ...utils.serde import register_serde
 from ..activations import gelu
 from ..conf.input_type import InputType
@@ -61,7 +65,7 @@ class LayerNormLayer(BaseLayerConf):
                 "beta": torch.zeros(self.n_out, dtype=self._dtype(),
                                     device=device)}
 
-    def apply(self, params, x, *, train=False):
+    def apply(self, params, x, *, train=False, key=None):
         return _layer_norm(x, params["gamma"], params["beta"], self.eps)
 
 
@@ -121,6 +125,7 @@ class MultiHeadAttention(BaseLayerConf):
     attn_dropout: Optional[float] = None
     max_cache_len: int = 512
 
+    INPUT_KIND = "rnn"
     HAS_CARRY = True
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
@@ -162,7 +167,7 @@ class MultiHeadAttention(BaseLayerConf):
         bsz, t = y.shape[0], y.shape[1]
         return y.reshape(bsz, t, h, d).transpose(1, 2)   # [b,h,t,d]
 
-    def attend(self, p, x, *, train=False, mask=None):
+    def attend(self, p, x, *, train=False, key=None, mask=None):
         """QKV projection -> attention -> output projection."""
         q = self._heads(x, p, "Wq", "bq")
         k = self._heads(x, p, "Wk", "bk")
@@ -173,20 +178,28 @@ class MultiHeadAttention(BaseLayerConf):
         y = o.transpose(1, 2).reshape(b_, t, h * d) @ p["Wo"]
         if self.has_bias:
             y = y + p["bo"]
-        if train and self.attn_dropout:
-            raise NotImplementedError(
-                f"layer '{self.name}': attn_dropout={self.attn_dropout!r} "
-                "is not ported yet (its masks come from JAX's threefry "
-                "stream); train with attn_dropout unset")
+        return self._maybe_attn_dropout(y, train, key)
+
+    def _maybe_attn_dropout(self, y, train, key):
+        """Inverted dropout of the attention output with retain
+        probability ``attn_dropout``, drawn from ``fold_in(key, 7)``."""
+        if train and self.attn_dropout and key is not None:
+            keep = self.attn_dropout
+            mask_d = _random.bernoulli(_random.fold_in(key, 7), keep,
+                                       y.shape)
+            y = torch.where(mask_d, y / keep,
+                            torch.zeros((), dtype=y.dtype, device=y.device))
         return y
 
-    def apply(self, params, x, *, train=False, mask=None):
-        params = self.maybe_noise_weights(params, train)
-        x = self.maybe_dropout_input(x, train)
-        return self.act_fn(self.attend(params, x, train=train, mask=mask))
+    def apply(self, params, x, *, train=False, key=None, mask=None):
+        params = self.maybe_noise_weights(params, train, key)
+        x = self.maybe_dropout_input(x, train, key)
+        return self.act_fn(self.attend(params, x, train=train, key=key,
+                                       mask=mask))
 
-    def forward(self, params, state, x, *, train=False, mask=None):
-        return self.apply(params, x, train=train, mask=mask), state
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
+        return self.apply(params, x, train=train, key=key, mask=mask), state
 
     # ---- KV-cache incremental decoding -----------------------------------
     def init_carry(self, batch, dtype, device, max_len=None):
@@ -339,16 +352,14 @@ class MultiHeadAttention(BaseLayerConf):
                            q_offset=q_offset)
         return self._project_out(p, o, mask), dict(carry, pos=pos + t)
 
-    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
+    def apply_with_carry(self, params, x, carry, *, train=False, key=None,
+                         mask=None):
         if carry is None:
             carry = self.init_carry(x.shape[0], x.dtype, x.device)
-        params = self.maybe_noise_weights(params, train)
-        x = self.maybe_dropout_input(x, train)
-        if train and self.attn_dropout:
-            raise NotImplementedError(
-                f"layer '{self.name}': attn_dropout={self.attn_dropout!r} "
-                "is not ported yet; train with attn_dropout unset")
+        params = self.maybe_noise_weights(params, train, key)
+        x = self.maybe_dropout_input(x, train, key)
         y, new_carry = self.attend_cached(params, x, carry, mask=mask)
+        y = self._maybe_attn_dropout(y, train, key)
         return self.act_fn(y), new_carry
 
 
@@ -370,6 +381,7 @@ class TransformerBlock(BaseLayerConf):
     moe_capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
 
+    INPUT_KIND = "rnn"
     HAS_CARRY = True
 
     def __post_init__(self):
@@ -414,27 +426,30 @@ class TransformerBlock(BaseLayerConf):
         })
         return params
 
-    def apply(self, params, x, *, train=False, mask=None):
-        p = self.maybe_noise_weights(params, train)
-        x = self.maybe_dropout_input(x, train)
+    def apply(self, params, x, *, train=False, key=None, mask=None):
+        p = self.maybe_noise_weights(params, train, key)
+        x = self.maybe_dropout_input(x, train, key)
         mha_p = {k[4:]: v for k, v in p.items() if k.startswith("mha_")}
         xn = _layer_norm(x, p["ln1_g"], p["ln1_b"], self.eps)
-        x = x + self._mha().attend(mha_p, xn, train=train, mask=mask)
+        x = x + self._mha().attend(mha_p, xn, train=train, key=key,
+                                   mask=mask)
         xn = _layer_norm(x, p["ln2_g"], p["ln2_b"], self.eps)
         return x + gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"]
 
-    def forward(self, params, state, x, *, train=False, mask=None):
-        return self.apply(params, x, train=train, mask=mask), state
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
+        return self.apply(params, x, train=train, key=key, mask=mask), state
 
     # ---- KV-cache incremental decoding -----------------------------------
     def init_carry(self, batch, dtype, device, max_len=None):
         return self._mha().init_carry(batch, dtype, device, max_len=max_len)
 
-    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
+    def apply_with_carry(self, params, x, carry, *, train=False, key=None,
+                         mask=None):
         if carry is None:
             carry = self.init_carry(x.shape[0], x.dtype, x.device)
-        p = self.maybe_noise_weights(params, train)
-        x = self.maybe_dropout_input(x, train)
+        p = self.maybe_noise_weights(params, train, key)
+        x = self.maybe_dropout_input(x, train, key)
         mha_p = {k[4:]: v for k, v in p.items() if k.startswith("mha_")}
         xn = _layer_norm(x, p["ln1_g"], p["ln1_b"], self.eps)
         attn, new_carry = self._mha().attend_cached(mha_p, xn, carry,
@@ -466,14 +481,15 @@ class PositionalEncodingLayer(LayerConf):
         return torch.where(i % 2 == 0, torch.sin(angle),
                            torch.cos(angle)).to(dtype)
 
-    def apply(self, params, x, *, train=False):
+    def apply(self, params, x, *, train=False, key=None):
         _, t, e = x.shape
         return x + self._pe(t, e, 0, x.dtype, x.device)
 
     def init_carry(self, batch, dtype, device, max_len=None):
         return {"pos": torch.zeros((), dtype=torch.int32, device=device)}
 
-    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
+    def apply_with_carry(self, params, x, carry, *, train=False, key=None,
+                         mask=None):
         if carry is None:
             carry = self.init_carry(x.shape[0], x.dtype, x.device)
         _, t, e = x.shape

@@ -5,8 +5,9 @@ these functions on tensors:
 
     init(generator, itype, device) -> {name: tensor}    fresh parameters
     init_state(itype, device)      -> {name: tensor}    fresh state
-    apply(params, x, train=False)  -> y                 stateless forward
-    forward(params, state, x, train=False, mask=None) -> (y, new_state)
+    apply(params, x, train=False, key=None) -> y        stateless forward
+    forward(params, state, x, train=False, key=None, mask=None)
+                                   -> (y, new_state)
     feed_forward_mask(mask, itype) -> the mask the next layer sees
 
 The networks call ``forward``: the JAX package's ``apply`` returns
@@ -21,7 +22,12 @@ that read it (recurrent, attention) override ``forward``.
 Recurrent layers carry state across calls (``rnn_time_step`` streaming,
 tBPTT chunks): ``HAS_CARRY`` marks them, ``init_carry(batch, dtype,
 device)`` makes a zero carry and ``apply_with_carry(params, x, carry,
-train, mask) -> (y, new_carry)`` runs from a given one.
+train, key, mask) -> (y, new_carry)`` runs from a given one.
+
+``key`` is a ``[2]`` threefry key of ``utils/_random`` (the JAX
+package's stream), given in training: the network folds the layer's
+index into the step's key, as the JAX package does, and the layer draws
+its dropout from it on the key's device.
 
 Parameters keep the JAX package's names and shapes (a dense ``W`` is
 ``[n_in, n_out]`` and applies as ``x @ W``), so a checkpoint crosses over
@@ -30,9 +36,10 @@ without transposes.  A wrapper whose JAX param group nests sub-groups
 named ``fwd/W``, ...: ``flatten_group`` and ``nest_group`` map between the
 two.  ``None`` fields inherit the network-level default,
 as in the reference's builder.  l1/l2 regularisation is ported
-(``regularization_score``).  Dropout and weight noise draw their masks
-from JAX's threefry stream, which is not ported: they have no effect on
-inference, and a training forward with either set raises.
+(``regularization_score``), and so is dropout on a layer's input
+(``maybe_dropout_input``, ``nn/conf/dropout``).  Weight noise
+(``DropConnect``, ``WeightNoise``) is not: it has no effect on
+inference, and a training forward with it set raises.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .. import activations as _act
+from ..conf import dropout as _dropout
 from ..conf.input_type import InputType
 
 Params = Dict[str, torch.Tensor]
@@ -118,6 +126,23 @@ def nest_group(group: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def draws(lc) -> bool:
+    """Whether a layer (or a wrapper's inner layer) draws from its key in
+    training: dropout, ``attn_dropout`` or weight noise set.  A frozen
+    layer runs in inference mode and draws nothing.  The networks derive
+    a layer's key only where it draws: each derivation is a threefry
+    hash, some hundred small launches on the card."""
+    if lc is None or getattr(lc, "FROZEN", False):
+        return False
+    if _dropout.resolve(getattr(lc, "dropout", None)) is not None or \
+            getattr(lc, "attn_dropout", None) or \
+            getattr(lc, "weight_noise", None) is not None:
+        return True
+    return any(draws(getattr(lc, a, None))
+               for a in ("underlying", "fwd", "layer")
+               if getattr(lc, a, None) is not lc)
+
+
 @dataclass
 class LayerConf:
     """Root of the layer-config hierarchy."""
@@ -139,13 +164,19 @@ class LayerConf:
         return {}
 
     def apply(self, params: Params, x: torch.Tensor, *,
-              train: bool = False) -> torch.Tensor:
+              train: bool = False, key: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
         raise NotImplementedError
 
     def forward(self, params: Params, state: Params, x: torch.Tensor, *,
-                train: bool = False, mask: Optional[torch.Tensor] = None
+                train: bool = False, key: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Params]:
-        return self.apply(params, x, train=train), state
+        return self.apply(params, x, train=train, key=key), state
+
+    def regularization_score(self, params: Params) -> torch.Tensor:
+        device = next(iter(params.values())).device if params else None
+        return torch.zeros((), dtype=torch.float32, device=device)
 
     def feed_forward_mask(self, mask: Optional[torch.Tensor],
                           itype: Optional[InputType]
@@ -153,16 +184,6 @@ class LayerConf:
         """Propagate a mask through this layer (reference Layer.java:282):
         unchanged unless the layer changes the time axis."""
         return mask
-
-
-def _dropout_on(d) -> bool:
-    """The reference's ``conf.dropout.resolve``: None, or a float retain
-    probability outside (0, 1), is off; anything else is on."""
-    if d is None:
-        return False
-    if isinstance(d, (int, float)):
-        return 0.0 < float(d) < 1.0
-    return True
 
 
 @dataclass
@@ -235,24 +256,25 @@ class BaseLayerConf(LayerConf):
         return torch.full(shape, float(self.resolved("bias_init", 0.0)),
                           dtype=self._dtype(), device=device)
 
-    def maybe_dropout_input(self, x: torch.Tensor, train: bool
+    def maybe_dropout_input(self, x: torch.Tensor, train: bool,
+                            key: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-        """Dropout on the layer input (reference semantics).  Identity
-        when unset or not training; raises when set in training."""
-        if train and _dropout_on(self.dropout):
-            raise NotImplementedError(
-                f"layer '{self.name}': dropout={self.dropout!r} is not "
-                "ported yet (its masks come from JAX's threefry stream); "
-                "train with dropout unset")
+        """Dropout on the layer input (reference semantics), drawn from
+        ``key``; identity when unset, not training or without a key."""
+        d = _dropout.resolve(self.dropout)
+        if train and d is not None and key is not None:
+            return d.apply(key, x)
         return x
 
-    def maybe_noise_weights(self, params: Params, train: bool) -> Params:
+    def maybe_noise_weights(self, params: Params, train: bool,
+                            key: Optional[torch.Tensor] = None) -> Params:
         """Weight noise on non-bias params.  Identity when unset or not
-        training; raises when set in training."""
+        training; raises when set in training: ``DropConnect`` and
+        ``WeightNoise`` are not ported."""
         if train and self.weight_noise is not None:
             raise NotImplementedError(
-                f"layer '{self.name}': weight_noise is not ported yet (its "
-                "draws come from JAX's threefry stream); train with "
+                f"layer '{self.name}': weight_noise={self.weight_noise!r} "
+                "(DropConnect / WeightNoise) is not ported yet; train with "
                 "weight_noise unset")
         return params
 

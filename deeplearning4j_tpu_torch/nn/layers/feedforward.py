@@ -1,14 +1,16 @@
-"""Dense/output head, activation layer and token embedding (port of the
-parts of ``nn/layers/feedforward.py`` that TransformerLM and ResNet50
-use).
+"""Feed-forward layers (port of ``nn/layers/feedforward.py``): Dense,
+Output, CenterLossOutput, Loss, Activation, Dropout, Embedding and
+EmbeddingSequence.
 
 ``DenseLayer`` computes ``x @ W + b`` with ``W`` stored ``[n_in, n_out]``
 as in the JAX package (not ``nn.Linear``'s transposed weight).
-``OutputLayer`` adds the loss head.  ``EmbeddingSequenceLayer`` takes
-integer ids ``[b, t]`` or a one-hot ``[b, t, n_in]`` batch, which it
-decodes by argmax.  The id range is checked once, on the host batch, at
-the network's boundary (``validate_host_ids``), not inside the forward,
-where reading a device tensor's min and max would stall the device.
+``OutputLayer`` adds the loss head.  ``EmbeddingLayer`` takes ids
+``[b]``/``[b, 1]`` or a one-hot ``[b, n_in]`` batch,
+``EmbeddingSequenceLayer`` integer ids ``[b, t]`` or a one-hot
+``[b, t, n_in]`` batch, which both decode by argmax.  The id range is
+checked once, on the host batch, at the network's boundary
+(``validate_host_ids``), not inside the forward, where reading a device
+tensor's min and max would stall the device.
 """
 from __future__ import annotations
 
@@ -28,16 +30,19 @@ from .base import BaseLayerConf
 @register_serde
 @dataclass
 class DenseLayer(BaseLayerConf):
+    INPUT_KIND = "ff"
+
     n_in: int = 0
     n_out: int = 0
     has_bias: bool = True
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
         if self.n_in == 0 or override:
-            if itype.kind != "ff":
+            if itype.kind not in ("ff", "cnnflat"):
                 raise ValueError(f"layer '{self.name}': dense layer expects "
                                  f"FF input, got {itype}")
-            self.n_in = itype.size
+            self.n_in = itype.flat_size() if itype.kind == "cnnflat" \
+                else itype.size
 
     def output_type(self, itype: InputType) -> InputType:
         return InputType.feed_forward(self.n_out)
@@ -52,16 +57,16 @@ class DenseLayer(BaseLayerConf):
             params["b"] = self.make_bias((self.n_out,), device)
         return params
 
-    def pre_output(self, params, x, *, train=False):
-        params = self.maybe_noise_weights(params, train)
-        x = self.maybe_dropout_input(x, train)
+    def pre_output(self, params, x, *, train=False, key=None):
+        params = self.maybe_noise_weights(params, train, key)
+        x = self.maybe_dropout_input(x, train, key)
         z = x @ params["W"]
         if self.has_bias:
             z = z + params["b"]
         return z
 
-    def apply(self, params, x, *, train=False):
-        return self.act_fn(self.pre_output(params, x, train=train))
+    def apply(self, params, x, *, train=False, key=None):
+        return self.act_fn(self.pre_output(params, x, train=train, key=key))
 
 
 @register_serde
@@ -72,8 +77,9 @@ class OutputLayer(DenseLayer):
     loss: str = "mcxent"
     loss_weights: Optional[Sequence[float]] = None
 
-    def compute_loss(self, params, x, labels, *, train=False, mask=None):
-        z = self.pre_output(params, x, train=train)
+    def compute_loss(self, params, x, labels, *, train=False, key=None,
+                     mask=None):
+        z = self.pre_output(params, x, train=train, key=key)
         act = self.resolved("activation", "identity")
         if self.loss_weights is not None:
             w = torch.as_tensor(self.loss_weights, dtype=z.dtype,
@@ -89,16 +95,141 @@ class OutputLayer(DenseLayer):
 
 @register_serde
 @dataclass
+class CenterLossOutputLayer(OutputLayer):
+    """Softmax + center loss (reference ``CenterLossOutputLayer``): the
+    intra-class term λ/2·||f − c_y||².  ``centers`` ``[n_out, n_in]`` is
+    a param that the updater steps like any other; its pull towards the
+    features is value-neutral (``+ l_cent − l_cent.detach()``), so it adds
+    gradient to the centers and nothing to the score, and l1/l2 skip it."""
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def init(self, generator, itype, device):
+        params = super().init(generator, itype, device)
+        params["centers"] = torch.zeros((self.n_out, self.n_in),
+                                        dtype=self._dtype(), device=device)
+        return params
+
+    def regularization_score(self, params):
+        # centers are statistics, not weights
+        return super().regularization_score(
+            {k: v for k, v in params.items() if k != "centers"})
+
+    def compute_loss(self, params, x, labels, *, train=False, key=None,
+                     mask=None):
+        base = super().compute_loss(params, x, labels, train=train, key=key,
+                                    mask=mask)
+        centers = params["centers"]
+        c_sel = labels.to(centers.dtype) @ centers     # one-hot row select
+        per_f = torch.sum((x - c_sel.detach()) ** 2, dim=-1)
+        per_c = torch.sum((x.detach() - c_sel) ** 2, dim=-1)
+        if mask is not None:
+            w = mask.reshape(mask.shape[0], -1)[:, 0].to(per_f.dtype)
+            denom = torch.clamp(torch.sum(w), min=1.0)
+            mean_f = torch.sum(w * per_f) / denom
+            mean_c = torch.sum(w * per_c) / denom
+        else:
+            mean_f, mean_c = torch.mean(per_f), torch.mean(per_c)
+        l_feat = 0.5 * self.lambda_ * mean_f
+        l_cent = 0.5 * self.alpha * mean_c
+        return base + l_feat + l_cent - l_cent.detach()
+
+
+@register_serde
+@dataclass
+class LossLayer(BaseLayerConf):
+    """Loss-only head, no params (reference ``LossLayer``)."""
+    loss: str = "mse"
+
+    def apply(self, params, x, *, train=False, key=None):
+        return self.act_fn(x)
+
+    def compute_loss(self, params, x, labels, *, train=False, key=None,
+                     mask=None):
+        return _losses.get(self.loss)(
+            labels, x, self.resolved("activation", "identity"), mask)
+
+
+@register_serde
+@dataclass
 class ActivationLayer(BaseLayerConf):
     """The activation alone, no params."""
 
-    def apply(self, params, x, *, train=False):
+    def apply(self, params, x, *, train=False, key=None):
         return self.act_fn(x)
+
+
+@register_serde
+@dataclass
+class DropoutLayer(BaseLayerConf):
+    """Standalone dropout (reference ``DropoutLayer``): the activation,
+    then the layer's dropout."""
+
+    def apply(self, params, x, *, train=False, key=None):
+        return self.maybe_dropout_input(self.act_fn(x), train, key)
 
 
 def _is_integer(dtype: torch.dtype) -> bool:
     return not dtype.is_floating_point and not dtype.is_complex \
         and dtype != torch.bool
+
+
+@register_serde
+@dataclass
+class EmbeddingLayer(BaseLayerConf):
+    """Index -> vector lookup (reference ``EmbeddingLayer``): ids
+    ``[b]``/``[b, 1]`` or one-hot ``[b, n_in]`` -> ``[b, n_out]``, plus
+    the bias."""
+    n_in: int = 0
+    n_out: int = 0
+    has_bias: bool = True
+    sparse_grad: bool = False
+    sparse_grad_capacity: Optional[int] = None
+
+    def set_n_in(self, itype: InputType, override: bool = False) -> None:
+        if self.n_in == 0 or override:
+            self.n_in = itype.size
+
+    def output_type(self, itype: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def init(self, generator, itype, device):
+        params = {"W": self.make_weight(generator, (self.n_in, self.n_out),
+                                        device)}
+        if self.has_bias:
+            params["b"] = self.make_bias((self.n_out,), device)
+        return params
+
+    def decode_ids(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """``[b]`` int64 ids, or None for a one-hot batch (float
+        ``[b, n_in]``, or the integer one-hot form with n_in > 1)."""
+        if x.ndim == 2 and x.shape[-1] == self.n_in and self.n_in > 1 and \
+                not _is_integer(x.dtype):
+            return None
+        if x.ndim == 2 and x.shape[-1] == 1:
+            x = x[:, 0]
+        if x.ndim != 1:
+            if x.ndim == 2 and x.shape[-1] == self.n_in and self.n_in > 1:
+                return None
+            raise InvalidInputError(
+                f"layer '{self.name}': expected ids [batch]/[batch, 1] or "
+                f"one-hot [batch, {self.n_in}], got shape {tuple(x.shape)}")
+        if not _is_integer(x.dtype):
+            raise InvalidInputError(
+                f"layer '{self.name}': embedding ids must be an integer "
+                f"dtype, got {x.dtype} — a float id batch would silently "
+                f"truncate; pass int ids, or a one-hot batch with trailing "
+                f"dim {self.n_in}")
+        return x.long()
+
+    def apply(self, params, x, *, train=False, key=None):
+        idx = self.decode_ids(x)
+        if idx is None:
+            idx = torch.argmax(x, dim=-1)
+        z = params["W"][idx]
+        if self.has_bias:
+            z = z + params["b"]
+        return self.act_fn(z)
 
 
 @register_serde
@@ -112,6 +243,8 @@ class EmbeddingSequenceLayer(BaseLayerConf):
     one_hot_matmul: bool = False
     sparse_grad: bool = False
     sparse_grad_capacity: Optional[int] = None
+
+    INPUT_KIND = "rnn"
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
         if self.n_in == 0 or override:
@@ -150,7 +283,7 @@ class EmbeddingSequenceLayer(BaseLayerConf):
                 f"dim {self.n_in}")
         return x.long()
 
-    def apply(self, params, x, *, train=False):
+    def apply(self, params, x, *, train=False, key=None):
         W = params["W"]
         idx = self.decode_ids(x)
         z = x.to(W.dtype) @ W if idx is None else W[idx]

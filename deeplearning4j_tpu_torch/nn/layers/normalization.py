@@ -1,4 +1,4 @@
-"""Batch normalization (port of ``BatchNormalization`` from
+"""Batch normalization and local response normalization (port of
 ``nn/layers/normalization.py``).
 
 Training normalises with the batch's own statistics: one pass in f32,
@@ -28,11 +28,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ...ops import pallas_bn
 from ...utils.serde import register_serde
 from ..conf.input_type import InputType
-from .base import BaseLayerConf
+from .base import BaseLayerConf, LayerConf
 
 
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:
@@ -139,7 +140,8 @@ class BatchNormalization(BaseLayerConf):
         return {"mean": torch.zeros((f,), dtype=dt, device=device),
                 "var": torch.ones((f,), dtype=dt, device=device)}
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
         act = self.resolved("activation", "identity")
         if self.lock_gamma_beta:
             gamma = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
@@ -168,3 +170,24 @@ class BatchNormalization(BaseLayerConf):
             new_state = {k: d * state[k] + (1 - d) * v.to(state[k].dtype)
                          for k, v in (("mean", mean), ("var", var))}
         return y, new_state
+
+
+@register_serde
+@dataclass
+class LocalResponseNormalization(LayerConf):
+    """Across-channel LRN (reference ``LocalResponseNormalization``):
+    ``y = x / (k + alpha · Σ_window x²)^beta`` over a window of n channels
+    on the last (NHWC channel) axis, padded (n//2, n−1−n//2)."""
+    INPUT_KIND = "cnn"
+
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+    n: int = 5
+
+    def apply(self, params, x, *, train=False, key=None):
+        half = self.n // 2
+        sq = F.pad(x * x, (half, self.n - 1 - half))
+        # window sums over the channel axis: exact, divisor 1
+        summed = sq.unfold(-1, self.n, 1).sum(-1)
+        return x / torch.pow(self.k + self.alpha * summed, self.beta)

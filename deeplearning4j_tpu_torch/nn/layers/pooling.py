@@ -1,8 +1,8 @@
 """Global pooling (port of ``nn/layers/pooling.py``): CNN activations
 ``[b, h, w, c]`` -> ``[b, c]``, or RNN activations ``[b, t, f]`` ->
-``[b, f]``.  The masked time reduction (variable-length series,
-reference ``MaskedReductionUtil``) is not ported: a mask on RNN input
-raises."""
+``[b, f]``, with the masked time reductions of variable-length series
+(reference ``MaskedReductionUtil``): max over the valid steps, sum and
+pnorm of the masked values, avg over the valid count."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -28,17 +28,32 @@ class GlobalPoolingLayer(LayerConf):
             return InputType.feed_forward(itype.size)
         raise ValueError(f"global pooling over {itype.kind} input")
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
         if mask is not None and x.ndim == 3:
-            raise NotImplementedError(
-                f"layer '{self.name}': masked global pooling over time is "
-                "not ported yet")
+            return self._masked(x, mask), state
         return self.apply(params, x, train=train), state
+
+    def _masked(self, x, mask):
+        m = mask.to(x.dtype)[:, :, None]
+        pt = self.pooling_type.lower()
+        if pt == "max":
+            return torch.amax(torch.where(m > 0, x, torch.full(
+                (), float("-inf"), dtype=x.dtype, device=x.device)), dim=1)
+        if pt == "sum":
+            return torch.sum(x * m, dim=1)
+        if pt == "avg":
+            return torch.sum(x * m, dim=1) / torch.clamp(
+                torch.sum(m, dim=1), min=1e-8)
+        if pt == "pnorm":
+            p = float(self.pnorm)
+            return torch.sum(torch.abs(x * m) ** p, dim=1) ** (1.0 / p)
+        raise ValueError(f"unknown pooling type '{self.pooling_type}'")
 
     def feed_forward_mask(self, mask, itype):
         return None      # the time axis is gone after global pooling
 
-    def apply(self, params, x, *, train=False):
+    def apply(self, params, x, *, train=False, key=None):
         if x.ndim == 4:
             dims = (1, 2)
         elif x.ndim == 3:

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from ...ops import pallas_lstm
+from ...utils import _random
 from ...utils.serde import register_serde
 from .. import activations as _act
 from ..conf.input_type import InputType
@@ -37,6 +38,8 @@ from .feedforward import OutputLayer
 @dataclass
 class BaseRecurrentLayer(BaseLayerConf):
     """The recurrent contract (reference ``RecurrentLayer``)."""
+    INPUT_KIND = "rnn"
+
     n_in: int = 0
     n_out: int = 0
 
@@ -58,18 +61,20 @@ class BaseRecurrentLayer(BaseLayerConf):
         """x: [b, t, f] -> (y [b, t, h], final carry)."""
         raise NotImplementedError
 
-    def apply(self, params, x, *, train=False, mask=None):
-        params = self.maybe_noise_weights(params, train)
-        x = self.maybe_dropout_input(x, train)
+    def apply(self, params, x, *, train=False, key=None, mask=None):
+        params = self.maybe_noise_weights(params, train, key)
+        x = self.maybe_dropout_input(x, train, key)
         carry = self.init_carry(x.shape[0], x.dtype, x.device)
         return self.scan(params, x, carry, mask)[0]
 
-    def forward(self, params, state, x, *, train=False, mask=None):
-        return self.apply(params, x, train=train, mask=mask), state
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
+        return self.apply(params, x, train=train, key=key, mask=mask), state
 
-    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
-        params = self.maybe_noise_weights(params, train)
-        x = self.maybe_dropout_input(x, train)
+    def apply_with_carry(self, params, x, carry, *, train=False, key=None,
+                         mask=None):
+        params = self.maybe_noise_weights(params, train, key)
+        x = self.maybe_dropout_input(x, train, key)
         if carry is None:
             carry = self.init_carry(x.shape[0], x.dtype, x.device)
         return self.scan(params, x, carry, mask)
@@ -246,15 +251,18 @@ class Bidirectional(LayerConf):
             return 0.5 * (yf + yb)
         raise ValueError(f"unknown bidirectional mode '{self.mode}'")
 
-    def apply(self, params, x, *, train=False, mask=None):
+    def apply(self, params, x, *, train=False, key=None, mask=None):
         p = nest_group(params)
-        yf = self.fwd.apply(p["fwd"], x, train=train, mask=mask)
+        kf, kb = (None, None) if key is None else _random.split(key)
+        yf = self.fwd.apply(p["fwd"], x, train=train, key=kf, mask=mask)
         mr = None if mask is None else mask.flip(1)
-        yb = self.fwd.apply(p["bwd"], x.flip(1), train=train, mask=mr)
+        yb = self.fwd.apply(p["bwd"], x.flip(1), train=train, key=kb,
+                            mask=mr)
         return self._combine(yf, yb.flip(1))
 
-    def forward(self, params, state, x, *, train=False, mask=None):
-        return self.apply(params, x, train=train, mask=mask), state
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
+        return self.apply(params, x, train=train, key=key, mask=mask), state
 
 
 @register_serde
@@ -283,6 +291,7 @@ class RnnOutputLayer(OutputLayer):
     """Dense + loss over ``[b, t, f]`` -> ``[b, t, n_out]``: the output
     head applied at every step; a ``[b, t]`` label mask weighs the steps
     in the loss."""
+    INPUT_KIND = "rnn"
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
         if self.n_in == 0 or override:
@@ -322,9 +331,10 @@ class LastTimeStep(LayerConf):
     def init_carry(self, batch, dtype, device):
         return self.underlying.init_carry(batch, dtype, device)
 
-    def apply_with_carry(self, params, x, carry, *, train=False, mask=None):
+    def apply_with_carry(self, params, x, carry, *, train=False, key=None,
+                         mask=None):
         y, new_carry = self.underlying.apply_with_carry(
-            params, x, carry, train=train, mask=mask)
+            params, x, carry, train=train, key=key, mask=mask)
         return _last_step(y, mask), new_carry
 
     def apply_global_defaults(self, defaults):
@@ -343,13 +353,14 @@ class LastTimeStep(LayerConf):
     def regularization_score(self, params):
         return self.underlying.regularization_score(params)
 
-    def apply(self, params, x, *, train=False, mask=None):
-        y = self.underlying.apply(params, x, train=train, mask=mask)
+    def apply(self, params, x, *, train=False, key=None, mask=None):
+        y = self.underlying.apply(params, x, train=train, key=key, mask=mask)
         return _last_step(y, mask)
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
         y, state = self.underlying.forward(params, state, x, train=train,
-                                           mask=mask)
+                                           key=key, mask=mask)
         return _last_step(y, mask), state
 
     def feed_forward_mask(self, mask, itype):

@@ -11,7 +11,15 @@ running statistics) lives in ``state``; every layer runs through
 ``state`` with the new one it returns.  A ``[b, t]`` features mask goes
 through the stack, each layer handing the next ``feed_forward_mask`` of
 it; the loss's label mask defaults to the mask that reaches the output
-layer.
+layer.  Where the configuration has a preprocessor at layer i (the
+reshape the JAX package inserts where layer families change), it runs
+before the layer.
+
+Dropout draws from the JAX package's threefry stream (``utils/_random``)
+as the JAX package does: the network keeps ``_rng = PRNGKey(seed)``,
+each training step (and ``output``/``feed_forward`` with ``train=True``)
+splits it into the next ``_rng`` and the step's key, and layer i draws
+from ``fold_in(key, i)``.
 
 Recurrent layers carry state across calls as ``carries`` (``{layer_i:
 carry}``): ``rnn_time_step`` keeps them between calls (reference
@@ -29,7 +37,7 @@ hand-written updater arithmetic of ``nn/conf/updaters.py``.  The step
 leaves the loss on the device: ``score()``/``get_score()`` materialise it
 on demand.  Not ported, and refused when configured: precision policies,
 the sparse-embedding gradient, remat, the legacy solvers, layer
-constraints, dropout and weight noise, and the shape policy's padding.
+constraints and weight noise; the shape policy's padding is not ported.
 """
 from __future__ import annotations
 
@@ -37,43 +45,73 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ._common import (Network, apply_constraints_all, backward_and_update,
-                      batch_factory, refuse_unported_training)
+from ..utils import _random
+from ._common import (Network, backward_and_update, batch_factory,
+                      refuse_unported_training)
 from .conf.multi_layer import MultiLayerConfiguration
+from .layers.base import draws
 
 
 def _layer_confs(conf) -> Dict[str, Any]:
     return {f"layer_{i}": lc for i, lc in enumerate(conf.layers)}
 
 
+def _layer_key(key, i: int, lc):
+    """Layer i's key, ``fold_in(key, i)``, where the layer draws."""
+    return None if key is None or not draws(lc) \
+        else _random.fold_in(key, i)
+
+
+def _preprocess(conf, i: int, h, mask):
+    """Layer i's preprocessor (if any) on ``h`` and the mask."""
+    pp = conf.preprocessor(i)
+    if pp is None:
+        return h, mask
+    h = pp.pre_process(h, mask)
+    if mask is not None:
+        mask = pp.feed_forward_mask(mask, conf.layer_input_types[i])
+    return h, mask
+
+
 def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
                    to_layer: Optional[int] = None,
-                   carries: Optional[Dict[str, Any]] = None
-                   ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+                   carries: Optional[Dict[str, Any]] = None, key=None,
+                   collect: bool = False
+                   ) -> Tuple[Any, Dict, Optional[torch.Tensor]]:
     """The layers ``[0, to_layer)`` (all by default); returns ``(h,
-    new_state, mask)`` with the mask as the next layer would see it.
-    ``carries`` (``{layer_i: carry}``), when given, runs every layer with
+    new_state, mask)`` with the mask as the next layer would see it (with
+    ``collect``, ``h`` is the list of every layer's activation).  Layer i
+    draws its dropout from ``fold_in(key, i)``.  ``carries``
+    (``{layer_i: carry}``), when given, runs every layer with
     ``HAS_CARRY`` from its carry (a zero one where it has none) and is
     updated in place with the carries it ends with."""
     layers = conf.layers
     n = len(layers) if to_layer is None else to_layer
     new_state = dict(state)
     h = x
+    acts = []
     for i in range(n):
-        lc, key = layers[i], f"layer_{i}"
+        lc, name = layers[i], f"layer_{i}"
+        h, mask = _preprocess(conf, i, h, mask)
+        lkey = _layer_key(key, i, lc)
         if carries is not None and lc.HAS_CARRY:
-            h, carries[key] = lc.apply_with_carry(
-                params[key], h, carries.get(key), train=train, mask=mask)
+            h, carries[name] = lc.apply_with_carry(
+                params[name], h, carries.get(name), train=train, key=lkey,
+                mask=mask)
         else:
-            h, new_state[key] = lc.forward(params[key], state.get(key, {}),
-                                           h, train=train, mask=mask)
+            h, new_state[name] = lc.forward(params[name],
+                                            state.get(name, {}), h,
+                                            train=train, key=lkey,
+                                            mask=mask)
         if mask is not None:
             mask = lc.feed_forward_mask(mask, None)
-    return h, new_state, mask
+        if collect:
+            acts.append(h)
+    return (acts if collect else h), new_state, mask
 
 
 def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
-                      label_mask=None, carries=None
+                      label_mask=None, carries=None, key=None
                       ) -> Tuple[torch.Tensor, Dict]:
     """Forward to the last layer's loss, plus regularization (reference
     ``computeGradientAndScore``); returns ``(loss, new_state)``.  A free
@@ -83,17 +121,21 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
     n = len(layers)
     h, new_state, pmask = _stack_forward(conf, params, state, x, train=train,
                                          mask=mask, to_layer=n - 1,
-                                         carries=carries)
+                                         carries=carries, key=key)
     out_conf = layers[-1]
     if not hasattr(out_conf, "compute_loss"):
         raise ValueError(
             f"last layer '{out_conf.name}' is not an output layer")
+    # the preprocessor sees the features mask, as the reference's
+    h, _ = _preprocess(conf, n - 1, h, None)
     # the label mask defaults to the PROPAGATED features mask (reference
     # per-step masking when labelsMask is absent; LastTimeStep or global
     # pooling consumes the time axis and nulls it)
     lm = label_mask if label_mask is not None else pmask
     loss = out_conf.compute_loss(params[f"layer_{n - 1}"], h, y,
-                                 train=train, mask=lm)
+                                 train=train,
+                                 key=_layer_key(key, n - 1, out_conf),
+                                 mask=lm)
     reg = torch.zeros((), dtype=loss.dtype, device=loss.device)
     for i, lc in enumerate(layers):
         lp = params[f"layer_{i}"]
@@ -103,11 +145,11 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
 
 
 def _stack_loss(conf, params, x, y, *, train: bool, mask=None,
-                label_mask=None) -> torch.Tensor:
+                label_mask=None, key=None) -> torch.Tensor:
     """``_stack_loss_state``'s loss, for a stack whose layers keep no
     state."""
     return _stack_loss_state(conf, params, {}, x, y, train=train, mask=mask,
-                              label_mask=label_mask)[0]
+                              label_mask=label_mask, key=key)[0]
 
 
 def _detached(carries: Dict[str, Any]) -> Dict[str, Any]:
@@ -116,13 +158,15 @@ def _detached(carries: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _build_train_step(conf, tx):
-    """``step(params, state, opt_state, x, y, mask, label_mask, carries=None)
-    -> (loss, new_state, gstats, new_carries)``: one SGD-path training step
-    that updates ``params`` and ``opt_state`` in place.  With ``carries``
-    (tBPTT) the recurrent layers start from them, gradients stopped at the
-    chunk boundary, and the step returns the carries it ends with.  Port
-    of the reference's ``_build_train_step`` without its sparse-embedding
-    and precision branches."""
+    """``step(params, state, opt_state, x, y, mask, label_mask, carries=None,
+    key=None) -> (loss, new_state, gstats, new_carries)``: one SGD-path
+    training step that updates ``params`` and ``opt_state`` in place,
+    drawing dropout from ``key`` (the caller's split of the network's
+    stream).  With ``carries`` (tBPTT) the recurrent layers start from
+    them, gradients stopped at the chunk boundary, and the step returns
+    the carries it ends with.  Port of the reference's
+    ``_build_train_step`` without its sparse-embedding and precision
+    branches."""
     refuse_unported_training(conf, conf.layers)
     gn_mode = conf.defaults.get("gradient_normalization")
     gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
@@ -130,17 +174,14 @@ def _build_train_step(conf, tx):
     confs = _layer_confs(conf)
 
     def step(params, state, opt_state, x, y, mask, label_mask,
-             carries=None):
-        # constraints are checked before anything moves: the reference
-        # applies them after the update, and they are not ported
-        apply_constraints_all(params, confs)
+             carries=None, key=None):
         # carry state flows INTO the chunk; gradients do not flow back
         # across the chunk boundary (tBPTT truncation)
         cs = None if carries is None else _detached(carries)
         loss, new_state = _stack_loss_state(conf, params, state, x, y,
                                             train=True, mask=mask,
                                             label_mask=label_mask,
-                                            carries=cs)
+                                            carries=cs, key=key)
         gstats = backward_and_update(loss, params, opt_state, tx, confs,
                                      gn_mode, gn_thr)
         return (loss.detach(), new_state, gstats,
@@ -200,12 +241,15 @@ class MultiLayerNetwork(Network):
     def _hyper_confs(self):
         return _layer_confs(self.conf)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Activations of the last layer; ``train=True`` keeps dropout on
+        with a fresh key from the network's stream."""
         if not self.params:
             raise RuntimeError("network has no params: call init() or "
                                "load_params() first")
         return _stack_forward(self.conf, self.params, self.state, x,
-                              train=False)[0]
+                              train=train,
+                              key=self._next_key() if train else None)[0]
 
     def _validate_input_ids(self, x) -> None:
         """Host-side id-range check for an embedding-first network at the
@@ -220,12 +264,23 @@ class MultiLayerNetwork(Network):
         if self._id_layer:
             validate_host_ids(self._id_layer, x)
 
-    def output(self, x) -> torch.Tensor:
-        """Inference forward on a batch (numpy array or tensor); the
-        result stays on the network's device."""
+    def output(self, x, train: bool = False) -> torch.Tensor:
+        """Forward on a batch (numpy array or tensor); the result stays on
+        the network's device.  ``train=True`` draws dropout as training
+        does and advances the network's key stream."""
         self._validate_input_ids(x)
         with torch.inference_mode():
-            return self(self._on_device(x))
+            return self(self._on_device(x), train=train)
+
+    def feed_forward(self, x, train: bool = False):
+        """Every layer's activation (reference ``feedForward``);
+        ``train=True`` keeps dropout on with a fresh key."""
+        self._validate_input_ids(x)
+        with torch.inference_mode():
+            return _stack_forward(
+                self.conf, self.params, self.state, self._on_device(x),
+                train=train, key=self._next_key() if train else None,
+                collect=True)[0]
 
     # ------------------------------------------------------------ training
     def fit(self, data=None, labels=None, *, epochs: int = 1, mask=None,
@@ -264,7 +319,7 @@ class MultiLayerNetwork(Network):
         loss, self.state, gstats, _ = step(
             self._param_tree(), self.state, self.opt_state,
             self._on_device(x), self._on_device(y), self._on_device(m),
-            self._on_device(lm))
+            self._on_device(lm), None, self._next_key())
         self._score = loss
         self._last_grad_stats = gstats
         self.iteration += 1
@@ -289,7 +344,8 @@ class MultiLayerNetwork(Network):
                 self._param_tree(), self.state, self.opt_state, x[:, sl],
                 y[:, sl] if y.ndim == 3 else y,
                 None if mask is None else mask[:, sl],
-                None if label_mask is None else label_mask[:, sl], carries)
+                None if label_mask is None else label_mask[:, sl], carries,
+                self._next_key())
             self._score = loss
             self._last_grad_stats = gstats
             self.iteration += 1

@@ -21,7 +21,7 @@ from deeplearning4j_tpu.observability.quantiles import \
     LatencyWindow as JaxWindow
 from deeplearning4j_tpu_torch.data.shapes import (prefill_buckets,
                                                   suffix_prefill_buckets)
-from deeplearning4j_tpu_torch.generation import _random
+from deeplearning4j_tpu_torch.utils import _random
 from deeplearning4j_tpu_torch.generation.sampling import sample_tokens
 from deeplearning4j_tpu_torch.observability.quantiles import LatencyWindow
 

@@ -1,6 +1,8 @@
 """The port's losses, updater arithmetic, gradient normalization and
 regularization against the JAX package's (inputs from numpy seeds, f32 on
 both sides)."""
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ from deeplearning4j_tpu_torch.nn import losses as tlosses
 from deeplearning4j_tpu_torch.nn.conf import updaters as tupd
 from deeplearning4j_tpu_torch.nn.conf.schedules import FixedSchedule
 from deeplearning4j_tpu_torch.nn.layers import feedforward as tff
+from deeplearning4j_tpu_torch.utils import _random
 
 # Loss values are sums over [t, vocab] of log-softmax terms (~30 at
 # these shapes) and means over the batch: f32 reordering gives ~1e-6
@@ -242,16 +245,28 @@ def test_regularization_score_matches_reference(coeffs):
 
 
 def test_constraints_and_training_noise_raise():
+    """Constraints and weight noise are still refused when a train step
+    is built (and weight noise in a training forward); dropout is ported
+    since the conv zoo slice and draws only in training with a key."""
     lc = tff.DenseLayer(n_in=2, n_out=2, constraints=[{"max": 1.0}])
+    stub = SimpleNamespace(defaults={})
     with pytest.raises(NotImplementedError, match="constraints"):
-        tcommon.apply_constraints_all({}, {"layer_0": lc})
+        tcommon.refuse_unported_training(stub, [lc])
     p = {"W": torch.zeros(2, 2), "b": torch.zeros(2)}
-    x = torch.zeros(1, 2)
+    x = torch.ones(1, 2)
     noisy = tff.DenseLayer(n_in=2, n_out=2, weight_noise={"p": 0.1})
+    noisy.apply(p, x)                        # inference: no effect
+    with pytest.raises(NotImplementedError, match="weight_noise"):
+        noisy.apply(p, x, train=True)
+    with pytest.raises(NotImplementedError, match="weight_noise"):
+        tcommon.refuse_unported_training(stub, [noisy])
     dropped = tff.DenseLayer(n_in=2, n_out=2, dropout=0.5)
-    for layer, field in ((noisy, "weight_noise"), (dropped, "dropout")):
-        layer.apply(p, x)                    # inference: no effect
-        with pytest.raises(NotImplementedError, match=field):
-            layer.apply(p, x, train=True)
+    key = _random.prng_key(0)
+    tcommon.refuse_unported_training(stub, [dropped])
+    assert torch.equal(dropped.maybe_dropout_input(x, True), x)  # no key
+    assert torch.equal(dropped.maybe_dropout_input(x, False, key), x)
+    kept = dropped.maybe_dropout_input(x, True, key)
+    assert set(kept.flatten().tolist()) <= {0.0, 2.0}
     # a retain probability of 1 (or 0) is dropout off, as in the reference
-    tff.DenseLayer(n_in=2, n_out=2, dropout=1.0).apply(p, x, train=True)
+    assert torch.equal(tff.DenseLayer(n_in=2, n_out=2, dropout=1.0)
+                       .maybe_dropout_input(x, True, key), x)

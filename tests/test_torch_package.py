@@ -146,7 +146,7 @@ def test_rnn_entry_points_refuse_a_silent_cpu_default(no_cuda):
 def test_generation_slice_modules_are_checked():
     for m in ("generation", "generation.engine", "generation.cache",
               "generation.programs", "generation.sampling",
-              "generation._random", "observability.clock",
+              "utils._random", "observability.clock",
               "observability.quantiles", "data.shapes"):
         assert f"deeplearning4j_tpu_torch.{m}" in MODULES
 
@@ -170,3 +170,25 @@ def test_generation_entry_points_refuse_a_silent_cpu_default(no_cuda):
         assert eng.status()["device"] == "cpu"
     finally:
         eng.shutdown()
+
+
+def test_conv_zoo_slice_modules_are_checked():
+    for m in ("utils._random", "nn.conf.dropout", "nn.conf.preprocessors",
+              "nn.layers.misc", "nn.layers.feedforward", "models.zoo"):
+        assert f"deeplearning4j_tpu_torch.{m}" in MODULES
+
+
+@pytest.mark.parametrize("name", ["LeNet", "GoogLeNet"])
+def test_zoo_entry_points_refuse_a_silent_cpu_default(no_cuda, name):
+    from deeplearning4j_tpu_torch.models import zoo
+    small = getattr(zoo, name)(num_classes=3, input_shape=(28, 28, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        small.init()
+    net = small.init(device="cpu")
+    assert net.device.type == "cpu" and net._rng.device.type == "cpu"
+    x = np.zeros((2, 28 * 28) if name == "LeNet" else (2, 28, 28, 1),
+                 np.float32)
+    y = np.eye(3, dtype=np.float32)[[0, 1]]
+    net.fit(x, y)
+    assert net._score.device.type == "cpu"
+    assert net.output(x).shape == (2, 3)

@@ -250,17 +250,29 @@ def test_out_of_range_ids_raise_at_every_entry_point():
 @pytest.mark.parametrize("field,value", [("dropout", 0.5),
                                          ("weight_noise", {"p": 0.1})])
 def test_training_with_stochastic_regularization_raises(field, value):
+    """Weight noise is still refused in training, and nothing moves;
+    dropout (ported with the conv zoo slice) trains, draws its masks from
+    the network's key stream and leaves inference alone."""
     tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
     setattr(tn.layer_confs[2], field, value)
     ids, y = _batch(np.random.default_rng(7), True)
-    tn.output(ids)                       # inference ignores it
+    out = tn.output(ids)                 # inference ignores it
     before = {k: {n: p.detach().clone() for n, p in g.items()}
               for k, g in tn.params.items()}
+    if field == "dropout":
+        rng0 = tn._rng.clone()
+        tn.fit(ids, y)
+        assert np.isfinite(tn.get_score()) and \
+            not torch.equal(tn._rng, rng0)
+        assert not torch.equal(tn.params["layer_2"]["W1"],
+                               before["layer_2"]["W1"])
+        return
     with pytest.raises(NotImplementedError, match=field):
         tn.fit(ids, y)
     for k, g in tn.params.items():       # nothing moved
         for n, p in g.items():
             assert torch.equal(p, before[k][n])
+    assert torch.equal(tn.output(ids), out)
 
 
 def test_unported_training_options_raise():
