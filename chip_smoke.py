@@ -139,7 +139,40 @@ if any phase fails:
     attention without it), each 3 ``fit`` steps beside a
     reference-attention twin on the same keys: step-0 gradients and
     losses within phase 5's tolerances, each flash kernel 8 launches per
-    step.
+    step;
+21. ``updaters_on_card``: a Dense 256 -> 256 -> 256 -> softmax 10 MLN
+    built with ``NeuralNetConfiguration.builder()``, batch 64, under each
+    of the 12 updaters for 5 steps (cycling through the 9 schedules), on
+    the card and on the CPU from the same params: params within 1e-5 for
+    the same gradients, and within max(1e-5, 4x a CPU twin with its
+    input features permuted) for training;
+    each of the 21 loss names, value and gradient with a mask and unit
+    weights, card vs CPU within 1e-5;
+22. ``early_stop_lstm``: the char-LSTM of phases 10-12 built with the
+    builder (both LSTMs at ``helper="pallas"`` with DropConnect(0.9),
+    MaxNorm(1.0) on the output W, RmsProp(StepSchedule(2e-3, 0.5, 8)))
+    trained by ``EarlyStoppingTrainer`` (at most 4 epochs of 8 batches,
+    patience 1, ``DataSetLossCalculator`` on 2 held-out batches,
+    ``InMemoryModelSaver``; Score/CollectScores/Performance listeners),
+    then ``best.evaluate(held_out)``, beside a ``helper=None`` twin:
+    scores, best epoch, reason, confusion matrices (ties excepted), the
+    column norms after every step, and 2 ``lstm_fwd`` launches per step
+    and per held-out or evaluation batch; the ``fit`` step with and
+    without listeners;
+23. ``fit_on_device_lm``: the TransformerLM of phase 5 under
+    AdamW(WarmupSchedule(4, 3e-4), weight decay 0.01), 8 x 16 sequences
+    on the card: ``fit_on_device`` for 2 fused epochs, then one epoch on
+    the per-epoch path with a listener and a ragged tail of 8, beside a
+    reference-attention twin (the same permutations); 8 launches per
+    flash kernel per step; the step against ``fit`` over the same
+    batches;
+24. ``transfer_resnet``: ResNet50 at its published widths, every BN at
+    ``helper="pallas"``, through ``TransferLearning.GraphBuilder``
+    (frozen through ``s2b5_out``, a new 10-class output on ``avgpool``,
+    Nadam(1e-3)), 5 steps at batch 64 beside a ``helper=None`` twin:
+    frozen params and running statistics bit-equal before and after,
+    losses within 1e-5, ``bn_apply`` once per trained BN per step (the
+    frozen BNs run in inference mode and launch none).
 
 Each phase prints one JSON line (phases 17-20 one per model).  Then come the card's name and power
 limit, the ``kernels`` record (the line before the last) and, last,
@@ -2157,6 +2190,671 @@ def dropout_phase(args, torch, dev, card):
     return total, None
 
 
+
+# ---- 21-24. the rest of training ----------------------------------------
+# 21: a small MLN (Dense 256 -> 256 -> 256, softmax 10, batch 64) under
+# each of the 12 updaters for 5 steps, cycling through the 9 schedules,
+# on the card beside the same port on the CPU from the same params.
+# - The updaters' arithmetic: the 12 step the same gradients (drawn on
+#   the host) on the card and on the CPU: the same f32 formulas, a
+#   division by a scalar taken as a product with its reciprocal on the
+#   card: params within 1e-5 of each leaf's largest |p|.
+# - Training: the two nets differ by the order of f32 sums in the matrix
+#   products (cuBLAS vs the CPU's BLAS, TF32 off).  Sgd-like updaters
+#   move a parameter by lr times its gradient and stay ~1e-7 apart; the
+#   normalizing ones (Adam and kin, RmsProp) divide by ~|g|, so an entry
+#   whose gradient is near 0 (a ReLU unit whose pre-activation rounds to
+#   the other side of 0, a cancelling sum) takes a step that depends on
+#   that gradient's rounding: on an H100 Adam lands 2.75e-4 from the
+#   CPU, and a CPU twin with the input features permuted (the same
+#   arithmetic, the forward's sums in another order) 1.4e-4 (PERF.md
+#   §6).  So the gate is max(1e-5, 4x that permuted twin's distance,
+#   measured in the same run).
+# Each of the 21 loss names, value and gradient on a [64, 10] batch with
+# a mask and unit weights: the same f32 formulas, reduced in another
+# order, within 1e-5 relative (gradients: of their largest entry).
+UPD_WIDTH, UPD_CLASSES, UPD_BATCH, UPD_STEPS = 256, 10, 64, 5
+UPD_NAMES = ("sgd", "nesterovs", "adam", "adamax", "nadam", "amsgrad",
+             "adadelta", "adagrad", "rmsprop", "none", "adamw", "lion")
+TOL_UPD_PARAMS = 1e-5
+UPD_FLOOR_K = 4.0
+TOL_LOSS_CARD = 1e-5
+# 22: the char-LSTM of phases 10-12 (26 classes, 2 x LSTM-256 at
+# helper="pallas", batch 128 x 64) built with the builder, under
+# RmsProp(StepSchedule(2e-3, 0.5, 8)), DropConnect(0.9) on both LSTMs and
+# MaxNorm(1.0) on the output W, early-stopped (at most 4 epochs of 8
+# batches, patience 1) on 2 held-out batches, beside a helper=None twin
+# with the same params and key stream (so the same DropConnect masks).
+# Step 0's loss within TOL_LSTM_LOSS (the forward's rounding only); every
+# later collected score within 1e-3 relative: each step's update rounds
+# differently on the two sides (RmsProp divides by sqrt(nu) ~ |g|, so an
+# f32-noise difference in g becomes a relative one in the update), and
+# the loss drifts with it.  Confusion matrices of the best models equal
+# except on rows whose two top probabilities lie within 1e-5.
+ES_TRAIN_BATCHES, ES_HELD_BATCHES, ES_MAX_EPOCHS = 8, 2, 4
+TOL_ES_SCORES = 1e-3
+TIE_MARGIN = 1e-5
+MAX_NORM, TOL_MAX_NORM = 1.0, 1e-6
+# 23: the full-width TransformerLM of phase 5 under AdamW(Warmup(4,
+# 3e-4), weight decay 0.01); the device holds 8 x 16 sequences (+ 8 for
+# the ragged tail of the per-epoch run).  Step 0 within TOL_TRAIN_LOSS,
+# later steps within 1e-3 relative (Adam-family updates turn f32 noise
+# in a gradient into sign-level differences of lr on entries whose
+# gradient is noise, e.g. mha_bk; the loss drifts slowly with them).
+FOD_BATCH, FOD_BATCHES, FOD_TAIL = 16, 8, 8
+TOL_FOD_LOSS = 1e-3
+# 24: ResNet50 at its published widths, every BN at helper="pallas",
+# fine-tuned through TransferLearning.GraphBuilder: frozen through
+# s2b5_out, a new 10-class output on avgpool, Nadam(1e-3), 5 steps at
+# batch 64, beside a helper=None twin restarted from the main net's
+# params and state before each step (losses within CNN_TOL_LOSS).
+TR_BATCH, TR_STEPS, TR_CLASSES = 64, 5, 10
+TR_FEATURE_END = "s2b5_out"
+
+
+class _Batches:
+    """A DataSetIterator over a list of batches (``reset`` + iteration)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def reset(self):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def _host_tree(net):
+    return {k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+            for k, g in net.params.items()}
+
+
+def _loss_data(name, rng, shape):
+    """(labels, preout) in a loss's domain (numpy, f32)."""
+    import numpy as np
+    pre = rng.standard_normal(shape).astype(np.float32)
+    n = shape[-1]
+    if name == "sparse_mcxent":
+        return rng.integers(0, n, shape[:-1]), pre
+    if name in ("mcxent", "negativeloglikelihood"):
+        return np.eye(n, dtype=np.float32)[rng.integers(0, n, shape[:-1])], \
+            pre
+    if name in ("kld", "kl_divergence"):
+        lab = rng.random(shape).astype(np.float32) + 0.05
+        return (lab / lab.sum(-1, keepdims=True)).astype(np.float32), pre
+    if name in ("xent", "fmeasure", "hinge", "squared_hinge"):
+        return (rng.random(shape) > 0.5).astype(np.float32), pre
+    if name in ("mape", "mean_absolute_percentage_error"):
+        return (rng.random(shape) + 0.5).astype(np.float32), pre
+    if name == "poisson":
+        return rng.poisson(2.0, shape).astype(np.float32), np.abs(pre) + 0.1
+    return rng.standard_normal(shape).astype(np.float32), pre
+
+
+def updaters_phase(args, torch, dev, card):
+    """Phase 21.  Returns None, or what failed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn import _common as tcommon
+    from deeplearning4j_tpu_torch.nn import losses
+    from deeplearning4j_tpu_torch.nn.conf import schedules as S
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (DenseLayer,
+                                                                OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+
+    scheds = [S.StepSchedule(1e-2, 0.5, 2), S.ExponentialSchedule(1e-2, 0.8),
+              S.InverseSchedule(1e-2, 0.5, 2.0),
+              S.PolySchedule(1e-2, 2.0, 4), S.SigmoidSchedule(1e-2, 0.5, 2),
+              S.MapSchedule({0: 1e-2, 2: 5e-3}),
+              S.CycleSchedule(1e-3, 1e-2, 4), S.WarmupSchedule(3, 1e-2),
+              S.FixedSchedule(1e-2)]
+
+    def conf(u):
+        return (NeuralNetConfiguration.builder().seed(args.seed)
+                .activation("relu").updater(u).list()
+                .layer(DenseLayer(n_out=UPD_WIDTH))
+                .layer(DenseLayer(n_out=UPD_WIDTH))
+                .layer(OutputLayer(n_out=UPD_CLASSES, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.feed_forward(UPD_WIDTH)).build())
+
+    rng = np.random.default_rng(args.seed + 21)
+    data = [(rng.standard_normal((UPD_BATCH, UPD_WIDTH)).astype(np.float32),
+             np.eye(UPD_CLASSES, dtype=np.float32)[
+                 rng.integers(0, UPD_CLASSES, UPD_BATCH)])
+            for _ in range(UPD_STEPS)]
+    perm = rng.permutation(UPD_WIDTH)
+
+    def rel_err(a, b, permute=False):
+        """max over leaves of max |a - b| / max |b| (a's first-layer rows
+        put back in order where ``permute``)."""
+        err = 0.0
+        for k, g in b.items():
+            for n, p in g.items():
+                q = a[k][n].detach().cpu()
+                if permute and k == "layer_0" and n == "W":
+                    q = q[np.argsort(perm)]
+                err = max(err, ((q - p.detach().cpu()).abs().max()
+                                / p.detach().abs().max()).item())
+        return err
+
+    tree, rows, t0 = None, [], time.perf_counter()
+    for i, name in enumerate(UPD_NAMES):
+        sched = scheds[i % len(scheds)]
+        nets = {where: MultiLayerNetwork(conf(updaters.by_name(name, sched)),
+                                         device=d)
+                for where, d in (("card", dev), ("cpu", "cpu"),
+                                 ("cpu_permuted", "cpu"))}
+        if tree is None:
+            tree = seeded_params(nets["card"].param_spec(), args.seed + 21)
+        permuted = {k: dict(g) for k, g in tree.items()}
+        permuted["layer_0"]["W"] = tree["layer_0"]["W"][perm]
+        for where, m in nets.items():
+            params_from_jax(m, permuted if where == "cpu_permuted" else tree)
+        for x, y in data:
+            nets["card"].fit(x, y)
+            nets["cpu"].fit(x, y)
+            nets["cpu_permuted"].fit(x[:, perm].copy(), y)
+        err = rel_err(nets["card"].params, nets["cpu"].params)
+        floor = rel_err(nets["cpu_permuted"].params, nets["cpu"].params,
+                        permute=True)
+        tol = max(TOL_UPD_PARAMS, UPD_FLOOR_K * floor)
+        # the updater alone: the same gradients on both sides
+        groups = {}
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            ps = {k: {n: torch.tensor(a, device=d) for n, a in g.items()}
+                  for k, g in tree.items()}
+            tx = tcommon.build_tx(updaters.by_name(name, sched),
+                                  {k: None for k in ps}, ps)
+            groups[where] = (ps, tx, tx.init(ps))
+        for _ in range(UPD_STEPS):
+            grads = {k: {n: (rng.standard_normal(a.shape) * 0.1).astype(
+                np.float32) for n, a in g.items()} for k, g in tree.items()}
+            for where, d in (("card", dev), ("cpu", "cpu")):
+                ps, tx, st = groups[where]
+                tx.step(ps, {k: {n: torch.tensor(a, device=d)
+                                 for n, a in g.items()}
+                             for k, g in grads.items()}, st)
+        same_g = rel_err(groups["card"][0], groups["cpu"][0])
+        moved = not np.allclose(nets["cpu"].params["layer_0"]["W"].detach()
+                                .numpy(), tree["layer_0"]["W"])
+        rows.append({"updater": type(nets["card"].conf.defaults["updater"])
+                     .__name__, "schedule": type(sched).__name__,
+                     "max_rel_err_params": err,
+                     "cpu_permuted_twin_rel_err": floor, "tol": tol,
+                     "same_gradients_rel_err": same_g, "moved": moved})
+        if err > tol or same_g > TOL_UPD_PARAMS or \
+                (name != "none" and not moved):
+            print(json.dumps({"phase": "updaters_on_card", "rows": rows}),
+                  flush=True)
+            return (f"{rows[-1]['updater']} + {rows[-1]['schedule']}: "
+                    f"params on the card vs the CPU {err} (tol {tol}), "
+                    f"same gradients {same_g} (tol {TOL_UPD_PARAMS}), "
+                    f"moved: {moved}")
+    loss_rows = {}
+    for name in losses.names():
+        lab, pre = _loss_data(name, rng, (UPD_BATCH, UPD_CLASSES))
+        mask = (rng.random(UPD_BATCH) > 0.2).astype(np.float32)
+        uw = (rng.random(UPD_CLASSES) + 0.5).astype(np.float32)
+        vals, grads = [], []
+        for d in (dev, torch.device("cpu")):
+            p = torch.tensor(pre, device=d, requires_grad=True)
+            v = losses.get(name)(torch.as_tensor(lab, device=d), p,
+                                 mask=torch.tensor(mask, device=d),
+                                 unit_weights=torch.tensor(uw, device=d))
+            g, = torch.autograd.grad(v, p)
+            vals.append(v.item())
+            grads.append(g.cpu())
+        v_err = abs(vals[0] - vals[1]) / max(abs(vals[1]), 1e-30)
+        g_err = ((grads[0] - grads[1]).abs().max()
+                 / grads[1].abs().max().clamp(min=1e-30)).item()
+        loss_rows[name] = {"value": vals[1], "rel_err_value": v_err,
+                           "rel_err_grad": g_err}
+        if v_err > TOL_LOSS_CARD or g_err > TOL_LOSS_CARD:
+            return (f"loss {name} on the card vs the CPU: value {v_err}, "
+                    f"gradient {g_err} > {TOL_LOSS_CARD}")
+    print(json.dumps({"phase": "updaters_on_card", "model": {
+        "layers": f"Dense {UPD_WIDTH} -> {UPD_WIDTH} -> {UPD_WIDTH}, "
+                  f"softmax {UPD_CLASSES}", "batch": UPD_BATCH,
+        "steps": UPD_STEPS}, "rows": rows, "tol_params": TOL_UPD_PARAMS,
+        "floor_k": UPD_FLOOR_K,
+        "losses": loss_rows, "tol_loss": TOL_LOSS_CARD,
+        "seconds": round(time.perf_counter() - t0, 3), "card": card}),
+        flush=True)
+    return None
+
+
+def _markov_text(rng, n, t, classes):
+    """``n`` one-hot sequences of ``t + 1`` characters from a seeded
+    Markov chain with peaked rows (something an LSTM can learn)."""
+    import numpy as np
+    trans = rng.dirichlet(np.full(classes, 0.2), size=classes)
+    seq = np.empty((n, t + 1), np.int64)
+    seq[:, 0] = rng.integers(0, classes, n)
+    cum = trans.cumsum(-1)
+    for s in range(t):
+        u = rng.random(n)[:, None]
+        seq[:, s + 1] = np.minimum((u > cum[seq[:, s]]).sum(-1),
+                                   classes - 1)
+    eye = np.eye(classes, dtype=np.float32)
+    return eye[seq[:, :-1]], eye[seq[:, 1:]]
+
+
+def early_stop_phase(args, torch, dev, card):
+    """Phase 22.  Returns ``(lstm_fwd launches, None)`` or ``(None, what
+    failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.nn.conf.constraints import \
+        MaxNormConstraint
+    from deeplearning4j_tpu_torch.nn.conf.dropout import DropConnect
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.schedules import StepSchedule
+    from deeplearning4j_tpu_torch.nn.conf.updaters import RmsProp
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (LSTM,
+                                                              RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+    from deeplearning4j_tpu_torch.train import listeners as L
+
+    def conf(helper):
+        return (NeuralNetConfiguration.builder().seed(args.seed)
+                .updater(RmsProp(learning_rate=StepSchedule(2e-3, 0.5, 8)))
+                .weight_init("xavier")
+                .gradient_normalization("clipelementwiseabsolutevalue", 10.0)
+                .list()
+                .layer(LSTM(n_out=LSTM_HIDDEN, activation="tanh",
+                            helper=helper, weight_noise=DropConnect(0.9)))
+                .layer(LSTM(n_out=LSTM_HIDDEN, activation="tanh",
+                            helper=helper, weight_noise=DropConnect(0.9)))
+                .layer(RnnOutputLayer(
+                    n_out=LSTM_CLASSES, activation="softmax", loss="mcxent",
+                    constraints=[MaxNormConstraint(max_norm=MAX_NORM)]))
+                .set_input_type(InputType.recurrent(LSTM_CLASSES, LSTM_T))
+                .build())
+
+    net = MultiLayerNetwork(conf("pallas"), device=dev).init()
+    twin = MultiLayerNetwork(conf(None), device=dev).load_params(
+        _host_tree(net))
+    rng = np.random.default_rng(args.seed + 22)
+    xs, ys = _markov_text(rng, LSTM_BATCH * (ES_TRAIN_BATCHES
+                                             + ES_HELD_BATCHES),
+                          LSTM_T, LSTM_CLASSES)
+    xs, ys = torch.tensor(xs, device=dev), torch.tensor(ys, device=dev)
+    cut = [(xs[i:i + LSTM_BATCH], ys[i:i + LSTM_BATCH])
+           for i in range(0, len(xs), LSTM_BATCH)]
+    train, held = cut[:ES_TRAIN_BATCHES], cut[ES_TRAIN_BATCHES:]
+
+    class NormWatch(L.TrainingListener):
+        """The output W's largest column norm after each step, kept on
+        the card (read once at the end)."""
+
+        def __init__(self):
+            self.norms = []
+
+        def iteration_done(self, model, iteration, epoch):
+            w = model.params["layer_2"]["W"].detach()
+            self.norms.append(torch.linalg.vector_norm(w, dim=0).max())
+
+    runs = {}
+    for name, m in (("pallas", net), ("plain", twin)):
+        collect, watch = L.CollectScoresIterationListener(), NormWatch()
+        m.set_listeners(L.ScoreIterationListener(1), collect,
+                        L.PerformanceListener(), watch)
+        cfg = (es.EarlyStoppingConfiguration.builder()
+               .score_calculator(es.DataSetLossCalculator(_Batches(held)))
+               .model_saver(es.InMemoryModelSaver())
+               .epoch_termination_conditions(
+                   es.MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                   es.ScoreImprovementEpochTerminationCondition(1))
+               .build())
+        torch.cuda.synchronize()
+        pl.reset_launches()
+        t0 = time.perf_counter()
+        res = es.EarlyStoppingTrainer(cfg, m, _Batches(train)).fit()
+        ev = res.best_model.evaluate(_Batches(held))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[name] = dict(res=res, ev=ev, scores=[s for _, s in
+                                                  collect.scores],
+                          norms=torch.stack(watch.norms).cpu().numpy(),
+                          launches=pl.launches["lstm_fwd"],
+                          seconds=seconds)
+        m.set_listeners()
+    a, b = runs["pallas"], runs["plain"]
+    steps = len(a["scores"])
+    evaluated = len(a["res"].score_vs_epoch)
+    expected = 2 * steps + 2 * ES_HELD_BATCHES * evaluated \
+        + 2 * ES_HELD_BATCHES
+    step0 = abs(a["scores"][0] - b["scores"][0]) / abs(b["scores"][0])
+    later = max([abs(p - q) / abs(q) for p, q in
+                 zip(a["scores"][1:], b["scores"][1:])] or [0.0])
+    # confusion matrices, ties (top two within TIE_MARGIN) excepted
+    probs = []
+    for m in (a["res"].best_model, b["res"].best_model):
+        probs.append(torch.cat([m.output(x) for x, _ in held]).reshape(
+            -1, LSTM_CLASSES))
+    labels = torch.cat([y for _, y in held]).reshape(-1, LSTM_CLASSES)
+    top2 = [p.topk(2, dim=-1).values for p in probs]
+    gaps = [t[:, 0] - t[:, 1] for t in top2]
+    pred = [p.argmax(-1) for p in probs]
+    differ = pred[0] != pred[1]
+    ties = differ & ((gaps[0] < TIE_MARGIN) | (gaps[1] < TIE_MARGIN))
+    untied_differ = int((differ & ~ties).sum())
+    keep = ~ties
+    conf_eq = True
+    for p, ev in zip(pred, (a["ev"], b["ev"])):
+        cm = torch.zeros((LSTM_CLASSES, LSTM_CLASSES), dtype=torch.int64)
+        idx = labels.argmax(-1)
+        cm.index_put_((idx.cpu(), p.cpu()), torch.ones_like(idx.cpu()),
+                      accumulate=True)
+        conf_eq &= bool(np.array_equal(cm.numpy(), ev.confusion.matrix))
+    cm_a, cm_b = a["ev"].confusion.matrix, b["ev"].confusion.matrix
+    tie_rows = int(ties.sum())
+    cms_equal = bool(np.array_equal(cm_a, cm_b))
+    max_norm = float(max(a["norms"].max(), b["norms"].max()))
+
+    # step time with and without the listeners, in turn
+    lis = [L.ScoreIterationListener(1), L.CollectScoresIterationListener(),
+           L.PerformanceListener()]
+    step_ms = {"listeners": [], "none": []}
+    # in turns, three epochs each: the host's pace drifts within a call
+    for which in ("none", "listeners", "listeners", "none", "none",
+                  "listeners"):
+        net.set_listeners(*(lis if which == "listeners" else ()))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.fit(_Batches(train))
+        torch.cuda.synchronize()
+        step_ms[which].append((time.perf_counter() - t1) * 1e3
+                              / ES_TRAIN_BATCHES)
+    net.set_listeners()
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    print(json.dumps({
+        "phase": "early_stop_lstm", "model": {
+            "name": "TextGenerationLSTM (builder)", "classes": LSTM_CLASSES,
+            "hidden": LSTM_HIDDEN, "batch": LSTM_BATCH, "t": LSTM_T,
+            "updater": "RmsProp(StepSchedule(2e-3, 0.5, 8))",
+            "weight_noise": "DropConnect(0.9) on both LSTMs",
+            "constraint": f"MaxNorm({MAX_NORM}) on the output W",
+            "helper": "pallas"},
+        "termination": [a["res"].termination_reason,
+                        a["res"].termination_details],
+        "twin_termination": [b["res"].termination_reason,
+                             b["res"].termination_details],
+        "best_epoch": [a["res"].best_model_epoch,
+                       b["res"].best_model_epoch],
+        "score_vs_epoch": a["res"].score_vs_epoch,
+        "twin_score_vs_epoch": b["res"].score_vs_epoch,
+        "steps": steps, "scores": a["scores"], "twin_scores": b["scores"],
+        "step0_rel_diff": step0, "tol_step0": TOL_LSTM_LOSS,
+        "later_max_rel_diff": later, "tol_later": TOL_ES_SCORES,
+        "confusion_equal": cms_equal, "tie_rows": tie_rows,
+        "untied_rows_differing": untied_differ,
+        "evaluate_matches_outputs": conf_eq,
+        "accuracy": [a["ev"].accuracy(), b["ev"].accuracy()],
+        "max_output_col_norm": max_norm, "max_norm": MAX_NORM,
+        "kernel_launches": a["launches"], "expected_launches": expected,
+        "twin_launches": b["launches"], "seconds": round(a["seconds"], 3),
+        "twin_seconds": round(b["seconds"], 3),
+        "fit_step_ms_median_listeners": med["listeners"],
+        "fit_step_ms_median_no_listeners": med["none"],
+        "fit_step_ms": step_ms, "card": card}), flush=True)
+    if step0 > TOL_LSTM_LOSS or later > TOL_ES_SCORES:
+        return None, (f"early-stopped char-LSTM scores vs twin: step 0 "
+                      f"{step0} (tol {TOL_LSTM_LOSS}), later {later} (tol "
+                      f"{TOL_ES_SCORES})")
+    if a["res"].best_model_epoch != b["res"].best_model_epoch or \
+            a["res"].termination_details != b["res"].termination_details:
+        return None, "early stopping: best epoch or reason differs from twin"
+    if untied_differ or not conf_eq or (not cms_equal and not tie_rows):
+        return None, (f"best models' confusion matrices differ outside ties "
+                      f"({untied_differ} rows)")
+    if max_norm > MAX_NORM + TOL_MAX_NORM:
+        return None, f"output W column norm {max_norm} > {MAX_NORM}"
+    if a["launches"] != expected or b["launches"]:
+        return None, (f"lstm_fwd launched {a['launches']} times (twin "
+                      f"{b['launches']}); expected {expected}")
+    return a["launches"], None
+
+
+def fit_on_device_phase(args, torch, dev, card):
+    """Phase 23.  Returns ``(flash launches, None)`` or ``(None, what
+    failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.conf.schedules import WarmupSchedule
+    from deeplearning4j_tpu_torch.nn.conf.updaters import AdamW
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.train import listeners as L
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+
+    def make(impl):
+        zoo = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                            n_layers=LAYERS, n_heads=HEADS, attn_impl=impl,
+                            sparse_labels=True, seed=args.seed,
+                            updater=AdamW(learning_rate=WarmupSchedule(
+                                4, 3e-4), weight_decay=0.01))
+        return MultiLayerNetwork(zoo.conf(), device=dev)
+
+    net, twin = make("auto"), make("reference")
+    tree = seeded_params(net.param_spec(), args.seed + 23)
+    params_from_jax(net, tree)
+    params_from_jax(twin, tree)
+    n = FOD_BATCH * FOD_BATCHES
+    rng = np.random.default_rng(args.seed + 23)
+    ids = torch.tensor(rng.integers(0, VOCAB, (n + FOD_TAIL, SEQ + 1)),
+                       device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    losses, perms, collected = {}, {}, {}
+    for name, m in (("flash", net), ("reference", twin)):
+        rec = losses[name] = []
+        inner = m._device_step
+
+        def step(bx, by, key, _inner=inner, _rec=rec):
+            loss = _inner(bx, by, key)
+            _rec.append(loss.detach())
+            return loss
+        m._device_step = step
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for name, m in (("flash", net), ("reference", twin)):
+        if name == "reference":
+            main_launches = dict(fa.launches)
+            main_s = time.perf_counter() - t0
+        # fused: 2 epochs of the 128 sequences, no listener, no tail
+        m.fit_on_device(x[:n], y[:n], batch_size=FOD_BATCH, epochs=2,
+                        shuffle=True)
+        perms[name] = [p.cpu() for p in m.last_permutations]
+        # per epoch: a listener and a ragged tail of FOD_TAIL
+        coll = L.CollectScoresIterationListener()
+        m.set_listeners(coll)
+        m.fit_on_device(x, y, batch_size=FOD_BATCH, epochs=1, shuffle=True)
+        m.set_listeners()
+        perms[name] += [p.cpu() for p in m.last_permutations]
+        collected[name] = coll.scores
+        torch.cuda.synchronize()
+    steps = 2 * FOD_BATCHES + FOD_BATCHES + 1
+    expected = {k: LAYERS * steps for k in main_launches}
+    la = [float(v) for v in losses["flash"]]
+    lb = [float(v) for v in losses["reference"]]
+    step0 = abs(la[0] - lb[0]) / abs(lb[0])
+    later = max(abs(p - q) / abs(q) for p, q in zip(la[1:], lb[1:]))
+    tail_diff = max(abs(p - q) / abs(q) for (_, p), (_, q) in
+                    zip(collected["flash"], collected["reference"]))
+    perms_equal = len(perms["flash"]) == 3 and all(
+        torch.equal(p, q) for p, q in zip(perms["flash"],
+                                          perms["reference"]))
+    # fit_on_device against fit over the same 8 batches (host arrays in,
+    # as a user's loop feeds them), in turn
+    del net._device_step, twin      # the recorders go with the twin
+
+    xh, yh = x[:n].cpu().numpy(), y[:n].cpu().numpy()
+    step_ms = {"fit_on_device": [], "fit": []}
+    for which in ("fit_on_device", "fit", "fit", "fit_on_device"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if which == "fit":
+            perm = net.last_permutations[-1].cpu().numpy()
+            for s in range(FOD_BATCHES):
+                idx = perm[s * FOD_BATCH:(s + 1) * FOD_BATCH]
+                net.fit(xh[idx], yh[idx])
+        else:
+            net.fit_on_device(x[:n], y[:n], batch_size=FOD_BATCH, epochs=1,
+                              shuffle=True)
+        torch.cuda.synchronize()
+        step_ms[which].append((time.perf_counter() - t1) * 1e3
+                              / FOD_BATCHES)
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    print(json.dumps({
+        "phase": "fit_on_device_lm", "model": {
+            "vocab": VOCAB, "seq": SEQ, "embed": EMBED, "layers": LAYERS,
+            "heads": HEADS, "batch": FOD_BATCH, "sequences_on_device": n,
+            "tail": FOD_TAIL, "updater": "AdamW(WarmupSchedule(4, 3e-4), "
+                                         "weight_decay=0.01)"},
+        "steps": steps, "losses": la, "reference_losses": lb,
+        "step0_rel_diff": step0, "tol_step0": TOL_TRAIN_LOSS,
+        "later_max_rel_diff": later, "tol_later": TOL_FOD_LOSS,
+        "listener_scores": collected["flash"],
+        "reference_listener_scores": collected["reference"],
+        "listener_max_rel_diff": tail_diff,
+        "permutations_equal": perms_equal,
+        "kernel_launches": main_launches, "expected_launches": expected,
+        "seconds": round(main_s, 3),
+        "fit_on_device_step_ms_median": med["fit_on_device"],
+        "fit_step_ms_median": med["fit"], "step_ms": step_ms,
+        "card": card}), flush=True)
+    if not perms_equal:
+        return None, "fit_on_device: the twins' permutations differ"
+    if not np.isfinite(la).all() or step0 > TOL_TRAIN_LOSS or \
+            later > TOL_FOD_LOSS or tail_diff > TOL_FOD_LOSS:
+        return None, (f"fit_on_device losses vs the reference twin: step 0 "
+                      f"{step0}, later {later}, listener {tail_diff}")
+    if main_launches != expected:
+        return None, (f"fit_on_device launched {main_launches}; expected "
+                      f"{expected} ({LAYERS} per kernel per step)")
+    return main_launches, None
+
+
+def transfer_phase(args, torch, dev, card):
+    """Phase 24.  Returns ``(bn_apply launches, None)`` or ``(None, what
+    failed)``."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Nadam
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.misc import FrozenLayer
+    from deeplearning4j_tpu_torch.nn.transfer_learning import \
+        TransferLearning
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+
+    zoo = ResNet50(seed=args.seed)
+
+    def source(helper):
+        conf = zoo.conf()
+        for v in conf.vertices.values():
+            lc = getattr(v, "layer", None)
+            if type(lc).__name__ == "BatchNormalization":
+                lc.helper = helper
+        return ComputationGraph(conf, device=dev)
+
+    def edit(src):
+        return (TransferLearning.GraphBuilder(src)
+                .fine_tune_configuration(updater=Nadam(learning_rate=1e-3))
+                .set_feature_extractor(TR_FEATURE_END)
+                .remove_vertex_and_connections("out")
+                .add_layer("out", OutputLayer(n_out=TR_CLASSES,
+                                              activation="softmax",
+                                              loss="mcxent"), "avgpool")
+                .set_outputs("out").build())
+
+    src = source("pallas").init()
+    twin_src = source(None).load_params(_host_tree(src))
+    net, twin = edit(src), edit(twin_src)
+    del src, twin_src
+    twin.load_params(_host_tree(net))
+    frozen = sorted(k for k, v in net.conf.vertices.items()
+                    if isinstance(getattr(v, "layer", None), FrozenLayer))
+    trained_bn = [k for k, v in net.conf.vertices.items()
+                  if type(getattr(v, "layer", None)).__name__
+                  == "BatchNormalization"]
+    before = {k: {n: t.detach().clone() for n, t in net.params[k].items()}
+              for k in frozen if k in net.params}
+    state0 = {k: {n: t.clone() for n, t in net.state[k].items()}
+              for k in frozen if net.state.get(k)}
+    h, w, c = zoo.input_shape
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 24)
+    xs = [torch.randn((TR_BATCH, h, w, c), generator=dgen, device=dev)
+          for _ in range(TR_STEPS)]
+    ys = [F.one_hot(torch.randint(0, TR_CLASSES, (TR_BATCH,),
+                                  generator=dgen, device=dev),
+                    TR_CLASSES).float() for _ in range(TR_STEPS)]
+    losses, twin_losses, launches, step_ms = [], [], 0, []
+    for x, y in zip(xs, ys):
+        with torch.no_grad():
+            for k, g in net.params.items():
+                for n, p in g.items():
+                    twin.params[k][n].copy_(p)
+        twin.state = {k: {n: t.clone() for n, t in g.items()}
+                      for k, g in net.state.items()}
+        torch.cuda.synchronize()
+        pb.reset_launches()
+        t1 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        launches += pb.launches["bn_apply"]
+        twin.fit(x, y)
+        losses.append(net.get_score())
+        twin_losses.append(twin.get_score())
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses, twin_losses))
+    moved = [f"{k}/{n}" for k, g in before.items() for n, t in g.items()
+             if not torch.equal(net.params[k][n], t)]
+    moved += [f"{k}/{n}" for k, g in state0.items() for n, t in g.items()
+              if not torch.equal(net.state[k][n], t)]
+    expected = len(trained_bn) * TR_STEPS
+    print(json.dumps({
+        "phase": "transfer_resnet", "model": {
+            "source": "ResNet50() 224x224x3, every BN helper=pallas",
+            "feature_extractor": TR_FEATURE_END, "new_output":
+                f"OutputLayer({TR_CLASSES}, softmax, mcxent) on avgpool",
+            "updater": "Nadam(1e-3)", "batch": TR_BATCH,
+            "num_params": net.num_params(),
+            "frozen_vertices": len(frozen),
+            "trained_bn_layers": len(trained_bn)},
+        "steps": TR_STEPS, "losses": losses, "twin_losses": twin_losses,
+        "max_rel_loss_diff": diff, "tol_loss": CNN_TOL_LOSS,
+        "frozen_params_and_stats_moved": moved,
+        "kernel_launches": launches, "expected_launches": expected,
+        "frozen_bn_launch": False, "step_ms": step_ms,
+        "step_ms_median": statistics.median(step_ms),
+        "images_per_s": TR_BATCH / statistics.median(step_ms) * 1e3,
+        "card": card}), flush=True)
+    if moved:
+        return None, f"transfer learning moved frozen tensors: {moved[:5]}"
+    if diff > CNN_TOL_LOSS:
+        return None, (f"transfer ResNet50 losses {losses} vs twin "
+                      f"{twin_losses}: {diff} > {CNN_TOL_LOSS}")
+    if launches != expected:
+        return None, (f"bn_apply launched {launches} times; expected "
+                      f"{expected} (the {len(trained_bn)} trained BNs; "
+                      "frozen BNs run in inference mode)")
+    return launches, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2577,6 +3275,19 @@ def main(argv=None) -> int:
     dropout_launches, err = dropout_phase(args, torch, dev, card)
     if err:
         return fail(err)
+    torch.cuda.empty_cache()
+
+    # ---- 21-24. the rest of training -----------------------------------
+    err = updaters_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    slice_launches = {}
+    for key, phase in (("es", early_stop_phase), ("fod", fit_on_device_phase),
+                       ("tr", transfer_phase)):
+        slice_launches[key], err = phase(args, torch, dev, card)
+        if err:
+            return fail(err)
+        torch.cuda.empty_cache()
 
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
@@ -2594,10 +3305,13 @@ def main(argv=None) -> int:
             "replaces": replaces[name],
             "launches": train_launches[name],
             "launches_train_dropout": dropout_launches[name],
+            "launches_fit_on_device_lm": slice_launches["fod"][name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,
             "ms_device_only": kern_dev})
+    bn_record["launches_transfer_resnet"] = slice_launches["tr"]
+    lstm_record["launches_early_stop_lstm"] = slice_launches["es"]
     records.append(bn_record)
     records.append(lstm_record)
     print(card, flush=True)

@@ -1,9 +1,11 @@
 """Machinery shared by the network types (port of ``nn/_common.py``):
-the updater groups (``build_tx``), gradient normalization, the refusal
-of the train-step branches the port lacks, the backward-and-update half
-of a train step, and ``Network``, the base of ``MultiLayerNetwork`` and
-``ComputationGraph`` (parameter and state storage, init, loading, the
-dropout key stream, the fit loop).
+the updater groups (``build_tx``), gradient normalization, constraints,
+the refusal of the train-step branches the port lacks, the
+backward-and-update half of a train step, the device-resident epoch
+trainer behind ``fit_on_device``, and ``Network``, the base of
+``MultiLayerNetwork`` and ``ComputationGraph`` (parameter and state
+storage, init, loading, the dropout key stream, the fit loop with its
+listener hooks, ``clone`` and evaluation).
 
 Gradients and parameters are ``{layer_i: {name: tensor}}`` dicts, as the
 JAX package's pytrees.  ``build_tx`` returns an ``UpdaterGroups`` in
@@ -125,7 +127,7 @@ class UpdaterGroups:
                     continue
                 u = u_conf.update(grads[layer][name],
                                   state["slots"][layer][name],
-                                  count[self.labels[layer][name]])
+                                  count[self.labels[layer][name]], p)
                 p.add_(u.to(p.dtype))
         for lab in count:
             count[lab] += 1
@@ -182,39 +184,47 @@ def apply_gradient_norm_all(grads: Tree,
 def refuse_unported_training(conf, layers: Iterable[Optional[LayerConf]]
                              ) -> None:
     """The JAX train step's branches this port does not have, refused
-    when the train step is built: precision policies, remat, the legacy
-    solvers, the sparse-embedding gradient, layer constraints (the
-    reference applies them after each update) and weight noise
-    (``DropConnect``/``WeightNoise``).  Dropout is ported."""
+    when the train step is built: precision policies, remat and the
+    sparse-embedding gradient (ROADMAP queue 1, item 2's train-step
+    work), and the legacy solvers (item 4's remainder)."""
     d = conf.defaults
     if d.get("precision") is not None or \
             str(d.get("compute_dtype") or "float32") != "float32":
         raise NotImplementedError(
             "precision policies (precision / compute_dtype) are not ported "
-            "yet: training runs float32")
+            "yet (ROADMAP queue 1, item 2): training runs float32")
     if d.get("cache_mode") == "remat":
-        raise NotImplementedError("cache_mode='remat' is not ported yet")
+        raise NotImplementedError("cache_mode='remat' is not ported yet "
+                                  "(ROADMAP queue 1, item 2)")
     algo = d.get("optimization_algo", "sgd")
     if algo not in ("sgd", "stochastic_gradient_descent"):
         raise NotImplementedError(
             f"optimization_algo='{algo}' (the legacy solvers) is not "
-            "ported yet")
+            "ported yet (ROADMAP queue 1, item 4's remainder)")
     for lc in layers:
         if getattr(lc, "sparse_grad", False):
             raise NotImplementedError(
                 f"layer '{lc.name}': sparse_grad=True (the sparse-embedding "
-                "gradient) is not ported yet")
+                "gradient) is not ported yet (ROADMAP queue 1, item 2)")
+
+
+@torch.no_grad()
+def apply_constraints_all(params: Tree,
+                          confs: Dict[str, Optional[LayerConf]]) -> None:
+    """The layers' constraints after an update, in place (reference
+    ``applyConstraints``; JAX ``apply_constraints_all``): each constraint
+    of a layer, in order, on its weights (``apply_to_weights``) and its
+    bias-like params (``apply_to_biases``)."""
+    for name, lc in confs.items():
         hc = hyperparam_conf(lc)
-        if getattr(hc, "constraints", None):
-            raise NotImplementedError(
-                f"layer '{hc.name}': constraints={hc.constraints!r} are "
-                "not ported yet (the reference applies them after each "
-                "update); train with constraints unset")
-        if getattr(hc, "weight_noise", None) is not None:
-            raise NotImplementedError(
-                f"layer '{hc.name}': weight_noise={hc.weight_noise!r} "
-                "(DropConnect / WeightNoise) is not ported yet; train with "
-                "weight_noise unset (dropout is ported)")
+        cs = getattr(hc, "constraints", None)
+        if not cs or not params.get(name):
+            continue
+        for c in cs:
+            for pname, p in params[name].items():
+                is_bias = pname in hc._BIAS_PARAMS
+                if (c.apply_to_biases if is_bias else c.apply_to_weights):
+                    p.copy_(c.apply(p))
 
 
 def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
@@ -242,6 +252,7 @@ def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
                                     for g in float_grad_leaves(v)))
                   for k, v in grads.items() if v}
     tx.step(params, grads, opt_state)
+    apply_constraints_all(params, confs)
     return {"global_norm": gnorm, "layer_norms": glayer}
 
 
@@ -269,6 +280,88 @@ def batch_factory(data, one, normalize: Callable) -> Callable:
                 yield normalize(b)
         return factory
     raise ValueError("fit() needs (x, y) or an iterator")
+
+
+def fit_on_device_epochs(model: "Network", xs: List[torch.Tensor],
+                         ys: List[torch.Tensor], batch_size: int,
+                         epochs: int, shuffle: bool,
+                         fit_tail: Callable) -> "Network":
+    """The device-resident epoch trainer behind both containers'
+    ``fit_on_device`` (JAX ``fit_on_device_epochs``).  ``xs``/``ys`` are
+    lists of tensors on the model's device; each step gathers its
+    minibatch there by index.  ``model._device_step(bx, by, key)`` runs
+    one train step with an explicit key; ``fit_tail(xt, yt)`` trains a
+    ragged tail through the per-batch path.
+
+    The key plumbing is the JAX package's, so the permutations and the
+    dropout keys are its own:
+
+    * fused (more than one epoch, no ragged tail, no listeners): one
+      ``_rng, k = split(_rng)``, then per epoch ``k, pk, ek = split(k,
+      3)``: ``pk`` draws the permutation, ``ek`` starts the step chain;
+    * per epoch (otherwise): ``_rng, key, pk = split(_rng, 3)`` per
+      epoch; listeners fire once per epoch, plus once for the tail's
+      step.
+
+    In a step chain each step takes ``k, step_key = split(k)``.  The
+    epochs' permutations stay in ``model.last_permutations``."""
+    n = int(xs[0].shape[0])
+    if any(int(a.shape[0]) != n for a in list(xs) + list(ys)):
+        raise ValueError(
+            f"all inputs/labels need the same leading dimension; got "
+            f"{[int(a.shape[0]) for a in list(xs) + list(ys)]}")
+    nb = n // batch_size
+    if nb == 0:
+        raise ValueError(f"batch_size {batch_size} exceeds dataset ({n})")
+    used = nb * batch_size
+    dev = xs[0].device
+
+    def perm_of(pk):
+        return _random.permutation(pk, n) if shuffle else \
+            torch.arange(n, device=dev)
+
+    def run_steps(key, perm):
+        loss = None
+        for s in range(nb):
+            idx = perm[s * batch_size:(s + 1) * batch_size]
+            key, sk = _random.split(key)
+            loss = model._device_step([a[idx] for a in xs],
+                                      [a[idx] for a in ys], sk)
+        return loss
+
+    model.last_permutations = []
+    if epochs > 1 and used == n and not model.listeners:
+        model._rng, k = _random.split(model._rng)
+        for _ in range(epochs):
+            k, pk, ek = _random.split(k, 3)
+            perm = perm_of(pk)
+            model.last_permutations.append(perm)
+            model._score = run_steps(ek, perm)
+        model.iteration += nb * epochs
+        model.last_batch_size = batch_size
+        # as the JAX package's fused program, no gradient stats survive
+        model._last_grad_stats = None
+        model.epoch += epochs
+    else:
+        for _ in range(epochs):
+            for lst in model.listeners:
+                lst.on_epoch_start(model)
+            model._rng, key, pk = _random.split(model._rng, 3)
+            perm = perm_of(pk)
+            model.last_permutations.append(perm)
+            model._score = run_steps(key, perm)
+            model.iteration += nb
+            model.last_batch_size = batch_size
+            for lst in model.listeners:
+                lst.iteration_done(model, model.iteration, model.epoch)
+            if used < n:
+                tail = perm[used:]
+                fit_tail([a[tail] for a in xs], [a[tail] for a in ys])
+            for lst in model.listeners:
+                lst.on_epoch_end(model)
+            model.epoch += 1
+    model._score = float(model._score)
+    return model
 
 
 class Network(nn.Module):
@@ -299,6 +392,8 @@ class Network(nn.Module):
         self._last_grad_stats: Optional[Dict[str, Any]] = None
         self._tx = None
         self._step = None
+        self.listeners: List[Any] = []
+        self.last_permutations: List[torch.Tensor] = []
         # the dropout key stream: jax.random.PRNGKey(seed), as the
         # reference's ``_rng``, on the network's device
         self._rng = _random.prng_key(conf.seed, self.device)
@@ -432,14 +527,103 @@ class Network(nn.Module):
         self._fit_one(*batch)
 
     def _fit_epochs(self, factory: Callable, epochs: int) -> "Network":
+        """``fit``'s loop: ``on_epoch_start``, the batches (each step
+        fires ``iteration_done``), ``on_epoch_end``, at the JAX package's
+        points."""
         if not self.params:
             self.init()
         for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self)
             for batch in factory():
                 self._fit_step(*batch)
+            for lst in self.listeners:
+                lst.on_epoch_end(self)
             self.epoch += 1
         return self
 
+    def _iteration_done(self) -> None:
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.epoch)
+
     def get_score(self) -> float:
-        """The loss of the most recent training batch."""
+        """The loss of the most recent training batch (one host sync
+        where it is still on the device)."""
         return float(self._score)
+
+    # ----------------------------------------------------------- listeners
+    def set_listeners(self, *listeners) -> "Network":
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners) -> "Network":
+        self.listeners.extend(listeners)
+        return self
+
+    # --------------------------------------------------------------- clone
+    def clone(self) -> "Network":
+        """A deep copy on the same device: configuration, params, state,
+        updater slots and counts, iteration and epoch.  The key stream is
+        split as the JAX package's ``clone`` splits it (``self._rng,
+        other._rng = split(self._rng)``), so replicas draw different
+        dropout and a run that clones (early stopping's saver) keeps the
+        JAX package's stream.  Listeners are not copied."""
+        import copy
+        other = type(self)(copy.deepcopy(self.conf), device=self.device)
+        with torch.no_grad():
+            other._set_params({k: {n: p.detach().clone()
+                                   for n, p in g.items()}
+                               for k, g in self.params.items()})
+        other.state = {k: {n: t.clone() for n, t in g.items()}
+                       for k, g in self.state.items()}
+        other._init_updater()
+        if self.opt_state is not None:
+            other.opt_state = {
+                "count": dict(self.opt_state["count"]),
+                "slots": {k: {n: {s: t.clone() for s, t in sl.items()}
+                              for n, sl in g.items()}
+                          for k, g in self.opt_state["slots"].items()}}
+        self._rng, other._rng = _random.split(self._rng)
+        other.iteration, other.epoch = self.iteration, self.epoch
+        other.last_batch_size = self.last_batch_size
+        return other
+
+    # ---------------------------------------------------------- evaluation
+    def evaluate(self, iterator_or_x, y=None):
+        """Classification ``Evaluation`` of the first output over a batch
+        ``(x, y)`` or an iterator of batches; a labels mask (3-D time
+        series) selects the steps that count."""
+        from ..evaluation.classification import Evaluation
+        return self._evaluate_with(Evaluation(), iterator_or_x, y)
+
+    def evaluate_regression(self, iterator_or_x, y=None):
+        from ..evaluation.regression import RegressionEvaluation
+        return self._evaluate_with(RegressionEvaluation(), iterator_or_x, y)
+
+    def evaluate_roc(self, iterator_or_x, y=None, threshold_steps: int = 0):
+        from ..evaluation.roc import ROC
+        return self._evaluate_with(ROC(threshold_steps), iterator_or_x, y)
+
+    def _evaluate_with(self, ev, it, y):
+        if y is not None:
+            batches = [self._normalize_batch((it, y))]
+        else:
+            if hasattr(it, "reset"):
+                it.reset()
+            batches = (self._normalize_batch(b) for b in it)
+        for x, yy, _, lm in batches:
+            out = self._eval_output(x)
+            ev.eval(_first(yy), out, mask=_first(lm))
+        return ev
+
+    def _eval_output(self, x) -> torch.Tensor:
+        raise NotImplementedError
+
+    @staticmethod
+    def _normalize_batch(b):
+        raise NotImplementedError
+
+
+def _first(a):
+    """The first of a list (a graph's per-output labels or masks)."""
+    return a[0] if isinstance(a, list) else a

@@ -20,10 +20,11 @@ from ``fold_in(key, vi)`` and output ``oi``'s loss from
 Training takes the JAX package's SGD path: forward to the output layers'
 summed loss plus l1/l2, gradients by autograd (through the hand-written
 BatchNorm kernel's ``autograd.Function`` where a layer selects it),
-gradient normalization, then the updaters.  The step leaves the loss on
-the device.  Not ported, and refused when configured: precision policies,
-the sparse-embedding gradient, remat, the legacy solvers, layer
-constraints and weight noise; tBPTT is not ported for graphs.
+gradient normalization, then the updaters and the constraints.  The step
+leaves the loss on the device.  Listeners, ``clone``, evaluation and
+``fit_on_device`` are ``nn/_common.Network``'s.  Not ported, and refused
+when configured: precision policies, the sparse-embedding gradient, remat
+and the legacy solvers; tBPTT is not ported for graphs.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch
 
 from ..utils import _random
 from ._common import (Network, backward_and_update, batch_factory,
-                      refuse_unported_training)
+                      fit_on_device_epochs, refuse_unported_training)
 from .layers.base import draws
 
 
@@ -232,31 +233,65 @@ class ComputationGraph(Network):
         return self._fit_epochs(batch_factory(data, one, _normalize_batch),
                                 epochs)
 
+    def _train_step(self):
+        if self._step is None:
+            if self.opt_state is None:
+                self._init_updater()
+            self._step = _build_graph_train_step(self.conf, self._tx)
+        return self._step
+
     def _fit_one(self, xs, ys, ms, lms) -> torch.Tensor:
         """One train step; returns (and keeps in ``_score``) the loss as a
         device scalar, without waiting for the device."""
         xs = [self._on_device(x) for x in _as_list(xs)]
         self.last_batch_size = int(xs[0].shape[0])
-        if self._step is None:
-            if self.opt_state is None:
-                self._init_updater()
-            self._step = _build_graph_train_step(self.conf, self._tx)
+        step = self._train_step()
         lms = None if lms is None else [self._on_device(m)
                                         for m in _as_list(lms)]
-        loss, self.state, gstats = self._step(
+        loss, self.state, gstats = step(
             self._param_tree(), self.state, self.opt_state, xs,
             [self._on_device(y) for y in _as_list(ys)], lms,
             self._next_key(), self._masks_on_device(ms))
         self._score = loss
         self._last_grad_stats = gstats
         self.iteration += 1
+        self._iteration_done()
         return loss
 
+    def _device_step(self, xs, ys, key) -> torch.Tensor:
+        """One train step on minibatches already on the device, drawing
+        from ``key`` (``fit_on_device``'s step); returns the loss."""
+        loss, self.state, self._last_grad_stats = self._train_step()(
+            self._param_tree(), self.state, self.opt_state, xs, ys, None,
+            key, None)
+        return loss
+
+    def fit_on_device(self, inputs, labels, *, batch_size: int,
+                      epochs: int = 1, shuffle: bool = True
+                      ) -> "ComputationGraph":
+        """Device-resident epoch training for graphs (see
+        ``MultiLayerNetwork.fit_on_device``); ``inputs``/``labels`` are an
+        array or a list of arrays."""
+        if not self.params:
+            self.init()
+        return fit_on_device_epochs(
+            self, [self._on_device(a) for a in _as_list(inputs)],
+            [self._on_device(a) for a in _as_list(labels)], batch_size,
+            epochs, shuffle,
+            fit_tail=lambda xt, yt: self._fit_one(xt, yt, None, None))
+
     def fit_batch(self, batch) -> float:
-        """One train step on one batch, without epoch bookkeeping."""
+        """One train step on one batch, without epoch bookkeeping (the
+        early-stopping trainer owns the epoch loop); returns its loss."""
         if not self.params:
             self.init()
         return float(self._fit_one(*_normalize_batch(batch)))
+
+    _normalize_batch = staticmethod(_normalize_batch)
+
+    def _eval_output(self, xs) -> torch.Tensor:
+        out = self.output(*xs)
+        return out[0] if isinstance(out, list) else out
 
     def score(self, dataset=None, inputs=None, labels=None) -> float:
         """Loss on a dataset; with no arguments, the score of the most

@@ -34,7 +34,8 @@ from ..layers import (attention, convolution, feedforward,  # noqa: F401
                       misc, normalization, pooling,  # (@class registry)
                       recurrent)
 from ..layers.base import LayerConf
-from . import dropout, updaters  # noqa: F401  (@class registry)
+from . import (constraints, distribution, dropout,  # noqa: F401
+               schedules, updaters)  # (@class registry)
 from .input_type import InputType
 from .preprocessors import InputPreProcessor, auto_preprocessor
 
@@ -429,6 +430,16 @@ class ComputationGraphConfiguration:
     topological_order: List[str] = field(default_factory=list)
     vertex_input_types: Dict[str, List[Any]] = field(default_factory=dict)
 
+    def to_json(self) -> str:
+        return serde.to_json(self)
+
+    def to_yaml(self) -> str:
+        return serde.to_yaml(self)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        return serde.from_yaml(s)
+
     @staticmethod
     def from_json(s: str) -> "ComputationGraphConfiguration":
         conf = serde.from_json(s)
@@ -467,7 +478,9 @@ class ComputationGraphConfiguration:
         return order
 
     def resolve(self) -> None:
-        """Apply defaults, order the vertices, infer every input type."""
+        """Apply defaults, check names, order the vertices, infer every
+        input type."""
+        from .multi_layer import validate_layer_names as _validate_layer_names
         for name in self.network_outputs:
             if name not in self.vertices:
                 raise ValueError(f"network output '{name}' is not a vertex")
@@ -480,6 +493,7 @@ class ComputationGraphConfiguration:
             lc = getattr(v, "layer", None)
             if hasattr(lc, "apply_global_defaults"):
                 lc.apply_global_defaults(self.defaults)
+            _validate_layer_names(lc)
         self.topological_order = self.topo_sort()
         it_by_name = dict(zip(self.network_inputs, self.input_types))
         self.vertex_input_types = {}
@@ -515,6 +529,9 @@ class GraphBuilder:
         self._inputs: List[str] = []
         self._outputs: List[str] = []
         self._input_types: List[Optional[InputType]] = []
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
@@ -544,6 +561,13 @@ class GraphBuilder:
         self._outputs = list(names)
         return self
 
+    def backprop_type(self, t: str, fwd: int = 20, back: int = 20
+                      ) -> "GraphBuilder":
+        self._backprop_type = t
+        self._tbptt_fwd = fwd
+        self._tbptt_back = back
+        return self
+
     def build(self) -> ComputationGraphConfiguration:
         conf = ComputationGraphConfiguration(
             vertices=self._vertices,
@@ -551,6 +575,9 @@ class GraphBuilder:
             network_inputs=self._inputs,
             network_outputs=self._outputs,
             input_types=self._input_types,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
             defaults=dict(self._defaults),
             seed=self._seed)
         conf.resolve()

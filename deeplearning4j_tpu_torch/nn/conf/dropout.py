@@ -1,6 +1,7 @@
-"""Dropout configurations (port of the activation half of
+"""Dropout and weight-noise configurations (port of
 ``nn/conf/dropout.py``): ``Dropout``, ``GaussianDropout``,
-``GaussianNoise`` and ``AlphaDropout``, and ``resolve``.
+``GaussianNoise``, ``AlphaDropout`` and ``resolve`` on activations;
+``DropConnect`` and ``WeightNoise`` on parameters.
 
 Each ``apply(key, x)`` draws from the JAX package's threefry stream
 (``utils/_random``) on the key's device, so for one key the port keeps
@@ -9,8 +10,12 @@ Bernoulli masks of ``Dropout`` and ``AlphaDropout`` are bit-equal, and
 ``Dropout`` divides by p (``x / p``, not ``x * (1/p)``) so its kept
 values are too.  ``GaussianDropout`` and ``GaussianNoise`` go through
 ``erfinv`` and agree within float32 rounding.  Training only: the layers
-call ``apply`` when ``train`` and a key are given.  The weight-noise
-half (``DropConnect``, ``WeightNoise``) is not ported.
+call ``apply`` when ``train`` and a key are given.  Weight noise
+(``apply(key, param)``) runs in the layers' ``maybe_noise_weights``
+(``nn/layers/base``), which hands param i of the sorted names the key
+``fold_in(layer key, i)``; ``DropConnect``'s mask is bit-equal to the
+JAX package's, ``WeightNoise`` agrees within its distribution's
+rounding.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 
 from ...utils import _random
 from ...utils.serde import register_serde
+from .distribution import Distribution, NormalDistribution
 
 
 @dataclass
@@ -90,3 +96,40 @@ def resolve(d) -> Optional[IDropout]:
     if p <= 0.0 or p >= 1.0:
         return None
     return Dropout(p)
+
+
+# ---- weight noise (applied to params, not activations) ----------------------
+
+@dataclass
+class IWeightNoise:
+    def apply(self, key: torch.Tensor, param: torch.Tensor,
+              iteration: int = 0) -> torch.Tensor:  # pragma: no cover
+        raise NotImplementedError
+
+
+@register_serde
+@dataclass
+class DropConnect(IWeightNoise):
+    """Randomly zero weights during training (reference DropConnect.java);
+    kept weights are divided by the retain probability ``p``."""
+    p: float = 0.5  # retain probability
+
+    def apply(self, key, param, iteration=0):
+        keep = _random.bernoulli(key, self.p, param.shape)
+        return torch.where(keep, param / self.p,
+                           torch.zeros((), dtype=param.dtype,
+                                       device=param.device))
+
+
+@register_serde
+@dataclass
+class WeightNoise(IWeightNoise):
+    """Additive or multiplicative noise from a distribution (N(0, 0.01)
+    when unset)."""
+    distribution: Optional[Distribution] = None
+    additive: bool = True
+
+    def apply(self, key, param, iteration=0):
+        dist = self.distribution or NormalDistribution(0.0, 0.01)
+        noise = dist.sample(key, param.shape).to(param.dtype)
+        return param + noise if self.additive else param * noise

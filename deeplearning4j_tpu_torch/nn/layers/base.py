@@ -37,9 +37,9 @@ named ``fwd/W``, ...: ``flatten_group`` and ``nest_group`` map between the
 two.  ``None`` fields inherit the network-level default,
 as in the reference's builder.  l1/l2 regularisation is ported
 (``regularization_score``), and so is dropout on a layer's input
-(``maybe_dropout_input``, ``nn/conf/dropout``).  Weight noise
-(``DropConnect``, ``WeightNoise``) is not: it has no effect on
-inference, and a training forward with it set raises.
+(``maybe_dropout_input``, ``nn/conf/dropout``), and weight noise
+(``maybe_noise_weights``: ``DropConnect``, ``WeightNoise``), which has
+no effect on inference.
 """
 from __future__ import annotations
 
@@ -49,9 +49,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ...utils import _random
 from .. import activations as _act
 from ..conf import dropout as _dropout
 from ..conf.input_type import InputType
+from ..weights import fans as _fans, init_weights  # noqa: F401
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,29 +78,6 @@ INHERITED_DEFAULTS = {
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _fans(shape) -> tuple:
-    """Fan-in and fan-out as the JAX package's ``nn/weights._fans``: a
-    dense ``[n_in, n_out]`` kernel gives (n_in, n_out); a conv kernel
-    ``[kh, kw, c_in, c_out]`` (HWIO) gives (kh·kw·c_in, kh·kw·c_out)."""
-    shape = tuple(shape)
-    if len(shape) == 0:
-        return 1.0, 1.0
-    if len(shape) == 1:
-        return float(shape[0]), float(shape[0])
-    receptive = 1.0
-    for d in shape[:-2]:
-        receptive *= d
-    return receptive * shape[-2], receptive * shape[-1]
-
-
-# Ported weight-init schemes: the std of a normal draw from (fan_in,
-# fan_out), as in the JAX package's ``nn/weights.init_weights``.
-_WEIGHT_STD = {
-    "xavier": lambda fan_in, fan_out: (2.0 / (fan_in + fan_out)) ** 0.5,
-    "relu": lambda fan_in, fan_out: (2.0 / fan_in) ** 0.5,
-}
 
 
 def flatten_group(group: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -237,20 +216,16 @@ class BaseLayerConf(LayerConf):
 
     def make_weight(self, generator: torch.Generator, shape, device
                     ) -> torch.Tensor:
-        """Fresh weight: a normal draw scaled by ``xavier``
-        (sqrt(2/(fan_in+fan_out))) or ``relu`` (sqrt(2/fan_in)); the other
-        schemes are not ported.  torch's generator does not reproduce
-        JAX's numbers, so parity runs load transferred params."""
-        scheme = self.resolved("weight_init", "xavier").lower()
-        if scheme not in _WEIGHT_STD or self.weight_dist is not None:
-            raise ValueError(f"layer '{self.name}': weight_init '{scheme}' "
-                             "is not ported yet; ported: "
-                             f"{sorted(_WEIGHT_STD)}")
+        """Fresh weight under the layer's ``weight_init`` scheme (and
+        ``weight_dist`` for ``distribution``), every scheme of the JAX
+        package's ``init_weights`` (``nn/weights``).  torch's generator
+        does not reproduce JAX's numbers, so parity runs load transferred
+        params."""
+        scheme = self.resolved("weight_init", "xavier")
         if torch.device(device).type == "meta":   # shapes only
             return torch.empty(shape, dtype=self._dtype(), device=device)
-        std = _WEIGHT_STD[scheme](*_fans(shape))
-        w = torch.randn(shape, generator=generator, dtype=torch.float32)
-        return (w * std).to(device=device, dtype=self._dtype())
+        w = init_weights(generator, shape, scheme, self.weight_dist)
+        return w.to(device=device, dtype=self._dtype())
 
     def make_bias(self, shape, device) -> torch.Tensor:
         return torch.full(shape, float(self.resolved("bias_init", 0.0)),
@@ -268,15 +243,21 @@ class BaseLayerConf(LayerConf):
 
     def maybe_noise_weights(self, params: Params, train: bool,
                             key: Optional[torch.Tensor] = None) -> Params:
-        """Weight noise on non-bias params.  Identity when unset or not
-        training; raises when set in training: ``DropConnect`` and
-        ``WeightNoise`` are not ported."""
-        if train and self.weight_noise is not None:
-            raise NotImplementedError(
-                f"layer '{self.name}': weight_noise={self.weight_noise!r} "
-                "(DropConnect / WeightNoise) is not ported yet; train with "
-                "weight_noise unset")
-        return params
+        """Weight noise (``DropConnect``/``WeightNoise``) on the non-bias
+        params in training: param i of the sorted names draws from
+        ``fold_in(key, i)`` (bias-like names keep their index and are
+        skipped), as the JAX package.  The noised tensors are what the
+        layer computes with, its kernels included; the stored params are
+        untouched.  Identity when unset, not training or without a
+        key."""
+        wn = self.weight_noise
+        if not (train and wn is not None and key is not None):
+            return params
+        out = dict(params)
+        for i, (k, v) in enumerate(sorted(params.items())):
+            if k not in self._BIAS_PARAMS:
+                out[k] = wn.apply(_random.fold_in(key, i), v)
+        return out
 
     def regularization_score(self, params: Params) -> torch.Tensor:
         """l1·sum|w| + l2/2·sum w² over weights, with the ``*_bias``

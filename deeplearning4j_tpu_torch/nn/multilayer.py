@@ -33,11 +33,15 @@ plain functions over this configuration.
 Training (``fit``) takes the JAX package's SGD path: forward to the
 output layer's loss plus l1/l2, gradients by autograd (through the
 kernels' autograd functions on CUDA), gradient normalization, then the
-hand-written updater arithmetic of ``nn/conf/updaters.py``.  The step
-leaves the loss on the device: ``score()``/``get_score()`` materialise it
-on demand.  Not ported, and refused when configured: precision policies,
-the sparse-embedding gradient, remat, the legacy solvers, layer
-constraints and weight noise; the shape policy's padding is not ported.
+hand-written updater arithmetic of ``nn/conf/updaters.py``, then the
+layers' constraints.  The step leaves the loss on the device:
+``score()``/``get_score()`` materialise it on demand.  Listeners fire at
+the JAX package's points (``iteration_done`` after each step and tBPTT
+chunk, ``on_epoch_start``/``on_epoch_end`` around ``fit``'s epochs);
+``fit_on_device`` keeps the dataset on the device.  Not ported, and
+refused when configured: precision policies, the sparse-embedding
+gradient, remat and the legacy solvers; the shape policy's padding is
+not ported.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ import torch
 
 from ..utils import _random
 from ._common import (Network, backward_and_update, batch_factory,
-                      refuse_unported_training)
+                      fit_on_device_epochs, refuse_unported_training)
 from .conf.multi_layer import MultiLayerConfiguration
 from .layers.base import draws
 
@@ -323,7 +327,35 @@ class MultiLayerNetwork(Network):
         self._score = loss
         self._last_grad_stats = gstats
         self.iteration += 1
+        self._iteration_done()
         return loss
+
+    def _device_step(self, xs, ys, key) -> torch.Tensor:
+        """One train step on a minibatch already on the device, drawing
+        from ``key`` (``fit_on_device``'s step); returns the loss."""
+        loss, self.state, self._last_grad_stats, _ = self._train_step()(
+            self._param_tree(), self.state, self.opt_state, xs[0], ys[0],
+            None, None, None, key)
+        return loss
+
+    def fit_on_device(self, x, y, *, batch_size: int, epochs: int = 1,
+                      shuffle: bool = True) -> "MultiLayerNetwork":
+        """Device-resident epoch training (JAX ``fit_on_device``): the
+        dataset moves to the device once and every step gathers its
+        minibatch there; a ragged tail trains through ``fit``'s step, and
+        listeners fire once per epoch.  The permutations and keys are the
+        JAX package's (``nn/_common.fit_on_device_epochs``)."""
+        if not self.params:
+            self.init()
+        if self.conf.backprop_type == "tbptt":
+            raise ValueError(
+                "fit_on_device does not support tBPTT (the scanned step has "
+                "no carry truncation); use fit()")
+        self._validate_input_ids(x)
+        return fit_on_device_epochs(
+            self, [self._on_device(x)], [self._on_device(y)], batch_size,
+            epochs, shuffle,
+            fit_tail=lambda xt, yt: self._fit_one(xt[0], yt[0], None, None))
 
     def _fit_tbptt(self, x, y, mask, label_mask) -> None:
         """Truncated BPTT (reference ``doTruncatedBPTT``): the time axis in
@@ -349,6 +381,7 @@ class MultiLayerNetwork(Network):
             self._score = loss
             self._last_grad_stats = gstats
             self.iteration += 1
+            self._iteration_done()
 
     def _init_carries(self, batch: int) -> Dict[str, Any]:
         """Zero carries (f32) for every layer with ``HAS_CARRY``, keyed
@@ -358,10 +391,16 @@ class MultiLayerNetwork(Network):
                 for i, lc in enumerate(self.layer_confs) if lc.HAS_CARRY}
 
     def fit_batch(self, batch) -> float:
-        """One train step on one batch, without epoch bookkeeping."""
+        """One train step on one batch, without epoch bookkeeping (the
+        early-stopping trainer owns the epoch loop); returns its loss."""
         if not self.params:
             self.init()
         return float(self._fit_one(*_normalize_batch(batch)))
+
+    _normalize_batch = staticmethod(_normalize_batch)
+
+    def _eval_output(self, x) -> torch.Tensor:
+        return self.output(x)
 
     def score(self, dataset=None, x=None, y=None) -> float:
         """Loss on a dataset; with no arguments, the score of the most

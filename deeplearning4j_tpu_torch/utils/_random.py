@@ -31,10 +31,13 @@ runs on the device of the key.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["threefry2x32", "prng_key", "split", "fold_in", "bits",
-           "random_bits", "uniform", "bernoulli", "normal", "gumbel"]
+           "random_bits", "uniform", "bernoulli", "normal", "gumbel",
+           "permutation"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -158,3 +161,16 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     in its default ("low") mode: ``-log(-log(u))`` with u uniform in
     ``[tiny, 1)``."""
     return -torch.log(-torch.log(uniform(keys, n, _FLOAT32_TINY, 1.0)))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: an int64 permutation of
+    ``arange(n)`` on the key's device."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_M32))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -87,12 +87,18 @@ def _optax_node(state, fields):
 def updater_state_from_jax(net: Network, opt_state) -> Network:
     """Install the JAX package's optax state (``net.opt_state`` there,
     leaves as numpy or JAX arrays) into ``net``, so both sides continue
-    from the same mid-training state.  Ported: ``Adam``
-    (``ScaleByAdamState(count, mu, nu)``), ``Nesterovs``
-    (``TraceState(trace)``) and ``Sgd`` (no state), whether one transform
-    serves the whole network or ``multi_transform`` partitions it by
-    updater label, as ``nn/_common.build_tx`` does; slots are keyed by
-    layer (``layer_i``) or vertex name, as the params, and a nested group
+    from the same mid-training state.  Every updater's slots are read by
+    their optax field names (``ScaleByAdamState`` mu/nu for Adam, Nadam,
+    AdamW and AdaMax; ``ScaleByAmsgradState`` mu/nu/nu_max;
+    ``ScaleByAdaDeltaState`` e_g/e_x; ``ScaleByRssState``
+    sum_of_squares; ``ScaleByRmsState`` nu; ``ScaleByLionState`` mu;
+    ``TraceState`` trace), and each label's step count from the first
+    state in its chain that has one (the moments' or the schedule's
+    ``ScaleByScheduleState``); stateless updaters (``Sgd`` at a fixed
+    rate, ``NoOp``) keep 0.  One transform may serve the whole network,
+    or ``multi_transform`` may partition it by updater label, as
+    ``nn/_common.build_tx`` does; slots are keyed by layer (``layer_i``)
+    or vertex name, as the params, and a nested group
     (``Bidirectional``'s ``fwd``/``bwd``) is read through the port's flat
     names (``fwd/W``)."""
     import torch
@@ -103,10 +109,15 @@ def updater_state_from_jax(net: Network, opt_state) -> Network:
                          "updater groups but the state is not partitioned")
     state = net.opt_state
     for label, u in tx.transforms.items():
-        if u is None or not u.SLOTS:
+        if u is None:
             continue
-        node = _optax_node(opt_state if inner is None else inner[label],
-                           u.SLOTS)
+        src_state = opt_state if inner is None else inner[label]
+        counted = _optax_node(src_state, ("count",))
+        if counted is not None:
+            state["count"][label] = int(np.asarray(counted.count))
+        if not u.SLOTS:
+            continue
+        node = _optax_node(src_state, u.SLOTS)
         if node is None:
             raise ValueError(f"updater_state_from_jax: no optax state with "
                              f"fields {u.SLOTS} for group '{label}'")
@@ -125,8 +136,6 @@ def updater_state_from_jax(net: Network, opt_state) -> Network:
                     slots[slot] = torch.tensor(
                         src, dtype=slots[slot].dtype,
                         device=slots[slot].device)
-        if "count" in node._fields:    # (a namedtuple's .count is a method)
-            state["count"][label] = int(np.asarray(node.count))
     return net
 
 

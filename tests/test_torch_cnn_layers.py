@@ -187,8 +187,14 @@ def test_weight_init_statistics(scheme, shape):
     # >= 9408 draws: the sample std is within ~1.5% at 2 sigma
     assert abs(w.std().item() / want - 1) < 0.03
     assert abs(w.mean().item()) < 0.05 * want
-    with pytest.raises(ValueError, match="not ported"):
-        tconv.ConvolutionLayer(weight_init="uniform").make_weight(
+    # every scheme is ported since the rest-of-training slice: uniform
+    # draws within +-sqrt(1/fan_in); a name the JAX package does not know
+    # raises there and here
+    u = tconv.ConvolutionLayer(weight_init="uniform").make_weight(
+        torch.Generator().manual_seed(0), shape, "cpu")
+    assert u.abs().max().item() <= (1.0 / fan_in) ** 0.5
+    with pytest.raises(ValueError, match="Unknown weight init"):
+        tconv.ConvolutionLayer(weight_init="bogus").make_weight(
             torch.Generator(), shape, "cpu")
 
 
@@ -387,8 +393,13 @@ def test_graph_json_the_port_cannot_run_raises():
         "@class": "Yolo2OutputLayer"}}
     with pytest.raises(ValueError, match="not ported"):
         tcg.ComputationGraphConfiguration.from_json(json.dumps(merged))
+    # every updater is ported since the rest-of-training slice: RmsProp
+    # reads back as itself; a precision policy's class still raises
     pre = json.loads(json.dumps(d))
     pre["vertices"]["stem"]["layer"]["updater"] = {"@class": "RmsProp"}
+    read = tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
+    assert type(read.vertices["stem"].layer.updater).__name__ == "RmsProp"
+    pre["defaults"]["precision"] = {"@class": "PrecisionPolicy"}
     with pytest.raises(ValueError, match="not ported"):
         tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
     # a layer vertex with a preprocessor reshapes before its layer: NHWC

@@ -16,6 +16,8 @@ from deeplearning4j_tpu.nn.conf.schedules import FixedSchedule as JFixed
 from deeplearning4j_tpu.nn.layers import feedforward as jff
 from deeplearning4j_tpu_torch.nn import _common as tcommon
 from deeplearning4j_tpu_torch.nn import losses as tlosses
+from deeplearning4j_tpu_torch.nn.conf import constraints as tconstraints
+from deeplearning4j_tpu_torch.nn.conf import dropout as tdropout
 from deeplearning4j_tpu_torch.nn.conf import updaters as tupd
 from deeplearning4j_tpu_torch.nn.conf.schedules import FixedSchedule
 from deeplearning4j_tpu_torch.nn.layers import feedforward as tff
@@ -109,12 +111,12 @@ def test_output_layer_compute_loss_with_loss_weights():
 
 def test_loss_registry():
     assert tlosses.get("MCXENT") is tlosses.get("mcxent")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlosses.get("mse")
+    assert tlosses.get("mse").__wrapped__ is \
+        tlosses.get("squared_loss").__wrapped__
     with pytest.raises(ValueError, match="Unknown loss"):
         tlosses.get("bogus")
-    # every ported name exists in the reference under the same name
-    assert set(tlosses.names()) <= set(jlosses.names())
+    # every name of the reference is ported, under the same name
+    assert tlosses.names() == jlosses.names() and len(tlosses.names()) == 21
 
 
 def _grad_sequence(seed, shapes, n=5):
@@ -245,21 +247,41 @@ def test_regularization_score_matches_reference(coeffs):
 
 
 def test_constraints_and_training_noise_raise():
-    """Constraints and weight noise are still refused when a train step
-    is built (and weight noise in a training forward); dropout is ported
-    since the conv zoo slice and draws only in training with a key."""
-    lc = tff.DenseLayer(n_in=2, n_out=2, constraints=[{"max": 1.0}])
+    """Constraints and weight noise are ported since the rest-of-training
+    slice: the train step no longer refuses them, and weight noise in a
+    training forward draws the JAX package's DropConnect mask (param i of
+    the sorted names from ``fold_in(key, i)``, biases skipped); precision
+    policies are still refused, naming their ROADMAP item.  Dropout
+    draws only in training with a key."""
+    lc = tff.DenseLayer(n_in=2, n_out=2,
+                        constraints=[tconstraints.MaxNormConstraint(1.0)])
     stub = SimpleNamespace(defaults={})
-    with pytest.raises(NotImplementedError, match="constraints"):
-        tcommon.refuse_unported_training(stub, [lc])
-    p = {"W": torch.zeros(2, 2), "b": torch.zeros(2)}
+    tcommon.refuse_unported_training(stub, [lc])
+    with pytest.raises(NotImplementedError, match="precision.*item 2"):
+        tcommon.refuse_unported_training(
+            SimpleNamespace(defaults={"precision": "bfloat16"}), [lc])
+    rng = np.random.default_rng(9)
+    p = {"W": rng.standard_normal((2, 2)).astype(np.float32),
+         "b": rng.standard_normal(2).astype(np.float32)}
+    x = np.ones((1, 2), np.float32)
+    noisy = tff.DenseLayer(n_in=2, n_out=2,
+                           weight_noise=tdropout.DropConnect(p=0.5))
+    tp = {k: torch.tensor(v) for k, v in p.items()}
+    assert torch.equal(noisy.apply(tp, torch.tensor(x)),
+                       torch.tensor(x) @ tp["W"] + tp["b"])  # inference
+    tcommon.refuse_unported_training(stub, [noisy])
+    key = _random.prng_key(4)
+    got = noisy.maybe_noise_weights(tp, True, key)
+    from deeplearning4j_tpu.nn.conf.dropout import DropConnect as JDC
+    with jax.enable_x64(False):
+        want = jff.DenseLayer(n_in=2, n_out=2, weight_noise=JDC(p=0.5)) \
+            .maybe_noise_weights(jax.random.PRNGKey(4),
+                                 {k: jnp.asarray(v) for k, v in p.items()},
+                                 True)
+    for k in p:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    assert torch.equal(got["b"], tp["b"])
     x = torch.ones(1, 2)
-    noisy = tff.DenseLayer(n_in=2, n_out=2, weight_noise={"p": 0.1})
-    noisy.apply(p, x)                        # inference: no effect
-    with pytest.raises(NotImplementedError, match="weight_noise"):
-        noisy.apply(p, x, train=True)
-    with pytest.raises(NotImplementedError, match="weight_noise"):
-        tcommon.refuse_unported_training(stub, [noisy])
     dropped = tff.DenseLayer(n_in=2, n_out=2, dropout=0.5)
     key = _random.prng_key(0)
     tcommon.refuse_unported_training(stub, [dropped])

@@ -64,6 +64,18 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=300,
                          check=True)
     assert len(MODULES) > 15
+    # the rest-of-training slice's modules are among those imported
+    assert {"deeplearning4j_tpu_torch.nn.conf.schedules",
+            "deeplearning4j_tpu_torch.nn.conf.constraints",
+            "deeplearning4j_tpu_torch.nn.conf.distribution",
+            "deeplearning4j_tpu_torch.nn.weights",
+            "deeplearning4j_tpu_torch.nn.transfer_learning",
+            "deeplearning4j_tpu_torch.train.listeners",
+            "deeplearning4j_tpu_torch.evaluation.classification",
+            "deeplearning4j_tpu_torch.evaluation.regression",
+            "deeplearning4j_tpu_torch.evaluation.roc",
+            "deeplearning4j_tpu_torch.earlystopping.trainer",
+            "deeplearning4j_tpu_torch.earlystopping.savers"} <= set(MODULES)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

@@ -24,6 +24,8 @@ from deeplearning4j_tpu_torch.data.dataset import (DataSet,
                                                    INDArrayDataSetIterator)
 from deeplearning4j_tpu_torch.models.zoo import TransformerLM
 from deeplearning4j_tpu_torch.nn.conf import updaters as tupd
+from deeplearning4j_tpu_torch.nn.conf.constraints import MaxNormConstraint
+from deeplearning4j_tpu_torch.nn.conf.dropout import DropConnect
 from deeplearning4j_tpu_torch.nn.multilayer import _stack_loss
 from deeplearning4j_tpu_torch.parallel.inference import InvalidInputError
 from deeplearning4j_tpu_torch.utils.model_serializer import (
@@ -248,48 +250,61 @@ def test_out_of_range_ids_raise_at_every_entry_point():
 
 
 @pytest.mark.parametrize("field,value", [("dropout", 0.5),
-                                         ("weight_noise", {"p": 0.1})])
+                                         ("weight_noise", DropConnect(p=0.5))])
 def test_training_with_stochastic_regularization_raises(field, value):
-    """Weight noise is still refused in training, and nothing moves;
-    dropout (ported with the conv zoo slice) trains, draws its masks from
-    the network's key stream and leaves inference alone."""
+    """Dropout (ported with the conv zoo slice) and weight noise (ported
+    with the rest-of-training slice) train, draw from the network's key
+    stream and leave inference alone; the stored weights stay un-noised
+    (only the update moves them)."""
     tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
     setattr(tn.layer_confs[2], field, value)
     ids, y = _batch(np.random.default_rng(7), True)
     out = tn.output(ids)                 # inference ignores it
     before = {k: {n: p.detach().clone() for n, p in g.items()}
               for k, g in tn.params.items()}
-    if field == "dropout":
-        rng0 = tn._rng.clone()
-        tn.fit(ids, y)
-        assert np.isfinite(tn.get_score()) and \
-            not torch.equal(tn._rng, rng0)
-        assert not torch.equal(tn.params["layer_2"]["W1"],
-                               before["layer_2"]["W1"])
-        return
-    with pytest.raises(NotImplementedError, match=field):
-        tn.fit(ids, y)
-    for k, g in tn.params.items():       # nothing moved
-        for n, p in g.items():
-            assert torch.equal(p, before[k][n])
-    assert torch.equal(tn.output(ids), out)
+    rng0 = tn._rng.clone()
+    tn.fit(ids, y)
+    assert np.isfinite(tn.get_score()) and not torch.equal(tn._rng, rng0)
+    assert not torch.equal(tn.params["layer_2"]["W1"],
+                           before["layer_2"]["W1"])
+    if field == "weight_noise":
+        # an Sgd step: the stored W1 moved by -lr * its gradient, not by
+        # a DropConnect mask (no weight was zeroed in place)
+        assert torch.count_nonzero(tn.params["layer_2"]["W1"]) == \
+            torch.count_nonzero(before["layer_2"]["W1"])
+    tn2 = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
+    assert torch.equal(tn2.output(ids), out)     # inference ignored it
 
 
 def test_unported_training_options_raise():
     ids, y = _batch(np.random.default_rng(8), True)
-    cases = [("precision", lambda c: c.defaults.update(precision="bfloat16")),
-             ("remat", lambda c: c.defaults.update(cache_mode="remat")),
-             ("solvers", lambda c: c.defaults.update(
+    # still refused, each naming its ROADMAP item
+    cases = [("precision.*item 2", lambda c: c.defaults.update(
+                 precision="bfloat16")),
+             ("remat.*item 2", lambda c: c.defaults.update(
+                 cache_mode="remat")),
+             ("solvers.*item 4", lambda c: c.defaults.update(
                  optimization_algo="lbfgs")),
-             ("sparse_grad", lambda c: setattr(c.layers[0], "sparse_grad",
-                                               True)),
-             ("constraints", lambda c: setattr(c.layers[2], "constraints",
-                                               [{"max_norm": 1.0}]))]
+             ("sparse_grad.*item 2", lambda c: setattr(
+                 c.layers[0], "sparse_grad", True))]
     for match, edit in cases:
         tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
         edit(tn.conf)
         with pytest.raises(NotImplementedError, match=match):
             tn.fit(ids, y)
+    # constraints are ported (rest-of-training slice): after the step the
+    # block's W1 columns hold MaxNorm(0.5), and the step equals the
+    # unconstrained step with the constraint applied after it
+    tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
+    free = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
+    tn.conf.layers[2].constraints = [MaxNormConstraint(max_norm=0.5)]
+    tn.fit(ids, y)
+    free.fit(ids, y)
+    w1 = tn.params["layer_2"]["W1"].detach()
+    assert float(torch.linalg.vector_norm(w1, dim=0).max()) <= 0.5 + 1e-6
+    want = MaxNormConstraint(max_norm=0.5).apply(
+        free.params["layer_2"]["W1"].detach())
+    torch.testing.assert_close(w1, want, rtol=0, atol=0)
     # tBPTT through attention carries the KV cache now: a one-hot batch
     # longer than the chunk trains chunk by chunk instead of raising
     tn = TransformerLM(**SMALL).init(device="cpu")

@@ -595,19 +595,44 @@ def test_output_and_feed_forward_train_advance_the_stream_like_jax(
 @pytest.mark.parametrize("what", ["weight_noise", "constraints",
                                   "precision"])
 def test_still_unported_training_options_raise(what, tmp_path):
-    """Weight noise, constraints and precision policies are refused when
-    the train step is built, naming what is refused; nothing moves."""
+    """Precision policies are still refused when the train step is built,
+    naming their ROADMAP item, and nothing moves.  Weight noise and
+    constraints are ported since the rest-of-training slice: LeNet
+    trains with DropConnect drawn from its key stream (the stored weights
+    are not noised in place), and a MaxNorm step equals the free step
+    with the constraint applied after it."""
     from deeplearning4j_tpu_torch.models.zoo import LeNet
+    from deeplearning4j_tpu_torch.nn.conf.constraints import \
+        MaxNormConstraint
+    from deeplearning4j_tpu_torch.nn.conf.dropout import DropConnect
     tn = LeNet(num_classes=3, input_shape=(8, 8, 1)).init(device="cpu")
-    if what == "weight_noise":
-        tn.conf.layers[4].weight_noise = {"p": 0.5}
-    elif what == "constraints":
-        tn.conf.layers[0].constraints = [{"max_norm": 2.0}]
-    else:
-        tn.conf.defaults["precision"] = "bfloat16"
-    before = tn.params["layer_0"]["W"].detach().clone()
+    free = LeNet(num_classes=3, input_shape=(8, 8, 1)).init(device="cpu")
     x = _rand(np.random.default_rng(0), 2, 64)
     y = np.eye(3, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match=what):
+    before = tn.params["layer_0"]["W"].detach().clone()
+    if what == "precision":
+        tn.conf.defaults["precision"] = "bfloat16"
+        with pytest.raises(NotImplementedError, match="precision.*item 2"):
+            tn.fit(x, y)
+        assert torch.equal(tn.params["layer_0"]["W"], before)
+        return
+    if what == "weight_noise":
+        tn.conf.layers[4].weight_noise = DropConnect(p=0.5)
+        w4 = tn.params["layer_4"]["W"].detach().clone()
+        rng0 = tn._rng.clone()
         tn.fit(x, y)
-    assert torch.equal(tn.params["layer_0"]["W"], before)
+        assert np.isfinite(tn.get_score()) and \
+            not torch.equal(tn._rng, rng0)
+        assert not torch.equal(tn.params["layer_4"]["W"], w4)
+        assert torch.count_nonzero(tn.params["layer_4"]["W"]) == \
+            torch.count_nonzero(w4)
+        return
+    tn.conf.layers[0].constraints = [MaxNormConstraint(max_norm=0.05)]
+    tn.fit(x, y)
+    free.fit(x, y)
+    w = tn.params["layer_0"]["W"].detach()
+    norms = torch.sqrt((w * w).sum(dim=(0, 1, 2)))
+    assert float(norms.max()) <= 0.05 + 1e-6
+    want = MaxNormConstraint(max_norm=0.05).apply(
+        free.params["layer_0"]["W"].detach())
+    torch.testing.assert_close(w, want, rtol=0, atol=0)
