@@ -172,11 +172,48 @@ if any phase fails:
     Nadam(1e-3)), 5 steps at batch 64 beside a ``helper=None`` twin:
     frozen params and running statistics bit-equal before and after,
     losses within 1e-5, ``bn_apply`` once per trained BN per step (the
-    frozen BNs run in inference mode and launch none).
+    frozen BNs run in inference mode and launch none);
+25. ``precision_lm``: the TransformerLM of phase 5 under
+    ``precision("bfloat16")``, 5 Adam steps beside an f32 twin from the
+    same params: step-0 loss within a tolerance derived from the JAX
+    package's own bf16-vs-f32 gap, masters and updater slots f32 after
+    each step, each flash kernel 8 bf16 launches a step; both step times
+    and device busy shares; one batch-16 request served by a bf16 copy
+    of the trained net;
+26. ``loss_scale_f16``: the same LM under ``PrecisionPolicy(compute_dtype
+    ="float16", loss_scale="dynamic", initial_scale=2**40)``: every
+    skipped step leaves params, updater slots and counts bit-equal and
+    halves the scale, ``overflow_steps`` counts the skips, the first
+    finite step and 3 more train (f16 flash launches); a cut CPU twin's
+    skip count beside the card's; then the char-LSTM trained by tBPTT
+    (4 chunks of 16, batch 128) under ``precision("float16")`` with 1e30
+    in chunk 1: one skip, 2 ``lstm_fwd`` launches per chunk;
+27. ``remat_memory``: the LM in f32 with and without
+    ``cache_mode("remat")``, 3 steps each from the same params: losses
+    and params bitwise equal, 16 forward launches per remat step; the
+    analytic ``memory_report``'s params plus updater slots against the
+    allocator's growth when the net is made; the peak of a step with
+    and without remat and under bf16 beside the report's total;
+28. ``resnet_bf16``: ``ResNet50(compute_dtype="bfloat16")`` at
+    224x224x3, batch 64, every BN at ``helper="pallas"``, 5 steps: 53
+    f32 ``bn_apply`` launches a step (BN is in ``keep_f32``), running
+    statistics f32, step 0 against the f32 twin; then one step with
+    ``keep_f32=()``: 53 bf16 launches, each held against the plain
+    version;
+29. ``int8_kv``: the generation engine of phase 13 with the int8 paged
+    KV pool beside the f32 pool: codes and scales card vs CPU bitwise,
+    int8 cache bytes at most half, greedy streams equal outside at most
+    one request in each group of three, the 16-slot decode step of both;
+30. ``solvers_eval``: LBFGS, CG and line gradient descent on the MLN of
+    phase 21, card vs CPU twin (first three scores within 1e-5, the final
+    no worse than the CPU's + 1e-4), then ``EvaluationBinary`` and
+    ``EvaluationCalibration`` of the trained outputs, counts equal to
+    the CPU's.
 
-Each phase prints one JSON line (phases 17-20 one per model).  Then come the card's name and power
-limit, the ``kernels`` record (the line before the last) and, last,
-``{"ok": true, "device": {...}}``.
+Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
+phase prints one JSON line (phases 17-20 one per model).  Then come the
+card's name and power limit, the ``kernels`` record (the line before the
+last) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -216,18 +253,21 @@ TIMED_TRAIN_STEPS = 20
 # (attention, the LSTM's recurrent product) can be done at f32 accuracy
 # on the tensor cores in three TF32 passes, 495 / 3 = 165 TFLOP/s: the
 # least time the card could take for it in f32.  Elementwise f32 work
-# runs on the CUDA cores, 67 TFLOP/s.  bf16 products: 989 TFLOP/s.
+# runs on the CUDA cores, 67 TFLOP/s.  bf16 and f16 products: 989
+# TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float32_products": 495e12 / 3,
-                  "bfloat16": 989e12}
+                  "bfloat16": 989e12, "float16": 989e12}
 
 # Kernel vs plain twin, same inputs on the card.  Both widen to f32 and
 # keep f32 statistics; only the order of the f32 sums differs (FMA
 # chains in the kernel, cuBLAS tiles in the twin), which moves O by a
 # few f32 ulps at |O| <= ~4: 1e-4 abs.  In bf16 the two f32 results are
 # rounded to bf16 separately, and one bf16 ulp at |O| ~ 2 is 2**-7
-# (7.8e-3): 2e-2 abs.  lse stays f32 in both dtypes: 1e-4 abs.
-TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
+# (7.8e-3): 2e-2 abs.  f16 carries three more bits: one f16 ulp at
+# |O| < 4 is at most 2**-9 (2e-3): 4e-3 abs, tighter than bf16's.  lse
+# stays f32 in every dtype: 1e-4 abs.
+TOL_O = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 4e-3}
 TOL_LSE = 1e-4
 # Backward kernels vs plain twin, as max |kernel - plain| / max |plain|
 # per gradient: dk and dv sum over up to 512 queries, so an absolute
@@ -235,8 +275,9 @@ TOL_LSE = 1e-4
 # order only, ~1e-6 of the largest entry: 1e-5.  bf16: the f32 results
 # are rounded to bf16 separately, one ulp (2**-8 of the leading power of
 # two) apart at most, and the widened bf16 inputs feed both sides
-# alike: two ulps of the largest entry, 1.6e-2.
-TOL_BWD = {"float32": 1e-5, "bfloat16": 1.6e-2}
+# alike: two ulps of the largest entry, 1.6e-2.  f16: one f16 ulp is at
+# most 2**-10 of an entry; two of the largest entry, 2e-3.
+TOL_BWD = {"float32": 1e-5, "bfloat16": 1.6e-2, "float16": 2e-3}
 # Served rows vs the same model with attn_impl="reference" (f32, TF32
 # off): the two differ by f32 summation order only (attention, and the
 # matmul shapes of a padded batch).  A probability p moves by about
@@ -257,6 +298,16 @@ TOL_SERVE = 1e-5
 # either sign on the two sides without moving the loss.
 TOL_GRAD_LEAF, TOL_GRAD_NET = 1e-4, 1e-6
 TOL_TRAIN_LOSS = 1e-5
+# precision_lm: the bf16 LM's step-0 loss against its f32 twin on the
+# same params and batch.  Derived on the CPU from the JAX package's own
+# bf16-vs-f32 gap (tests/test_torch_precision.py::
+# test_chip_bf16_loss_gate_is_derived_from_the_jax_gap): at embed 64, 2
+# layers, seq 64, batch 8 it stays under BF16_GAP_SMALL over four seeds
+# (measured 1.9e-4).  bf16 rounding errors of independent terms grow about
+# as the square root of the terms summed, depth x width: 8/2 layers x
+# 512/64 wide is x5.7 at full width; times a margin of 2.5: 3.5e-3.
+BF16_GAP_SMALL = 2.5e-4
+TOL_BF16_LM_LOSS = BF16_GAP_SMALL * (8 / 2 * 512 / 64) ** 0.5 * 2.5
 PROFILED_STEPS = 3
 
 TIMED_RUNS = 30
@@ -270,8 +321,10 @@ CNN_EVAL_ROWS = 16
 # rounds once (f32 FMA), the plain version twice (x·scale, then + shift):
 # apart by at most half an ulp of |x·scale| plus half an ulp of |y|, so
 # within 2**-23 of max(|x·scale| + |shift|).  bf16: both round the f32
-# result once more, and may land one bf16 ulp (2**-7 of |y|) apart.
+# result once more, and may land one bf16 ulp (2**-7 of |y|) apart; f16
+# one f16 ulp (2**-10 of |y|).
 BN_TOL_F32, BN_TOL_BF16 = 2.0 ** -23, 2.0 ** -23 + 2.0 ** -7
+BN_TOL_F16 = 2.0 ** -23 + 2.0 ** -10
 # beside ResNet50's geometries: a BN over 32,768 channels, which
 # ``pallas_bn.supports`` admits (the door takes C up to 131,072 in f32)
 BN_WIDE_GEOMETRY = (64, 32768, "relu")
@@ -395,7 +448,7 @@ def seeded_params(spec, seed: int):
     return tree
 
 
-MATMUL_TAGS = ("gemm", "cutlass", "xmma", "sm90_")
+MATMUL_TAGS = ("gemm", "cutlass", "xmma", "sm90_", "nvjet")
 # kernel classes of a step's device time: (class, name substrings), the
 # first match wins; anything else is "other"
 LM_KERNEL_CLASSES = (("flash_attn_fwd", ("flash_fwd_kernel",)),
@@ -988,12 +1041,13 @@ def cnn_phases(args, torch, dev, card):
 
     # ---- 7. BN apply kernel vs plain at every geometry -------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
-    bn_err = 0.0
+    bn_err = bn_err_bf16 = 0.0
     for (m, c, act), count in sorted(geoms.items()) + [(BN_WIDE_GEOMETRY,
                                                          0)]:
         for dname, dt, tol_rel in (("float32", torch.float32, BN_TOL_F32),
                                    ("bfloat16", torch.bfloat16,
-                                    BN_TOL_BF16)):
+                                    BN_TOL_BF16),
+                                   ("float16", torch.float16, BN_TOL_F16)):
             x = (torch.randn((m, c), generator=gen, device=dev) * 2
                  + 0.5).to(dt)
             scale = torch.randn(c, generator=gen, device=dev).to(dt)
@@ -1018,6 +1072,8 @@ def cnn_phases(args, torch, dev, card):
                               f"{dname}: {errs} > {tol}")
             if dname == "float32":
                 bn_err = max(bn_err, *errs.values())
+            elif dname == "bfloat16":
+                bn_err_bf16 = max(bn_err_bf16, *errs.values())
             del x, y, want
 
     # ---- 8. full-width ResNet50 training ---------------------------------
@@ -1219,53 +1275,66 @@ def cnn_phases(args, torch, dev, card):
     def flush():
         torch.sum(flush_buf, dim=0, out=flush_out)
 
-    totals = {"ms": 0.0, "ms_device_only": 0.0, "plain_ms": 0.0,
-              "library_ms": 0.0, "bound_ms": 0.0}
-    bound_by_all = set()
-    for (m, c, act), count in sorted(geoms.items()):
-        x = torch.randn((m, c), generator=gen, device=dev)
-        scale = torch.randn(c, generator=gen, device=dev)
-        shift = torch.randn(c, generator=gen, device=dev)
-        out = torch.empty_like(x)
-        relu = act == "relu"
-        p = pb.device_plan(x, scale, shift, out)
-        row = {}
-        # straight through the binding: timing launches are not counted
-        row["ms"] = median_ms(lambda: pb._launch(x, scale, shift, out, relu),
-                              torch, before=flush)
-        row["ms_device_only"] = median_ms(
-            lambda: pb._launch(x, scale, shift, out, relu), torch,
-            before=flush, spin=True)
-        row["library_ms"] = median_ms(lambda: torch.addcmul(shift, x, scale),
-                                      torch, before=flush)
-        row["plain_ms"] = median_ms(
-            lambda: pb.bn_apply_plain(x, scale, shift, relu), torch, runs=10,
-            before=flush)
-        bound, bound_by = bn_bound_ms(m, c, "float32")
-        row["bound_ms"] = bound
-        bound_by_all.add(bound_by)
-        for key in totals:
-            totals[key] += count * row[key]
-        nbytes = 2 * m * c * 4 + 2 * c * 4
-        print(json.dumps({"phase": "kernel_time", "kernel": "bn_apply",
-                          "dtype": "float32", "rows": m, "channels": c,
-                          "activation": act, "layers_per_step": count,
-                          "plan": dataclasses.asdict(p), **row,
-                          "gbps": nbytes / row["ms"] / 1e6,
-                          "bound_share": bound / row["ms"],
-                          "library_call": "torch.addcmul(shift, x, scale)"
-                          + (" (relu would need a second call)"
-                             if relu else ""),
-                          "bound_by": bound_by, "card": card}), flush=True)
-        del x, out
+    # f32 (the ResNet50 step's dtype) and bf16 (resnet_bf16's step with
+    # keep_f32=(), phase 28)
+    sums = {}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        totals = sums[dname] = {"ms": 0.0, "ms_device_only": 0.0,
+                                "plain_ms": 0.0, "library_ms": 0.0,
+                                "bound_ms": 0.0}
+        bound_by_all = set()
+        for (m, c, act), count in sorted(geoms.items()):
+            x = torch.randn((m, c), generator=gen, device=dev).to(dt)
+            scale = torch.randn(c, generator=gen, device=dev).to(dt)
+            shift = torch.randn(c, generator=gen, device=dev).to(dt)
+            out = torch.empty_like(x)
+            relu = act == "relu"
+            p = pb.device_plan(x, scale, shift, out)
+            row = {}
+            # straight through the binding: timing launches are not
+            # counted
+            row["ms"] = median_ms(
+                lambda: pb._launch(x, scale, shift, out, relu), torch,
+                before=flush)
+            row["ms_device_only"] = median_ms(
+                lambda: pb._launch(x, scale, shift, out, relu), torch,
+                before=flush, spin=True)
+            row["library_ms"] = median_ms(
+                lambda: torch.addcmul(shift, x, scale), torch, before=flush)
+            row["plain_ms"] = median_ms(
+                lambda: pb.bn_apply_plain(x, scale, shift, relu), torch,
+                runs=10, before=flush)
+            bound, bound_by = bn_bound_ms(m, c, dname)
+            row["bound_ms"] = bound
+            bound_by_all.add(bound_by)
+            for key in totals:
+                totals[key] += count * row[key]
+            nbytes = 2 * m * c * x.element_size() + 2 * c * x.element_size()
+            print(json.dumps({"phase": "kernel_time", "kernel": "bn_apply",
+                              "dtype": dname, "rows": m, "channels": c,
+                              "activation": act, "layers_per_step": count,
+                              "plan": dataclasses.asdict(p), **row,
+                              "gbps": nbytes / row["ms"] / 1e6,
+                              "bound_share": bound / row["ms"],
+                              "library_call":
+                                  "torch.addcmul(shift, x, scale)"
+                                  + (" (relu would need a second call)"
+                                     if relu else ""),
+                              "bound_by": bound_by, "card": card}),
+                  flush=True)
+            del x, out
+        totals["bound_by"] = "/".join(sorted(bound_by_all))
     in_step = splits["pallas"]["device_ms_per_step"]["bn_apply"]
+    totals = sums["float32"]
     return {"name": "bn_apply", "route": "cuda",
             "source": f"{SRC_DIR}/{pb.SOURCE}",
             "replaces": "deeplearning4j_tpu/ops/pallas_bn.py:82",
             "launches": launches["bn_apply"], "max_abs_err": bn_err,
             **totals, "bound_share": totals["bound_ms"] / totals["ms"],
-            "bound_by": "/".join(sorted(bound_by_all)),
             "in_step_profiled_ms": in_step,
+            "bfloat16_totals": sums["bfloat16"],
+            "bfloat16_max_abs_err": bn_err_bf16,
             "per": "one ResNet50 training step at batch 64, f32: the 53 "
                    "launches at their shapes, summed, each after a clean "
                    "L2 flush"}, None
@@ -1371,12 +1440,33 @@ def _tie_check(torch, tokens, mine, ref, teacher_forced):
     return margin, ties, mismatches, sum(len(a) for a, _, _ in checked)
 
 
+def _direct_decode(torch, net, dev):
+    """A scratch paged cache with all GEN_SLOTS slots at position
+    GEN_DIRECT_POS, and the decode program's arguments for one greedy
+    step: ``(kv, tables, program, args)``."""
+    from deeplearning4j_tpu_torch.generation.cache import PagedKV
+    kv = PagedKV(net.conf, GEN_SLOTS, GEN_MAX_SEQ, block_size=GEN_BLOCK,
+                 device=dev)
+    for s in range(GEN_SLOTS):
+        kv.acquire(f"direct-{s}")
+        kv.ensure_blocks(s, f"direct-{s}", GEN_MAX_SEQ)
+    tables = torch.as_tensor(kv.tables, device=dev)
+    S = GEN_SLOTS
+    dargs = (torch.randint(0, VOCAB, (S,), device=dev), kv.caches, tables,
+             torch.full((S,), GEN_DIRECT_POS, dtype=torch.int32,
+                        device=dev),
+             torch.zeros((S, 2), dtype=torch.int64, device=dev),
+             torch.zeros(S, device=dev),
+             torch.zeros(S, dtype=torch.int32, device=dev),
+             torch.ones(S, device=dev))
+    return kv, tables, net.generation_program("paged_decode"), dargs
+
+
 def generation_phases(args, torch, dev, card):
     """Phases 13-15 (generation).  Returns None, or what failed."""
     import numpy as np
     from deeplearning4j_tpu_torch.generation import (GenerationConfig,
                                                      GenerationEngine)
-    from deeplearning4j_tpu_torch.generation.cache import PagedKV
     from deeplearning4j_tpu_torch.models.zoo import TransformerLM
     from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
@@ -1529,12 +1619,7 @@ def generation_phases(args, torch, dev, card):
     tokens = sum(len(r.tokens) for r in results)
     # the programs driven directly on a scratch cache: 16 slots at
     # position GEN_DIRECT_POS
-    kv = PagedKV(net.conf, GEN_SLOTS, GEN_MAX_SEQ, block_size=GEN_BLOCK,
-                 device=dev)
-    for s in range(GEN_SLOTS):
-        kv.acquire(f"direct-{s}")
-        kv.ensure_blocks(s, f"direct-{s}", GEN_MAX_SEQ)
-    tables = torch.as_tensor(kv.tables, device=dev)
+    kv, tables, dec, dargs = _direct_decode(torch, net, dev)
     one = dict(keys=torch.zeros((1, 2), dtype=torch.int64, device=dev),
                temp=torch.zeros(1, device=dev),
                top_k=torch.zeros(1, dtype=torch.int32, device=dev),
@@ -1548,15 +1633,7 @@ def generation_phases(args, torch, dev, card):
             net.params, net.state, toks, mask, kv.caches, tables[0], 0, 0,
             b, 0, 0, one["keys"], one["temp"], one["top_k"],
             one["top_p"]), torch, runs=10)
-    dec = net.generation_program("paged_decode")
     S = GEN_SLOTS
-    dargs = (torch.randint(0, VOCAB, (S,), device=dev), kv.caches, tables,
-             torch.full((S,), GEN_DIRECT_POS, dtype=torch.int32,
-                        device=dev),
-             torch.zeros((S, 2), dtype=torch.int64, device=dev),
-             torch.zeros(S, device=dev),
-             torch.zeros(S, dtype=torch.int32, device=dev),
-             torch.ones(S, device=dev))
 
     def step():
         return dec(net.params, net.state, *dargs)[0].cpu()
@@ -2266,7 +2343,9 @@ class _Batches:
 
 
 def _host_tree(net):
-    return {k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+    """A host copy of the params (a copy on a CPU net too, where
+    ``.cpu().numpy()`` would share the params' memory)."""
+    return {k: {n: p.detach().cpu().numpy().copy() for n, p in g.items()}
             for k, g in net.params.items()}
 
 
@@ -2855,6 +2934,831 @@ def transfer_phase(args, torch, dev, card):
     return launches, None
 
 
+# ---- 25-30. precision and memory, the int8 KV pool, the solvers --------
+# 25: the full-width TransformerLM of phase 5 under precision("bfloat16")
+# (bf16 compute, f32 masters, no loss scale), PREC_STEPS Adam steps beside
+# an f32 twin from the same params on the same batches.  Step 0's loss
+# within TOL_BF16_LM_LOSS of the twin's (its derivation is above, by
+# TOL_TRAIN_LOSS); masters and every updater slot f32 after each step;
+# each flash kernel launched LAYERS times a step in bf16.  Then the step
+# time of both and their device busy share, and one served batch-16
+# output from a bf16 copy of the trained net (the layers' dtype
+# "bfloat16": the inference path runs the forward kernel in bf16).
+PREC_STEPS, PREC_TIMED_STEPS, PREC_PROFILED = 5, 8, 2
+# the served bf16 rows against the f32 net's: probabilities of a softmax
+# whose logits carry bf16 rounding (2**-9 relative of |logit| ~ 10,
+# ~2e-2 abs): 5e-2 abs, rows summing to 1 within 1e-2 (bf16 outputs).
+TOL_BF16_SERVE, TOL_BF16_ROWSUM = 5e-2, 1e-2
+# 26a: the same LM under PrecisionPolicy(compute_dtype="float16",
+# loss_scale="dynamic", initial_scale=2**40): the scaled f16 backward
+# overflows, each skipped step halves the scale and leaves params, updater
+# slots and counts bit-equal; the first finite step trains, then
+# F16_CLEAN_STEPS more, each batch fitted until it trains (a later batch
+# may overflow at a scale the first did not: dynamic scaling backs off
+# again, and every skip is held to the same checks).  At most
+# F16_MAX_SKIPS skips.  Twins at a cut size (the same params' first
+# F16_TWIN_LAYERS blocks, one sequence of F16_TWIN_SEQ tokens) count
+# their skips on the card and on the CPU (by bisection: a CPU step of
+# f16 work takes seconds), printed beside the full-size count.
+F16_INITIAL_SCALE, F16_CLEAN_STEPS, F16_MAX_SKIPS = 2.0 ** 40, 3, 60
+F16_TWIN_LAYERS, F16_TWIN_SEQ = 1, 32
+# 26b: the char-LSTM of phase 11 (helper="pallas") trained by tBPTT in
+# chunks of LSTM_T // 4 under precision("float16"), with 1e30 in chunk
+# 1's inputs: that chunk overflows and is skipped, the next three train
+# from its pre-step carries; lstm_fwd launched twice per chunk.
+F16_TBPTT_CHUNKS = 4
+# 27: the LM in f32 with and without cache_mode("remat"), REMAT_STEPS
+# steps each from the same params: losses and params bitwise equal (the
+# flash backward is bitwise deterministic, and the replayed forward is
+# the same computation); each remat step launches the forward kernel
+# 2 x LAYERS times.  The analytic report's static part (params and
+# updater slots, f32) against the growth of torch.cuda.memory_allocated
+# when the net and its updater state are made: within the caching
+# allocator's rounding, 512 bytes per tensor.  Then each net's step time.
+REMAT_STEPS, REMAT_TIMED_STEPS, ALLOC_ROUND = 3, 6, 512
+# 28: ResNet50(compute_dtype="bfloat16") at its published widths, batch
+# 64 (CNN_BATCH), every BN at helper="pallas", RN_BF16_STEPS Nesterovs
+# steps beside an f32 twin on the same params and batches.  BN is in
+# keep_f32, so its 53 launches a step take f32 inputs; its running
+# statistics stay f32.  Step 0's loss within TOL_BF16_RESNET_LOSS of the
+# twin's, derived on the CPU from the JAX package's own gap
+# (tests/test_torch_precision_kernels_kv.py::
+# test_chip_bf16_resnet_gate_is_derived_from_the_jax_gap): at 64x64,
+# batch 8, the JAX ResNet50's bf16 loss at init sits up to RN_GAP_SMALL
+# from its f32 loss (measured 4.6e-2: fifty layers of bf16 rounding
+# through BNs that renormalise every stage); twice that.  Then one step
+# with keep_f32=() from the initial params: every BN runs in bf16, and
+# each of its 53 bf16 bn_apply launches is held against the plain
+# version on the same inputs (BN_TOL_BF16).
+RN_BF16_STEPS, RN_INPUT, RN_CLASSES = 5, (224, 224, 3), 1000
+RN_GAP_SMALL = 5e-2
+TOL_BF16_RESNET_LOSS = 2 * RN_GAP_SMALL
+# 29: the generation engine of phase 13 (GEN_SLOTS slots, GEN_REQUESTS
+# greedy requests of INT8_NEW tokens: a stream that leaves the f32
+# pool's at one token differs from there on, so streams are kept short)
+# with PrecisionPolicy(kv_dtype="int8") beside the f32 pool: quantized codes and scales bitwise equal,
+# card against CPU, on the same K/V; int8 cache bytes <= 0.5 x f32; the
+# greedy streams equal the f32 pool's in all but at most one request of
+# each group of three (the JAX test's gate: int8 moves logits by ~1 %, a
+# near-tied argmax may flip).  The decode step with 16 active for both.
+INT8_NEW = 16
+# 30: LBFGS, CG and line gradient descent on the builder MLN of phase 21
+# (Dense 256 x2 -> softmax 10, batch 64), SOLVER_ITERS iterations each,
+# card against a CPU twin from the same params: the first three scores
+# within 1e-5 relative (f32 sums in another order), the final score no
+# worse than the CPU's + 1e-4 (a line search may halve once more on one
+# side).  Then EvaluationBinary and EvaluationCalibration of the trained
+# nets' outputs: counts equal to the CPU's outside ties (an output within
+# TIE_MARGIN of a decision threshold or a bin edge).
+SOLVER_ITERS = 20
+TOL_SOLVER_SCORES, SOLVER_FINAL_SLACK = 1e-5, 1e-4
+
+
+def _lm_net(args, dev, tree, **zoo_kw):
+    """The full-width TransformerLM (sparse labels, Adam) on ``dev`` with
+    the params of ``tree``; ``zoo_kw`` edits the zoo model, and
+    ``defaults`` (a dict) the configuration's defaults."""
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+    defaults = dict(zoo_kw.pop("defaults", {}))
+    pol = defaults.get("precision")
+    if getattr(pol, "compute_dtype", None):
+        # as the builder's precision() does: the knob the memory report
+        # reads
+        defaults["compute_dtype"] = pol.compute_dtype
+    conf = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                         n_layers=LAYERS, n_heads=HEADS, sparse_labels=True,
+                         seed=args.seed, **zoo_kw).conf()
+    conf.defaults.update(defaults)
+    return params_from_jax(MultiLayerNetwork(conf, device=dev), tree)
+
+
+def _lm_tree(args, dev, offset: int):
+    """Seeded params for the full-width TransformerLM (the spec read
+    without allocating them)."""
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                         n_layers=LAYERS, n_heads=HEADS,
+                         sparse_labels=True).conf()
+    return seeded_params(MultiLayerNetwork(conf, device=dev).param_spec(),
+                         args.seed + offset)
+
+
+def _all_f32(net) -> bool:
+    import torch
+    if any(p.dtype != torch.float32 for p in net.params.parameters()):
+        return False
+    return all(t.dtype == torch.float32
+               for g in net.opt_state["slots"].values()
+               for sl in g.values() for t in sl.values())
+
+
+def _timed_steps(torch, net, batches, n):
+    times = []
+    for i in range(n + 2):
+        x, y = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(times)
+
+
+def precision_lm_phase(args, torch, dev, card):
+    """Phase 25.  Returns ``(bf16 flash launches, None)`` or ``(None,
+    what failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.precision import named_policy
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    tree = _lm_tree(args, dev, 25)
+    net = _lm_net(args, dev, tree,
+                  defaults={"precision": named_policy("bfloat16")})
+    net32 = _lm_net(args, dev, tree)
+    rng = np.random.default_rng(args.seed + 25)
+    toks = rng.integers(0, VOCAB, (PREC_STEPS, TRAIN_BATCH, SEQ + 1))
+    batches = [(torch.as_tensor(b[:, :-1], device=dev),
+                torch.as_tensor(b[:, 1:], device=dev)) for b in toks]
+    losses, losses32, f32_kept = [], [], []
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    for x, y in batches:
+        net.fit(x, y)
+        losses.append(net.get_score())
+        f32_kept.append(_all_f32(net))
+    launches = dict(fa.launches_by_dtype)
+    for x, y in batches:
+        net32.fit(x, y)
+        losses32.append(net32.get_score())
+    step0 = abs(losses[0] - losses32[0]) / abs(losses32[0])
+    expected = {(k, "bfloat16"): LAYERS * PREC_STEPS
+                for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    step_ms = {"bfloat16": _timed_steps(torch, net, batches,
+                                        PREC_TIMED_STEPS),
+               "float32": _timed_steps(torch, net32, batches,
+                                       PREC_TIMED_STEPS)}
+    prof = {}
+    for name, m in (("bfloat16", net), ("float32", net32)):
+        split = profile_steps(torch, m, batches[:PREC_PROFILED],
+                              LM_KERNEL_CLASSES)
+        split["device_busy_share"] = (
+            split["device_ms_total_per_step"] / step_ms[name]
+            if split["device_ms_total_per_step"] else None)
+        prof[name] = split
+    # one served batch-16 request from a bf16 copy of the trained net
+    host = _host_tree(net)
+    serve = _lm_net(args, dev, host, defaults={"dtype": "bfloat16"})
+    x16 = torch.as_tensor(toks[0][:, :-1], device=dev)
+    fa.reset_launches()
+    with torch.inference_mode():
+        out = serve.output(x16)
+    torch.cuda.synchronize()
+    serve_launches = dict(fa.launches_by_dtype)
+    want = _lm_net(args, dev, host).output(x16)
+    serve_err = (out.float() - want).abs().max().item()
+    rowsum = (out.float().sum(-1) - 1).abs().max().item()
+    serve_ms = median_ms(lambda: serve.output(x16), torch, runs=10)
+    print(json.dumps({
+        "phase": "precision_lm", "model": {
+            "vocab": VOCAB, "seq": SEQ, "embed": EMBED, "layers": LAYERS,
+            "heads": HEADS, "batch": TRAIN_BATCH,
+            "policy": "precision('bfloat16')", "updater": "Adam(3e-4)"},
+        "steps": PREC_STEPS, "losses": losses, "f32_twin_losses": losses32,
+        "step0_rel_diff": step0, "tol_step0": TOL_BF16_LM_LOSS,
+        "masters_and_slots_f32_each_step": f32_kept,
+        "kernel_launches_by_dtype": {f"{k}/{d}": v
+                                     for (k, d), v in launches.items()},
+        "expected_launches_bf16": LAYERS * PREC_STEPS,
+        "step_ms_median": step_ms["bfloat16"],
+        "f32_twin_step_ms_median": step_ms["float32"],
+        "tokens_per_s": TRAIN_BATCH * SEQ / step_ms["bfloat16"] * 1e3,
+        "device_busy_share": prof["bfloat16"]["device_busy_share"],
+        "f32_twin_device_busy_share": prof["float32"]["device_busy_share"],
+        "profile": prof["bfloat16"], "f32_twin_profile": prof["float32"],
+        "served_bf16": {"batch": TRAIN_BATCH, "shape": list(out.shape),
+                        "dtype": str(out.dtype).split(".")[-1],
+                        "max_abs_err_vs_f32": serve_err,
+                        "tol": TOL_BF16_SERVE, "row_sum_err": rowsum,
+                        "kernel_launches_by_dtype": {
+                            f"{k}/{d}": v
+                            for (k, d), v in serve_launches.items()},
+                        "ms_median": serve_ms},
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if not all(np.isfinite(losses)) or step0 > TOL_BF16_LM_LOSS:
+        return None, (f"bf16 LM step-0 loss {losses[0]} vs f32 "
+                      f"{losses32[0]}: {step0} > {TOL_BF16_LM_LOSS}")
+    if not all(f32_kept):
+        return None, f"bf16 LM masters or slots left f32: {f32_kept}"
+    if launches != expected:
+        return None, (f"bf16 LM launched {launches}; expected {expected} "
+                      f"({LAYERS} bf16 launches per kernel per step)")
+    if serve_launches != {("fwd", "bfloat16"): LAYERS} or \
+            not bool(torch.isfinite(out.float()).all()) or \
+            serve_err > TOL_BF16_SERVE or rowsum > TOL_BF16_ROWSUM:
+        return None, (f"bf16 served batch: launches {serve_launches}, "
+                      f"error {serve_err}, row sums {rowsum}")
+    return {k: v for (k, _), v in launches.items()}, None
+
+
+def _snapshot(net):
+    return ({k: {n: t.detach().clone() for n, t in g.items()}
+             for k, g in net.params.items()},
+            {k: {n: {s: t.clone() for s, t in sl.items()}
+                 for n, sl in g.items()}
+             for k, g in net.opt_state["slots"].items()},
+            dict(net.opt_state["count"]))
+
+
+def _unchanged(torch, net, snap) -> bool:
+    params, slots, count = snap
+    return (net.opt_state["count"] == count and all(
+        torch.equal(net.params[k][n], t)
+        for k, g in params.items() for n, t in g.items()) and all(
+        torch.equal(net.opt_state["slots"][k][n][s], t)
+        for k, g in slots.items() for n, sl in g.items()
+        for s, t in sl.items()))
+
+
+def _scaled_steps(torch, net, batches, finite_steps, max_skips):
+    """Fit ``batches`` in turn (each until it trains) until
+    ``finite_steps`` steps have trained; every skipped step is checked
+    against a snapshot.  Returns ``(skips, scales, all_unchanged,
+    losses)``: the skips, the scale after each step (the initial scale
+    first), whether each skip left params, updater slots and counts
+    bit-equal, and the trained steps' losses."""
+    from deeplearning4j_tpu_torch.nn.precision import SCALE_STATE_KEY
+    scales = [float(net.state[SCALE_STATE_KEY]["scale"])]
+    unchanged, losses, skips = [], [], 0
+    for x, y in batches:
+        while len(losses) < finite_steps and skips <= max_skips:
+            snap = _snapshot(net)
+            before = int(net.state[SCALE_STATE_KEY]["overflow_steps"])
+            net.fit(x, y)
+            scales.append(float(net.state[SCALE_STATE_KEY]["scale"]))
+            if int(net.state[SCALE_STATE_KEY]["overflow_steps"]) == before:
+                losses.append(net.get_score())
+                break
+            skips += 1
+            unchanged.append(_unchanged(torch, net, snap))
+            del snap
+    return skips, scales, unchanged, losses
+
+
+def _skip_flags(scales):
+    """Per step of a scale sequence: whether the step was skipped (the
+    scale moved)."""
+    return [b != a for a, b in zip(scales, scales[1:])]
+
+
+def _first_finite_level(net, tree, x, y, levels):
+    """The number of halvings of the policy's initial scale after which
+    one step on ``(x, y)`` no longer overflows, found by bisection over
+    ``levels`` (a skipped step leaves the params as they were, so the
+    sequential count is the first level that trains): each probe reloads
+    ``tree`` and sets the scale."""
+    from deeplearning4j_tpu_torch.nn.precision import SCALE_STATE_KEY
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+    init = float(net.state[SCALE_STATE_KEY]["scale"])
+    lo, hi = 0, levels            # level lo overflows or is 0; hi trains
+    while lo < hi:
+        mid = (lo + hi) // 2
+        params_from_jax(net, tree)
+        ls = net.state[SCALE_STATE_KEY]
+        ls["scale"].fill_(init / 2 ** mid)
+        ls["overflow_steps"].zero_()
+        net.fit(x, y)
+        if int(net.state[SCALE_STATE_KEY]["overflow_steps"]):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def loss_scale_phase(args, torch, dev, card):
+    """Phase 26.  Returns ``({"flash": f16 flash launches, "lstm": lstm_fwd
+    launches}, None)`` or ``(None, what failed)``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.models.zoo import (TextGenerationLSTM,
+                                                     TransformerLM)
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.precision import (SCALE_STATE_KEY,
+                                                       PrecisionPolicy,
+                                                       named_policy)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+
+    t_phase = time.perf_counter()
+    pol = PrecisionPolicy(compute_dtype="float16", loss_scale="dynamic",
+                          initial_scale=F16_INITIAL_SCALE)
+    tree = _lm_tree(args, dev, 26)
+    net = _lm_net(args, dev, tree, defaults={"precision": pol})
+    rng = np.random.default_rng(args.seed + 26)
+    toks = rng.integers(0, VOCAB, (1 + F16_CLEAN_STEPS, TRAIN_BATCH,
+                                   SEQ + 1))
+    batches = [(torch.as_tensor(b[:, :-1], device=dev),
+                torch.as_tensor(b[:, 1:], device=dev)) for b in toks]
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    skips, scales, unchanged, trained = _scaled_steps(
+        torch, net, batches, 1 + F16_CLEAN_STEPS, F16_MAX_SKIPS)
+    ls = {k: float(v) for k, v in net.state[SCALE_STATE_KEY].items()}
+    launches = dict(fa.launches_by_dtype)
+    steps = skips + len(trained)
+    expected = {(k, "float16"): LAYERS * steps
+                for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    # each skip halves the scale; a trained step keeps it (no growth
+    # within growth_interval = 200 steps)
+    halved = all(b == (a / 2 if skipped else a) for a, b, skipped in zip(
+        scales, scales[1:], _skip_flags(scales)))
+    first_skips = next(i for i, (a, b) in enumerate(zip(scales, scales[1:]))
+                       if b == a)
+    # the twins at a cut size: the first blocks of the same params, one
+    # sequence of F16_TWIN_SEQ tokens of the first batch; the card counts
+    # its skips step by step, the CPU by bisection over the levels
+    cut = {k: v for k, v in tree.items()
+           if int(k[len("layer_"):]) < 2 + F16_TWIN_LAYERS}
+    cut[f"layer_{2 + F16_TWIN_LAYERS}"] = tree[f"layer_{2 + LAYERS}"]
+    twin_zoo = TransformerLM(vocab_size=VOCAB, seq_len=F16_TWIN_SEQ,
+                             embed=EMBED, n_layers=F16_TWIN_LAYERS,
+                             n_heads=HEADS, sparse_labels=True)
+    tx = toks[0][:1, :F16_TWIN_SEQ + 1]
+    twin_skips = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        conf = twin_zoo.conf()
+        conf.defaults["precision"] = pol
+        m = params_from_jax(MultiLayerNetwork(conf, device=d), cut)
+        bx, by = (torch.as_tensor(a, device=d)
+                  for a in (tx[:, :-1], tx[:, 1:]))
+        if where == "card":
+            twin_skips[where] = _scaled_steps(torch, m, [(bx, by)], 1,
+                                              F16_MAX_SKIPS)[0]
+        else:
+            twin_skips[where] = _first_finite_level(
+                m, cut, bx, by, F16_MAX_SKIPS)
+        del m
+    lm_s = time.perf_counter() - t_phase
+
+    # ---- 26b. the char-LSTM, tBPTT under float16 ------------------------
+    zoo = TextGenerationLSTM(num_classes=LSTM_CLASSES, timesteps=LSTM_T,
+                             hidden=LSTM_HIDDEN, seed=args.seed)
+    conf = zoo.conf()
+    for lc in conf.layers:
+        if isinstance(lc, LSTM):
+            lc.helper = "pallas"
+    conf.backprop_type = "tbptt"
+    conf.tbptt_fwd_length = conf.tbptt_back_length = \
+        LSTM_T // F16_TBPTT_CHUNKS
+    conf.defaults["precision"] = named_policy("float16")
+    lnet = MultiLayerNetwork(conf, device=dev).init()
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 262)
+    ids = torch.randint(0, LSTM_CLASSES, (LSTM_BATCH, LSTM_T + 1),
+                        generator=dgen, device=dev)
+    xl = F.one_hot(ids[:, :-1], LSTM_CLASSES).float()
+    yl = F.one_hot(ids[:, 1:], LSTM_CLASSES).float()
+    xl[:, 0, :] = 1e30                  # chunk 1 of 4 overflows in f16
+    torch.cuda.synchronize()
+    pl.reset_launches()
+    lnet.fit(xl, yl)
+    torch.cuda.synchronize()
+    lstm_launches = pl.launches["lstm_fwd"]
+    lls = {k: float(v) for k, v in lnet.state[SCALE_STATE_KEY].items()}
+    print(json.dumps({
+        "phase": "loss_scale_f16", "lm": {
+            "model": {"vocab": VOCAB, "seq": SEQ, "embed": EMBED,
+                      "layers": LAYERS, "heads": HEADS, "batch": TRAIN_BATCH,
+                      "policy": "PrecisionPolicy(compute_dtype='float16', "
+                                "loss_scale='dynamic', initial_scale=2**40)"},
+            "skips": skips, "skips_before_the_first_finite_step":
+                first_skips, "scales": scales,
+            "skipped_steps_unchanged": unchanged,
+            "scale_halved_per_skip": halved,
+            "trained_losses": trained, "scale_state": ls,
+            "cpu_twin": {"layers": F16_TWIN_LAYERS, "batch": 1,
+                         "seq": F16_TWIN_SEQ,
+                         "skips_card": twin_skips["card"],
+                         "skips_cpu": twin_skips["cpu"]},
+            "kernel_launches_by_dtype": {f"{k}/{d}": v
+                                         for (k, d), v in launches.items()},
+            "expected_launches_f16": LAYERS * steps,
+            "seconds": round(lm_s, 3)},
+        "char_lstm_tbptt": {
+            "batch": LSTM_BATCH, "t": LSTM_T, "chunks": F16_TBPTT_CHUNKS,
+            "policy": "precision('float16')", "poisoned_chunk": 1,
+            "scale_state": lls, "iterations": lnet.iteration,
+            "score": lnet.get_score(), "lstm_fwd_launches": lstm_launches,
+            "expected_launches": 2 * F16_TBPTT_CHUNKS},
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if skips == 0 or skips > F16_MAX_SKIPS or not all(unchanged) or \
+            not halved or int(ls["overflow_steps"]) != skips:
+        return None, (f"f16 LM loss scaling: {skips} skips, scales "
+                      f"{scales}, unchanged {unchanged}, state {ls}")
+    if len(trained) != 1 + F16_CLEAN_STEPS or \
+            not np.isfinite(trained).all() or ls["scale"] != scales[-1]:
+        return None, f"f16 LM did not train after the skips: {trained}, {ls}"
+    if launches != expected:
+        return None, (f"f16 LM launched {launches}; expected {expected}")
+    if lls["overflow_steps"] != 1 or \
+            lstm_launches != 2 * F16_TBPTT_CHUNKS or \
+            not np.isfinite(lnet.get_score()):
+        return None, (f"f16 char-LSTM tBPTT: state {lls}, {lstm_launches} "
+                      f"lstm_fwd launches, score {lnet.get_score()}")
+    return {"flash": {k: v for (k, _), v in launches.items()},
+            "lstm": lstm_launches}, None
+
+
+def remat_memory_phase(args, torch, dev, card):
+    """Phase 27.  Returns None, or what failed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.conf.memory import (
+        MemoryUseMode, device_memory_report, memory_report)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.precision import named_policy
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    tree = _lm_tree(args, dev, 27)
+    rng = np.random.default_rng(args.seed + 27)
+    toks = rng.integers(0, VOCAB, (REMAT_STEPS, TRAIN_BATCH, SEQ + 1))
+    batches = [(torch.as_tensor(b[:, :-1], device=dev),
+                torch.as_tensor(b[:, 1:], device=dev)) for b in toks]
+    # the analytic report's static part against what making the net and
+    # its updater state allocates
+    conf = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                         n_layers=LAYERS, n_heads=HEADS, sparse_labels=True,
+                         seed=args.seed).conf()
+    conf.resolve()
+    report = memory_report(conf)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    made = MultiLayerNetwork(conf, device=dev).init()
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - base
+    n_tensors = (sum(1 for _ in made.params.parameters())
+                 + sum(len(sl) for g in made.opt_state["slots"].values()
+                       for sl in g.values()) + 1)
+    static = report.static_bytes()
+    del made
+    runs, peaks = {}, {}
+    for name, defaults in (("float32", {}), ("remat", {"cache_mode":
+                                                       "remat"}),
+                           ("bfloat16", {"precision":
+                                         named_policy("bfloat16")})):
+        torch.cuda.empty_cache()
+        net = _lm_net(args, dev, tree, defaults=defaults)
+        losses, launches = [], []
+        for i, (x, y) in enumerate(batches):
+            fa.reset_launches()
+            if i == 1:
+                peaks[name] = device_memory_report(net, x, y)
+            else:
+                net.fit(x, y)
+            launches.append(fa.launches["fwd"])
+            losses.append(net.get_score())
+        rep = memory_report(net.conf)
+        peaks[name]["report_total_memory_bytes"] = rep.total_memory_bytes(
+            TRAIN_BATCH, MemoryUseMode.TRAINING)
+        runs[name] = {"losses": losses, "fwd_launches_per_step": launches,
+                      "params": None if name == "bfloat16"
+                      else _host_tree(net)}
+        # then the step's time (host clock, as train_time's)
+        runs[name]["step_ms_median"] = _timed_steps(torch, net, batches,
+                                                    REMAT_TIMED_STEPS)
+        del net
+    same_losses = runs["float32"]["losses"] == runs["remat"]["losses"]
+    same_params = all(
+        np.array_equal(a, runs["remat"]["params"][k][n])
+        for k, g in runs["float32"]["params"].items()
+        for n, a in g.items())
+    print(json.dumps({
+        "phase": "remat_memory", "model": {
+            "vocab": VOCAB, "seq": SEQ, "embed": EMBED, "layers": LAYERS,
+            "heads": HEADS, "batch": TRAIN_BATCH, "updater": "Adam(3e-4)"},
+        "steps": REMAT_STEPS,
+        "losses": {k: v["losses"] for k, v in runs.items()},
+        "losses_bitwise_equal": same_losses,
+        "params_bitwise_equal": same_params,
+        "fwd_launches_per_step": {k: v["fwd_launches_per_step"]
+                                  for k, v in runs.items()},
+        "step_ms_median": {k: v["step_ms_median"] for k, v in runs.items()},
+        "static": {"report_static_bytes": static,
+                   "allocated_growth_bytes": growth,
+                   "tensors": n_tensors,
+                   "allowance_bytes": ALLOC_ROUND * n_tensors},
+        "peak": peaks,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if not (same_losses and same_params):
+        return (f"remat vs stored activations: losses equal {same_losses}, "
+                f"params equal {same_params}")
+    if runs["remat"]["fwd_launches_per_step"] != [2 * LAYERS] * REMAT_STEPS \
+            or runs["float32"]["fwd_launches_per_step"] != \
+            [LAYERS] * REMAT_STEPS:
+        per_step = {k: v["fwd_launches_per_step"] for k, v in runs.items()}
+        return f"forward launches per step: {per_step}"
+    if not 0 <= growth - static <= ALLOC_ROUND * n_tensors:
+        return (f"making the net allocated {growth} bytes; the report's "
+                f"static part is {static} ({n_tensors} tensors)")
+    return None
+
+
+def resnet_bf16_phase(args, torch, dev, card):
+    """Phase 28.  Returns ``(bf16 bn_apply launches of the keep_f32=()
+    step, None)`` or ``(None, what failed)``."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+
+    t_phase = time.perf_counter()
+
+    def make(compute_dtype):
+        conf = ResNet50(seed=args.seed, input_shape=RN_INPUT,
+                        num_classes=RN_CLASSES,
+                        compute_dtype=compute_dtype).conf()
+        for v in conf.vertices.values():
+            lc = getattr(v, "layer", None)
+            if type(lc).__name__ == "BatchNormalization":
+                lc.helper = "pallas"
+        return ComputationGraph(conf, device=dev)
+
+    net = make("bfloat16").init()
+    tree0 = _host_tree(net)
+    twin = make(None).load_params(tree0)
+    h, w, c = RN_INPUT
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 28)
+    batches = [(torch.randn((CNN_BATCH, h, w, c), generator=dgen,
+                            device=dev),
+                F.one_hot(torch.randint(0, RN_CLASSES, (CNN_BATCH,),
+                                        generator=dgen, device=dev),
+                          RN_CLASSES).float())
+               for _ in range(RN_BF16_STEPS)]
+    losses, twin_losses, launches, f32_stats = [], [], [], []
+    for i, (x, y) in enumerate(batches):
+        torch.cuda.synchronize()
+        pb.reset_launches()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        launches.append(dict(pb.launches_by_dtype))
+        losses.append(net.get_score())
+        f32_stats.append(all(t.dtype == torch.float32
+                             for k, g in net.state.items()
+                             for t in g.values() if t.is_floating_point()))
+        if i == 0:
+            twin.fit(x, y)
+            twin_losses.append(twin.get_score())
+    del twin
+    step_ms = _timed_steps(torch, net, batches, 4)
+    step0 = abs(losses[0] - twin_losses[0]) / abs(twin_losses[0])
+    # one step with keep_f32=() from the initial params: every BN in
+    # bf16, each launch held against the plain version on its inputs
+    del net
+    net = make("bfloat16").load_params(tree0)
+    net.conf.defaults["precision"] = PrecisionPolicy(
+        compute_dtype="bfloat16", keep_f32=())
+    worst, checked = 0.0, 0
+    inner = pb.bn_apply
+
+    def held(x, scale, shift, relu):
+        nonlocal worst, checked
+        y = inner(x, scale, shift, relu)
+        want = pb.bn_apply_plain(x, scale, shift, relu)
+        tol = BN_TOL_BF16 * (x.float().abs() * scale.float().abs()
+                             + shift.float().abs()).max()
+        err = (y.float() - want.float()).abs().max()
+        worst = max(worst, (err / tol).item())
+        checked += 1
+        return y
+    pb.bn_apply = held
+    try:
+        pb.reset_launches()
+        net.fit(*batches[0])
+        torch.cuda.synchronize()
+    finally:
+        pb.bn_apply = inner
+    bf16_launches = dict(pb.launches_by_dtype)
+    bf16_loss = net.get_score()
+    print(json.dumps({
+        "phase": "resnet_bf16", "model": {
+            "name": "ResNet50(compute_dtype='bfloat16')",
+            "input": [h, w, c], "batch": CNN_BATCH,
+            "updater": "Nesterovs(0.1, 0.9)", "bn_helper": "pallas"},
+        "steps": RN_BF16_STEPS, "losses": losses,
+        "f32_twin_step0_loss": twin_losses[0], "step0_rel_diff": step0,
+        "tol_step0": TOL_BF16_RESNET_LOSS,
+        "bn_launches_by_dtype_per_step": launches,
+        "bn_running_stats_f32_each_step": f32_stats,
+        "step_ms_median": step_ms,
+        "images_per_s": CNN_BATCH / step_ms * 1e3,
+        "keep_f32_empty_step": {"loss": bf16_loss,
+                                "bn_launches_by_dtype": bf16_launches,
+                                "held_against_plain": checked,
+                                "worst_err_over_tol": worst},
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    want = [{"float32": 53}] * RN_BF16_STEPS
+    if launches != want:
+        return None, f"bf16 ResNet50 bn_apply launches {launches}"
+    if not all(f32_stats):
+        return None, "bf16 ResNet50 left BN running statistics not f32"
+    import math
+    if not all(math.isfinite(v) for v in losses) or \
+            step0 > TOL_BF16_RESNET_LOSS:
+        return None, (f"bf16 ResNet50 step-0 loss {losses[0]} vs f32 "
+                      f"{twin_losses[0]}: {step0} > {TOL_BF16_RESNET_LOSS}")
+    if bf16_launches != {"bfloat16": 53} or checked != 53 or worst > 1.0 \
+            or not math.isfinite(bf16_loss):
+        return None, (f"keep_f32=() step: launches {bf16_launches}, held "
+                      f"{checked}, worst {worst}, loss {bf16_loss}")
+    return bf16_launches["bfloat16"], None
+
+
+def int8_kv_phase(args, torch, dev, card):
+    """Phase 29.  Returns None, or what failed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.generation import (GenerationConfig,
+                                                     GenerationEngine)
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.layers.attention import _kv_quantize
+    from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+
+    t_phase = time.perf_counter()
+    # codes and scales: card against CPU on the same K/V
+    kgen = torch.Generator().manual_seed(args.seed + 29)
+    kv_in = torch.randn((GEN_SLOTS, HEADS, HEAD_DIM), generator=kgen) * \
+        torch.logspace(-3, 2, GEN_SLOTS)[:, None, None]
+    qc, sc = _kv_quantize(kv_in)
+    qd, sd = _kv_quantize(kv_in.to(dev))
+    codes_equal = torch.equal(qc, qd.cpu()) and torch.equal(sc, sd.cpu())
+    rng = np.random.default_rng(args.seed + 29)
+    prompts = [rng.integers(0, VOCAB, int(rng.integers(
+        GEN_PROMPT_RANGE[0], GEN_PROMPT_RANGE[1] + 1))).tolist()
+        for _ in range(GEN_REQUESTS)]
+    cfg = dict(max_slots=GEN_SLOTS, max_seq=GEN_MAX_SEQ,
+               block_size=GEN_BLOCK)
+    streams, nbytes, decode_ms, status = {}, {}, {}, {}
+    for pool in ("float32", "int8"):
+        net = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                            n_layers=LAYERS, n_heads=HEADS).init(device=dev)
+        params_from_jax(net, seeded_params(net.param_spec(), args.seed))
+        if pool == "int8":
+            net.conf.defaults["precision"] = PrecisionPolicy(kv_dtype="int8")
+        eng = GenerationEngine.for_model(net, GenerationConfig(**cfg))
+        try:
+            handles = [eng.submit(p, max_new_tokens=INT8_NEW)
+                       for p in prompts]
+            streams[pool] = [h.future.result(timeout=300).tokens
+                             for h in handles]
+            nbytes[pool] = eng.ring.cache_bytes
+            status[pool] = eng.status()["kv"]["kv_dtype"]
+        finally:
+            eng.shutdown()
+        # the decode step with 16 active, driven directly
+        kv, _, dec, dargs = _direct_decode(torch, net, dev)
+        decode_ms[pool] = median_ms(
+            lambda: dec(net.params, net.state, *dargs), torch, runs=20)
+        del net, kv, dargs
+    groups = [sum(int(a != b) for a, b in zip(
+        streams["int8"][i:i + 3], streams["float32"][i:i + 3]))
+        for i in range(0, GEN_REQUESTS, 3)]
+    print(json.dumps({
+        "phase": "int8_kv", "model": {
+            "vocab": VOCAB, "seq": SEQ, "embed": EMBED, "layers": LAYERS,
+            "heads": HEADS}, "config": cfg, "requests": GEN_REQUESTS,
+        "max_new_tokens": INT8_NEW,
+        "codes_and_scales_card_equal_cpu": codes_equal,
+        "cache_bytes": nbytes, "ratio": nbytes["int8"] / nbytes["float32"],
+        "kv_dtype_status": status,
+        "differing_streams_per_group_of_3": groups,
+        "decode_step_ms_16_active": decode_ms,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if not codes_equal:
+        return "int8 codes or scales differ between the card and the CPU"
+    if nbytes["int8"] > 0.5 * nbytes["float32"] or \
+            status != {"float32": "float32", "int8": "int8"}:
+        return f"int8 pool bytes {nbytes} or status {status}"
+    if max(groups) > 1:
+        return (f"int8 greedy streams differ from the f32 pool's in more "
+                f"than one request of a group of three: {groups}")
+    return None
+
+
+def solvers_eval_phase(args, torch, dev, card):
+    """Phase 30.  Returns None, or what failed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.evaluation import (EvaluationBinary,
+                                                     EvaluationCalibration)
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (DenseLayer,
+                                                                OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train import solvers
+
+    t_phase = time.perf_counter()
+    conf = (NeuralNetConfiguration.builder().seed(args.seed)
+            .activation("relu").updater(Sgd(learning_rate=0.1)).list()
+            .layer(DenseLayer(n_out=UPD_WIDTH))
+            .layer(DenseLayer(n_out=UPD_WIDTH))
+            .layer(OutputLayer(n_out=UPD_CLASSES, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(UPD_WIDTH)).build())
+    rng = np.random.default_rng(args.seed + 30)
+    x = rng.standard_normal((UPD_BATCH, UPD_WIDTH)).astype(np.float32)
+    y = np.eye(UPD_CLASSES, dtype=np.float32)[rng.integers(
+        0, UPD_CLASSES, UPD_BATCH)]
+    tree = None
+    rows, outs = [], {}
+    for cls in ("LBFGS", "ConjugateGradient", "LineGradientDescent"):
+        hist, final, ms = {}, {}, {}
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            net = MultiLayerNetwork(conf, device=d).init()
+            if tree is None:
+                tree = _host_tree(net)
+            net.load_params(tree)
+            opt = getattr(solvers, cls)(max_iterations=SOLVER_ITERS)
+            t1 = time.perf_counter()
+            final[where] = opt.optimize(net, x, y)
+            ms[where] = (time.perf_counter() - t1) * 1e3 / max(
+                1, len(opt.score_history) - 1)
+            hist[where] = opt.score_history
+            outs[(cls, where)] = net.output(x)
+        first3 = max(abs(a - b) / abs(b) for a, b in zip(
+            hist["card"][:3], hist["cpu"][:3]))
+        rows.append({"solver": cls, "iterations": len(hist["card"]) - 1,
+                     "scores": hist["card"], "cpu_scores": hist["cpu"],
+                     "first3_max_rel_diff": first3,
+                     "final": final["card"], "cpu_final": final["cpu"],
+                     "iteration_ms": ms["card"],
+                     "cpu_iteration_ms": ms["cpu"]})
+    # evaluation of the LBFGS nets' outputs, card against CPU
+    pc = outs[("LBFGS", "card")]
+    pcpu = outs[("LBFGS", "cpu")]
+    # the interior edges: an output near 0 or 1 stays in the first or
+    # last bin on both sides (the bins are clipped)
+    edges = np.unique(np.concatenate([np.arange(1, 10) / 10,
+                                      np.arange(1, 50) / 50, [0.5]]))
+    near = np.abs(pcpu.numpy()[..., None] - edges).min(-1) < TIE_MARGIN
+    ties = int(near.sum())
+    evs = {}
+    for where, p in (("card", pc), ("cpu", pcpu)):
+        evs[where] = (EvaluationBinary().eval(y, p),
+                      EvaluationCalibration().eval(y, p))
+    diff = sum(int(np.abs(getattr(evs["card"][0], f)
+                          - getattr(evs["cpu"][0], f)).sum())
+               for f in ("tp", "fp", "tn", "fn"))
+    cb, cc = evs["card"][1], evs["cpu"][1]
+    diff += sum(int(np.abs(a - b).sum()) for a, b in (
+        (cb._count, cc._count), (cb._pos_count, cc._pos_count),
+        (cb._prob_counts, cc._prob_counts),
+        (cb._residual_counts, cc._residual_counts)))
+    print(json.dumps({
+        "phase": "solvers_eval", "model": {
+            "layers": f"Dense {UPD_WIDTH} x2 (relu) -> softmax "
+                      f"{UPD_CLASSES}", "batch": UPD_BATCH},
+        "rows": rows, "tol_first3": TOL_SOLVER_SCORES,
+        "final_slack": SOLVER_FINAL_SLACK,
+        "evaluation": {"binary_tp": evs["card"][0].tp.tolist(),
+                       "binary_cpu_tp": evs["cpu"][0].tp.tolist(),
+                       "ece": evs["card"][1].expected_calibration_error(),
+                       "cpu_ece": evs["cpu"][1].expected_calibration_error(),
+                       "count_differences": diff,
+                       "outputs_near_an_edge": ties},
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    for r in rows:
+        if r["first3_max_rel_diff"] > TOL_SOLVER_SCORES or \
+                not r["final"] <= r["cpu_final"] + SOLVER_FINAL_SLACK:
+            return (f"{r['solver']} on the card vs the CPU: first scores "
+                    f"{r['first3_max_rel_diff']}, final {r['final']} vs "
+                    f"{r['cpu_final']}")
+    if diff > ties:
+        return (f"evaluation counts differ card vs CPU by {diff} "
+                f"({ties} outputs near a threshold or bin edge)")
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2900,7 +3804,8 @@ def main(argv=None) -> int:
     scale = HEAD_DIM ** -0.5
     inputs, saved, max_err = {}, {}, {}
     for dname, dt in (("float32", torch.float32),
-                      ("bfloat16", torch.bfloat16)):
+                      ("bfloat16", torch.bfloat16),
+                      ("float16", torch.float16)):
         for shp in (shape, *CHECK_SHAPES):
             sc = shp[2] ** -0.5
             q, k, v, do = (torch.randn(shp, generator=gen, device=dev).to(dt)
@@ -3289,6 +4194,29 @@ def main(argv=None) -> int:
             return fail(err)
         torch.cuda.empty_cache()
 
+    # ---- 25-30. precision and memory, int8 KV, solvers and evaluation --
+    prec_launches, err = precision_lm_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    f16_launches, err = loss_scale_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    err = remat_memory_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    bn_bf16_launches, err = resnet_bf16_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    for phase in (int8_kv_phase, solvers_eval_phase):
+        err = phase(args, torch, dev, card)
+        if err:
+            return fail(err)
+        torch.cuda.empty_cache()
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -3310,9 +4238,38 @@ def main(argv=None) -> int:
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,
             "ms_device_only": kern_dev})
+    # the same kernels in bf16 (precision_lm) and f16 (loss_scale_f16),
+    # causal at the LM's attention shape
+    for dname, tag, path_launches in (("bfloat16", "bf16", prec_launches),
+                                      ("float16", "f16",
+                                       f16_launches["flash"])):
+        for name in ("fwd", "bwd_dq", "bwd_dkv"):
+            kern, plain, lib_ms, bound, bound_by, kern_dev = \
+                timings[(name, dname, True)]
+            records.append({
+                "name": f"flash_attn_{name}_{tag}", "route": "cuda",
+                "source": f"{src_dir}/{sources[name]}",
+                "replaces": replaces[name], "dtype": dname,
+                "launches": path_launches[name],
+                "max_abs_err": max_err[(name, dname, True)],
+                "ms": kern, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "ms_device_only": kern_dev})
     bn_record["launches_transfer_resnet"] = slice_launches["tr"]
     lstm_record["launches_early_stop_lstm"] = slice_launches["es"]
+    lstm_record["launches_loss_scale_f16_tbptt"] = f16_launches["lstm"]
+    bf16_totals = bn_record.pop("bfloat16_totals")
+    bf16_err = bn_record.pop("bfloat16_max_abs_err")
     records.append(bn_record)
+    records.append({
+        **{k: bn_record[k] for k in ("route", "source", "replaces")},
+        "name": "bn_apply_bf16", "dtype": "bfloat16",
+        "per": "one ResNet50 training step at batch 64 with every BN in "
+               "bf16 (keep_f32=()): the 53 launches at their shapes, "
+               "summed, each after a clean L2 flush",
+        "launches": bn_bf16_launches, "max_abs_err": bf16_err,
+        **bf16_totals,
+        "bound_share": bf16_totals["bound_ms"] / bf16_totals["ms"]})
     records.append(lstm_record)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

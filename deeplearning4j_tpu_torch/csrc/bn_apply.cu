@@ -3,7 +3,8 @@
 // Replaces the Pallas kernel `_apply_kernel` launched by `_apply` in
 // deeplearning4j_tpu/ops/pallas_bn.py: y[m, c] = act(x[m, c] * scale[c] +
 // shift[c]) over the channels-last [M, C] view of an [..., C] tensor, with
-// act identity or relu, x, scale, shift and y all float32 or all bfloat16.
+// act identity or relu, x, scale, shift and y all float32, all bfloat16 or
+// all float16.
 //
 // What bounds it.  One multiply-add per element against 2 * itemsize
 // bytes moved: far below the card's ~20 FLOP/byte f32 balance point, so
@@ -11,7 +12,7 @@
 // 2 * C more).  The design moves nothing else and keeps enough loads in
 // flight to reach the memory rate:
 //
-// - A grid-stride loop over 16-byte vectors (4 f32 or 8 bf16 elements,
+// - A grid-stride loop over 16-byte vectors (4 f32 or 8 bf16/f16 elements,
 //   all in one row because C is a multiple of the vector width); shapes
 //   whose C is not, or pointers not 16-byte aligned, take the same loop
 //   one element at a time.
@@ -35,11 +36,13 @@
 //   nothing to protect).  y is stored with the default policy: the next
 //   convolution reads it.
 //
-// Arithmetic.  f32 FMA (one rounding); bf16 is widened to f32 on load
-// and rounded once to nearest-even on store.  relu keeps NaN as NaN, as
+// Arithmetic.  f32 FMA (one rounding); bf16 and f16 are widened to f32 on
+// load and rounded once to nearest-even on store (f16 to +-inf past
+// 65504, as torch's f32 -> f16 conversion).  relu keeps NaN as NaN, as
 // jnp.maximum and torch.relu do.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -59,15 +62,35 @@ struct F32x4 {
   __device__ static V pack(const float* f) { return make_float4(f[0], f[1], f[2], f[3]); }
 };
 
-struct Bf16x8 {
+// The two 16-bit types' pair conversions, widened to f32 and back.
+struct Bf16Ops {
   using T = __nv_bfloat16;
+  using T2 = __nv_bfloat162;
+  __device__ static float2 widen2(const T2& h) { return __bfloat1622float2(h); }
+  __device__ static T2 narrow2(float a, float b) { return __floats2bfloat162_rn(a, b); }
+  __device__ static float widen(const T& h) { return __bfloat162float(h); }
+  __device__ static T narrow(float a) { return __float2bfloat16(a); }
+};
+
+struct F16Ops {
+  using T = __half;
+  using T2 = __half2;
+  __device__ static float2 widen2(const T2& h) { return __half22float2(h); }
+  __device__ static T2 narrow2(float a, float b) { return __floats2half2_rn(a, b); }
+  __device__ static float widen(const T& h) { return __half2float(h); }
+  __device__ static T narrow(float a) { return __float2half_rn(a); }
+};
+
+template <class Ops>
+struct Half16x8 {
+  using T = typename Ops::T;
   using V = uint4;
   static constexpr int N = 8;
   __device__ static void unpack(const V& v, float* f) {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      const float2 p = Ops::widen2(*reinterpret_cast<const typename Ops::T2*>(&w[i]));
       f[2 * i] = p.x;
       f[2 * i + 1] = p.y;
     }
@@ -76,7 +99,7 @@ struct Bf16x8 {
     uint32_t w[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      const typename Ops::T2 h = Ops::narrow2(f[2 * i], f[2 * i + 1]);
       w[i] = *reinterpret_cast<const uint32_t*>(&h);
     }
     return make_uint4(w[0], w[1], w[2], w[3]);
@@ -91,12 +114,13 @@ struct F32x1 {
   __device__ static V pack(const float* f) { return f[0]; }
 };
 
-struct Bf16x1 {
-  using T = __nv_bfloat16;
-  using V = __nv_bfloat16;
+template <class Ops>
+struct Half16x1 {
+  using T = typename Ops::T;
+  using V = typename Ops::T;
   static constexpr int N = 1;
-  __device__ static void unpack(const V& v, float* f) { f[0] = __bfloat162float(v); }
-  __device__ static V pack(const float* f) { return __float2bfloat16(f[0]); }
+  __device__ static void unpack(const V& v, float* f) { f[0] = Ops::widen(v); }
+  __device__ static V pack(const float* f) { return Ops::narrow(f[0]); }
 };
 
 // The N f32 lanes of scale or shift for row vector cv.
@@ -190,9 +214,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 // x, y: [m, c] contiguous; scale, shift: [c]; all of one dtype (0 float32,
-// 1 bfloat16).  The launch plan (ops/pallas_bn.plan): vec (16 / itemsize,
-// or 1), grid (blocks of kThreads) and fixed (the grid stride is a
-// multiple of c / vec).  Returns a cudaError_t (0 on success).
+// 1 bfloat16, 2 float16).  The launch plan (ops/pallas_bn.plan): vec (16 /
+// itemsize, or 1), grid (blocks of kThreads) and fixed (the grid stride is
+// a multiple of c / vec).  Returns a cudaError_t (0 on success).
 extern "C" int bn_apply(const void* x, const void* scale, const void* shift,
                         void* y, long long m, int c, int relu, int dtype,
                         int vec, int grid, int fixed, void* stream) {
@@ -200,7 +224,7 @@ extern "C" int bn_apply(const void* x, const void* scale, const void* shift,
     return (int)cudaErrorInvalidValue;
   if (m == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int wide = dtype == 0 ? F32x4::N : Bf16x8::N;
+  const int wide = dtype == 0 ? F32x4::N : Half16x8<Bf16Ops>::N;
   if (vec == wide && (c % wide != 0 || !aligned16(x) || !aligned16(y) ||
                       !aligned16(scale) || !aligned16(shift)))
     return (int)cudaErrorInvalidValue;
@@ -211,10 +235,16 @@ extern "C" int bn_apply(const void* x, const void* scale, const void* shift,
       return launch<F32x1>(x, scale, shift, y, m, c, relu, grid, fixed, s);
   }
   if (dtype == 1) {
-    if (vec == Bf16x8::N)
-      return launch<Bf16x8>(x, scale, shift, y, m, c, relu, grid, fixed, s);
+    if (vec == wide)
+      return launch<Half16x8<Bf16Ops>>(x, scale, shift, y, m, c, relu, grid, fixed, s);
     if (vec == 1)
-      return launch<Bf16x1>(x, scale, shift, y, m, c, relu, grid, fixed, s);
+      return launch<Half16x1<Bf16Ops>>(x, scale, shift, y, m, c, relu, grid, fixed, s);
+  }
+  if (dtype == 2) {
+    if (vec == wide)
+      return launch<Half16x8<F16Ops>>(x, scale, shift, y, m, c, relu, grid, fixed, s);
+    if (vec == 1)
+      return launch<Half16x1<F16Ops>>(x, scale, shift, y, m, c, relu, grid, fixed, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -42,10 +42,14 @@
 // TransformerLM's key-bias gradient is sum_j dk_j = sum_i q_i sum_j dS_ij,
 // zero in exact arithmetic (sum_j dS_ij = scale (D_i - D_i)), so it is
 // pure rounding noise and this kernel is where the noise is made.  bf16
-// inputs are exact in TF32: Q K^T and dO V^T take one pass, and the
-// products with the f32 P or dS operand two (P's hi and lo against the
-// exact B), straight into the accumulators (their tolerance is a bf16
-// ulp).  `ops/flash_attention.flash_attention_bwd_plain(matmul=...)` runs
+// and f16 inputs are exact in TF32: Q K^T and dO V^T take one pass, and
+// the products with the f32 P or dS operand two (P's hi and lo against
+// the exact B), straight into the accumulators (their tolerance is a ulp
+// of the input type).  dS = P (dP - D) scale stays f32 until it is split
+// for its product: its hi and lo parts are TF32, with f32's exponent
+// range, so a dS far below f16's smallest normal (6e-5, common at t 512)
+// keeps its bits; only dq, dk and dv are rounded to f16, once, at the
+// store.  `ops/flash_attention.flash_attention_bwd_plain(matmul=...)` runs
 // the same products in torch for the CPU tests.
 //
 // Fragments without shuffles (fragment layout in flash_common.cuh).  The
@@ -93,7 +97,7 @@
 // d = 64 on an H100).
 //
 // Tiles (rows a CTA owns x rows of a loop tile, threads = 32 per 16 owned
-// rows), shared memory and registers a thread (f32 / bf16; ptxas for
+// rows), shared memory and registers a thread (f32 / bf16 and f16; ptxas for
 // sm_90a), inside the 227 KB a block may use; one CTA per SM:
 //   dq   d = 64:  BQ 128, BK 64   176 / 124 KB     254 / 155
 //        d = 128: BQ 128, BK 16   186 / 161 KB     230 / 141
@@ -129,11 +133,11 @@ template <> struct DkvTiles<256> {
 // lo parts, then the staging buffer of the next K and V tiles.
 template <typename T, int D>
 struct DqLayout {
-  static constexpr bool BF16 = IsBf16<T>::value;
+  static constexpr bool HALF = Is16Bit<T>::value;   // bf16 or f16
   static constexpr int BQ = DqTiles<D>::BQ, BK = DqTiles<D>::BK;
   static constexpr int NT = 2 * BQ;            // BQ / 16 warps
   static constexpr int LD = D + 8;
-  static constexpr int PARTS = BF16 ? 1 : 2;
+  static constexpr int PARTS = HALF ? 1 : 2;
   static constexpr int Q_FLOATS = BQ * LD, K_FLOATS = BK * LD;
   static constexpr size_t BYTES =
       sizeof(float) * (size_t)(2 * Q_FLOATS + 2 * PARTS * K_FLOATS) +
@@ -144,13 +148,13 @@ struct DqLayout {
 // (log2 units) and D of the visited q tile, then the staging buffer.
 template <typename T, int D>
 struct DkvLayout {
-  static constexpr bool BF16 = IsBf16<T>::value;
+  static constexpr bool HALF = Is16Bit<T>::value;   // bf16 or f16
   static constexpr int BK = DkvTiles<D>::BK, BQ = DkvTiles<D>::BQ;
   static constexpr bool SPLIT_OUT = DkvTiles<D>::SPLIT_OUT;
   static constexpr int NPART = SPLIT_OUT ? 2 : 1;   // CTAs per key tile
   static constexpr int NT = 2 * BK;                  // BK / 16 warps
   static constexpr int LD = D + 8;
-  static constexpr int PARTS = BF16 ? 1 : 2;
+  static constexpr int PARTS = HALF ? 1 : 2;
   static constexpr int K_FLOATS = BK * LD, Q_FLOATS = BQ * LD;
   static constexpr size_t BYTES =
       sizeof(float) * (size_t)(2 * K_FLOATS + 2 * PARTS * Q_FLOATS + 2 * BQ) +
@@ -192,7 +196,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float scale) {
   using L = DqLayout<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT, LD = L::LD;
-  constexpr bool SPLIT = !L::BF16;   // f32 operands need a lo term
+  constexpr bool SPLIT = !L::HALF;   // f32 operands need a lo term
   constexpr int NS = BK / 8;         // n-tiles of S and dP per warp
   constexpr int NO = D / 8;          // n-tiles of dq per warp
   extern __shared__ __align__(16) float smem[];
@@ -338,7 +342,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int t_k, int causal, float scale) {
   using L = DkvLayout<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT, LD = L::LD;
-  constexpr bool SPLIT = !L::BF16;
+  constexpr bool SPLIT = !L::HALF;
   constexpr int NQ = BQ / 8;         // n-tiles of S^T and dP^T per warp
   constexpr int NO = D / 8;          // n-tiles of dk and dv per warp
   constexpr int NACC = L::SPLIT_OUT ? 1 : 2;
@@ -583,7 +587,7 @@ int dkv_d(int d, const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 64, 128, 192 or 256.  q, k, v,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  d: 64, 128, 192 or 256.  q, k, v,
 // dout, dq, dk, dv contiguous [bh, t, d] and 16-byte aligned; lse and dd
 // (= rowsum(dout * out)) f32 [bh, t_q].  Each returns a cudaError_t; 0 is
 // success.
@@ -598,6 +602,8 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
     return dq_d<float>(d, q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
   if (dtype == 1)
     return dq_d<__nv_bfloat16>(d, q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 2)
+    return dq_d<__half>(d, q, k, v, dout, lse, dd, dq, bh, t_q, t_k, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -612,5 +618,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
     return dkv_d<float>(d, q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
   if (dtype == 1)
     return dkv_d<__nv_bfloat16>(d, q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 2)
+    return dkv_d<__half>(d, q, k, v, dout, lse, dd, dk, dv, bh, t_q, t_k, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,9 +34,12 @@
 // noise-only gradients past their gate.  So each k-step's three products
 // go into a zeroed 16x8 tile, whose own magnitude is small, and that tile
 // is added to the accumulator in f32 (round to nearest): 4 adds per 3
-// mma.  bf16 inputs are exact in TF32, so their Q*K^T is one pass and
-// their P*V two (P hi and lo against V), straight into the accumulators
-// (their tolerance is a bf16 ulp).  `ops/flash_attention._tf32_split` is the same split in
+// mma.  bf16 and f16 inputs are exact in TF32, so their Q*K^T is one
+// pass and their P*V two (P hi and lo against V), straight into the
+// accumulators (their tolerance is a ulp of the input type).  f16 keeps
+// the two-pass P*V of bf16: P rounded once to TF32 would be off by up to
+// 2^-11 of each weight, a whole f16 ulp of O before its own rounding.
+// m and l stay f32 and lse leaves in f32, whatever the input type.  `ops/flash_attention._tf32_split` is the same split in
 // torch; the CPU tests run the plain tiled forward through it.
 // Why mma.sync and not wgmma: wgmma takes TF32 only with both operands
 // K-major, and V [key, d] is the MN-major B of P*V, so it would need a
@@ -61,7 +64,7 @@
 // with cp.async (16 bytes per thread, zero-filled past t_k by a source
 // size of 0) into a staging buffer in the input type.  At the top of each
 // iteration the CTA converts the staged tile once into the f32 tiles the
-// fragments read: the TF32 hi and lo parts of f32 input, or bf16 widened;
+// fragments read: the TF32 hi and lo parts of f32 input, or bf16/f16 widened;
 // then the next tile's copy is issued into the staging buffer and lands
 // while this one is multiplied.  Splitting each K and V element once per
 // CTA, not once per warp that reads it, matters: the split's three ALU
@@ -79,7 +82,7 @@
 // move q/k/v/o (67 MB): operations bound it.  In bf16 the bytes do.
 //
 // Tiles (BQ query rows, BK keys, threads = 2 * BQ) and shared memory
-// (f32 / bf16), all inside the 227 KB a block may use:
+// (f32 / bf16 and f16), all inside the 227 KB a block may use:
 //   d = 64:  BQ 128, BK 64   138 / 87 KB
 //   d = 128: BQ 128, BK 32   167 / 117.5 KB
 //   d = 192: BQ 64,  BK 32   197 / 123.5 KB
@@ -101,11 +104,11 @@ template <> struct Tiles<256> { static constexpr int BQ = 64, BK = 16; };
 // next K and V tiles in the input type.
 template <typename T, int D>
 struct Layout {
-  static constexpr bool BF16 = IsBf16<T>::value;
+  static constexpr bool HALF = Is16Bit<T>::value;   // bf16 or f16
   static constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   static constexpr int NT = 2 * BQ;           // BQ / 16 warps
   static constexpr int LDQ = D + 8, LDK = D + 8, LDV = D + 4;
-  static constexpr int PARTS = BF16 ? 1 : 2;  // hi (and lo) of K and V
+  static constexpr int PARTS = HALF ? 1 : 2;  // hi (and lo) of K and V
   static constexpr int Q_FLOATS = BQ * LDQ;
   static constexpr int K_FLOATS = BK * LDK;
   static constexpr int V_FLOATS = BK * LDV;
@@ -123,7 +126,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using L = Layout<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK, NT = L::NT;
   constexpr int LDQ = L::LDQ, LDK = L::LDK, LDV = L::LDV;
-  constexpr bool SPLIT = !L::BF16;   // Q, K, V need a lo term (f32 only)
+  constexpr bool SPLIT = !L::HALF;   // Q, K, V need a lo term (f32 only)
   constexpr int NS = BK / 8;         // n-tiles of S per warp
   constexpr int NO = D / 8;          // n-tiles of O per warp
   extern __shared__ __align__(16) float smem[];
@@ -319,7 +322,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 64, 128, 192 or 256.  All tensors
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  d: 64, 128, 192 or 256.  All tensors
 // contiguous [bh, t, d] and 16-byte aligned (lse [bh, t_q]).  Returns a
 // cudaError_t; 0 is success.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
@@ -332,5 +335,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     return launch_d<float>(d, q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(d, q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
+  if (dtype == 2)
+    return launch_d<__half>(d, q, k, v, o, lse, bh, t_q, t_k, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,12 +4,18 @@
 // Each kernel source includes this file once;
 // `utils/kernel_build.library_path` hashes it with the source.
 //
+// 16-bit inputs (bf16 and f16) are exact in TF32: bf16's 8 significant
+// bits and f16's 11 (subnormals included: TF32 has f32's exponent range)
+// fit TF32's 11, so both are widened to f32 once and take the one-pass
+// products; only f32 operands are split.
+//
 // m16n8k8 TF32 fragments: lane (g = lane/4, t = lane%4) holds A at (g, t),
 // (g+8, t), (g, t+4), (g+8, t+4), B at (k = t, n = g), (t+4, g), and C at
 // (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -18,8 +24,10 @@ constexpr float NEG_INF = -1e30f;  // finite, as in ops/attention.NEG_INF
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <typename T> struct IsBf16 { static constexpr bool value = false; };
-template <> struct IsBf16<__nv_bfloat16> { static constexpr bool value = true; };
+// 16-bit input types, exact in TF32 (no lo part)
+template <typename T> struct Is16Bit { static constexpr bool value = false; };
+template <> struct Is16Bit<__nv_bfloat16> { static constexpr bool value = true; };
+template <> struct Is16Bit<__half> { static constexpr bool value = true; };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -80,8 +88,8 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
 }
 
 // A fragment of rows g and g+8 at columns (2t, 2t+1) of an f32 tile, as
-// 8-byte loads at pa and pb; split into hi and lo, or (bf16 input, exact
-// in TF32) its bits in hi.
+// 8-byte loads at pa and pb; split into hi and lo, or (16-bit input,
+// exact in TF32) its bits in hi.
 template <bool SPLIT>
 __device__ __forceinline__ void load_a(const float* pa, const float* pb,
                                        uint32_t (&h)[4], uint32_t (&l)[4]) {
@@ -115,6 +123,11 @@ __device__ __forceinline__ float4 widen4(const __nv_bfloat16* p, int i) {
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 widen4(const __half* p, int i) {
+  const __half2* h = reinterpret_cast<const __half2*>(p + i);
+  const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 // Rows [row0, row0 + ROWS) of a [t, D] global matrix into a dense
 // [ROWS][D] staging buffer, issued as cp.async; rows past t read as zero.
@@ -131,7 +144,7 @@ __device__ __forceinline__ void issue_raw(T* dst, const T* src, int row0, int t)
 }
 
 // Dense staging [ROWS][D] -> f32 tiles with row stride LD: the TF32 hi
-// and lo parts of f32 input, or bf16 input widened (exact in TF32, no lo).
+// and lo parts of f32 input, or 16-bit input widened (exact in TF32, no lo).
 template <int ROWS, int D, int LD, int NT>
 __device__ __forceinline__ void convert_tile(float* hi, float* lo, const float* src) {
   constexpr int CPR = D / 4;
@@ -147,8 +160,9 @@ __device__ __forceinline__ void convert_tile(float* hi, float* lo, const float* 
     *reinterpret_cast<uint4*>(lo + r * LD + c) = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
-template <int ROWS, int D, int LD, int NT>
-__device__ __forceinline__ void convert_tile(float* hi, float*, const __nv_bfloat16* src) {
+template <int ROWS, int D, int LD, int NT, typename H>
+__device__ __forceinline__ void convert_tile(float* hi, float*, const H* src) {
+  static_assert(Is16Bit<H>::value, "16-bit input");
   constexpr int CPR = D / 8;
   for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = (i - r * CPR) * 8;
@@ -168,11 +182,11 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const T* src, int row0
     const int r = i / CPR, c = (i - r * CPR) * EPC;
     const int row = row0 + r;
     float* o = dst + r * LD + c;
-    if constexpr (IsBf16<T>::value) {
+    if constexpr (Is16Bit<T>::value) {
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
       if (row < t) {
         const uint4 raw = *reinterpret_cast<const uint4*>(src + (int64_t)row * D + c);
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        const T* h = reinterpret_cast<const T*>(&raw);
         a = widen4(h, 0);
         b = widen4(h, 4);
       }
@@ -191,6 +205,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 }  // namespace

@@ -27,8 +27,10 @@ slot and block (deterministic order) and an **occupancy trail**, a
 bounded ring of install / vacate / migrate / block_alloc /
 block_release / cow / shared_hit events.
 
-The int8 KV pool of the reference (``PrecisionPolicy.kv_dtype``) is not
-ported: a configuration asking for it raises.
+A precision policy with ``kv_dtype="int8"`` makes the pools int8 codes
+with f32 scales per token and head (``ksc``/``vsc`` ``[n_blocks, h,
+block]``): quantized at the cache write, dequantized at the gather
+(``nn/layers/attention._kv_quantize``), as in the reference.
 """
 from __future__ import annotations
 
@@ -41,22 +43,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..nn.precision import kv_cache_dtype
 from ..observability.clock import monotonic_s, wall_s
 from ..utils.device import resolve_device
 from .programs import _fresh_carry, carried_layers, paged_layout
 
 __all__ = ["PagedKV"]
-
-
-def kv_cache_dtype(defaults: Dict[str, Any]) -> Optional[str]:
-    """The KV storage dtype a configuration's precision policy asks for
-    (``"int8"``), or None.  The policy may be a dict or an object with a
-    ``kv_dtype`` field."""
-    p = defaults.get("precision")
-    kd = p.get("kv_dtype") if isinstance(p, dict) else \
-        getattr(p, "kv_dtype", None)
-    kd = None if kd is None else str(kd).lower()
-    return None if kd in (None, "float32") else kd
 
 
 class _SlotAllocatorBase:
@@ -211,12 +203,7 @@ class PagedKV(_SlotAllocatorBase):
                 f"n_blocks={self.n_blocks} cannot hold even one full "
                 f"sequence ({self.blocks_per_slot} blocks) plus the "
                 "trash block")
-        self.kv_dtype = kv_cache_dtype(conf.defaults)
-        if self.kv_dtype is not None:
-            raise NotImplementedError(
-                f"kv_dtype={self.kv_dtype!r}: the quantized KV pool is not "
-                "ported yet (ROADMAP queue 6, precision); serve with the "
-                "float32 pool")
+        self.kv_dtype = kv_cache_dtype(conf.defaults)      # None | "int8"
         self.device = resolve_device(device)
         self.layout = paged_layout(conf)
         # recurrent state is not position-functional: a suffix-only
@@ -233,11 +220,22 @@ class PagedKV(_SlotAllocatorBase):
             if kind == "attn":
                 probe = _fresh_carry(lc, 1, bs, torch.device("meta"))
                 shape = (nb, probe["k"].shape[1], bs, probe["k"].shape[3])
-                self.caches[name] = {
-                    "kp": torch.zeros(shape, dtype=torch.float32,
-                                      device=self.device),
-                    "vp": torch.zeros(shape, dtype=torch.float32,
-                                      device=self.device)}
+                if self.kv_dtype == "int8":
+                    self.caches[name] = {
+                        "kp": torch.zeros(shape, dtype=torch.int8,
+                                          device=self.device),
+                        "vp": torch.zeros(shape, dtype=torch.int8,
+                                          device=self.device),
+                        "ksc": torch.zeros(shape[:3], dtype=torch.float32,
+                                           device=self.device),
+                        "vsc": torch.zeros(shape[:3], dtype=torch.float32,
+                                           device=self.device)}
+                else:
+                    self.caches[name] = {
+                        "kp": torch.zeros(shape, dtype=torch.float32,
+                                          device=self.device),
+                        "vp": torch.zeros(shape, dtype=torch.float32,
+                                          device=self.device)}
             elif kind == "rnn":
                 self.caches[name] = _fresh_carry(lc, self.max_slots,
                                                  self.max_seq, self.device)
@@ -536,7 +534,7 @@ class PagedKV(_SlotAllocatorBase):
                     "cow_copies": self._cow_count,
                     "evictions": self._evictions,
                     "prefix_sharing": self.sharing,
-                    "kv_dtype": "float32"}
+                    "kv_dtype": self.kv_dtype or "float32"}
 
     def _snapshot_extra_locked(self) -> dict:
         return {"paged": True,

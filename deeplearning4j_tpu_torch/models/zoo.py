@@ -7,13 +7,15 @@
 Each model has the JAX zoo model's fields, defaults, layers, vertex
 names and updater; ``conf()`` gives its configuration and
 ``init(device=...)`` the network with fresh seeded parameters (torch's
-numbers, not JAX's: parity runs load the JAX package's).  Pretrained
-weights (``pretrained``, ``import_pretrained``) are not ported: the
-repository holds no weights files and the Keras import bridge is not
-ported yet.
+numbers, not JAX's: parity runs load the JAX package's).  ``pretrained``
+loads a local native zip (``load_reference_model``); the Keras HDF5
+branch and ``import_pretrained`` wait for the Keras import bridge
+(ROADMAP queue 1, item 9 d).  ``compute_dtype`` sets the precision
+knob in the defaults where the JAX zoo does.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, ClassVar, Dict, List, Optional, Tuple
 
@@ -56,6 +58,35 @@ def _max_pool(g: GraphBuilder, name: str, inp: str, kernel=(3, 3),
     return name
 
 
+def _with_compute_dtype(dt: Optional[str], defaults: Dict[str, Any]
+                        ) -> Dict[str, Any]:
+    """``defaults`` with ``compute_dtype`` first where ``dt`` is set, as
+    the JAX zoo's builder writes it."""
+    return {"compute_dtype": dt, **defaults} if dt else defaults
+
+
+def _pretrained(model, weights_path: Optional[str], device):
+    """``pretrained`` of any zoo model: a native zip written by the JAX
+    package's ``write_model`` (or the port), read by
+    ``load_reference_model``.  A Keras HDF5 file is refused: its import
+    bridge is ROADMAP queue 1, item 9 d (``modelimport/``)."""
+    path = weights_path or os.environ.get("DL4J_TPU_PRETRAINED_DIR")
+    if not path:
+        raise FileNotFoundError(
+            f"no pretrained weights available for {type(model).__name__}; "
+            "pass weights_path or set DL4J_TPU_PRETRAINED_DIR")
+    if os.path.isdir(path):
+        path = os.path.join(path, f"{type(model).__name__.lower()}.zip")
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"\x89HDF":
+        raise NotImplementedError(
+            f"{path}: a Keras HDF5 file; the Keras import bridge is not "
+            "ported yet (ROADMAP queue 1, item 9 d, modelimport/)")
+    from ..utils.model_serializer import load_reference_model
+    return load_reference_model(path, device=device)
+
+
 def _inception_block(g: GraphBuilder, name: str, inp: str, c1: int, c3r: int,
                      c3: int, c5r: int, c5: int, pp: int) -> str:
     """GoogLeNet-style inception module: 1x1 / 3x3 / 5x5 / pool-projection
@@ -88,16 +119,12 @@ class ZooModel:
     def conf(self):
         raise NotImplementedError
 
-    def _refuse_precision(self) -> None:
-        if self.compute_dtype:
-            raise NotImplementedError("compute_dtype (precision policies) "
-                                      "is not ported yet")
-
     def _stack(self, layers: List[LayerConf], defaults: Dict[str, Any],
                itype: InputType) -> MultiLayerConfiguration:
         """A layer stack as the JAX package's ``ListBuilder`` makes it:
-        layers named ``layer{i}``."""
-        self._refuse_precision()
+        layers named ``layer{i}``, ``compute_dtype`` first in the
+        defaults where it is set (the JAX zoo's ``_builder``)."""
+        defaults = _with_compute_dtype(self.compute_dtype, defaults)
         for i, lc in enumerate(layers):
             if lc.name is None:
                 lc.name = f"layer{i}"
@@ -106,8 +133,9 @@ class ZooModel:
 
     def _graph(self, default_updater: UpdaterConf) -> GraphBuilder:
         """A graph builder with the conv graphs' defaults (relu, relu
-        init) and one NHWC input ``in``."""
-        self._refuse_precision()
+        init) and one NHWC input ``in``.  As in the JAX zoo, these graphs
+        (GoogLeNet, InceptionResNetV1, FaceNetNN4Small2) take no
+        ``compute_dtype``: a caller sets a policy on ``conf().defaults``."""
         h, w, c = self.input_shape
         g = GraphBuilder({"activation": "relu", "weight_init": "relu",
                           "updater": self.updater or default_updater},
@@ -121,6 +149,13 @@ class ZooModel:
         cls = ComputationGraph if isinstance(
             conf, ComputationGraphConfiguration) else MultiLayerNetwork
         return cls(conf, device=device).init()
+
+    def pretrained(self, weights_path: Optional[str] = None, device="cuda"):
+        """The network from local pretrained weights (the JAX zoo's
+        ``pretrained``; the reference downloads, this reads a file):
+        ``weights_path``, or ``DL4J_TPU_PRETRAINED_DIR``; a directory
+        means ``<class name, lower case>.zip`` inside it."""
+        return _pretrained(self, weights_path, device)
 
 
 @dataclass
@@ -273,9 +308,6 @@ class TransformerLM:
     compute_dtype: Optional[str] = None
 
     def conf(self) -> MultiLayerConfiguration:
-        if self.compute_dtype:
-            raise NotImplementedError("compute_dtype (precision policies) "
-                                      "is not ported yet")
         layers = [EmbeddingSequenceLayer(n_out=self.embed),
                   PositionalEncodingLayer()]
         layers += [TransformerBlock(n_heads=self.n_heads, causal=True,
@@ -291,13 +323,19 @@ class TransformerLM:
         return MultiLayerConfiguration(
             layers=layers,
             input_type=InputType.recurrent(self.vocab_size, self.seq_len),
-            defaults={"updater": self.updater or Adam(learning_rate=3e-4),
-                      "weight_init": "xavier"},
+            defaults=_with_compute_dtype(self.compute_dtype, {
+                "updater": self.updater or Adam(learning_rate=3e-4),
+                "weight_init": "xavier"}),
             seed=self.seed)
 
     def init(self, device="cuda") -> MultiLayerNetwork:
         """The network on ``device`` with fresh seeded parameters."""
         return MultiLayerNetwork(self.conf(), device=device).init()
+
+    def pretrained(self, weights_path: Optional[str] = None, device="cuda"):
+        """The network from local pretrained weights (see
+        ``ZooModel.pretrained``)."""
+        return _pretrained(self, weights_path, device)
 
 
 @dataclass
@@ -313,14 +351,13 @@ class ResNet50:
     compute_dtype: Optional[str] = None
 
     def conf(self) -> ComputationGraphConfiguration:
-        if self.compute_dtype:
-            raise NotImplementedError("compute_dtype (precision policies) "
-                                      "is not ported yet")
         h, w, c = self.input_shape
-        g = GraphBuilder({"activation": "relu", "weight_init": "relu",
-                          "updater": self.updater or
-                          Nesterovs(learning_rate=1e-1, momentum=0.9)},
-                         seed=self.seed)
+        defaults = {"activation": "relu", "weight_init": "relu",
+                    "updater": self.updater or
+                    Nesterovs(learning_rate=1e-1, momentum=0.9)}
+        if self.compute_dtype:
+            defaults["compute_dtype"] = self.compute_dtype
+        g = GraphBuilder(defaults, seed=self.seed)
         g.add_inputs("in").set_input_types(InputType.convolutional(h, w, c))
 
         def conv_bn(name, inp, n_out, kernel, stride=(1, 1), act="relu"):
@@ -361,6 +398,12 @@ class ResNet50:
     def init(self, device="cuda") -> ComputationGraph:
         """The graph on ``device`` with fresh seeded parameters."""
         return ComputationGraph(self.conf(), device=device).init()
+
+    def pretrained(self, weights_path: Optional[str] = None, device="cuda"):
+        """The network from local pretrained weights (see
+        ``ZooModel.pretrained``)."""
+        return _pretrained(self, weights_path, device)
+
 
 
 @dataclass
@@ -519,25 +562,27 @@ class TextGenerationLSTM:
     compute_dtype: Optional[str] = None
 
     def conf(self) -> MultiLayerConfiguration:
-        if self.compute_dtype:
-            raise NotImplementedError("compute_dtype (precision policies) "
-                                      "is not ported yet")
         return MultiLayerConfiguration(
             layers=[LSTM(n_out=self.hidden, activation="tanh"),
                     LSTM(n_out=self.hidden, activation="tanh"),
                     RnnOutputLayer(n_out=self.num_classes,
                                    activation="softmax", loss="mcxent")],
             input_type=InputType.recurrent(self.num_classes, self.timesteps),
-            defaults={"updater": self.updater or Adam(learning_rate=2e-3),
-                      "weight_init": "xavier",
-                      "gradient_normalization":
-                          "clipelementwiseabsolutevalue",
-                      "gradient_normalization_threshold": 10.0},
+            defaults=_with_compute_dtype(self.compute_dtype, {
+                "updater": self.updater or Adam(learning_rate=2e-3),
+                "weight_init": "xavier",
+                "gradient_normalization": "clipelementwiseabsolutevalue",
+                "gradient_normalization_threshold": 10.0}),
             seed=self.seed)
 
     def init(self, device="cuda") -> MultiLayerNetwork:
         """The network on ``device`` with fresh seeded parameters."""
         return MultiLayerNetwork(self.conf(), device=device).init()
+
+    def pretrained(self, weights_path: Optional[str] = None, device="cuda"):
+        """The network from local pretrained weights (see
+        ``ZooModel.pretrained``)."""
+        return _pretrained(self, weights_path, device)
 
 
 ALL_MODELS = [LeNet, SimpleCNN, AlexNet, VGG16, VGG19, ResNet50, GoogLeNet,

@@ -1,7 +1,9 @@
 """Machinery shared by the network types (port of ``nn/_common.py``):
 the updater groups (``build_tx``), gradient normalization, constraints,
-the refusal of the train-step branches the port lacks, the
-backward-and-update half of a train step, the device-resident epoch
+the precision casts (``cast_act``, ``cast_floats``, ``precision_cast_map``),
+the refusal of the train-step branch the port lacks (the sparse-embedding
+gradient), the backward-and-update half of a train step (with the loss
+scale's unscale, check and skip), the device-resident epoch
 trainer behind ``fit_on_device``, and ``Network``, the base of
 ``MultiLayerNetwork`` and ``ComputationGraph`` (parameter and state
 storage, init, loading, the dropout key stream, the fit loop with its
@@ -24,6 +26,7 @@ from torch import nn
 
 from ..utils import _random
 from ..utils.device import resolve_device
+from . import precision as _precision
 from .conf.updaters import Sgd, UpdaterConf
 from .layers.base import BaseLayerConf, LayerConf, flatten_group
 
@@ -183,29 +186,65 @@ def apply_gradient_norm_all(grads: Tree,
 
 def refuse_unported_training(conf, layers: Iterable[Optional[LayerConf]]
                              ) -> None:
-    """The JAX train step's branches this port does not have, refused
-    when the train step is built: precision policies, remat and the
-    sparse-embedding gradient (ROADMAP queue 1, item 2's train-step
-    work), and the legacy solvers (item 4's remainder)."""
-    d = conf.defaults
-    if d.get("precision") is not None or \
-            str(d.get("compute_dtype") or "float32") != "float32":
-        raise NotImplementedError(
-            "precision policies (precision / compute_dtype) are not ported "
-            "yet (ROADMAP queue 1, item 2): training runs float32")
-    if d.get("cache_mode") == "remat":
-        raise NotImplementedError("cache_mode='remat' is not ported yet "
-                                  "(ROADMAP queue 1, item 2)")
-    algo = d.get("optimization_algo", "sgd")
-    if algo not in ("sgd", "stochastic_gradient_descent"):
-        raise NotImplementedError(
-            f"optimization_algo='{algo}' (the legacy solvers) is not "
-            "ported yet (ROADMAP queue 1, item 4's remainder)")
+    """The JAX train step's branch this port does not have, refused when
+    the train step is built: the sparse-embedding gradient (ROADMAP
+    queue 1, item 8)."""
     for lc in layers:
         if getattr(lc, "sparse_grad", False):
             raise NotImplementedError(
                 f"layer '{lc.name}': sparse_grad=True (the sparse-embedding "
-                "gradient) is not ported yet (ROADMAP queue 1, item 2)")
+                "gradient) is not ported yet (ROADMAP queue 1, item 8)")
+
+
+def cast_act(h, dtype: Optional[str]):
+    """A floating activation cast to a policy dtype name; integer token
+    ids (and None) pass through untouched (JAX ``_cast_act``)."""
+    if dtype is None or not isinstance(h, torch.Tensor) or \
+            not h.is_floating_point():
+        return h
+    want = _precision.torch_dtype(dtype)
+    return h if h.dtype == want else h.to(want)
+
+
+def cast_floats(group: Mapping[str, torch.Tensor], dtype: torch.dtype,
+                only: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Floating leaves of a ``{name: tensor}`` group (nested groups
+    too) cast to ``dtype`` (JAX ``_cast_floats``): the f32 ones, or with
+    ``only`` the ones of that dtype.  The casts are differentiable, so a
+    cast master's gradient lands on the f32 master."""
+    src = torch.float32 if only is None else only
+
+    def cast(a):
+        if isinstance(a, dict):
+            return cast_floats(a, dtype, only)
+        if isinstance(a, torch.Tensor) and a.dtype == src:
+            return a.to(dtype)
+        return a
+    return {k: cast(v) for k, v in group.items()}
+
+
+def precision_cast_map(pol, confs: Mapping[str, Any]
+                       ) -> Dict[str, torch.dtype]:
+    """``{layer key: compute dtype}`` for the layers a policy runs below
+    f32 (keep_f32 classes and f32 overrides are absent: their params are
+    never cast)."""
+    out = {}
+    if pol is not None:
+        for name, lc in confs.items():
+            dt = pol.layer_dtype(lc)
+            if dt not in (None, "float32"):
+                out[name] = _precision.torch_dtype(dt)
+    return out
+
+
+def cast_params(params: Mapping[str, Mapping[str, torch.Tensor]],
+                cast_map: Mapping[str, torch.dtype]) -> Dict[str, Any]:
+    """The param tree with each layer of ``cast_map`` cast to its compute
+    dtype, inside the autograd graph."""
+    if not cast_map:
+        return params
+    return {k: (cast_floats(v, cast_map[k]) if k in cast_map else v)
+            for k, v in params.items()}
 
 
 @torch.no_grad()
@@ -230,12 +269,20 @@ def apply_constraints_all(params: Tree,
 def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
                         tx: "UpdaterGroups",
                         confs: Dict[str, Optional[LayerConf]],
-                        gn_mode: Optional[str], gn_thr: float
-                        ) -> Dict[str, Any]:
+                        gn_mode: Optional[str], gn_thr: float,
+                        scale: Optional[torch.Tensor] = None
+                        ) -> Tuple[Dict[str, Any], bool]:
     """The second half of the SGD-path train step: gradients of ``loss``
     by autograd, gradient normalization, then the updaters, in place on
     ``params`` and ``opt_state``.  Returns the gradient statistics
-    (global and per-layer L2 norms) as device scalars."""
+    (global and per-layer L2 norms, device scalars) and whether the
+    update ran.
+
+    With a loss ``scale`` (``loss`` is then the scaled objective) the
+    gradients are unscaled and checked first (``unscale_and_check``); if
+    any is not finite the step is skipped wholesale: no normalization, no
+    update, no step count, no constraint.  That check is the step's one
+    host read."""
     keys = [(k, n) for k, group in params.items() for n in group]
     leaves = [params[k][n] for k, n in keys]
     flat = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -243,7 +290,10 @@ def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
     for (k, n), g, p in zip(keys, flat, leaves):
         # a param the loss does not reach has gradient 0, as in JAX
         grads[k][n] = torch.zeros_like(p) if g is None else g
+    finite = None
     with torch.no_grad():
+        if scale is not None:
+            grads, finite = _precision.unscale_and_check(grads, scale)
         grads = apply_gradient_norm_all(grads, confs, gn_mode, gn_thr)
         gleaves = float_grad_leaves(grads)
         gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gleaves)) \
@@ -251,9 +301,40 @@ def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
         glayer = {k: torch.sqrt(sum(torch.sum(g * g)
                                     for g in float_grad_leaves(v)))
                   for k, v in grads.items() if v}
+    gstats = {"global_norm": gnorm, "layer_norms": glayer}
+    if finite is not None:
+        gstats["finite"] = finite
+        if not bool(finite):
+            return gstats, False
     tx.step(params, grads, opt_state)
     apply_constraints_all(params, confs)
-    return {"global_norm": gnorm, "layer_norms": glayer}
+    return gstats, True
+
+
+def finish_precision_step(pol, state: Tree, new_state: Tree,
+                          gstats: Dict[str, Any], updated: bool) -> Tree:
+    """The layer state a policy step leaves behind (JAX
+    ``overflow_skip`` and the f32 pin of ``_build_train_step``): state
+    leaves the compute dtype made are cast back to f32; a skipped step
+    keeps the pre-step layer state; the loss-scale state moves on
+    (``next_scale_state``) and ``gstats`` gains ``loss_scale`` (the scale
+    this step used) and ``overflow`` (int32 0/1)."""
+    if pol is None:
+        return new_state
+    key = _precision.SCALE_STATE_KEY
+    ls = state.get(key)
+    if ls is not None and not updated:
+        new_state = dict(state)
+    new_state = {k: (v if k == key else cast_floats(
+        v, torch.float32, only=_precision.torch_dtype(pol.compute_dtype)))
+        for k, v in new_state.items()}
+    if ls is not None:
+        finite = gstats.pop("finite")
+        new_state[key] = _precision.next_scale_state(pol, ls, finite)
+        gstats["loss_scale"] = ls["scale"]
+        gstats["overflow"] = torch.where(
+            finite, 0, 1).to(torch.int32)
+    return new_state
 
 
 def batch_factory(data, one, normalize: Callable) -> Callable:
@@ -435,8 +516,17 @@ class Network(nn.Module):
                           for key, c, it in self._layers()})
         self.state = {key: c.init_state(it, self.device)
                       for key, c, it in self._layers()}
+        self._init_scale_state()
         self._init_updater()
         return self
+
+    def _init_scale_state(self) -> None:
+        """The loss-scale state in ``state[SCALE_STATE_KEY]`` where the
+        configuration's precision policy scales the loss."""
+        ls = _precision.init_scale_state(
+            _precision.resolve(self.conf.defaults), self.device)
+        if ls is not None:
+            self.state[_precision.SCALE_STATE_KEY] = ls
 
     def _default_updater(self) -> UpdaterConf:
         u = self.conf.defaults.get("updater")
@@ -503,14 +593,33 @@ class Network(nn.Module):
         if not self.state:
             self.state = {key: c.init_state(it, self.device)
                           for key, c, it in self._layers()}
+            self._init_scale_state()
         if self.opt_state is None:
             self._init_updater()
         return self
 
     def load_state(self, tree: Mapping[str, Mapping[str, Any]]
                    ) -> "Network":
-        """Install a JAX-layout state tree (BatchNorm running stats)."""
+        """Install a JAX-layout state tree (BatchNorm running stats, and
+        a policy net's loss-scale state under ``SCALE_STATE_KEY``: scale
+        f32, good_steps and overflow_steps int32).  A policy net whose
+        tree has no scale state keeps (or starts) its own."""
+        key = _precision.SCALE_STATE_KEY
+        tree = dict(tree)
+        ls = tree.pop(key, None)
+        old = self.state.get(key)
         self.state = self._tensors(tree, "state")
+        if ls is not None:
+            self.state[key] = {
+                name: torch.tensor(np.asarray(ls[name]), dtype=dt,
+                                   device=self.device)
+                for name, dt in (("scale", torch.float32),
+                                 ("good_steps", torch.int32),
+                                 ("overflow_steps", torch.int32))}
+        elif old is not None:
+            self.state[key] = old
+        else:
+            self._init_scale_state()
         return self
 
     def num_params(self) -> int:

@@ -22,19 +22,29 @@ summed loss plus l1/l2, gradients by autograd (through the hand-written
 BatchNorm kernel's ``autograd.Function`` where a layer selects it),
 gradient normalization, then the updaters and the constraints.  The step
 leaves the loss on the device.  Listeners, ``clone``, evaluation and
-``fit_on_device`` are ``nn/_common.Network``'s.  Not ported, and refused
-when configured: precision policies, the sparse-embedding gradient, remat
-and the legacy solvers; tBPTT is not ported for graphs.
+``fit_on_device`` are ``nn/_common.Network``'s.  A precision policy casts
+each vertex's inputs and params to its compute dtype, as the
+MultiLayerNetwork's step does per layer (``nn/multilayer``);
+``cache_mode("remat")`` checkpoints each layer vertex.  As in the JAX
+package, a graph trains by SGD whatever ``optimization_algo`` says (the
+legacy solvers drive MultiLayerNetworks).  Not ported, and refused when
+configured: the sparse-embedding gradient; tBPTT is not ported for
+graphs.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils import _random
-from ._common import (Network, backward_and_update, batch_factory,
-                      fit_on_device_epochs, refuse_unported_training)
+from . import precision as _precision
+from ._common import (Network, backward_and_update, batch_factory, cast_act,
+                      cast_params, finish_precision_step,
+                      fit_on_device_epochs, precision_cast_map,
+                      refuse_unported_training)
+from .conf.computation_graph import LayerVertex
 from .layers.base import draws
 
 
@@ -63,18 +73,27 @@ def _vertex_key(key, index: int, v):
     return _random.fold_in(key, index)
 
 
+def _vertex_forward(v, params, state, xs, key, masks):
+    """One vertex's training forward, the unit ``cache_mode("remat")``
+    checkpoints."""
+    return v.forward(params, state, xs, train=True, key=key, masks=masks)
+
+
 def _graph_forward(conf, params, state, inputs: List[torch.Tensor], *,
                    train: bool, key=None, masks=None,
-                   exclude_outputs: bool = False
+                   exclude_outputs: bool = False, precision=None
                    ) -> Tuple[Dict[str, torch.Tensor], Dict, Dict]:
     """Walk the topological order; returns ``(acts, new_state,
     mask_of)``, acts and masks keyed by vertex name (plus the network
     inputs).  With ``exclude_outputs``, output layers that nothing
-    consumes are skipped: the loss applies them itself."""
+    consumes are skipped: the loss applies them itself.  ``precision``
+    casts each vertex's inputs to its compute dtype; in training under
+    ``cache_mode("remat")`` every layer vertex runs checkpointed."""
     acts = dict(zip(conf.network_inputs, inputs))
     mask_of = {n: (masks[i] if masks and i < len(masks) else None)
                for i, n in enumerate(conf.network_inputs)}
     new_state = dict(state)
+    remat = train and conf.defaults.get("cache_mode") == "remat"
     consumed = {src for ins in conf.vertex_inputs.values() for src in ins}
     for vi, name in enumerate(conf.topological_order):
         v = conf.vertices[name]
@@ -88,22 +107,31 @@ def _graph_forward(conf, params, state, inputs: List[torch.Tensor], *,
         mi = getattr(v, "mask_input", None)
         if mi:
             ms = [mask_of.get(mi)] + ms[1:]
-        acts[name], new_state[name] = v.forward(
-            params.get(name, {}), state.get(name, {}), xs, train=train,
-            key=_vertex_key(key, vi, v), masks=ms)
+        if precision is not None:
+            vdt = precision.layer_dtype(getattr(v, "layer", None) or v)
+            xs = [cast_act(x, vdt) for x in xs]
+        vkey = _vertex_key(key, vi, v)
+        if remat and isinstance(v, LayerVertex):
+            acts[name], new_state[name] = checkpoint(
+                _vertex_forward, v, params.get(name, {}),
+                state.get(name, {}), xs, vkey, ms, use_reentrant=False)
+        else:
+            acts[name], new_state[name] = v.forward(
+                params.get(name, {}), state.get(name, {}), xs, train=train,
+                key=vkey, masks=ms)
         mask_of[name] = v.feed_forward_mask(ms, xs)
     return acts, new_state, mask_of
 
 
 def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
-                label_masks=None, key=None, masks=None
+                label_masks=None, key=None, masks=None, precision=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Sum of the output layers' losses plus regularization; returns
     ``(loss, new_state)``.  An output's label mask defaults to the
     features mask that reaches it."""
     acts, new_state, mask_of = _graph_forward(
         conf, params, state, inputs, train=train, key=key, masks=masks,
-        exclude_outputs=True)
+        exclude_outputs=True, precision=precision)
     total = None
     for oi, name in enumerate(conf.network_outputs):
         if not _is_loss_output(conf, name):
@@ -115,8 +143,13 @@ def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
         if lm is None:
             lm = mask_of.get(src)
         v = conf.vertices[name]
+        h = acts[src]
+        if precision is not None:
+            # the head's product in the compute dtype; the loss
+            # reductions widen to f32 inside nn/losses
+            h = cast_act(h, precision.layer_dtype(v.layer))
         loss = v.compute_loss(
-            params.get(name, {}), acts[src], labels[oi], train=train,
+            params.get(name, {}), h, labels[oi], train=train,
             key=_vertex_key(key, 10_000 + oi, v), mask=lm)
         total = loss if total is None else total + loss
     reg = torch.zeros((), dtype=total.dtype, device=total.device)
@@ -131,21 +164,34 @@ def _build_graph_train_step(conf, tx):
     """``step(params, state, opt_state, xs, ys, label_masks, key=None,
     masks=None) -> (loss, new_state, gstats)``, updating ``params`` and
     ``opt_state`` in place, drawing dropout from ``key``.  Port of the
-    reference's graph train step without its precision, sparse-gradient
-    and remat branches."""
+    reference's graph train step (precision casts per vertex, the loss
+    scale and its skip) without its sparse-gradient branch."""
     confs = _vertex_confs(conf)
     refuse_unported_training(conf, confs.values())
     gn_mode = conf.defaults.get("gradient_normalization")
     gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
                                      1.0))
+    pol = _precision.resolve(conf.defaults)
+    cast_map = precision_cast_map(
+        pol, {name: getattr(v, "layer", None) or v
+              for name, v in conf.vertices.items()})
 
     def step(params, state, opt_state, xs, ys, label_masks, key=None,
              masks=None):
-        loss, new_state = _graph_loss(conf, params, state, xs, ys,
-                                      train=True, label_masks=label_masks,
-                                      key=key, masks=masks)
-        gstats = backward_and_update(loss, params, opt_state, tx, confs,
-                                     gn_mode, gn_thr)
+        if pol is not None:
+            xs = [cast_act(x, pol.compute_dtype) for x in xs]
+        ls = state.get(_precision.SCALE_STATE_KEY) \
+            if pol is not None and pol.scaled else None
+        loss, new_state = _graph_loss(conf, cast_params(params, cast_map),
+                                      state, xs, ys, train=True,
+                                      label_masks=label_masks, key=key,
+                                      masks=masks, precision=pol)
+        obj = loss * ls["scale"] if ls is not None else loss
+        gstats, updated = backward_and_update(
+            obj, params, opt_state, tx, confs, gn_mode, gn_thr,
+            scale=None if ls is None else ls["scale"])
+        new_state = finish_precision_step(pol, state, new_state, gstats,
+                                          updated)
         return loss.detach(), new_state, gstats
 
     return step

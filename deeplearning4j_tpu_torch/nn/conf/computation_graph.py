@@ -484,18 +484,18 @@ class ComputationGraphConfiguration:
         for name in self.network_outputs:
             if name not in self.vertices:
                 raise ValueError(f"network output '{name}' is not a vertex")
-        if len(self.input_types) != len(self.network_inputs) or \
-                any(t is None for t in self.input_types):
-            raise NotImplementedError(
-                "graphs without a declared input type for every network "
-                "input are not ported yet")
         for v in self.vertices.values():
             lc = getattr(v, "layer", None)
             if hasattr(lc, "apply_global_defaults"):
                 lc.apply_global_defaults(self.defaults)
             _validate_layer_names(lc)
         self.topological_order = self.topo_sort()
-        it_by_name = dict(zip(self.network_inputs, self.input_types))
+        # a network input without a declared type (and every vertex it
+        # reaches) stays None: those layers keep their explicit n_in, as
+        # in the JAX package
+        it_by_name = {n: (self.input_types[i]
+                          if i < len(self.input_types) else None)
+                      for i, n in enumerate(self.network_inputs)}
         self.vertex_input_types = {}
         for name in self.topological_order:
             v = self.vertices[name]
@@ -505,7 +505,11 @@ class ComputationGraphConfiguration:
                 raise ValueError(
                     f"vertex '{name}' takes {lo}..{'∞' if hi == -1 else hi} "
                     f"inputs, got {len(ins)}")
-            itypes = [it_by_name[src] for src in ins]
+            itypes = [it_by_name.get(src) for src in ins]
+            self.vertex_input_types[name] = itypes
+            if any(t is None for t in itypes):
+                it_by_name[name] = None
+                continue
             if isinstance(v, LayerVertex):
                 if v.preprocessor is None:
                     v.preprocessor = auto_preprocessor(itypes[0], v.layer)
@@ -514,7 +518,6 @@ class ComputationGraphConfiguration:
                 ref = it_by_name.get(v.ts_input)
                 if ref is not None:
                     v.timesteps = ref.timesteps
-            self.vertex_input_types[name] = itypes
             it_by_name[name] = v.output_type(itypes)
 
 

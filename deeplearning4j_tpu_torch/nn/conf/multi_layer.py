@@ -22,6 +22,7 @@ from ...utils.serde import register_serde
 from ..layers import (attention, convolution, feedforward,  # noqa: F401
                       misc, normalization, pooling,  # (@class registry)
                       recurrent)
+from .. import precision  # noqa: F401  (@class registry)
 from ..layers.base import LayerConf
 from . import (constraints, distribution, dropout,  # noqa: F401
                schedules, updaters)  # (@class registry)
@@ -183,10 +184,7 @@ class NeuralNetConfiguration:
     """Entry point: ``NeuralNetConfiguration.builder()``, the network
     defaults, then ``list()`` or ``graph_builder()``.  Each method sets
     the same key of ``defaults`` as the JAX package's builder, so the
-    two write the same JSON; the training options the port refuses
-    (``precision``, ``compute_dtype``, ``cache_mode("remat")``, the
-    legacy solvers) are accepted here and refused when a train step is
-    built."""
+    two write the same JSON."""
 
     class Builder:
         def __init__(self):
@@ -258,7 +256,9 @@ class NeuralNetConfiguration:
             return self
 
         def cache_mode(self, mode: str):
-            """'none' (default) or 'remat' (refused in training here)."""
+            """Activation memory policy: 'none' (default) or 'remat'
+            (``torch.utils.checkpoint`` per layer: the backward recomputes
+            each layer's activations, trading operations for memory)."""
             if mode not in ("none", "remat"):
                 raise ValueError(f"cache_mode must be 'none' or 'remat', "
                                  f"got '{mode}'")
@@ -266,22 +266,30 @@ class NeuralNetConfiguration:
             return self
 
         def compute_dtype(self, dt: str):
-            """Mixed-precision compute dtype (refused in training here)."""
+            """Mixed precision: master params and updater state stay
+            float32, forward and backward run in ``dt``; shorthand for
+            :meth:`precision` (which also takes loss scaling and per-layer
+            overrides)."""
             self._defaults["compute_dtype"] = str(dt)
             return self
 
         def precision(self, policy):
-            """A precision policy; the port has no ``PrecisionPolicy``
-            class, so only the dtype shorthand strings are taken (and
-            refused in training)."""
-            if not isinstance(policy, str):
+            """A mixed-precision policy (``nn/precision``): a
+            ``PrecisionPolicy``, or a shorthand string: 'bfloat16' (bf16
+            compute, f32 masters, no scaling), 'float16' (f16 compute with
+            dynamic loss scaling), 'float32' (full precision)."""
+            from ..precision import PrecisionPolicy, named_policy
+            if isinstance(policy, str):
+                policy = named_policy(policy)
+            if not isinstance(policy, PrecisionPolicy):
                 raise ValueError(
-                    "precision() takes a dtype shorthand string here; "
-                    "PrecisionPolicy is not ported (ROADMAP queue 1, "
-                    "item 2)")
+                    "precision() takes a PrecisionPolicy or a dtype "
+                    f"shorthand string, got {type(policy).__name__}")
             self._defaults["precision"] = policy
-            if policy != "float32":
-                self._defaults["compute_dtype"] = policy
+            # the legacy knob, for consumers that need only the compute
+            # dtype (the memory report, the zoo)
+            if policy.compute_dtype:
+                self._defaults["compute_dtype"] = policy.compute_dtype
             return self
 
         def scan_layers(self, mode):
@@ -301,9 +309,9 @@ class NeuralNetConfiguration:
             return self
 
         def optimization_algo(self, algo: str, max_iterations: int = 100):
-            """'sgd' (default) or a legacy solver ('lbfgs',
-            'conjugate_gradient', 'line_gradient_descent'), refused in
-            training here."""
+            """'sgd' (default) or a legacy full-batch solver ('lbfgs',
+            'conjugate_gradient', 'line_gradient_descent';
+            ``train/solvers.py``)."""
             self._defaults["optimization_algo"] = str(algo).lower()
             self._defaults["max_iterations"] = int(max_iterations)
             return self

@@ -6,7 +6,8 @@ Attention implementations (``attn_impl``):
   'flash'     — ``ops.flash_attention`` (the Hopper kernel on CUDA).
   'auto'      — reference below ``DEFAULT_FLASH_MIN_SEQ`` tokens or for a
                 masked input, flash at or above it.
-  'ring'/'ulysses' (sequence parallelism) are not ported yet.
+  'ring'/'ulysses' (sequence parallelism) are not ported yet (ROADMAP
+  queue 1, item 8).
 
 The flash path is differentiable: its backward runs the two Hopper
 backward kernels on CUDA tensors.  ``attn_dropout`` (a retain
@@ -84,7 +85,8 @@ def _run_attention(q, k, v, *, impl: str, causal: bool, mask=None,
                          f"{_ATTN_IMPLS}")
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"attn_impl='{impl}' (sequence parallelism) is not ported yet")
+            f"attn_impl='{impl}' (sequence parallelism) is not ported yet "
+            "(ROADMAP queue 1, item 8)")
     if impl == "flash":
         if mask is not None:
             raise ValueError("attn_impl='flash' does not take key-padding "
@@ -105,6 +107,21 @@ def _clamped_start(pos, hi: int):
     if isinstance(pos, torch.Tensor):
         return pos.to(torch.int64).clamp(0, hi)
     return min(max(int(pos), 0), hi)
+
+
+def _kv_quantize(x: torch.Tensor):
+    """Per-(row, head) absmax int8 quantization of a ``[..., d]`` K/V
+    write (JAX ``_kv_quantize``): ``(codes int8, scale f32 [...])`` with
+    codes * scale ≈ x; rounding half to even, as ``jnp.round``.  Both
+    divisions are true divisions on every device: torch's CUDA kernel
+    divides by a Python scalar as a multiply by its reciprocal, which
+    can land an ulp away from the CPU's (and the reference's) quotient,
+    so 127 comes in as a tensor."""
+    amax = x.abs().amax(dim=-1)
+    scale = (torch.clamp(amax, min=1e-8)
+             / torch.full_like(amax, 127.0)).to(torch.float32)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 @register_serde
@@ -275,10 +292,15 @@ class MultiHeadAttention(BaseLayerConf):
         return y
 
     @staticmethod
-    def _gather_pool(pool, table, dtype):
+    def _gather_pool(pool, scales, table, dtype):
         """``[S, h, NB * block, d]`` keys or values gathered through an
-        ``[S, NB]`` block table (virtual position == token position)."""
-        g = pool[table.to(torch.int64)]                # [S, NB, h, blk, d]
+        ``[S, NB]`` block table (virtual position == token position).  An
+        int8 pool is dequantized here against its ``[n_blocks, h, block]``
+        scales: quantized storage, full-precision math."""
+        table = table.to(torch.int64)
+        g = pool[table]                                # [S, NB, h, blk, d]
+        if scales is not None:
+            g = g.to(torch.float32) * scales[table][..., None]
         s_, nb, h, blk, d = g.shape
         return g.permute(0, 2, 1, 3, 4).reshape(s_, h, nb * blk,
                                                 d).to(dtype)
@@ -286,7 +308,8 @@ class MultiHeadAttention(BaseLayerConf):
     def _attend_paged(self, p, x, carry, *, mask=None):
         """Attention through the paged block pool of the generation
         engine (``generation/cache.PagedKV``).  The carry holds the pools
-        ``kp``/``vp`` ``[n_blocks, h, block, d]``, the block ``table``
+        ``kp``/``vp`` ``[n_blocks, h, block, d]`` (int8 pools add
+        ``ksc``/``vsc`` ``[n_blocks, h, block]`` scales), the block ``table``
         and ``pos``: an ``[S, NB]`` table with ``[S]`` positions for the
         one-token decode step, or an ``[NB]`` row with a scalar start for
         a prompt suffix (batch 1).
@@ -344,10 +367,19 @@ class MultiHeadAttention(BaseLayerConf):
             causal, q_offset = self.causal, pos
         phys = phys.to(torch.int64)
         off = off.to(torch.int64)
-        kp[phys, :, off, :] = kw.to(kp.dtype)
-        vp[phys, :, off, :] = vw.to(vp.dtype)
-        k = self._gather_pool(kp, tab2, q.dtype)
-        v = self._gather_pool(vp, tab2, q.dtype)
+        ksc, vsc = carry.get("ksc"), carry.get("vsc")
+        if kp.dtype == torch.int8:
+            kq, ks = _kv_quantize(kw)
+            vq, vs = _kv_quantize(vw)
+            kp[phys, :, off, :] = kq
+            vp[phys, :, off, :] = vq
+            ksc[phys, :, off] = ks
+            vsc[phys, :, off] = vs
+        else:
+            kp[phys, :, off, :] = kw.to(kp.dtype)
+            vp[phys, :, off, :] = vw.to(vp.dtype)
+        k = self._gather_pool(kp, ksc, tab2, q.dtype)
+        v = self._gather_pool(vp, vsc, tab2, q.dtype)
         o = sdpa_reference(q, k, v, mask=written, causal=causal,
                            q_offset=q_offset)
         return self._project_out(p, o, mask), dict(carry, pos=pos + t)
@@ -387,7 +419,8 @@ class TransformerBlock(BaseLayerConf):
     def __post_init__(self):
         if self.moe_experts:
             raise NotImplementedError(
-                "TransformerBlock(moe_experts>0) is not ported yet")
+                "TransformerBlock(moe_experts>0) is not ported yet "
+                "(ROADMAP queue 1, item 9 a)")
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
         if self.n_in == 0 or override:

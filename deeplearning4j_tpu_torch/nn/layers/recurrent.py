@@ -86,6 +86,17 @@ def _stack_time(ys, like: torch.Tensor, width: int) -> torch.Tensor:
     return torch.stack(ys, dim=1)
 
 
+def _mm(h, U):
+    """``h @ U`` in the promoted dtype of the two, as JAX's ``@`` promotes
+    (torch's refuses mixed dtypes): an f32 carry handed to a layer whose
+    params a precision policy cast to bf16/f16 (tBPTT) makes an f32
+    step, and the carry stays f32."""
+    if h.dtype != U.dtype:
+        dt = torch.promote_types(h.dtype, U.dtype)
+        return h.to(dt) @ U.to(dt)
+    return h @ U
+
+
 @register_serde
 @dataclass
 class SimpleRnn(BaseRecurrentLayer):
@@ -111,7 +122,7 @@ class SimpleRnn(BaseRecurrentLayer):
         h = carry["h"]
         ys = []
         for s in range(xz.shape[1]):
-            h_new = act(xz[:, s] + h @ params["U"])
+            h_new = act(xz[:, s] + _mm(h, params["U"]))
             if m is None:
                 h = h_new
                 ys.append(h_new)
@@ -179,7 +190,8 @@ class LSTM(BaseRecurrentLayer):
         hh, cc = carry["h"], carry["c"]
         ys = []
         for s in range(xz.shape[1]):
-            zi, zf, zo, zg = (xz[:, s] + hh @ params["U"]).chunk(4, dim=-1)
+            zi, zf, zo, zg = (xz[:, s] + _mm(hh, params["U"])).chunk(
+                4, dim=-1)
             if peep is not None:
                 zi = zi + pi * cc
                 zf = zf + pf * cc

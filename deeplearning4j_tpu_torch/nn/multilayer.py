@@ -38,22 +38,39 @@ layers' constraints.  The step leaves the loss on the device:
 ``score()``/``get_score()`` materialise it on demand.  Listeners fire at
 the JAX package's points (``iteration_done`` after each step and tBPTT
 chunk, ``on_epoch_start``/``on_epoch_end`` around ``fit``'s epochs);
-``fit_on_device`` keeps the dataset on the device.  Not ported, and
-refused when configured: precision policies, the sparse-embedding
-gradient, remat and the legacy solvers; the shape policy's padding is
-not ported.
+``fit_on_device`` keeps the dataset on the device.
+
+A precision policy (``nn/precision``) runs the step below f32: floating
+inputs are cast to the compute dtype (integer ids never are), each
+layer's activation and params to that layer's dtype (``layer_dtype``:
+overrides, ``keep_f32`` classes), the params inside the autograd graph so
+the gradients land on the f32 masters; the loss reductions run f32; a
+loss scale multiplies the objective, and an overflow skips the step
+(``_common.backward_and_update``, ``finish_precision_step``) and hands
+the next tBPTT chunk its pre-step carries.  ``cache_mode("remat")``
+checkpoints each layer (``torch.utils.checkpoint``): the backward replays
+its forward, dropout from the same key.  ``optimization_algo`` other than
+sgd trains through the legacy full-batch solvers (``train/solvers.py``).
+Not ported, and refused when configured: the sparse-embedding gradient;
+the shape policy's padding is not ported.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils import _random
-from ._common import (Network, backward_and_update, batch_factory,
-                      fit_on_device_epochs, refuse_unported_training)
+from . import precision as _precision
+from ._common import (Network, backward_and_update, batch_factory, cast_act,
+                      cast_params, finish_precision_step,
+                      fit_on_device_epochs, precision_cast_map,
+                      refuse_unported_training)
 from .conf.multi_layer import MultiLayerConfiguration
 from .layers.base import draws
+
+_SGD = ("sgd", "stochastic_gradient_descent")
 
 
 def _layer_confs(conf) -> Dict[str, Any]:
@@ -77,10 +94,16 @@ def _preprocess(conf, i: int, h, mask):
     return h, mask
 
 
+def _layer_forward(lc, params, state, h, key, mask):
+    """One layer's training forward, the unit ``cache_mode("remat")``
+    checkpoints."""
+    return lc.forward(params, state, h, train=True, key=key, mask=mask)
+
+
 def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
                    to_layer: Optional[int] = None,
                    carries: Optional[Dict[str, Any]] = None, key=None,
-                   collect: bool = False
+                   collect: bool = False, precision=None
                    ) -> Tuple[Any, Dict, Optional[torch.Tensor]]:
     """The layers ``[0, to_layer)`` (all by default); returns ``(h,
     new_state, mask)`` with the mask as the next layer would see it (with
@@ -88,20 +111,30 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
     draws its dropout from ``fold_in(key, i)``.  ``carries``
     (``{layer_i: carry}``), when given, runs every layer with
     ``HAS_CARRY`` from its carry (a zero one where it has none) and is
-    updated in place with the carries it ends with."""
+    updated in place with the carries it ends with.  ``precision`` (the
+    train step's resolved policy) casts each layer's input to its compute
+    dtype; in training under ``cache_mode("remat")`` every layer without
+    a carry runs checkpointed."""
     layers = conf.layers
     n = len(layers) if to_layer is None else to_layer
+    remat = train and conf.defaults.get("cache_mode") == "remat"
     new_state = dict(state)
     h = x
     acts = []
     for i in range(n):
         lc, name = layers[i], f"layer_{i}"
         h, mask = _preprocess(conf, i, h, mask)
+        if precision is not None:
+            h = cast_act(h, precision.layer_dtype(lc))
         lkey = _layer_key(key, i, lc)
         if carries is not None and lc.HAS_CARRY:
             h, carries[name] = lc.apply_with_carry(
                 params[name], h, carries.get(name), train=train, key=lkey,
                 mask=mask)
+        elif remat:
+            h, new_state[name] = checkpoint(
+                _layer_forward, lc, params[name], state.get(name, {}), h,
+                lkey, mask, use_reentrant=False)
         else:
             h, new_state[name] = lc.forward(params[name],
                                             state.get(name, {}), h,
@@ -115,8 +148,8 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
 
 
 def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
-                      label_mask=None, carries=None, key=None
-                      ) -> Tuple[torch.Tensor, Dict]:
+                      label_mask=None, carries=None, key=None,
+                      precision=None) -> Tuple[torch.Tensor, Dict]:
     """Forward to the last layer's loss, plus regularization (reference
     ``computeGradientAndScore``); returns ``(loss, new_state)``.  A free
     function over the configuration, a ``{layer_i: {name: tensor}}``
@@ -125,13 +158,18 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
     n = len(layers)
     h, new_state, pmask = _stack_forward(conf, params, state, x, train=train,
                                          mask=mask, to_layer=n - 1,
-                                         carries=carries, key=key)
+                                         carries=carries, key=key,
+                                         precision=precision)
     out_conf = layers[-1]
     if not hasattr(out_conf, "compute_loss"):
         raise ValueError(
             f"last layer '{out_conf.name}' is not an output layer")
     # the preprocessor sees the features mask, as the reference's
     h, _ = _preprocess(conf, n - 1, h, None)
+    if precision is not None:
+        # the head's product runs in the compute dtype; the loss
+        # reductions widen to f32 inside nn/losses
+        h = cast_act(h, precision.layer_dtype(out_conf))
     # the label mask defaults to the PROPAGATED features mask (reference
     # per-step masking when labelsMask is absent; LastTimeStep or global
     # pooling consumes the time axis and nulls it)
@@ -168,28 +206,44 @@ def _build_train_step(conf, tx):
     drawing dropout from ``key`` (the caller's split of the network's
     stream).  With ``carries`` (tBPTT) the recurrent layers start from
     them, gradients stopped at the chunk boundary, and the step returns
-    the carries it ends with.  Port of the reference's
-    ``_build_train_step`` without its sparse-embedding and precision
-    branches."""
+    the carries it ends with (its input carries when an overflow skipped
+    it).  Port of the reference's ``_build_train_step`` without its
+    sparse-embedding branch."""
     refuse_unported_training(conf, conf.layers)
     gn_mode = conf.defaults.get("gradient_normalization")
     gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
                                      1.0))
+    pol = _precision.resolve(conf.defaults)
     confs = _layer_confs(conf)
+    cast_map = precision_cast_map(pol, confs)
 
     def step(params, state, opt_state, x, y, mask, label_mask,
              carries=None, key=None):
         # carry state flows INTO the chunk; gradients do not flow back
         # across the chunk boundary (tBPTT truncation)
         cs = None if carries is None else _detached(carries)
-        loss, new_state = _stack_loss_state(conf, params, state, x, y,
-                                            train=True, mask=mask,
-                                            label_mask=label_mask,
-                                            carries=cs, key=key)
-        gstats = backward_and_update(loss, params, opt_state, tx, confs,
-                                     gn_mode, gn_thr)
-        return (loss.detach(), new_state, gstats,
-                None if cs is None else _detached(cs))
+        if pol is not None:
+            # floating inputs only: integer ids reach the embedding exact
+            x = cast_act(x, pol.compute_dtype)
+        ls = state.get(_precision.SCALE_STATE_KEY) \
+            if pol is not None and pol.scaled else None
+        loss, new_state = _stack_loss_state(
+            conf, cast_params(params, cast_map), state, x, y, train=True,
+            mask=mask, label_mask=label_mask, carries=cs, key=key,
+            precision=pol)
+        # the whole backward sees the scaled loss; the reported loss
+        # stays unscaled
+        obj = loss * ls["scale"] if ls is not None else loss
+        gstats, updated = backward_and_update(
+            obj, params, opt_state, tx, confs, gn_mode, gn_thr,
+            scale=None if ls is None else ls["scale"])
+        new_state = finish_precision_step(pol, state, new_state, gstats,
+                                          updated)
+        if cs is not None:
+            # a skipped chunk hands the next one its pre-step carries: the
+            # overflowed forward poisoned the ones it made
+            cs = _detached(cs if updated else carries)
+        return loss.detach(), new_state, gstats, cs
 
     return step
 
@@ -296,8 +350,32 @@ class MultiLayerNetwork(Network):
         configuration asks for it."""
         one = (data, labels, mask, label_mask) if labels is not None \
             else None
-        return self._fit_epochs(batch_factory(data, one, _normalize_batch),
-                                epochs)
+        factory = batch_factory(data, one, _normalize_batch)
+        algo = self.conf.defaults.get("optimization_algo", "sgd")
+        if algo not in _SGD:
+            return self._fit_solver(algo, factory, epochs)
+        return self._fit_epochs(factory, epochs)
+
+    def _fit_solver(self, algo: str, factory, epochs: int
+                    ) -> "MultiLayerNetwork":
+        """``fit`` through a legacy full-batch solver (reference Solver
+        -> LBFGS / CG / line search): each batch is optimized for up to
+        ``max_iterations`` iterations."""
+        from ..train.solvers import Solver
+        if not self.params:
+            self.init()
+        solver = Solver(self, algo, max_iterations=int(
+            self.conf.defaults.get("max_iterations", 100)))
+        for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self)
+            for x, y, m, lm in factory():
+                self.last_batch_size = int(getattr(x, "shape", (0,))[0])
+                solver.optimize(x, y, mask=m, label_mask=lm)
+            for lst in self.listeners:
+                lst.on_epoch_end(self)
+            self.epoch += 1
+        return self
 
     def _fit_step(self, x, y, m, lm) -> None:
         if self.conf.backprop_type == "tbptt" and \
@@ -351,6 +429,11 @@ class MultiLayerNetwork(Network):
             raise ValueError(
                 "fit_on_device does not support tBPTT (the scanned step has "
                 "no carry truncation); use fit()")
+        algo = self.conf.defaults.get("optimization_algo", "sgd")
+        if algo not in (None, *_SGD):
+            raise ValueError(
+                f"fit_on_device requires the SGD path; optimization_algo="
+                f"'{algo}' routes through the legacy solvers — use fit()")
         self._validate_input_ids(x)
         return fit_on_device_epochs(
             self, [self._on_device(x)], [self._on_device(y)], batch_size,

@@ -30,6 +30,7 @@ up to 256), and a shape the reference admits beyond it takes
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -43,13 +44,15 @@ KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 # a block may use on Hopper.  ``flash_attention`` sends the wider head_dims
 # that ``supports`` admits to ``sdpa_reference`` (``kernel_supports``).
 MAX_KERNEL_HEAD_DIM = 256
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SOURCE = "flash_attn_fwd.cu"
 BWD_SOURCE = "flash_attn_bwd.cu"
 
-# Kernel launches, one count per kernel; each wrapper adds one where it
-# launches its kernel and nowhere else.
+# Kernel launches, one count per kernel, and the same launches by input
+# dtype (``{(kernel, dtype name): n}``); each wrapper adds one to both
+# where it launches its kernel and nowhere else.
 launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+launches_by_dtype: Counter = Counter()
 
 _fns = {}
 
@@ -57,6 +60,12 @@ _fns = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    launches_by_dtype.clear()
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    launches[name] += 1
+    launches_by_dtype[(name, str(dtype).split(".")[-1])] += 1
 
 
 def _tile_ok(t: int) -> bool:
@@ -235,8 +244,8 @@ def _check_kernel_inputs(q, k, v, extra=(), who: str = "flash_attention_fwd"
             raise ValueError(f"{who}: {name} must start on a 16-byte "
                              f"boundary (the kernels copy 16-byte chunks)")
     if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{who}: the kernel takes float32 or bfloat16, "
-                         f"got {q.dtype}")
+        raise ValueError(f"{who}: the kernel takes float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
     bh, _, d = q.shape
     if d > MAX_KERNEL_HEAD_DIM:
         raise ValueError(f"{who}: head_dim {d} > {MAX_KERNEL_HEAD_DIM}: the "
@@ -274,7 +283,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float
     # flash_attention.py, launched by `_flash_fwd_call`).  On the H100 the
     # f32 kernel is bound by operations: both products run on the tensor
     # cores as three TF32 mma.sync passes (hi·lo + lo·hi + hi·hi, f32
-    # accuracy; bf16 needs one pass for Q·Kᵀ and two for P·V), each warp
+    # accuracy; bf16 and f16, exact in TF32, need one pass for Q·Kᵀ and
+    # two for P·V), each warp
     # owning 16 query rows, K/V tiles fetched by cp.async a tile ahead,
     # the longest causal q tiles issued first.  Details in
     # csrc/flash_attn_fwd.cu.
@@ -290,7 +300,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float
         _launch("flash_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), bh, t_q, k.shape[1], d,
                 int(causal), float(scale), KERNEL_DTYPES[q.dtype], stream)
-    launches["fwd"] += 1
+    _count("fwd", q.dtype)
     return out, lse
 
 
@@ -328,10 +338,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float
               lse.data_ptr(), dd.data_ptr())
     with torch.cuda.device(q.device):
         _launch("flash_attn_bwd_dq", *inputs, dq.data_ptr(), *dims)
-        launches["bwd_dq"] += 1
+        _count("bwd_dq", q.dtype)
         _launch("flash_attn_bwd_dkv", *inputs, dk.data_ptr(), dv.data_ptr(),
                 *dims)
-        launches["bwd_dkv"] += 1
+        _count("bwd_dkv", q.dtype)
     return dq, dk, dv
 
 

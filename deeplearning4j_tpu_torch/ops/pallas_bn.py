@@ -30,13 +30,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections import Counter
 from dataclasses import dataclass
 from typing import Sequence
 
 import torch
 
 SOURCE = "bn_apply.cu"
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # ``_tile_m``'s budget per operand block and its row tiles (the
 # reference's rule); the smallest tile sets the widest C ``supports``
 # admits, which is the widest the kernel door takes (``max_channels``).
@@ -48,8 +49,10 @@ TILE_ROWS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
 THREADS, UNROLL, BLOCKS_PER_SM = 256, 4, 4
 _ACTS = ("identity", "relu")
 
-# Kernel launches; the wrapper adds one where it launches and nowhere else.
+# Kernel launches, and the same by input dtype; the wrapper adds one to
+# both where it launches and nowhere else.
 launches = {"bn_apply": 0}
+launches_by_dtype: Counter = Counter()
 
 _fn = []
 _sms = {}
@@ -57,6 +60,7 @@ _sms = {}
 
 def reset_launches() -> None:
     launches["bn_apply"] = 0
+    launches_by_dtype.clear()
 
 
 def _lane_geometry(shape: Sequence[int]):
@@ -89,7 +93,7 @@ def _tile_m(m: int, c: int, itemsize: int):
 def max_channels(itemsize: int) -> int:
     """The widest C that ``supports`` admits for ``itemsize``-byte
     elements: one smallest row tile of ``_tile_m`` within its budget
-    (131,072 in f32, 262,144 in bf16).  The kernel door takes every C up
+    (131,072 in f32, 262,144 in bf16 and f16).  The kernel door takes every C up
     to it; the plan's index walk is checked there
     (tests/test_torch_bn_kernel.py)."""
     return TILE_BUDGET // (min(TILE_ROWS) * itemsize)
@@ -189,8 +193,8 @@ def _kernel():
 def _check_kernel_inputs(x, scale, shift) -> None:
     who = "bn_apply"
     if x.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{who}: the kernel takes float32 or bfloat16, got "
-                         f"{x.dtype}")
+        raise ValueError(f"{who}: the kernel takes float32, bfloat16 or "
+                         f"float16, got {x.dtype}")
     if not x.is_contiguous():
         # an NHWC activation is a channels-last NCHW view; anything else
         # would need a copy, which the caller should see
@@ -254,6 +258,7 @@ def bn_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     y = torch.empty_like(x)
     _launch(x, scale, shift, y, relu)
     launches["bn_apply"] += 1
+    launches_by_dtype[str(x.dtype).split(".")[-1]] += 1
     return y
 
 

@@ -154,7 +154,8 @@ def test_kernel_door_refuses_what_the_kernel_does_not_take():
     ok = torch.zeros(64)
     tbn._check_kernel_inputs(x, ok, ok)
     bad = [((x.transpose(0, 1), ok, ok), "channels last"),
-           ((x.double(), ok.double(), ok.double()), "float32 or bfloat16"),
+           ((x.double(), ok.double(), ok.double()),
+            "float32, bfloat16 or float16"),
            ((x, torch.zeros(32), ok), "scale"),
            ((x, ok, ok.to(torch.bfloat16)), "shift"),
            ((torch.zeros(2, tbn.max_channels(4) + 1),
@@ -172,7 +173,8 @@ def test_kernel_door_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("itemsize,dtype", [(4, torch.float32),
-                                             (2, torch.bfloat16)])
+                                             (2, torch.bfloat16),
+                                             (2, torch.float16)])
 def test_kernel_door_admits_every_shape_supports_admits(itemsize, dtype):
     """Where ``supports`` sends a BatchNormalization to the fused path,
     the kernel door takes it: every C the reference's rule admits at this

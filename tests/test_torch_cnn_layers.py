@@ -394,12 +394,16 @@ def test_graph_json_the_port_cannot_run_raises():
     with pytest.raises(ValueError, match="not ported"):
         tcg.ComputationGraphConfiguration.from_json(json.dumps(merged))
     # every updater is ported since the rest-of-training slice: RmsProp
-    # reads back as itself; a precision policy's class still raises
+    # reads back as itself; so does a precision policy since the
+    # precision and memory slice; a pretraining layer's class still raises
     pre = json.loads(json.dumps(d))
     pre["vertices"]["stem"]["layer"]["updater"] = {"@class": "RmsProp"}
     read = tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
     assert type(read.vertices["stem"].layer.updater).__name__ == "RmsProp"
     pre["defaults"]["precision"] = {"@class": "PrecisionPolicy"}
+    read = tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
+    assert type(read.defaults["precision"]).__name__ == "PrecisionPolicy"
+    pre["vertices"]["stem"]["layer"]["updater"] = {"@class": "AutoEncoder"}
     with pytest.raises(ValueError, match="not ported"):
         tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
     # a layer vertex with a preprocessor reshapes before its layer: NHWC

@@ -139,7 +139,8 @@ def test_kernel_input_checks(bad):
 
 
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_kernel_door_admits_every_head_dim_supports_admits(d, dtype):
     assert tflash.supports(512, 512, d)
     q, k, v = (torch.zeros(4, 128, d, dtype=dtype) for _ in range(3))

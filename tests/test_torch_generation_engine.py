@@ -40,6 +40,7 @@ from deeplearning4j_tpu_torch.models.zoo import TransformerLM
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import attention as tatt
+from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.parallel.inference import InvalidInputError
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine, ShedError
@@ -511,13 +512,16 @@ def test_refuses_moe_and_int8_kv_through_the_request(nets, monkeypatch):
     finally:
         eng.shutdown()
     monkeypatch.undo()
+    # the int8 KV pool is ported (precision and memory slice): a request
+    # through an int8-cache engine completes, and status reports the pool
     lm8 = TransformerLM(**SMALL).init(device="cpu")
-    lm8.conf.defaults["precision"] = {"kv_dtype": "int8"}
+    lm8.conf.defaults["precision"] = PrecisionPolicy(kv_dtype="int8")
     eng = GenerationEngine.for_model(lm8, GenerationConfig(max_seq=32))
     try:
         req = eng.submit([1, 2], max_new_tokens=2)
-        with pytest.raises(NotImplementedError, match="queue 6"):
-            req.future.result(timeout=WAIT_S)
+        out = req.future.result(timeout=WAIT_S)
+        assert len(out.tokens) == 2
+        assert eng.status()["kv"]["kv_dtype"] == "int8"
     finally:
         eng.shutdown()
 

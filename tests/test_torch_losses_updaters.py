@@ -251,15 +251,21 @@ def test_constraints_and_training_noise_raise():
     slice: the train step no longer refuses them, and weight noise in a
     training forward draws the JAX package's DropConnect mask (param i of
     the sorted names from ``fold_in(key, i)``, biases skipped); precision
-    policies are still refused, naming their ROADMAP item.  Dropout
-    draws only in training with a key."""
+    policies are ported since the precision and memory slice, and the
+    sparse-embedding gradient is still refused, naming its ROADMAP item.
+    Dropout draws only in training with a key."""
     lc = tff.DenseLayer(n_in=2, n_out=2,
                         constraints=[tconstraints.MaxNormConstraint(1.0)])
     stub = SimpleNamespace(defaults={})
     tcommon.refuse_unported_training(stub, [lc])
-    with pytest.raises(NotImplementedError, match="precision.*item 2"):
-        tcommon.refuse_unported_training(
-            SimpleNamespace(defaults={"precision": "bfloat16"}), [lc])
+    # precision policies are ported (precision and memory slice): the
+    # train step no longer refuses them; the sparse-embedding gradient is
+    # still refused, naming its ROADMAP item
+    tcommon.refuse_unported_training(
+        SimpleNamespace(defaults={"precision": "bfloat16"}), [lc])
+    emb = tff.EmbeddingSequenceLayer(n_in=4, n_out=2, sparse_grad=True)
+    with pytest.raises(NotImplementedError, match="sparse_grad.*item 8"):
+        tcommon.refuse_unported_training(stub, [emb])
     rng = np.random.default_rng(9)
     p = {"W": rng.standard_normal((2, 2)).astype(np.float32),
          "b": rng.standard_normal(2).astype(np.float32)}

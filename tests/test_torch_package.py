@@ -75,7 +75,14 @@ def test_importing_every_module_loads_no_jax():
             "deeplearning4j_tpu_torch.evaluation.regression",
             "deeplearning4j_tpu_torch.evaluation.roc",
             "deeplearning4j_tpu_torch.earlystopping.trainer",
-            "deeplearning4j_tpu_torch.earlystopping.savers"} <= set(MODULES)
+            "deeplearning4j_tpu_torch.earlystopping.savers",
+            # the precision and memory slice's
+            "deeplearning4j_tpu_torch.nn.precision",
+            "deeplearning4j_tpu_torch.nn.conf.memory",
+            "deeplearning4j_tpu_torch.train.solvers",
+            "deeplearning4j_tpu_torch.evaluation.binary",
+            "deeplearning4j_tpu_torch.evaluation.calibration",
+            "deeplearning4j_tpu_torch.evaluation.tools"} <= set(MODULES)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

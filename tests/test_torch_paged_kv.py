@@ -2,17 +2,19 @@
 same call sequence as the JAX package's: block tables, positions, the
 occupancy trail's event kinds and the stats must be equal after every
 step.  Plus the allocator rules (lowest free block, trash block refused
-as a write target, pool exhaustion reported) and the refusal of the
-int8 KV pool, which is not ported."""
+as a write target, pool exhaustion reported) and the int8 KV pool's
+layout."""
 import numpy as np
 import pytest
 import torch
 
 from deeplearning4j_tpu.generation.cache import PagedKV as JaxPagedKV
 from deeplearning4j_tpu.models import TransformerLM as JTransformerLM
+from deeplearning4j_tpu.nn.precision import PrecisionPolicy as JPrecisionPolicy
 from deeplearning4j_tpu_torch.generation.cache import PagedKV
 from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
 from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy
 
 SMALL = dict(vocab_size=17, seq_len=32, embed=16, n_layers=2, n_heads=2)
 
@@ -166,9 +168,30 @@ def test_recurrent_stack_keeps_dense_rows_and_no_sharing():
 @pytest.mark.parametrize("policy", [{"kv_dtype": "int8"}, {"kv_dtype":
                                                             "INT8"}])
 def test_int8_kv_is_refused_naming_its_queue(confs, policy):
+    """The int8 pool is ported (precision and memory slice): a policy
+    asking for it, in either spelling, makes int8 K/V pools with f32
+    scales per token and head, as the JAX package's PagedKV; an f32
+    ``kv_dtype`` keeps the f32 pools."""
+    jconf = JTransformerLM(**SMALL).init().conf
+    jconf.defaults["precision"] = JPrecisionPolicy(**policy)
     conf = TransformerLM(**SMALL).init(device="cpu").conf
-    conf.defaults["precision"] = policy
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        PagedKV(conf, max_slots=2, max_seq=32, device="cpu")
-    conf.defaults["precision"] = {"kv_dtype": "float32"}
-    PagedKV(conf, max_slots=2, max_seq=32, device="cpu")
+    conf.defaults["precision"] = PrecisionPolicy(**policy)
+    kv = PagedKV(conf, max_slots=2, max_seq=32, device="cpu")
+    jkv = JaxPagedKV(jconf, max_slots=2, max_seq=32)
+    assert kv.kv_dtype == jkv.kv_dtype == "int8"
+    assert kv.stats()["kv_dtype"] == jkv.stats()["kv_dtype"] == "int8"
+    assert kv.cache_bytes == jkv.cache_bytes
+    for name, pool in kv.caches.items():
+        assert set(pool) == set(jkv.caches[name]) == {"kp", "vp", "ksc",
+                                                      "vsc"}
+        for k, t in pool.items():
+            assert tuple(t.shape) == tuple(jkv.caches[name][k].shape)
+            assert str(t.dtype).split(".")[-1] == \
+                str(jkv.caches[name][k].dtype)
+    conf.defaults["precision"] = PrecisionPolicy(kv_dtype="float32")
+    kv = PagedKV(conf, max_slots=2, max_seq=32, device="cpu")
+    assert kv.kv_dtype is None
+    assert all(t.dtype == torch.float32 for c in kv.caches.values()
+               for t in c.values())
+
+

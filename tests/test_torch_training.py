@@ -278,20 +278,51 @@ def test_training_with_stochastic_regularization_raises(field, value):
 
 def test_unported_training_options_raise():
     ids, y = _batch(np.random.default_rng(8), True)
-    # still refused, each naming its ROADMAP item
-    cases = [("precision.*item 2", lambda c: c.defaults.update(
-                 precision="bfloat16")),
-             ("remat.*item 2", lambda c: c.defaults.update(
-                 cache_mode="remat")),
-             ("solvers.*item 4", lambda c: c.defaults.update(
-                 optimization_algo="lbfgs")),
-             ("sparse_grad.*item 2", lambda c: setattr(
-                 c.layers[0], "sparse_grad", True))]
-    for match, edit in cases:
+    # the sparse-embedding gradient is still refused, naming its item
+    tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
+    tn.conf.layers[0].sparse_grad = True
+    with pytest.raises(NotImplementedError, match="sparse_grad.*item 8"):
+        tn.fit(ids, y)
+    # precision, remat and the legacy solvers are ported (precision and
+    # memory slice): each is accepted and trains
+    base = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
+    for what in ("precision", "remat", "lbfgs"):
         tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
-        edit(tn.conf)
-        with pytest.raises(NotImplementedError, match=match):
-            tn.fit(ids, y)
+        tn.load_params({k: {n: t.detach().numpy() for n, t in g.items()}
+                        for k, g in base.params.items()})
+        if what == "precision":
+            tn.conf.defaults["precision"] = "bfloat16"
+        elif what == "remat":
+            tn.conf.defaults["cache_mode"] = "remat"
+        else:
+            tn.conf.defaults.update(optimization_algo="lbfgs",
+                                    max_iterations=3)
+        before = tn.params["layer_2"]["W1"].detach().clone()
+        s0 = tn.score(x=ids, y=y)
+        tn.fit(ids, y)
+        assert np.isfinite(tn.get_score()), what
+        assert not torch.equal(tn.params["layer_2"]["W1"], before), what
+        # the masters stay f32 whatever the compute dtype
+        assert all(p.dtype == torch.float32 for p in tn.params.parameters())
+        if what == "lbfgs":
+            assert tn.get_score() < s0
+    # remat replays each layer's forward: the same loss and Sgd step as
+    # the stored-activation step (on the card bit for bit, chip_smoke's
+    # remat_memory; the CPU's threaded sums are not run-to-run exact, so
+    # here within the f32 tolerances of this file)
+    plain, remat = (TransformerLM(**SMALL, sparse_labels=True,
+                                  updater=tupd.Sgd(learning_rate=SGD_LR)
+                                  ).init(device="cpu") for _ in range(2))
+    remat.conf.defaults["cache_mode"] = "remat"
+    plain.fit(ids, y)
+    remat.fit(ids, y)
+    np.testing.assert_allclose(remat.get_score(), plain.get_score(),
+                               rtol=RTOL_LOSS)
+    for k, g in plain.params.items():
+        for n, t in g.items():
+            np.testing.assert_allclose(remat.params[k][n].detach().numpy(),
+                                       t.detach().numpy(), rtol=0,
+                                       atol=ATOL_PARAMS, err_msg=f"{k}/{n}")
     # constraints are ported (rest-of-training slice): after the step the
     # block's W1 columns hold MaxNorm(0.5), and the step equals the
     # unconstrained step with the constraint applied after it

@@ -595,8 +595,8 @@ def test_output_and_feed_forward_train_advance_the_stream_like_jax(
 @pytest.mark.parametrize("what", ["weight_noise", "constraints",
                                   "precision"])
 def test_still_unported_training_options_raise(what, tmp_path):
-    """Precision policies are still refused when the train step is built,
-    naming their ROADMAP item, and nothing moves.  Weight noise and
+    """Precision policies train since the precision and memory slice
+    (f32 masters; the zoo's ``compute_dtype`` sets the policy knob).  Weight noise and
     constraints are ported since the rest-of-training slice: LeNet
     trains with DropConnect drawn from its key stream (the stored weights
     are not noised in place), and a MaxNorm step equals the free step
@@ -611,10 +611,19 @@ def test_still_unported_training_options_raise(what, tmp_path):
     y = np.eye(3, dtype=np.float32)[[0, 1]]
     before = tn.params["layer_0"]["W"].detach().clone()
     if what == "precision":
+        # ported since the precision and memory slice: a bf16 policy
+        # trains, the masters stay f32, and the zoo takes compute_dtype
         tn.conf.defaults["precision"] = "bfloat16"
-        with pytest.raises(NotImplementedError, match="precision.*item 2"):
-            tn.fit(x, y)
-        assert torch.equal(tn.params["layer_0"]["W"], before)
+        tn.fit(x, y)
+        assert np.isfinite(tn.get_score())
+        assert not torch.equal(tn.params["layer_0"]["W"], before)
+        assert all(p.dtype == torch.float32 for p in tn.params.parameters())
+        zb = LeNet(num_classes=3, input_shape=(8, 8, 1),
+                   compute_dtype="bfloat16")
+        assert zb.conf().defaults["compute_dtype"] == "bfloat16"
+        zn = zb.init(device="cpu")
+        zn.fit(x, y)
+        assert np.isfinite(zn.get_score())
         return
     if what == "weight_noise":
         tn.conf.layers[4].weight_noise = DropConnect(p=0.5)
