@@ -208,7 +208,28 @@ if any phase fails:
     phase 21, card vs CPU twin (first three scores within 1e-5, the final
     no worse than the CPU's + 1e-4), then ``EvaluationBinary`` and
     ``EvaluationCalibration`` of the trained outputs, counts equal to
-    the CPU's.
+    the CPU's;
+31. ``checkpoint_resume``: the LM of phase 5 with block dropout 0.9
+    trains 6 steps through ``fit`` with a ``CheckpointConfig`` saving
+    every 3 steps in the background; a fresh network resumes from the
+    step-3 directory (``fit(resume_from=...)``) and runs steps 4-6 only.
+    Its params, Adam moments and counts and key are bitwise equal to
+    those of the run that went on to step 6, and so are a run's without
+    checkpoints (``resume_gate``: checkpointing is an observer); 8
+    launches per flash kernel a step in both runs; the checkpoint's bytes, the snapshot's stall of its step, the
+    write seconds and MB/s, and the write's encode and deflate spans;
+32. ``observability``: the same LM served (two requests), trained 4
+    steps and generating 2 x 8 tokens with a fresh registry: the
+    Prometheus text parses and the step, example and token counters equal
+    the work done; 3 steps each sampled and traced alone by
+    ``torch.profiler``: the step profiler's device slice lies between the
+    trace's CUDA time and the step's wall, its MFU is ``lm_step_flops`` /
+    (slice x the H100 peak) with the FLOPs from a card file, and the
+    tracer's span (bridged by ``record_function``) is in the trace; the
+    step time with everything on against ``DL4J_TPU_STEPPROF=0`` with
+    the registry and recorder off (reported, not gated); a
+    ``FaultInjector`` makes a decode step raise and the engine's
+    ``decode`` flight dump reads back with its checksum.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Then come the
@@ -220,6 +241,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3759,6 +3781,463 @@ def solvers_eval_phase(args, torch, dev, card):
     return None
 
 
+
+# 31: the full-width TransformerLM of phase 5 with block dropout 0.9 and
+# Adam(3e-4), trained CKPT_STEPS steps of batch 16 through fit over an
+# iterable of batches with a checkpoint every CKPT_AT steps (a background
+# write each); a fresh network resumes from the step-CKPT_AT directory and
+# runs the remaining steps.  Gate (``resume_gate``): the resumed run's
+# params, Adam moments and counts and key are bitwise equal to those of
+# the checkpointed run, which went on to the last step, and so are those
+# of a run without checkpoints (checkpointing is an observer).
+CKPT_STEPS, CKPT_AT = 6, 3
+# 32: observability on the same LM.  OBS_SERVE_ROWS rows served in two
+# requests, OBS_FIT_STEPS fit steps, OBS_GEN requests of OBS_GEN_TOKENS
+# generated tokens; OBS_PROFILED steps each sampled and traced alone by
+# torch.profiler; OBS_OVERHEAD_STEPS steps per overhead arm, two runs of
+# each arm in turns (on, off, off, on); the decode step OBS_CRASH_AT
+# raises by a FaultInjector.
+OBS_SERVE_ROWS = (1, 4)
+OBS_FIT_STEPS = 4
+OBS_GEN, OBS_GEN_TOKENS = 2, 8
+OBS_PROFILED = 3
+OBS_OVERHEAD_STEPS = 24
+OBS_CRASH_AT = 2
+# the H100 dense bf16 peak, as the step profiler's table names it
+OBS_PEAK_FLOPS = 989e12
+_SAMPLE_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*)?\})? \S+$')
+
+
+def training_state(net) -> dict:
+    """``{name: host tensor}`` of a network's params, updater slots and
+    step counts and key (the state a resume must restore)."""
+    import torch
+    out = {f"param/{k}/{n}": p.detach().cpu()
+           for k, g in net.params.items() for n, p in g.items()}
+    for k, g in net.opt_state["slots"].items():
+        for n, sl in g.items():
+            for s, t in sl.items():
+                out[f"slot/{k}/{n}/{s}"] = t.detach().cpu()
+    for lab, c in net.opt_state["count"].items():
+        out[f"count/{lab}"] = torch.tensor(c)
+    out["key"] = net._rng.detach().cpu()
+    return out
+
+
+def state_max_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over every entry of two ``training_state`` dicts:
+    0 only where every entry is bit-equal, inf where the names or shapes
+    differ or one side holds a NaN the other does not."""
+    import torch
+    if set(a) != set(b):
+        return float("inf")
+    worst = 0.0
+    for name, t in a.items():
+        u = b[name]
+        if t.shape != u.shape or t.dtype != u.dtype:
+            return float("inf")
+        if t.reshape(-1).view(torch.uint8).equal(
+                u.reshape(-1).view(torch.uint8)):
+            continue
+        gap = (t.double() - u.double()).abs().nan_to_num(nan=float("inf"))
+        # bits that differ in the sign of a zero alone still fail
+        worst = max(worst, gap.max().item() or math.ulp(0.0))
+    return worst
+
+
+# The cause, outside the port, that keeps two runs of the checkpoint phase
+# from being bit-equal, once one is found and written down in PERF.md; None
+# while the runs are bitwise (every chip run so far).
+RESUME_NONDETERMINISM = None
+
+
+def resume_gate(diff: float, observer_diff: float,
+                noise: float = None) -> bool:
+    """The resumed run against the one that went on (``diff``) and the
+    checkpointed run against one without checkpoints (``observer_diff``):
+    both bitwise.  Only where ``RESUME_NONDETERMINISM`` names a cause does
+    ``noise``, the measured difference of two runs without checkpoints in
+    the same call, replace 0; no hand-picked tolerance, and never a
+    fallback taken on its own."""
+    limit = 0.0 if noise is None else noise
+    return diff <= limit and observer_diff <= limit
+
+
+def lm_step_flops(conf, batch: int) -> float:
+    """Model FLOPs of one TransformerLM training step: 3x the forward's,
+    the forward 2 FLOPs per multiply-add of every dense product (the
+    block's QKV and output projections, its two FFN products, the output
+    layer) plus the attention's two products over the full ``t x t``
+    score matrix (PaLM's 6N + 12·L·T·E per token)."""
+    conf.resolve()
+    t = conf.input_type.timesteps
+    fwd = 0.0
+    for lc in conf.layers:
+        kind = type(lc).__name__
+        if kind == "TransformerBlock":
+            e = lc.n_in
+            fwd += t * (2.0 * (4 * e * e + 2 * lc.ffn_mult * e * e)
+                        + 4.0 * t * e)
+        elif kind == "RnnOutputLayer":
+            fwd += t * 2.0 * lc.n_in * lc.n_out
+    return 3.0 * fwd * batch
+
+
+def mfu_agrees(record: dict, flops: float, peak: float) -> bool:
+    """A sampled step record's MFU is flops / (device slice x peak): its
+    achieved FLOP/s is ``flops`` over the slice (which the record keeps
+    rounded to 1e-7 s) and its MFU that over ``peak``."""
+    ach, mfu = record.get("achieved_flops"), record.get("mfu")
+    dev = record["phases"]["device"]
+    return (ach is not None and mfu is not None and dev is not None
+            and mfu == ach / peak and abs(flops / ach - dev) <= 5e-8)
+
+
+def device_ms_in(prof) -> float:
+    """The CUDA time of every kernel, copy and fill in a ``torch.profiler``
+    trace, ms.  A ``record_function`` range also shows on the device as a
+    user annotation spanning its kernels; every event the profiler flags
+    as a user annotation is left out."""
+    total = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if not us or getattr(ev, "device_type", None) is not None and \
+                "CUDA" not in str(ev.device_type):
+            continue
+        if not hasattr(ev, "is_user_annotation"):
+            raise RuntimeError("this torch's profiler events carry no "
+                               "is_user_annotation flag")
+        if ev.is_user_annotation:
+            continue
+        total += us / 1e3
+    return total
+
+
+def _dropout_lm(args, dev, tree):
+    net = _lm_net(args, dev, tree)
+    for lc in net.conf.layers[2:-1]:
+        lc.dropout = 0.9
+    return net
+
+
+def checkpoint_resume_phase(args, torch, dev, card):
+    """Phase 31.  Returns ``(flash launches of the uninterrupted run and of
+    the resumed one, None)`` or ``(None, what failed)``."""
+    import shutil
+    import numpy as np
+    from deeplearning4j_tpu_torch.faulttolerance import CheckpointConfig
+    from deeplearning4j_tpu_torch.observability import (
+        FlightRecorder, MetricsRegistry, Tracer, set_default_registry,
+        set_default_tracer, set_flight_recorder)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    store = REPO / "build" / "checkpoint_resume"
+    shutil.rmtree(store, ignore_errors=True)
+    tree = _lm_tree(args, dev, 31)
+    rng = np.random.default_rng(args.seed + 31)
+    toks = rng.integers(0, VOCAB, (CKPT_STEPS, TRAIN_BATCH, SEQ + 1))
+    batches = [(b[:, :-1], b[:, 1:]) for b in toks]
+    reg = MetricsRegistry()
+    rec = FlightRecorder(registry=reg)
+    saved = (set_default_registry(reg), set_flight_recorder(rec),
+             set_default_tracer(Tracer(enabled=True, registry=reg)))
+    try:
+        net_a = _dropout_lm(args, dev, tree)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t_a = time.perf_counter()
+        net_a.fit(batches, checkpoint=CheckpointConfig(
+            directory=str(store), save_every_n_iterations=CKPT_AT,
+            background=True, keep_last=CKPT_STEPS))
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t_a
+        launches_a = dict(fa.launches)
+        steps = {r["iteration"]: r for r in rec.channel("profile").items()
+                 if r["type"] == "step" and r["program"] == "train_step"}
+        net_b = _dropout_lm(args, dev, _lm_tree(args, dev, 131))
+        ckpt = store / f"ckpt-{CKPT_AT:08d}"
+        fa.reset_launches()
+        t_b = time.perf_counter()
+        net_b.fit(batches, resume_from=str(ckpt))
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t_b
+        launches_b = dict(fa.launches)
+    finally:
+        set_default_registry(saved[0])
+        set_flight_recorder(saved[1])
+        set_default_tracer(saved[2])
+    # the same 6 steps without checkpoints: checkpointing is an observer
+    twin = _dropout_lm(args, dev, tree)
+    twin.fit(batches)
+    state_a, state_twin = training_state(net_a), training_state(twin)
+    diff = state_max_diff(state_a, training_state(net_b))
+    observer_diff = state_max_diff(state_a, state_twin)
+    noise = None
+    if RESUME_NONDETERMINISM:
+        twin2 = _dropout_lm(args, dev, tree)
+        twin2.fit(batches)
+        noise = state_max_diff(state_twin, training_state(twin2))
+    with open(ckpt / "manifest.json") as f:
+        manifest = json.load(f)
+    nbytes = sum(v["bytes"] for v in manifest["files"].values())
+    spans = reg.get("span_seconds")
+    span_s = {name: spans.labels(name).sum for name in
+              ("checkpoint.write", "container.encode", "container.deflate")}
+    writes = reg.get("checkpoint_write_seconds").labels("async")
+    write_s = writes.sum / max(writes.count, 1)
+    stall = steps.get(CKPT_AT, {}).get("phases", {}).get("checkpoint")
+    walls = [steps[i]["wall_s"] for i in range(2, CKPT_STEPS + 1)
+             if i in steps and i % CKPT_AT]
+    expected_a = {k: LAYERS * CKPT_STEPS for k in ("fwd", "bwd_dq",
+                                                   "bwd_dkv")}
+    expected_b = {k: LAYERS * (CKPT_STEPS - CKPT_AT) for k in expected_a}
+    losses = [float(net_a.get_score()), float(net_b.get_score())]
+    print(json.dumps({
+        "phase": "checkpoint_resume", "model": {
+            "vocab": VOCAB, "seq": SEQ, "embed": EMBED, "layers": LAYERS,
+            "heads": HEADS, "batch": TRAIN_BATCH, "dropout": 0.9,
+            "updater": "Adam(3e-4)", "num_params": net_a.num_params()},
+        "steps": CKPT_STEPS, "checkpoint_every": CKPT_AT,
+        "checkpoints": sorted(p.name for p in store.iterdir()
+                              if p.name.startswith("ckpt-")),
+        "resumed_from": ckpt.name, "resumed_iteration": net_b.iteration,
+        "final_losses": losses,
+        "max_abs_diff_resumed_vs_uninterrupted": diff,
+        "max_abs_diff_checkpointed_vs_without": observer_diff,
+        "gate": "bitwise" if noise is None else {
+            "cause": RESUME_NONDETERMINISM,
+            "max_abs_diff_two_runs_without_checkpoints": noise},
+        "kernel_launches_uninterrupted": launches_a,
+        "kernel_launches_resumed": launches_b,
+        "checkpoint_bytes": nbytes,
+        "snapshot_stall_s": stall,
+        "median_step_wall_s_without_snapshot":
+            statistics.median(walls) if walls else None,
+        "write_s_mean": write_s, "writes": writes.count,
+        "write_mb_per_s": nbytes / write_s / 1e6 if write_s else None,
+        "write_span_s": span_s,
+        "uninterrupted_run_s": round(a_s, 3), "resumed_run_s": round(b_s, 3),
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    shutil.rmtree(store, ignore_errors=True)
+    if not all(np.isfinite(losses)):
+        return None, f"checkpointed LM losses not finite: {losses}"
+    if net_b.iteration != CKPT_STEPS or \
+            net_a.opt_state["count"] != net_b.opt_state["count"]:
+        return None, (f"the resumed LM ended at iteration {net_b.iteration}"
+                      f", counts {net_b.opt_state['count']}")
+    if not resume_gate(diff, observer_diff, noise):
+        return None, (f"resumed LM differs from the uninterrupted run by "
+                      f"{diff}, the checkpointed run from one without by "
+                      f"{observer_diff} (gate {noise or 0.0})")
+    if launches_a != expected_a or launches_b != expected_b:
+        return None, (f"checkpointed LM launched {launches_a}, resumed "
+                      f"{launches_b}; expected {expected_a} and "
+                      f"{expected_b} ({LAYERS} per kernel per step)")
+    return {"uninterrupted": launches_a, "resumed": launches_b}, None
+
+
+def observability_phase(args, torch, dev, card):
+    """Phase 32.  Returns None, or what failed."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.faulttolerance import FaultInjector
+    from deeplearning4j_tpu_torch.generation.engine import GenerationConfig
+    from deeplearning4j_tpu_torch.observability import (
+        FlightRecorder, MetricsRegistry, Tracer, load_dump, render_text,
+        set_default_registry, set_default_tracer, set_flight_recorder)
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    dump_dir = REPO / "build" / "observability"
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    cards = tempfile.mkdtemp(dir=str(REPO / "build"))
+    tree = _lm_tree(args, dev, 32)
+    net = _lm_net(args, dev, tree)
+    flops = lm_step_flops(net.conf, TRAIN_BATCH)
+    with open(os.path.join(cards, "lm_smoke_step.json"), "w") as f:
+        json.dump({"flops": flops}, f)
+    rng = np.random.default_rng(args.seed + 32)
+    toks = rng.integers(0, VOCAB, (OBS_FIT_STEPS, TRAIN_BATCH, SEQ + 1))
+    batches = [(torch.as_tensor(b[:, :-1], device=dev),
+                torch.as_tensor(b[:, 1:], device=dev)) for b in toks]
+    eye = np.eye(VOCAB, dtype=np.float32)
+    reg = MetricsRegistry()
+    rec = FlightRecorder(directory=str(dump_dir), registry=reg)
+    tracer = Tracer(enabled=True, registry=reg, bridge_profiler=True)
+    saved = (set_default_registry(reg), set_flight_recorder(rec),
+             set_default_tracer(tracer))
+    env_keys = ("DL4J_TPU_CARDS_DIR", "DL4J_TPU_STEPPROF_PROGRAM",
+                "DL4J_TPU_STEPPROF_SAMPLE", "DL4J_TPU_STEPPROF")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    try:
+        # -- counters: served rows, fit steps, generated tokens
+        engine = ServingEngine(net, device=dev, max_batch_size=MAX_BATCH,
+                               generation=GenerationConfig(
+                                   max_slots=OBS_GEN, max_seq=64,
+                                   block_size=16))
+        try:
+            for n in OBS_SERVE_ROWS:
+                engine.predict(eye[rng.integers(0, VOCAB, (n, SEQ))])
+            for x, y in batches:
+                net.fit(x, y)
+            prompts = [list(rng.integers(0, VOCAB, 16)) for _ in
+                       range(OBS_GEN)]
+            futs = [engine.generation.submit(
+                p, max_new_tokens=OBS_GEN_TOKENS) for p in prompts]
+            gen_tokens = [len(f.future.result(timeout=120).tokens)
+                          for f in futs]
+        finally:
+            engine.shutdown()
+        text = render_text(reg)
+        bad = [ln for ln in text.strip().splitlines()
+               if not ln.startswith("#") and not _SAMPLE_LINE.match(ln)]
+        counts = {"training_steps_total":
+                  reg.get("training_steps_total").value,
+                  "training_examples_total":
+                  reg.get("training_examples_total").value,
+                  "generation_tokens_total":
+                  reg.get("generation_tokens_total").value,
+                  "serving_batches_total":
+                  reg.get("serving_batches_total").value}
+        want_counts = {"training_steps_total": OBS_FIT_STEPS,
+                       "training_examples_total":
+                       OBS_FIT_STEPS * TRAIN_BATCH,
+                       "generation_tokens_total": sum(gen_tokens),
+                       "serving_batches_total": len(OBS_SERVE_ROWS)}
+
+        # -- sampled steps under torch.profiler, MFU from the card file
+        os.environ.update({"DL4J_TPU_CARDS_DIR": cards,
+                           "DL4J_TPU_STEPPROF_PROGRAM": "lm_smoke_step",
+                           "DL4J_TPU_STEPPROF_SAMPLE": "1"})
+        sampled = []
+        for i in range(OBS_PROFILED):
+            x, y = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with tracer.span("smoke.train_step", step=i):
+                    net.fit(x, y)
+                torch.cuda.synchronize()
+            step = [r for r in rec.channel("profile").items()
+                    if r["type"] == "step"
+                    and r["program"] == "lm_smoke_step"][-1]
+            keys = {e.key for e in prof.key_averages()}
+            dev_s = step["phases"]["device"]
+            sampled.append({
+                "device_slice_ms": None if dev_s is None else dev_s * 1e3,
+                "kernel_ms_profiler": device_ms_in(prof),
+                "wall_ms": step["wall_s"] * 1e3, "mfu": step.get("mfu"),
+                "achieved_flops": step.get("achieved_flops"),
+                "mfu_agrees": mfu_agrees(step, flops, OBS_PEAK_FLOPS),
+                "span_in_trace": "smoke.train_step" in keys})
+        for k in env_keys[:3]:
+            os.environ.pop(k, None)
+
+        # -- overhead: everything on (registry, step profiler sampling
+        # every 16th step, flight recorder) against DL4J_TPU_STEPPROF=0
+        # with the registry and recorder disabled, in turns
+        over = [batches[i % len(batches)] for i in range(OBS_OVERHEAD_STEPS)]
+        arms = {"on": [], "off": []}
+        for arm in ("on", "off", "off", "on"):
+            if arm == "off":
+                os.environ["DL4J_TPU_STEPPROF"] = "0"
+                reg.disable()
+                rec.disable()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            net.fit(over)
+            torch.cuda.synchronize()
+            arms[arm].append((time.perf_counter() - t1) * 1e3
+                             / OBS_OVERHEAD_STEPS)
+            os.environ.pop("DL4J_TPU_STEPPROF", None)
+            reg.enable()
+            rec.enable()
+
+        # -- crash dump: the decode step OBS_CRASH_AT raises
+        inj = FaultInjector().fail(0, OBS_CRASH_AT)
+        engine = ServingEngine(net, device=dev, max_batch_size=MAX_BATCH,
+                               generation=GenerationConfig(
+                                   max_slots=OBS_GEN, max_seq=64,
+                                   block_size=16))
+        gen = engine.generation
+        decode = gen._decode_step
+
+        def faulty(slot_obj):
+            inj.on_batch(0, gen.decode_steps, 0)
+            return decode(slot_obj)
+        gen._decode_step = faulty
+        crash = None
+        try:
+            gen.generate(prompts[0], max_new_tokens=OBS_GEN_TOKENS)
+        except Exception as e:
+            crash = f"{type(e).__name__}: {e}"
+        finally:
+            engine.shutdown()
+        dumps = [p for p in rec.dumps if "decode_exception" in p]
+        payload = load_dump(dumps[0], verify=True) if dumps else {}
+        decode_kinds = [r["type"] for r in
+                        payload.get("channels", {}).get("decode", [])]
+    finally:
+        set_default_registry(saved[0])
+        set_flight_recorder(saved[1])
+        set_default_tracer(saved[2])
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(cards, ignore_errors=True)
+    on, off = statistics.median(arms["on"]), statistics.median(arms["off"])
+    print(json.dumps({
+        "phase": "observability", "counters": counts,
+        "expected_counters": want_counts,
+        "exposition_lines": len(text.splitlines()),
+        "unparsed_lines": bad[:5], "generated_tokens": gen_tokens,
+        "lm_step_flops": flops, "peak_flops": OBS_PEAK_FLOPS,
+        "sampled_steps": sampled,
+        "step_ms_everything_on": arms["on"],
+        "step_ms_stepprof_off_registry_off": arms["off"],
+        "step_ms_median_on": on, "step_ms_median_off": off,
+        "overhead": on / off - 1.0,
+        "crash": crash, "crash_dump": dumps[0] if dumps else None,
+        "decode_channel": decode_kinds, "injected": inj.events,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    if bad:
+        return f"render_text gave lines that do not parse: {bad[:3]}"
+    if counts != want_counts:
+        return f"observability counters {counts}; expected {want_counts}"
+    if gen_tokens != [OBS_GEN_TOKENS] * OBS_GEN:
+        return f"generation returned {gen_tokens} tokens"
+    for s in sampled:
+        if s["device_slice_ms"] is None or not \
+                s["kernel_ms_profiler"] <= s["device_slice_ms"] <= \
+                s["wall_ms"]:
+            return (f"sampled step: device slice {s['device_slice_ms']} ms "
+                    f"not within [kernel {s['kernel_ms_profiler']}, wall "
+                    f"{s['wall_ms']}] ms")
+        if not s["mfu_agrees"]:
+            return (f"sampled step MFU {s['mfu']} is not flops {flops} / "
+                    f"(device slice {s['device_slice_ms']} ms x peak "
+                    f"{OBS_PEAK_FLOPS})")
+        if not s["span_in_trace"]:
+            return "the tracer's span is missing from the torch.profiler trace"
+    if crash is None or inj.events != [("fail", 0, OBS_CRASH_AT)] or \
+            decode_kinds[-1:] != ["decode_error"]:
+        return (f"decode crash: {crash}, injected {inj.events}, decode "
+                f"channel {decode_kinds}")
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4217,6 +4696,16 @@ def main(argv=None) -> int:
             return fail(err)
         torch.cuda.empty_cache()
 
+    # ---- 31-32. checkpoint and resume, observability -------------------
+    ckpt_launches, err = checkpoint_resume_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    err = observability_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -4234,6 +4723,9 @@ def main(argv=None) -> int:
             "launches": train_launches[name],
             "launches_train_dropout": dropout_launches[name],
             "launches_fit_on_device_lm": slice_launches["fod"][name],
+            "launches_checkpoint_uninterrupted":
+                ckpt_launches["uninterrupted"][name],
+            "launches_checkpoint_resumed": ckpt_launches["resumed"][name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,

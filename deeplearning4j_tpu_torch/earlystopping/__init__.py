@@ -2,7 +2,7 @@
 port of the JAX package's ``earlystopping``)."""
 from .config import EarlyStoppingConfiguration
 from .result import EarlyStoppingResult
-from .savers import InMemoryModelSaver
+from .savers import InMemoryModelSaver, LocalFileModelSaver
 from .scorecalc import AccuracyScoreCalculator, DataSetLossCalculator
 from .terminations import (BestScoreEpochTerminationCondition,
                            InvalidScoreIterationTerminationCondition,
@@ -17,6 +17,7 @@ __all__ = [
     "DataSetLossCalculator", "EarlyStoppingConfiguration",
     "EarlyStoppingResult", "EarlyStoppingTrainer", "EarlyStoppingGraphTrainer",
     "InMemoryModelSaver", "InvalidScoreIterationTerminationCondition",
+    "LocalFileModelSaver",
     "MaxEpochsTerminationCondition", "MaxScoreIterationTerminationCondition",
     "MaxTimeIterationTerminationCondition",
     "ScoreImprovementEpochTerminationCondition",

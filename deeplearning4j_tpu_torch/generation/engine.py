@@ -25,12 +25,18 @@ entered in that thread.  Block tables and positions stay host numpy
 mirrors, copied to the device once per program call; a decode step reads
 back exactly one thing, its ``[S]`` token vector.
 
-The reference's metrics registry, health monitor, flight recorder and
-step profiler are not ported yet: the engine keeps its counters (tokens,
-steps, errors, sheds, time to first token and inter-token latency
-windows) in ``status()``, and a failed decode step's occupancy trail in
-``last_decode_failure``.  The port runs eagerly and compiles nothing, so
-it has no steady-state recompiles to count.
+Observability, as the JAX engine's: ``generation_active_slots`` /
+``generation_tokens_total`` / ``decode_step_seconds`` /
+``generation_prefill_seconds`` / ``generation_blocks_free`` and the
+prefix-sharing counters in the metrics registry; time-to-first-token and
+inter-token latency fed to the :class:`~..observability.health.
+HealthMonitor` (p99 targets in ``HealthConfig``); ``prefill`` and
+``decode`` slices in the step profiler's ``profile`` channel; a
+``decode`` flight-recorder channel, and a forensic dump with the slot
+occupancy trail on any decode-step exception.  ``status()`` keeps the
+engine's own counters and ``last_decode_failure`` the last failed step's
+error and occupancy.  The port runs eagerly and compiles nothing, so it
+has no steady-state recompiles to count.
 """
 from __future__ import annotations
 
@@ -47,7 +53,11 @@ import torch
 
 from ..data.shapes import suffix_prefill_buckets
 from ..observability import clock
+from ..observability.health import get_health_monitor
+from ..observability.profiler import record_slices
 from ..observability.quantiles import LatencyWindow
+from ..observability.recorder import get_flight_recorder
+from ..observability.registry import default_registry
 from ..parallel.inference import InvalidInputError
 from .cache import PagedKV
 
@@ -57,6 +67,9 @@ __all__ = ["GenerationConfig", "GenerationEngine", "GenerationResult",
 log = logging.getLogger("deeplearning4j_tpu_torch.generation")
 
 _UNSET = object()
+# decode-step and prefill wall-time histogram bounds (seconds)
+_STEP_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                 0.25, 0.5, 1.0, 2.5, 10.0)
 
 
 @dataclass(frozen=True)
@@ -199,8 +212,9 @@ class GenerationEngine:
 
     def __init__(self, slot_source: Callable[[], Any],
                  config: Optional[GenerationConfig] = None, *,
-                 start: bool = True):
+                 registry=None, start: bool = True):
         self.config = config or GenerationConfig()
+        self._registry = registry
         if self.config.max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if self.config.default_max_new_tokens < 1:
@@ -243,6 +257,11 @@ class GenerationEngine:
                   **kw) -> "GenerationEngine":
         return cls(StaticSlotSource(model), config, **kw)
 
+    # ------------------------------------------------------------- plumbing
+    def _reg(self):
+        return self._registry if self._registry is not None \
+            else default_registry()
+
     # ------------------------------------------------------------- counters
     @property
     def queue_depth(self) -> int:
@@ -259,9 +278,17 @@ class GenerationEngine:
         with self._stats_lock:
             return self._decode_steps
 
-    def _shed(self, reason: str) -> None:
+    def _shed(self, reason: str, tenant: str = "-") -> None:
         with self._stats_lock:
             self._shed_counts[reason] = self._shed_counts.get(reason, 0) + 1
+        reg = self._reg()
+        if reg.enabled:
+            reg.counter("serving_shed_total",
+                        "Requests shed by admission control",
+                        ("reason", "tenant")).labels(reason, tenant).inc()
+        mon = get_health_monitor()
+        if mon is not None:
+            mon.observe_request(shed=True)
 
     # ----------------------------------------------------------- model/ring
     def _model_of(self, slot_obj):
@@ -485,6 +512,7 @@ class GenerationEngine:
                     continue
                 states.append(req.export_state())
                 self._fail(req, err)
+        self._set_active_gauge()
         return states
 
     def generate(self, tokens, timeout: Optional[float] = 60.0,
@@ -657,6 +685,7 @@ class GenerationEngine:
         # re-prefill can publish or adopt under the new version
         old_ring.invalidate_shared()
         ring = self._ensure_ring(model)
+        rec = get_flight_recorder()
         for slot, req in sorted(occupants.items()):
             if ring is not old_ring:
                 # topology changed: re-home the sequence into the new
@@ -670,6 +699,9 @@ class GenerationEngine:
                 ring.reset_slot(slot)
             ring.note("migrate", slot, req.id, pos=len(req.history()),
                       from_version=prev, to_version=slot_obj.version)
+            if rec is not None:
+                rec.record("decode", "migrate", slot=slot, request=req.id,
+                           from_version=prev, to_version=slot_obj.version)
             try:
                 tok = self._prefill_into(model, req, slot, req.history())
             except Exception as e:
@@ -731,6 +763,7 @@ class GenerationEngine:
                       version=slot_obj.version)
             self._emit(req, tok, slot_obj.version, slot)
             worked = True
+        self._set_active_gauge()
         return worked
 
     def _requeue_or_fail(self, req: _GenRequest) -> None:
@@ -747,6 +780,7 @@ class GenerationEngine:
         that writes only the unshared tail.  Cold prompts and migrations
         are the same call with ``start = 0``."""
         kv: PagedKV = self.ring
+        t_form = clock.monotonic_s()
         L = len(history)
         full, partial = kv.match_prefix(history)
         # largest shareable start whose padded suffix still fits the
@@ -781,6 +815,7 @@ class GenerationEngine:
             keys = np.array([[req.seed, len(req.out_tokens)]], np.int64)
             knobs = np.array([req.temperature, req.top_p], np.float32)
             dev = kv.device
+            t0 = clock.monotonic_s()
             fn = model.generation_program("paged_prefill")
             tok_dev, _ = fn(
                 model.params, model.state, _dev(toks, dev), _dev(mask, dev),
@@ -794,9 +829,28 @@ class GenerationEngine:
             if cow_dst:
                 kv.cow_end(cow_src)
         kv.pos[slot] = L
+        reg = self._reg()
         if start > 0:
             kv.note_shared_hit(slot, req.id, start)
+            if reg.enabled:
+                reg.counter("generation_prefix_hits_total",
+                            "Admissions that adopted registered shared-"
+                            "prefix KV blocks").inc()
+                reg.counter("generation_prefix_tokens_saved_total",
+                            "Prompt tokens NOT prefilled thanks to "
+                            "shared-prefix adoption").inc(start)
         kv.register_prefix(slot, req.prompt)
+        dt = clock.monotonic_s() - t0
+        if reg.enabled:
+            reg.histogram("generation_prefill_seconds",
+                          "Prefill program wall time per request",
+                          buckets=_STEP_BUCKETS).observe(dt)
+            reg.gauge("generation_blocks_free",
+                      "Free physical KV blocks in the paged pool"
+                      ).set(kv.blocks_free)
+        record_slices("prefill", batch_form_s=round(t0 - t_form, 7),
+                      execute_s=round(dt, 7), bucket=bucket,
+                      shared_tokens=start)
         return tok
 
     def _decode_guarded(self, slot_obj) -> bool:
@@ -816,6 +870,7 @@ class GenerationEngine:
                 self._finish(req, slot, "cancelled")
                 del occupants[slot]
         if not occupants:
+            self._set_active_gauge()
             return False
         # grow each slot's table across its next block boundary (host
         # bookkeeping, no device work) and enforce the COW invariant
@@ -834,11 +889,13 @@ class GenerationEngine:
                 f"KV block pool exhausted mid-decode for {req.id} at "
                 f"pos {pos}: raise n_blocks (pool={ring.n_blocks})"))
         if not occupants:
+            self._set_active_gauge()
             return bool(starved)
         for slot in occupants:
             ring.check_writable(slot)
         model = self._model_of(slot_obj)
         S = self.config.max_slots
+        t_form = clock.monotonic_s()
         toks = np.zeros((S,), np.int64)
         keys = np.zeros((S, 2), np.int64)
         temp = np.zeros((S,), np.float32)
@@ -851,6 +908,7 @@ class GenerationEngine:
             top_k[slot] = req.top_k
             top_p[slot] = req.top_p
         dev = ring.device
+        t0 = clock.monotonic_s()
         fn = model.generation_program("paged_decode")
         out_dev, _ = fn(model.params, model.state, _dev(toks, dev),
                         ring.caches, _dev(ring.tables.copy(), dev),
@@ -858,8 +916,24 @@ class GenerationEngine:
                         _dev(temp, dev), _dev(top_k, dev), _dev(top_p, dev))
         # the ONE host read of the step: the [S] token vector
         out = out_dev.cpu().numpy()
+        dt = clock.monotonic_s() - t0
         with self._stats_lock:
             self._decode_steps += 1
+        reg = self._reg()
+        if reg.enabled:
+            reg.histogram("decode_step_seconds",
+                          "One fixed-shape decode step over the full "
+                          "slot batch", buckets=_STEP_BUCKETS).observe(dt)
+        rec = get_flight_recorder()
+        if rec is not None:
+            rec.record("decode", "step", active=len(occupants),
+                       step_s=round(dt, 6), version=slot_obj.version,
+                       free=ring.free_slots)
+        # profile slices: slot-batch formation (the host gather of last
+        # tokens/keys/sampler knobs) vs the decode execute (the token
+        # vector's read above is the step's one sync)
+        record_slices("decode", batch_form_s=round(t0 - t_form, 7),
+                      execute_s=round(dt, 7), active=len(occupants))
         # the step wrote one token per active slot: advance the host
         # position mirrors BEFORE emission (a finishing request releases
         # its slot inside _emit, which resets its mirror)
@@ -867,17 +941,25 @@ class GenerationEngine:
             ring.pos[slot] += 1
         for slot, req in sorted(occupants.items()):
             self._emit(req, int(out[slot]), slot_obj.version, slot)
+        self._set_active_gauge()
         return True
 
     def _decode_failure(self, e: Exception) -> None:
-        """A failed decode step: some layers may have written their pools
-        and others not, so every active request fails (the batch died
-        together) and the cache is dropped; admission builds a fresh one
-        for the next request.  The occupancy snapshot goes to the log."""
+        """A failed decode step: commit forensics WITH the slot occupancy
+        trail (the ``decode`` flight channel and its dump), then fail
+        every active request (some layers may have written their pools
+        and others not: the batch died together) and drop the cache;
+        admission builds a fresh one for the next request."""
         with self._stats_lock:
             self._decode_errors += 1
         ring = self.ring
         snapshot = None if ring is None else ring.occupancy_snapshot()
+        rec = get_flight_recorder()
+        if rec is not None:
+            rec.record("decode", "decode_error",
+                       error=f"{type(e).__name__}: {e}",
+                       occupancy=snapshot)
+            rec.maybe_dump("decode_exception")
         log.exception("decode step failed (%s active slots)",
                       0 if snapshot is None else snapshot["active"])
         self.last_decode_failure = {"error": f"{type(e).__name__}: {e}",
@@ -888,6 +970,7 @@ class GenerationEngine:
             ring.release(slot)
             ring.note("vacate", slot, req.id, reason="decode_error")
             self._fail(req, e)
+        self._set_active_gauge()
         self.ring = None
         self._ring_sig = None
 
@@ -895,16 +978,27 @@ class GenerationEngine:
     def _emit(self, req: _GenRequest, tok: int, version: int,
               slot: Optional[int]) -> bool:
         now = clock.monotonic_s()
+        mon = get_health_monitor()
         if req.t_first is None:
             req.t_first = now
-            self._ttft_w.observe(now - req.t_submit)
+            ttft = now - req.t_submit
+            self._ttft_w.observe(ttft)
+            if mon is not None:
+                mon.observe_generation(ttft_s=ttft)
         else:
-            self._itl_w.observe(now - req.t_last)
+            itl = now - req.t_last
+            self._itl_w.observe(itl)
+            if mon is not None:
+                mon.observe_generation(itl_s=itl)
         req.t_last = now
         req.out_tokens.append(tok)
         req.versions.append(version)
         with self._stats_lock:
             self._tokens_generated += 1
+        reg = self._reg()
+        if reg.enabled:
+            reg.counter("generation_tokens_total",
+                        "Tokens emitted by the decode engine").inc()
         req.push_event({"token": tok, "index": len(req.out_tokens) - 1,
                         "model_version": version})
         finish = None
@@ -940,6 +1034,16 @@ class GenerationEngine:
         req.push_event({"error": f"{type(e).__name__}: {e}"})
         if not req.future.done():
             req.future.set_exception(e)
+
+    def _set_active_gauge(self) -> None:
+        reg = self._reg()
+        if reg.enabled and self.ring is not None:
+            reg.gauge("generation_active_slots",
+                      "Generation slots currently occupied by live "
+                      "sequences").set(self.ring.active_slots)
+            reg.gauge("generation_blocks_free",
+                      "Free physical KV blocks in the paged pool"
+                      ).set(self.ring.blocks_free)
 
     # ------------------------------------------------------------ lifecycle
     def shutdown(self) -> None:

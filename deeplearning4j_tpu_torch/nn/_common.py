@@ -4,10 +4,20 @@ the precision casts (``cast_act``, ``cast_floats``, ``precision_cast_map``),
 the refusal of the train-step branch the port lacks (the sparse-embedding
 gradient), the backward-and-update half of a train step (with the loss
 scale's unscale, check and skip), the device-resident epoch
-trainer behind ``fit_on_device``, and ``Network``, the base of
-``MultiLayerNetwork`` and ``ComputationGraph`` (parameter and state
-storage, init, loading, the dropout key stream, the fit loop with its
-listener hooks, ``clone`` and evaluation).
+trainer behind ``fit_on_device``, the fit loop's step forensics
+(``_StepForensics``), and ``Network``, the base of ``MultiLayerNetwork``
+and ``ComputationGraph`` (parameter and state storage, init, loading, the
+dropout key stream, the fit loop with its listener hooks, metrics, step
+profiler and checkpoints, ``clone`` and evaluation).
+
+The fit loop is observed as the JAX package's is: ``training_*`` metrics
+in the default registry, a per-fit ``StepProfiler`` with a sampled
+device fence, the flight recorder's ``train`` channel and, where one is
+installed, the health monitor.  The step's loss stays a device scalar
+unless a health monitor is armed (its NaN reaction is same-step).
+``fit(checkpoint=..., resume_from=...)`` saves crash-consistent
+checkpoints and resumes at the saved batch cursor
+(``faulttolerance/checkpoint.py``).
 
 Gradients and parameters are ``{layer_i: {name: tensor}}`` dicts, as the
 JAX package's pytrees.  ``build_tx`` returns an ``UpdaterGroups`` in
@@ -17,6 +27,7 @@ frozen group), a label per parameter, and a step count per label.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, \
     Tuple
 
@@ -24,6 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..observability.clock import monotonic_s, wall_s
+from ..observability.registry import default_registry
 from ..utils import _random
 from ..utils.device import resolve_device
 from . import precision as _precision
@@ -31,6 +44,16 @@ from .conf.updaters import Sgd, UpdaterConf
 from .layers.base import BaseLayerConf, LayerConf, flatten_group
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
+
+log = logging.getLogger("deeplearning4j_tpu_torch.nn")
+
+# training-step histogram bounds: sub-ms CPU steps up to multi-second
+# first steps (kernel builds) in the "compile" phase series
+_STEP_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+# time blocked on the data pipeline per batch (the JAX package's
+# data/pipeline.ETL_BUCKETS)
+_ETL_BUCKETS = _STEP_BUCKETS
 
 
 def hyperparam_conf(lc: Optional[LayerConf]) -> Optional[BaseLayerConf]:
@@ -363,10 +386,120 @@ def batch_factory(data, one, normalize: Callable) -> Callable:
     raise ValueError("fit() needs (x, y) or an iterator")
 
 
+class _StepForensics:
+    """Per-step flight-recorder + health-monitor feed for the fit loops
+    (JAX ``nn/multilayer._StepForensics``), amortized: :meth:`step` only
+    captures a raw tuple (and, every ``grad_check_every``-th step, a
+    *reference* to the still-on-device gradient stats) and :meth:`flush`
+    drains the buffer through the recorder and ``observe_step()`` every
+    ``FLUSH_EVERY`` steps.
+
+    The loss is materialized per step (``float`` = host sync) only when a
+    health MONITOR is armed: its NaN/stop/checkpoint reaction is
+    same-step, and a non-finite loss still flushes immediately.
+    Recorder-only forensics buffer the device scalar and read it at
+    flush time, when it has long been computed.  Every dump path flushes
+    first: the fit loop flushes on exception and in its ``finally``, and
+    the checkpointer's preemption dump calls the ``pre_dump`` hook this
+    helper installs."""
+
+    FLUSH_EVERY = 16
+    __slots__ = ("net", "rec", "ring", "mon", "ckpt", "_buf",
+                 "_grad_every", "_wall0", "_saved_kinds")
+
+    def __init__(self, net, rec, mon, ckpt):
+        self.net = net
+        self.rec = rec if (rec is not None and rec.enabled) else None
+        self.ring = self.rec.channel("train") \
+            if self.rec is not None else None
+        self.mon = mon
+        self.ckpt = ckpt
+        self._grad_every = mon.config.grad_check_every \
+            if mon is not None else 0
+        # wall = mono + _wall0: record timestamps derive from the step
+        # end the loop already clocked, saving a wall read per step
+        self._wall0 = wall_s() - monotonic_s()
+        self._buf: list = []
+        self._saved_kinds: set = set()
+        if ckpt is not None:
+            ckpt.pre_dump = self.flush
+
+    def step(self, ep: int, seq: int, compile_step: bool,
+             dt: float, t_end: float) -> bool:
+        """Capture one fitted step (``t_end`` = the loop's monotonic
+        step-end read); returns True when the monitor's opt-in
+        ``stop_training`` policy says to halt the fit."""
+        net = self.net
+        loss = net._score
+        mon = self.mon
+        if mon is not None:
+            # the monitor's same-step NaN reaction needs the value now
+            loss = float(loss)
+        every = self._grad_every
+        buf = self._buf
+        buf.append(
+            (t_end, net.iteration, ep, seq, net.last_batch_size,
+             loss, dt, compile_step,
+             net._last_grad_stats
+             if every > 0 and net.iteration % every == 0 else None))
+        # loss - loss is 0.0 for a finite loss, NaN for nan/±inf
+        if len(buf) >= self.FLUSH_EVERY or \
+                (mon is not None and loss - loss != 0.0):
+            return self.flush()
+        return False
+
+    def flush(self) -> bool:
+        """Drain buffered steps into the recorder ring and the monitor;
+        returns the monitor's stop verdict."""
+        buf = self._buf
+        mon = self.mon
+        if not buf:
+            return mon.should_stop() if mon is not None else False
+        self._buf = []
+        ckpt, ring = self.ckpt, self.ring
+        wall0 = self._wall0
+        for t_end, it, ep, seq, bs, loss, dt, comp, gref in buf:
+            # recorder-only steps buffered the device scalar: one D2H
+            # each at drain time (the value computed steps ago)
+            loss = float(loss)
+            if ring is not None:
+                ring.append({"ts": wall0 + t_end, "type": "step",
+                             "iteration": it, "epoch": ep, "score": loss,
+                             "batch": bs, "step_s": round(dt, 6),
+                             "compile": comp})
+            if mon is None:
+                continue
+            grad_norm = None
+            if gref is not None:
+                grad_norm = float(gref["global_norm"])
+            eps = bs / dt if dt > 0 and not comp else None
+            detections = mon.observe_step(
+                loss=loss, grad_norm=grad_norm, examples_per_sec=eps,
+                step=it)
+            if detections and ckpt is not None and \
+                    mon.config.checkpoint_on_detection and \
+                    ckpt.manager is not None and \
+                    any(d.kind not in self._saved_kinds
+                        for d in detections):
+                self._saved_kinds.update(d.kind for d in detections)
+                # ONE immediate save per detection kind marks the
+                # incident step durably; a failed emergency save must not
+                # kill the fit
+                try:
+                    ckpt._save(ep, seq)
+                    mon.checkpoint_saves += 1
+                except Exception:
+                    log.warning("emergency checkpoint at step %d failed",
+                                it, exc_info=True)
+        if self.rec is not None:
+            self.rec.snapshot_metrics()   # internally time-throttled
+        return mon.should_stop() if mon is not None else False
+
+
 def fit_on_device_epochs(model: "Network", xs: List[torch.Tensor],
                          ys: List[torch.Tensor], batch_size: int,
                          epochs: int, shuffle: bool,
-                         fit_tail: Callable) -> "Network":
+                         fit_tail: Callable, ckpt=None) -> "Network":
     """The device-resident epoch trainer behind both containers'
     ``fit_on_device`` (JAX ``fit_on_device_epochs``).  ``xs``/``ys`` are
     lists of tensors on the model's device; each step gathers its
@@ -385,7 +518,22 @@ def fit_on_device_epochs(model: "Network", xs: List[torch.Tensor],
       step.
 
     In a step chain each step takes ``k, step_key = split(k)``.  The
-    epochs' permutations stay in ``model.last_permutations``."""
+    epochs' permutations stay in ``model.last_permutations``.
+
+    ``ckpt`` (a ``faulttolerance`` ``FitCheckpointer``) adds epoch-boundary
+    checkpoints and resume: it pins the per-epoch path (the fused chain
+    has no epoch boundary to save at), and a resumed run trains only the
+    epochs its checkpoint's cursor has not done."""
+    try:
+        return _fit_on_device_epochs(model, xs, ys, batch_size, epochs,
+                                     shuffle, fit_tail, ckpt)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+
+
+def _fit_on_device_epochs(model, xs, ys, batch_size, epochs, shuffle,
+                          fit_tail, ckpt) -> "Network":
     n = int(xs[0].shape[0])
     if any(int(a.shape[0]) != n for a in list(xs) + list(ys)):
         raise ValueError(
@@ -411,7 +559,15 @@ def fit_on_device_epochs(model: "Network", xs: List[torch.Tensor],
         return loss
 
     model.last_permutations = []
-    if epochs > 1 and used == n and not model.listeners:
+    fuse = epochs > 1 and used == n and not model.listeners \
+        and (ckpt is None or ckpt.manager is None)
+    epoch0 = ckpt.start_epoch if ckpt is not None else 0
+    if epoch0:
+        # resumed run: the restored cursor says this many epochs already
+        # landed in the checkpoint — run only the remainder
+        epochs = max(epochs - epoch0, 0)
+        fuse = False
+    if fuse:
         model._rng, k = _random.split(model._rng)
         for _ in range(epochs):
             k, pk, ek = _random.split(k, 3)
@@ -424,7 +580,7 @@ def fit_on_device_epochs(model: "Network", xs: List[torch.Tensor],
         model._last_grad_stats = None
         model.epoch += epochs
     else:
-        for _ in range(epochs):
+        for ep in range(epochs):
             for lst in model.listeners:
                 lst.on_epoch_start(model)
             model._rng, key, pk = _random.split(model._rng, 3)
@@ -441,6 +597,8 @@ def fit_on_device_epochs(model: "Network", xs: List[torch.Tensor],
             for lst in model.listeners:
                 lst.on_epoch_end(model)
             model.epoch += 1
+            if ckpt is not None and ckpt.after_epoch(epoch0 + ep):
+                break   # SIGTERM: final save taken — return cleanly
     model._score = float(model._score)
     return model
 
@@ -475,6 +633,11 @@ class Network(nn.Module):
         self._step = None
         self.listeners: List[Any] = []
         self.last_permutations: List[torch.Tensor] = []
+        # the running fit's StepProfiler (None outside fit)
+        self._stepprof = None
+        # False until the first step after the train step was built: that
+        # step builds the kernels and warms the allocator ("compile")
+        self._warm_step = False
         # the dropout key stream: jax.random.PRNGKey(seed), as the
         # reference's ``_rng``, on the network's device
         self._rng = _random.prng_key(conf.seed, self.device)
@@ -537,6 +700,7 @@ class Network(nn.Module):
                             self._param_tree())
         self.opt_state = self._tx.init(self._param_tree())
         self._step = None
+        self._warm_step = False
 
     def _spec(self, what: str) -> Dict[str, Dict[str, Tuple[tuple,
                                                            torch.dtype]]]:
@@ -635,25 +799,157 @@ class Network(nn.Module):
         """One batch of ``fit``'s loop (a subclass may route it)."""
         self._fit_one(*batch)
 
-    def _fit_epochs(self, factory: Callable, epochs: int) -> "Network":
-        """``fit``'s loop: ``on_epoch_start``, the batches (each step
-        fires ``iteration_done``), ``on_epoch_end``, at the JAX package's
-        points."""
+    def _fit_epochs(self, factory: Callable, epochs: int, checkpoint=None,
+                    resume_from=None) -> "Network":
+        """``fit``'s loop (JAX ``MultiLayerNetwork.fit``): listeners at the
+        JAX package's points (``on_epoch_start``, ``iteration_done`` per
+        step, ``on_epoch_end``), the ``training_*`` metrics, step
+        forensics, the step profiler, and checkpoints: ``checkpoint`` (a
+        ``CheckpointConfig``) saves at its triggers, ``resume_from`` (a
+        checkpoint directory, store or ``CheckpointManager``) restores the
+        full training state and skips the batches the saved cursor had
+        consumed, without fitting them or touching the key stream."""
+        from ..observability.health import get_health_monitor
+        from ..observability.profiler import step_profiler_for
+        from ..observability.recorder import get_flight_recorder
         if not self.params:
             self.init()
-        for _ in range(epochs):
-            for lst in self.listeners:
-                lst.on_epoch_start(self)
-            for batch in factory():
-                self._fit_step(*batch)
-            for lst in self.listeners:
-                lst.on_epoch_end(self)
-            self.epoch += 1
+        # built after every validation raise: the SIGTERM hook it installs
+        # must always reach the loop's finally/close()
+        ckpt = None
+        if checkpoint is not None or resume_from is not None:
+            from ..faulttolerance.checkpoint import FitCheckpointer
+            ckpt = FitCheckpointer(self, checkpoint, resume_from)
+        reg = default_registry()
+        obs = reg.enabled
+        rec = get_flight_recorder()
+        rec_on = rec is not None and rec.enabled
+        mon = get_health_monitor()
+        forensics = _StepForensics(self, rec, mon, ckpt) \
+            if (rec_on or mon is not None) else None
+        prof = step_profiler_for("train_step", device=self.device)
+        self._stepprof = prof
+        if obs:
+            steps_c = reg.counter("training_steps_total",
+                                  "Optimizer steps taken")
+            examples_c = reg.counter("training_examples_total",
+                                     "Training examples consumed")
+            step_h = reg.histogram(
+                "training_step_seconds",
+                "Train step wall time, split compile vs steady",
+                ("phase",), buckets=_STEP_BUCKETS)
+            etl_fetch_h = reg.histogram(
+                "training_etl_seconds",
+                "Time blocked on the data pipeline per batch, by stage",
+                ("stage",), buckets=_ETL_BUCKETS).labels("fetch")
+            step_compile_h = step_h.labels("compile")
+            step_steady_h = step_h.labels("steady")
+        steady_examples, steady_s = 0, 0.0
+        start_epoch = ckpt.start_epoch if ckpt is not None else 0
+        stop = False
+        try:
+            for ep in range(start_epoch, epochs):
+                for lst in self.listeners:
+                    lst.on_epoch_start(self)
+                batches = iter(factory())
+                skip = ckpt.skip_batches \
+                    if (ckpt is not None and ep == ckpt.start_epoch) else 0
+                seq = 0
+                while True:
+                    t_etl = monotonic_s()
+                    batch = next(batches, None)
+                    etl_s = monotonic_s() - t_etl
+                    if batch is None:
+                        break
+                    if seq < skip:
+                        seq += 1
+                        continue
+                    t_step = monotonic_s()
+                    if prof is not None:
+                        prof.begin(t_step, etl_s)
+                    compile_step = not self._warm_step
+                    self._fit_step(*batch)
+                    self._warm_step = True
+                    if prof is not None:
+                        prof.dispatched(self._score)
+                    t_end = monotonic_s()
+                    dt = t_end - t_step
+                    if obs:
+                        (step_compile_h if compile_step
+                         else step_steady_h).observe(dt)
+                        etl_fetch_h.observe(etl_s)
+                        steps_c.inc()
+                        examples_c.inc(self.last_batch_size)
+                        if not compile_step:
+                            steady_examples += self.last_batch_size
+                            steady_s += dt
+                    seq += 1
+                    if forensics is not None and \
+                            forensics.step(ep, seq, compile_step, dt, t_end):
+                        stop = True   # opt-in health stop: clean return
+                    if prof is not None:
+                        prof.lap("forensics")
+                    if not stop and ckpt is not None and \
+                            ckpt.after_batch(ep, seq):
+                        stop = True   # SIGTERM: final save — return
+                    if prof is not None:
+                        if ckpt is not None:
+                            prof.lap("checkpoint")
+                        prof.end(self.iteration, compile_step)
+                    if stop:
+                        break
+                if stop:
+                    break
+                for lst in self.listeners:
+                    lst.on_epoch_end(self)
+                self.epoch += 1
+                if ckpt is not None and ckpt.after_epoch(ep):
+                    break
+        except Exception as e:
+            # unhandled fit exception: commit the flight-recorder window
+            # BEFORE propagating
+            if rec_on:
+                if forensics is not None:
+                    try:
+                        forensics.flush()
+                    except Exception:
+                        log.warning("forensics flush failed", exc_info=True)
+                rec.record("train", "fit_exception",
+                           error=f"{type(e).__name__}: {e}",
+                           iteration=int(self.iteration))
+                rec.maybe_dump(
+                    "fit_exception",
+                    directory=(ckpt.manager.directory
+                               if ckpt is not None and ckpt.manager
+                               is not None else None))
+            raise
+        finally:
+            # telemetry must not mask the real error
+            if forensics is not None:
+                try:
+                    forensics.flush()
+                except Exception:
+                    log.warning("forensics flush failed", exc_info=True)
+            if prof is not None:
+                self._stepprof = None
+                prof.flush()
+            if ckpt is not None:
+                ckpt.close()
+        if obs and steady_s > 0:
+            reg.gauge("training_examples_per_sec",
+                      "Training examples/sec over the last fit() "
+                      "(compile excluded where the path can tell)"
+                      ).set(steady_examples / steady_s)
         return self
 
     def _iteration_done(self) -> None:
+        if not self.listeners:
+            return
+        t = monotonic_s()
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.epoch)
+        if self._stepprof is not None:
+            self._stepprof.mark("listener", monotonic_s() - t)
 
     def get_score(self) -> float:
         """The loss of the most recent training batch (one host sync

@@ -271,13 +271,16 @@ class ComputationGraph(Network):
 
     # ------------------------------------------------------------ training
     def fit(self, data=None, labels=None, *, epochs: int = 1, masks=None,
-            label_masks=None) -> "ComputationGraph":
+            label_masks=None, checkpoint=None,
+            resume_from=None) -> "ComputationGraph":
         """Train.  ``data`` may be (inputs, labels), each an array or a
-        list of arrays, or an iterable of MultiDataSet-shaped batches."""
+        list of arrays, or an iterable of MultiDataSet-shaped batches.
+        ``checkpoint``/``resume_from``: crash-consistent periodic saves and
+        exact mid-epoch resume (see ``MultiLayerNetwork.fit``)."""
         one = (_as_list(data), _as_list(labels), masks, label_masks) \
             if labels is not None else None
         return self._fit_epochs(batch_factory(data, one, _normalize_batch),
-                                epochs)
+                                epochs, checkpoint, resume_from)
 
     def _train_step(self):
         if self._step is None:
@@ -313,18 +316,24 @@ class ComputationGraph(Network):
         return loss
 
     def fit_on_device(self, inputs, labels, *, batch_size: int,
-                      epochs: int = 1, shuffle: bool = True
+                      epochs: int = 1, shuffle: bool = True,
+                      checkpoint=None, resume_from=None
                       ) -> "ComputationGraph":
         """Device-resident epoch training for graphs (see
         ``MultiLayerNetwork.fit_on_device``); ``inputs``/``labels`` are an
         array or a list of arrays."""
         if not self.params:
             self.init()
+        ckpt = None
+        if checkpoint is not None or resume_from is not None:
+            from ..faulttolerance.checkpoint import FitCheckpointer
+            ckpt = FitCheckpointer(self, checkpoint, resume_from)
         return fit_on_device_epochs(
             self, [self._on_device(a) for a in _as_list(inputs)],
             [self._on_device(a) for a in _as_list(labels)], batch_size,
             epochs, shuffle,
-            fit_tail=lambda xt, yt: self._fit_one(xt, yt, None, None))
+            fit_tail=lambda xt, yt: self._fit_one(xt, yt, None, None),
+            ckpt=ckpt)
 
     def fit_batch(self, batch) -> float:
         """One train step on one batch, without epoch bookkeeping (the

@@ -342,19 +342,33 @@ class MultiLayerNetwork(Network):
 
     # ------------------------------------------------------------ training
     def fit(self, data=None, labels=None, *, epochs: int = 1, mask=None,
-            label_mask=None) -> "MultiLayerNetwork":
+            label_mask=None, checkpoint=None,
+            resume_from=None) -> "MultiLayerNetwork":
         """Train.  ``data`` may be ``(x, y)`` arrays (or ``x`` with
         ``labels``), a ``DataSet``, or an iterable of batches with an
         optional ``reset()`` (the DataSetIterator role).  A 3-D batch
         longer than ``tbptt_fwd_length`` trains by tBPTT when the
-        configuration asks for it."""
+        configuration asks for it.
+
+        ``checkpoint``: a ``faulttolerance.CheckpointConfig`` — periodic
+        crash-consistent saves (params + updater + key + data cursor),
+        optionally with a SIGTERM save-on-preempt hook.  ``resume_from``:
+        a checkpoint directory / store / ``CheckpointManager`` — restores
+        the full training state and resumes mid-epoch at the saved batch
+        cursor, reproducing the uninterrupted run (checkpointing leaves
+        the key stream alone, so runs with and without it are equal)."""
         one = (data, labels, mask, label_mask) if labels is not None \
             else None
         factory = batch_factory(data, one, _normalize_batch)
         algo = self.conf.defaults.get("optimization_algo", "sgd")
         if algo not in _SGD:
+            if checkpoint is not None or resume_from is not None:
+                raise ValueError(
+                    "checkpoint=/resume_from= are only supported on the SGD "
+                    f"path; optimization_algo='{algo}' routes through the "
+                    "legacy solvers")
             return self._fit_solver(algo, factory, epochs)
-        return self._fit_epochs(factory, epochs)
+        return self._fit_epochs(factory, epochs, checkpoint, resume_from)
 
     def _fit_solver(self, algo: str, factory, epochs: int
                     ) -> "MultiLayerNetwork":
@@ -417,12 +431,15 @@ class MultiLayerNetwork(Network):
         return loss
 
     def fit_on_device(self, x, y, *, batch_size: int, epochs: int = 1,
-                      shuffle: bool = True) -> "MultiLayerNetwork":
+                      shuffle: bool = True, checkpoint=None,
+                      resume_from=None) -> "MultiLayerNetwork":
         """Device-resident epoch training (JAX ``fit_on_device``): the
         dataset moves to the device once and every step gathers its
         minibatch there; a ragged tail trains through ``fit``'s step, and
         listeners fire once per epoch.  The permutations and keys are the
-        JAX package's (``nn/_common.fit_on_device_epochs``)."""
+        JAX package's (``nn/_common.fit_on_device_epochs``).
+        ``checkpoint``/``resume_from``: epoch-boundary checkpoints and
+        epoch-granular resume."""
         if not self.params:
             self.init()
         if self.conf.backprop_type == "tbptt":
@@ -435,10 +452,15 @@ class MultiLayerNetwork(Network):
                 f"fit_on_device requires the SGD path; optimization_algo="
                 f"'{algo}' routes through the legacy solvers — use fit()")
         self._validate_input_ids(x)
+        ckpt = None
+        if checkpoint is not None or resume_from is not None:
+            from ..faulttolerance.checkpoint import FitCheckpointer
+            ckpt = FitCheckpointer(self, checkpoint, resume_from)
         return fit_on_device_epochs(
             self, [self._on_device(x)], [self._on_device(y)], batch_size,
             epochs, shuffle,
-            fit_tail=lambda xt, yt: self._fit_one(xt[0], yt[0], None, None))
+            fit_tail=lambda xt, yt: self._fit_one(xt[0], yt[0], None, None),
+            ckpt=ckpt)
 
     def _fit_tbptt(self, x, y, mask, label_mask) -> None:
         """Truncated BPTT (reference ``doTruncatedBPTT``): the time axis in

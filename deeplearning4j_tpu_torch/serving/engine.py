@@ -14,9 +14,18 @@ for the defaults) starts the continuous-batching decode engine of
 it too, ``ready`` includes its readiness and ``generation_status`` reports
 it.
 
+Observability, as the JAX engine's: ``serving_shed_total{reason,
+tenant}``, ``serving_request_seconds{priority}``, ``serving_batch_fill``,
+``serving_batches_total``, ``serving_queue_depth``,
+``serving_model_reloads_total`` and ``serving_model_version`` in the
+metrics registry; request latencies and sheds fed to the health monitor;
+one ``serve`` record of queue-wait / batch-formation / execute slices per
+batch in the step profiler's ``profile`` channel; the ``serving`` flight
+channel (each dispatch, and a failed batch with a rate-limited dump).
+
 The reference engine's HTTP tier, hot swap, checkpoint watch and SLO
-tracking are not ported yet: the slot holds the one model the engine was
-built with, at version 1.
+tracking are not ported yet (ROADMAP queue 1, item 5): the slot holds the
+one model the engine was built with, at version 1.
 """
 from __future__ import annotations
 
@@ -30,6 +39,11 @@ import numpy as np
 
 from ..data.shapes import serving_buckets
 from ..generation.engine import StaticSlotSource
+from ..observability import clock
+from ..observability.health import get_health_monitor
+from ..observability.profiler import record_slices
+from ..observability.recorder import get_flight_recorder
+from ..observability.registry import default_registry
 from ..ops import flash_attention as _flash
 from ..parallel.inference import InvalidInputError
 from ..utils.device import resolve_device
@@ -37,6 +51,12 @@ from ..utils.device import resolve_device
 __all__ = ["ServingEngine", "AdmissionController", "ShedError"]
 
 log = logging.getLogger("deeplearning4j_tpu_torch.serving")
+
+# request latency buckets (seconds)
+_LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                    0.25, 0.5, 1.0, 2.5, 10.0)
+# batch fill = real rows / bucket rows per dispatch (1.0 = perfectly full)
+_FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 
 
 class ShedError(RuntimeError):
@@ -52,20 +72,47 @@ class ShedError(RuntimeError):
 
 class AdmissionController:
     """Queue-depth load shedding: ``admit(n, depth)`` refuses ``n`` rows
-    that would take the queue past ``queue_limit``."""
+    that would take the queue past ``queue_limit``; ``observe(seconds)``
+    records a served request's latency."""
 
     retry_after_s = 1.0   # client backoff hint sent with a shed
 
-    def __init__(self, queue_limit: int = 256):
+    def __init__(self, queue_limit: int = 256, registry=None):
         if queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         self.queue_limit = int(queue_limit)
+        self._registry = registry
         self._lock = threading.Lock()
         self.shed = 0
 
-    def count_shed(self) -> None:
+    def _reg(self):
+        return self._registry if self._registry is not None \
+            else default_registry()
+
+    def count_shed(self, reason: str = "queue_full",
+                   tenant: str = "-") -> None:
         with self._lock:
             self.shed += 1
+        reg = self._reg()
+        if reg.enabled:
+            reg.counter("serving_shed_total",
+                        "Requests shed by admission control",
+                        ("reason", "tenant")).labels(reason, tenant).inc()
+        mon = get_health_monitor()
+        if mon is not None:
+            mon.observe_request(shed=True)
+
+    def observe(self, seconds: float, priority: str = "interactive") -> None:
+        reg = self._reg()
+        if reg.enabled:
+            reg.histogram("serving_request_seconds",
+                          "Engine request latency, enqueue to result",
+                          ("priority",),
+                          buckets=_LATENCY_BUCKETS).labels(
+                              priority).observe(seconds)
+        mon = get_health_monitor()
+        if mon is not None:
+            mon.observe_request(seconds=seconds)
 
     def admit(self, n: int, depth: int) -> None:
         if depth + n > self.queue_limit:
@@ -76,11 +123,12 @@ class AdmissionController:
 
 
 class _Request:
-    __slots__ = ("row", "future")
+    __slots__ = ("row", "future", "t_enqueue")
 
     def __init__(self, row):
         self.row = row
         self.future: Future = Future()
+        self.t_enqueue = clock.monotonic_s()
 
 
 def _pad_rows_np(rows: np.ndarray, bucket: int) -> np.ndarray:
@@ -100,7 +148,7 @@ class ServingEngine:
     """
 
     def __init__(self, model, *, device="cuda", max_batch_size: int = 32,
-                 queue_limit: int = 256, generation=None):
+                 queue_limit: int = 256, generation=None, registry=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, the engine on "
@@ -111,7 +159,9 @@ class ServingEngine:
         self.feature_shape: Tuple[int, ...] = tuple(
             model.conf.input_type.shape(-1)[1:])
         self.buckets = serving_buckets(max_batch_size)
-        self.admission = AdmissionController(queue_limit=queue_limit)
+        self._registry = registry
+        self.admission = AdmissionController(queue_limit=queue_limit,
+                                             registry=registry)
         # admission sheds above queue_limit; the queue's own cap (limit +
         # one bucket) bounds a burst racing between admit and put
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(
@@ -121,6 +171,13 @@ class ServingEngine:
         self._rows_served = 0
         self._shutdown = threading.Event()
         self._submit_lock = threading.Lock()
+        reg = self._reg()
+        if reg.enabled:
+            # the slot is installed once, at version 1
+            reg.counter("serving_model_reloads_total",
+                        "Successful model slot swaps").inc()
+            reg.gauge("serving_model_version",
+                      "Version of the currently served slot").set(1)
         self._dispatcher = threading.Thread(
             target=self._serve_loop, daemon=True,
             name="dl4j-torch-serve-dispatch")
@@ -135,7 +192,8 @@ class ServingEngine:
                 cfg = GenerationConfig(**generation)
             else:
                 cfg = GenerationConfig()
-            self.generation = GenerationEngine(lambda: self.slot, cfg)
+            self.generation = GenerationEngine(lambda: self.slot, cfg,
+                                               registry=registry)
 
     @property
     def slot(self):
@@ -144,6 +202,31 @@ class ServingEngine:
         return None if self._shutdown.is_set() else self._slot()
 
     # ------------------------------------------------------------ counters
+    def _reg(self):
+        return self._registry if self._registry is not None \
+            else default_registry()
+
+    def _note_batch(self, real: int, bucket: int) -> None:
+        with self._stats_lock:
+            self._batches_dispatched += 1
+            self._rows_served += real
+        rec = get_flight_recorder()
+        if rec is not None:
+            rec.record("serving", "dispatch", rows=real, bucket=bucket,
+                       traced=False, version=1, depth=self._queue.qsize())
+        reg = self._reg()
+        if not reg.enabled:
+            return
+        reg.histogram("serving_batch_fill",
+                      "Real rows / bucket rows per dispatched batch",
+                      buckets=_FILL_BUCKETS).observe(real / bucket)
+        reg.counter("serving_batches_total",
+                    "Batches dispatched by the continuous-batching "
+                    "scheduler").inc()
+        reg.gauge("serving_queue_depth",
+                  "Requests waiting in the engine queue"
+                  ).set(self._queue.qsize())
+
     @property
     def batches_dispatched(self) -> int:
         with self._stats_lock:
@@ -202,6 +285,9 @@ class ServingEngine:
         self.admission.admit(len(rows), self._queue.qsize())
         reqs = self._submit_all(rows)
         out = np.stack([r.future.result(timeout=timeout) for r in reqs])
+        now = clock.monotonic_s()
+        for r in reqs:
+            self.admission.observe(now - r.t_enqueue)
         return out[0] if single else out
 
     def _validate(self, x) -> Tuple[np.ndarray, bool]:
@@ -235,7 +321,7 @@ class ServingEngine:
             try:
                 self._queue.put_nowait(req)
             except queue.Full:
-                self.admission.count_shed()
+                self.admission.count_shed("queue_full")
                 raise ShedError("queue at hard limit", status=429,
                                 retry_after_s=self.admission.retry_after_s)
         return req
@@ -267,17 +353,36 @@ class ServingEngine:
         if not pending:
             return
         try:
+            t_form = clock.monotonic_s()
             rows = np.stack([r.row for r in pending])
             n = len(rows)
             bucket = next(b for b in self.buckets if n <= b)
-            out = self._forward(_pad_rows_np(rows, bucket))[:n]
-            with self._stats_lock:
-                self._batches_dispatched += 1
-                self._rows_served += n
+            batch = _pad_rows_np(rows, bucket)
+            t_exec = clock.monotonic_s()
+            out = self._forward(batch)[:n]
+            t_done = clock.monotonic_s()
+            self._note_batch(n, bucket)
+            # profile slices: queue wait (oldest coalesced row), batch
+            # formation (stack+pad), execute — one record per batch
+            record_slices(
+                "serve",
+                queue_wait_s=round(
+                    t_form - min(r.t_enqueue for r in pending), 7),
+                batch_form_s=round(t_exec - t_form, 7),
+                execute_s=round(t_done - t_exec, 7),
+                batch=n, bucket=bucket, compile=False)
             for req, row in zip(pending, out):
                 if not req.future.done():
                     req.future.set_result(row)
         except Exception as e:   # a failed batch must not kill the loop
+            rec = get_flight_recorder()
+            if rec is not None:
+                # serve-side fault forensics, dumped (rate-limited; needs
+                # a configured dump directory) before callers see it
+                rec.record("serving", "batch_error",
+                           error=f"{type(e).__name__}: {e}",
+                           rows=len(pending), version=1)
+                rec.maybe_dump("serve_exception")
             log.exception("serving batch of %d rows failed", len(pending))
             for req in pending:
                 if not req.future.done():

@@ -4,12 +4,11 @@ Analogue of ``optimize/api/IterationListener.java`` / ``TrainingListener.java``
 and the impls in ``optimize/listeners/``: ScoreIterationListener,
 PerformanceListener, EvaluativeListener, CollectScoresIterationListener,
 TimeIterationListener, SleepyTrainingListener, ComposableIterationListener,
-ParamAndGradientIterationListener and ConvolutionalIterationListener.
+ParamAndGradientIterationListener, ConvolutionalIterationListener and
+CheckpointListener.
 
 The networks keep each step's loss on the device; a listener that reads
 the score calls ``get_score()``, the one host sync it causes.
-``CheckpointListener`` waits for the port to write the reference
-container (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -308,3 +307,53 @@ class ConvolutionalIterationListener(TrainingListener):
                 urllib.request.urlopen(req, timeout=5).read()
             except OSError:
                 log.warning("activation POST to %s failed", self.url)
+
+
+class CheckpointListener(TrainingListener):
+    """Periodic model checkpoints (reference
+    ``optimize/listeners/checkpoint/CheckpointListener.java``): save every
+    N iterations and/or every N epochs, keep the last K.
+
+    Every save is a crash-consistent checkpoint DIRECTORY of
+    ``faulttolerance.CheckpointManager`` (atomic temp-then-rename commit,
+    manifest with per-file checksums), and ``background=True`` rides the
+    manager's writer with a snapshot that leaves the network's key stream
+    alone.  The iteration trigger does not fire at iteration 0.  Saved
+    entries restore with ``model_serializer.restore_*`` (which accepts
+    checkpoint dirs) or ``CheckpointManager.restore``.
+    """
+
+    def __init__(self, directory, save_every_n_iterations: Optional[int] = None,
+                 save_every_n_epochs: Optional[int] = None, keep_last: int = 3,
+                 background: bool = False):
+        from ..faulttolerance.checkpoint import CheckpointManager
+        self.directory = directory
+        self.save_every_n_iterations = save_every_n_iterations
+        self.save_every_n_epochs = save_every_n_epochs
+        self.keep_last = keep_last
+        self.background = background
+        self.manager = CheckpointManager(directory, keep_last=keep_last,
+                                         background=background)
+        self.saved: List[str] = []
+
+    def _save(self, model):
+        self.manager.save(model)
+        self._refresh_saved()
+
+    def _refresh_saved(self) -> None:
+        self.saved = [p for _, p, _ in self.manager.checkpoints()]
+
+    def wait(self) -> None:
+        """Block until any in-flight background checkpoint completes."""
+        self.manager.wait()
+        self._refresh_saved()
+
+    def iteration_done(self, model, iteration, epoch):
+        if self.save_every_n_iterations and iteration > 0 and \
+                iteration % self.save_every_n_iterations == 0:
+            self._save(model)
+
+    def on_epoch_end(self, model):
+        if self.save_every_n_epochs and \
+                (model.epoch + 1) % self.save_every_n_epochs == 0:
+            self._save(model)
