@@ -230,9 +230,49 @@ if any phase fails:
     the registry and recorder off (reported, not gated); a
     ``FaultInjector`` makes a decode step raise and the engine's
     ``decode`` flight dump reads back with its checksum.
+33. ``serving_http``: the LM of phase 5 behind ``ServingServer`` with
+    16 generation slots, over 127.0.0.1: two one-row ``/predict``
+    requests (a full-vocabulary row is ~21 MB of JSON in, ~85 MB out)
+    within 1e-5 of ``net.output`` with 8 forward launches per batch, the
+    request split into client encode, round trip, client decode, the
+    engine's queue wait / batch formation / execute, and the server's
+    JSON decode, validation, H2D, forward (CUDA events), D2H and JSON
+    encode replayed on the same bytes; the in-process batch-16 predict
+    split stage by stage; 16 concurrent ``/generate`` requests (8
+    streamed) whose greedy tokens equal an in-process
+    ``GenerationEngine``'s, each stream whole, with TTFT and tokens/s; a
+    queue-limited engine's 429 with ``Retry-After`` counted in
+    ``serving_shed_total``; ``/metrics`` with the ``serving_*``,
+    ``generation_*`` and ``http_*`` families; ``/health`` on ``gpu``; and
+    ``/reload`` of phase 31's checkpoint directory, after which every
+    ``/generate`` reports the new version only;
+34. ``hot_swap_lstm``: the char-LSTM of phases 10-12 (``lstm_fwd``)
+    served from a checkpoint directory that the engine watches, while 4
+    clients post ``/predict`` and ``fit(checkpoint=...)`` of the same
+    network commits a checkpoint every 4 of 12 steps: no failed
+    request, every response within 1e-5 of the output of the version it
+    reports and farther from every other, versions never backwards per
+    client, 2 ``lstm_fwd`` launches per fit step and served batch;
+35. ``inference_server``: the char-LSTM behind ``InferenceServer`` over
+    ``ParallelInference``, BATCHED and INPLACE, 8 concurrent one-row
+    requests: rows within 1e-5 of ``net.output``, 2 launches per
+    forward;
+36. ``fleet``: ``ServingFleet`` of 2 replicas of the LM on the card,
+    8 generation slots each: 2 one-row predicts through
+    ``FleetRouter.predict`` (8 launches each, rows within 1e-5), a noisy
+    tenant shed past its quota while a polite one's requests all equal
+    the single-replica greedy oracle, a 10 % canary that promotes with
+    versions never backwards, a replica killed once each of 4 sessions
+    has relayed 8 tokens (every stream, migrated or not, equal to the
+    oracle; the re-prefill time), and one stream through ``FleetServer``;
+37. ``knn``: ``NearestNeighborsServer`` over ``BruteForceNN`` with
+    100,000 x 128 f32 points on the card: 256 queries of k = 10 over
+    HTTP and at once, indices equal to a float64 brute force outside
+    ties within the f32 rounding bound (``knn_violations``).
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
-phase prints one JSON line (phases 17-20 one per model).  Then come the
+phase prints one JSON line (phases 17-20 one per model).  Every number
+printed is this run's, beside the card's name and power limit.  Then come the
 card's name and power limit, the ``kernels`` record (the line before the
 last) and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -4023,7 +4063,8 @@ def checkpoint_resume_phase(args, torch, dev, card):
         "uninterrupted_run_s": round(a_s, 3), "resumed_run_s": round(b_s, 3),
         "seconds": round(time.perf_counter() - t_phase, 3),
         "card": card}), flush=True)
-    shutil.rmtree(store, ignore_errors=True)
+    # the store stays for phase 33, which promotes its newest checkpoint
+    # into a serving LM and then removes it
     if not all(np.isfinite(losses)):
         return None, f"checkpointed LM losses not finite: {losses}"
     if net_b.iteration != CKPT_STEPS or \
@@ -4038,7 +4079,8 @@ def checkpoint_resume_phase(args, torch, dev, card):
         return None, (f"checkpointed LM launched {launches_a}, resumed "
                       f"{launches_b}; expected {expected_a} and "
                       f"{expected_b} ({LAYERS} per kernel per step)")
-    return {"uninterrupted": launches_a, "resumed": launches_b}, None
+    return {"uninterrupted": launches_a, "resumed": launches_b,
+            "store": store}, None
 
 
 def observability_phase(args, torch, dev, card):
@@ -4235,6 +4277,907 @@ def observability_phase(args, torch, dev, card):
             decode_kinds[-1:] != ["decode_error"]:
         return (f"decode crash: {crash}, injected {inj.events}, decode "
                 f"channel {decode_kinds}")
+    return None
+
+
+# 33-37: the serving tier over HTTP (127.0.0.1), on the full-width
+# TransformerLM (33, 36), the char-LSTM (34, 35) and a 100,000-point k-NN
+# index (37).  A full-vocabulary /predict row is ~4.2 M numbers of JSON,
+# ~21 MB in and ~85 MB out: its client waits up to HTTP_TIMEOUT_S.
+HTTP_PREDICT_ROWS = 2
+HTTP_TIMEOUT_S = 300.0
+# 16 concurrent /generate requests on a 16-slot engine, every other one
+# streamed; prompts of HTTP_GEN_PROMPTS tokens, HTTP_GEN_NEW greedy tokens
+HTTP_GEN, HTTP_GEN_NEW, HTTP_GEN_PROMPTS = 16, 32, (16, 128)
+# /generate requests after the LM's /reload (each must report the new
+# version only)
+HTTP_SWAP_GEN = 4
+# 34: SWAP_CLIENTS threads post one-row /predict to the char-LSTM while
+# fit(checkpoint=...) takes SWAP_STEPS steps of batch SWAP_BATCH and
+# commits a checkpoint every SWAP_EVERY; the engine's watcher polls every
+# SWAP_POLL_S.  Each client ends after SWAP_TAIL responses from the last
+# version.  SWAP_ALONE steps first time the fit step without the clients.
+SWAP_CLIENTS, SWAP_STEPS, SWAP_EVERY, SWAP_BATCH = 4, 6, 2, 32
+SWAP_POLL_S, SWAP_TAIL, SWAP_ALONE = 0.1, 3, 3
+# a served row against the output of the version it reports: the same
+# weights on the same card, another batch composition
+TOL_SWAP = 1e-5
+# 35: PI_REQUESTS one-row requests from as many threads, per mode
+PI_REQUESTS, PI_MAX_BATCH = 8, 8
+# 36: two replicas of the full-width LM with FLEET_SLOTS generation slots
+# each; FLEET_SESSIONS streams of FLEET_NEW greedy tokens, a replica
+# killed once each has relayed FLEET_RELAYED; a canary at
+# FLEET_CANARY_FRACTION promotes after FLEET_CANARY_SAMPLES canary-arm
+# requests; the noisy tenant's bucket holds 2 requests and refills at
+# 0.01/s
+FLEET_SLOTS, FLEET_SESSIONS, FLEET_RELAYED, FLEET_NEW = 8, 4, 8, 32
+FLEET_CANARY_FRACTION, FLEET_CANARY_SAMPLES = 0.1, 4
+FLEET_NOISY, FLEET_POLITE = 5, 3
+# 37: BruteForceNN over KNN_POINTS x KNN_DIM f32 points on the card,
+# KNN_QUERIES queries of k = KNN_K, each through /knn and all at once
+KNN_POINTS, KNN_DIM, KNN_QUERIES, KNN_K = 100_000, 128, 256, 10
+F32_EPS = 2.0 ** -24
+
+
+def versions_monotonic(records) -> bool:
+    """True when every client's reported versions never move backwards
+    (``records``: one list of ``(version, ...)`` per client)."""
+    return all(all(a[0] <= b[0] for a, b in zip(r, r[1:]))
+               for r in records)
+
+
+def hot_swap_violations(records, expected: dict, tol: float) -> list:
+    """Responses that do not match the version they report: each ``(v,
+    row)`` must lie within ``tol`` of ``expected[v]`` and farther than
+    ``tol`` from every other version's output.  Returns ``(client, i,
+    version, error to its own, least error to another)`` per violation;
+    a version without an expected output is a violation too."""
+    out = []
+    for c, rows in enumerate(records):
+        for i, (v, row) in enumerate(rows):
+            own = float("inf") if v not in expected else float(
+                max(abs(float(a) - float(b))
+                    for a, b in zip(row.ravel(), expected[v].ravel())))
+            other = min((float(abs(row - e).max())
+                         for w, e in expected.items() if w != v),
+                        default=float("inf"))
+            if own > tol or other <= tol:
+                out.append((c, i, v, own, other))
+    return out
+
+
+def stream_ok(events, tokens) -> bool:
+    """A /generate NDJSON stream is whole: one token event per index in
+    order, then exactly one ``done`` event, last, whose tokens equal the
+    token events' and ``tokens``."""
+    if not events or not events[-1].get("done"):
+        return False
+    body = events[:-1]
+    if any("token" not in e or e.get("done") or "error" in e for e in body):
+        return False
+    streamed = [e["token"] for e in body]
+    return ([e["index"] for e in body] == list(range(len(body)))
+            and streamed == list(events[-1]["tokens"]) == list(tokens))
+
+
+def knn_violations(got, queries, points) -> tuple:
+    """Neighbour indices ``got`` [Q, k] from the f32 index against a
+    float64 brute force.  A rank whose index differs from the float64
+    one must be a tie: the float64 squared distances of the two differ by
+    at most the f32 rounding bound of the expansion |q|^2 - 2 q.p + |p|^2
+    (4 D eps (|q|^2 + max |p|^2)).  Returns ``(mismatched ranks, ranks
+    that are not ties)``."""
+    import numpy as np
+    q = np.asarray(queries, np.float64)
+    p = np.asarray(points, np.float64)
+    d2 = (q * q).sum(1)[:, None] - 2.0 * q @ p.T + (p * p).sum(1)[None, :]
+    k = got.shape[1]
+    ref = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    bound = 4 * q.shape[1] * F32_EPS * (
+        (q * q).sum(1) + (p * p).sum(1).max())
+    rows = np.arange(len(q))[:, None]
+    gap = np.abs(d2[rows, got] - d2[rows, ref])
+    mismatched = got != ref
+    return int(mismatched.sum()), int((mismatched
+                                       & (gap > bound[:, None])).sum())
+
+
+def _http_error(fn):
+    """``(status, headers)`` of the HTTP error ``fn`` raises, or None."""
+    import urllib.error
+    try:
+        fn()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers
+    return None
+
+
+def serving_http_phase(args, torch, dev, card, ckpt_dir):
+    """Phase 33.  Returns ``(flash launches of the HTTP predicts, None)``
+    or ``(None, what failed)``."""
+    import shutil
+    import threading
+    import numpy as np
+    from deeplearning4j_tpu_torch.generation import (GenerationConfig,
+                                                     GenerationEngine)
+    from deeplearning4j_tpu_torch.observability import (FlightRecorder,
+                                                        MetricsRegistry,
+                                                        set_flight_recorder)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.serving import (GenerationClient,
+                                                  ServingClient,
+                                                  ServingEngine,
+                                                  ServingServer)
+    from deeplearning4j_tpu_torch.serving.engine import (_pad_rows_np,
+                                                         _Request)
+
+    t_phase = time.perf_counter()
+    net = _lm_net(args, dev, _lm_tree(args, dev, 33))
+    rng = np.random.default_rng(args.seed + 33)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    cfg = GenerationConfig(max_slots=GEN_SLOTS, max_seq=GEN_MAX_SEQ,
+                           block_size=GEN_BLOCK)
+    reg = MetricsRegistry()
+    rec = FlightRecorder(registry=reg)   # the engine's serve slices
+    saved_rec = set_flight_recorder(rec)
+    server = shed_server = None
+    report = {"phase": "serving_http", "card": card}
+    try:
+        t0 = time.perf_counter()
+        server = ServingServer(net, device=dev, max_batch_size=MAX_BATCH,
+                               registry=reg, generation=cfg).start()
+        report["server_start_with_warmup_s"] = time.perf_counter() - t0
+        engine = server.engine
+        url = f"http://127.0.0.1:{server.port}"
+        client = ServingClient(url, timeout=HTTP_TIMEOUT_S)
+
+        # -- /predict: one-row requests, each split into its stages
+        rows = [eye[rng.integers(0, VOCAB, (1, SEQ))]
+                for _ in range(HTTP_PREDICT_ROWS)]
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        batches0 = engine.batches_dispatched
+        served, splits = [], []
+        for x in rows:
+            t0 = time.perf_counter()
+            body = json.dumps({"data": x.tolist()}).encode()
+            t1 = time.perf_counter()
+            raw = client._request("POST", "/predict", body)
+            t2 = time.perf_counter()
+            resp = json.loads(raw)
+            out = np.asarray(resp["output"], dtype=np.float32)
+            t3 = time.perf_counter()
+            served.append((resp["model_version"], out))
+            serve = [r for r in rec.channel("profile").items()
+                     if r["type"] == "serve"][-1]
+            splits.append({"request_bytes": len(body),
+                           "response_bytes": len(raw),
+                           "client_encode_ms": (t1 - t0) * 1e3,
+                           "round_trip_ms": (t2 - t1) * 1e3,
+                           "client_decode_ms": (t3 - t2) * 1e3,
+                           "total_ms": (t3 - t0) * 1e3,
+                           "engine_queue_wait_ms":
+                               serve["queue_wait_s"] * 1e3,
+                           "engine_batch_form_ms":
+                               serve["batch_form_s"] * 1e3,
+                           "engine_execute_ms": serve["execute_s"] * 1e3})
+        torch.cuda.synchronize()
+        predict_launches = dict(fa.launches)
+        batches = engine.batches_dispatched - batches0
+        worst = 0.0
+        for x, (version, out) in zip(rows, served):
+            want = net.output(x).cpu().numpy()
+            if out.shape != want.shape or not np.isfinite(out).all():
+                return None, f"/predict row {out.shape} or not finite"
+            worst = max(worst, float(np.abs(out - want).max()))
+        # the last request's server stages replayed on its bytes: JSON
+        # decode, validation, H2D, forward (CUDA events), D2H and the
+        # response's JSON encode; queue wait, batch formation and execute
+        # (H2D + forward + D2H) are the engine's own serve slice of it
+        t0 = time.perf_counter()
+        xs = np.asarray(json.loads(body)["data"], dtype=np.float32)
+        t1 = time.perf_counter()
+        engine._validate(xs)
+        t2 = time.perf_counter()
+        x_dev = torch.as_tensor(xs, device=dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        y_dev = net.output(x_dev)
+        ev[1].record()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        y = y_dev.cpu().numpy()
+        t5 = time.perf_counter()
+        json.dumps({"output": y.tolist(), "model_version": 1})
+        t6 = time.perf_counter()
+        splits[-1].update({
+            "server_decode_ms": (t1 - t0) * 1e3,
+            "validate_ms": (t2 - t1) * 1e3, "h2d_ms": (t3 - t2) * 1e3,
+            "forward_ms_cuda_events": ev[0].elapsed_time(ev[1]),
+            "forward_ms_host": (t4 - t3) * 1e3, "d2h_ms": (t5 - t4) * 1e3,
+            "server_encode_ms": (t6 - t5) * 1e3})
+        del body, raw, xs, x_dev, y_dev, y
+        report.update({"predict": {
+            "rows": HTTP_PREDICT_ROWS, "batches": batches,
+            "kernel_launches": predict_launches,
+            "expected_launches": LAYERS * batches,
+            "versions": [v for v, _ in served],
+            "max_abs_err_vs_net_output": worst, "tol": TOL_SERVE,
+            "splits": splits}})
+        if batches != HTTP_PREDICT_ROWS or \
+                predict_launches["fwd"] != LAYERS * batches:
+            return None, (f"HTTP /predict launched {predict_launches} over "
+                          f"{batches} batches; expected {LAYERS} forward "
+                          "launches per batch")
+        if worst > TOL_SERVE:
+            return None, (f"HTTP /predict rows differ from net.output by "
+                          f"{worst} > {TOL_SERVE}")
+
+        # -- the in-process batch-16 predict, stage by stage
+        batch16 = eye[rng.integers(0, VOCAB, (MAX_BATCH, SEQ))]
+        stages = {k: [] for k in ("whole_predict", "validate", "row_split",
+                                  "stack_rows", "pad_rows", "h2d",
+                                  "forward_cuda_events", "d2h",
+                                  "stack_results")}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.predict(batch16)
+            stages["whole_predict"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            xs, _ = engine._validate(batch16)
+            t1 = time.perf_counter()
+            reqs = [_Request(r) for r in xs]
+            t2 = time.perf_counter()
+            stacked = np.stack([r.row for r in reqs])
+            t3 = time.perf_counter()
+            padded = _pad_rows_np(stacked, MAX_BATCH)
+            t4 = time.perf_counter()
+            x_dev = torch.as_tensor(padded, device=dev)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            y_dev = net.output(x_dev)
+            ev[1].record()
+            torch.cuda.synchronize()
+            t6 = time.perf_counter()
+            y = y_dev.cpu().numpy()
+            t7 = time.perf_counter()
+            np.stack([r for r in y])
+            t8 = time.perf_counter()
+            for k, v in (("validate", t1 - t0), ("row_split", t2 - t1),
+                         ("stack_rows", t3 - t2), ("pad_rows", t4 - t3),
+                         ("h2d", t5 - t4), ("d2h", t7 - t6),
+                         ("stack_results", t8 - t7)):
+                stages[k].append(v)
+            stages["forward_cuda_events"].append(
+                ev[0].elapsed_time(ev[1]) / 1e3)
+            del x_dev, y_dev, y
+        report["batch16_predict_ms_median"] = {
+            k: statistics.median(v) * 1e3 for k, v in stages.items()}
+
+        # -- /generate: 16 concurrent requests, every other one streamed
+        prompts = [rng.integers(0, VOCAB, int(n)).tolist() for n in
+                   rng.integers(*HTTP_GEN_PROMPTS, HTTP_GEN)]
+        results = [None] * HTTP_GEN
+        errors = []
+
+        def call(i):
+            gc = GenerationClient(url, timeout=HTTP_TIMEOUT_S)
+            t0 = time.perf_counter()
+            try:
+                if i % 2:
+                    events, ttft = [], None
+                    for ev_ in gc.stream(prompts[i],
+                                         max_new_tokens=HTTP_GEN_NEW):
+                        if ttft is None and "token" in ev_:
+                            ttft = time.perf_counter() - t0
+                        events.append(ev_)
+                    results[i] = ("stream", events, ttft)
+                else:
+                    results[i] = ("plain", gc.generate(
+                        prompts[i], max_new_tokens=HTTP_GEN_NEW), None)
+            except Exception as e:
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(HTTP_GEN)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        gen_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            return None, f"HTTP /generate failed: {errors}"
+        ref_eng = GenerationEngine.for_model(net, cfg)
+        try:
+            ref_eng.warmup()
+            t0 = time.perf_counter()
+            handles = [ref_eng.submit(p, max_new_tokens=HTTP_GEN_NEW)
+                       for p in prompts]
+            ref = [h.future.result(timeout=HTTP_TIMEOUT_S).tokens
+                   for h in handles]
+            ref_s = time.perf_counter() - t0
+        finally:
+            ref_eng.shutdown()
+        equal, whole, ttfts = [], [], []
+        for (kind, res, ttft), want in zip(results, ref):
+            if kind == "stream":
+                whole.append(stream_ok(res, want))
+                toks, vers = res[-1]["tokens"], res[-1]["model_versions"]
+                ttfts.append(ttft * 1e3)
+            else:
+                toks, vers = res["tokens"], res["model_versions"]
+            equal.append(toks == want and set(vers) == {1})
+        report["generate"] = {
+            "requests": HTTP_GEN, "streamed": HTTP_GEN // 2,
+            "new_tokens": HTTP_GEN_NEW, "prompt_lengths": [
+                len(p) for p in prompts],
+            "wall_s": gen_s,
+            "tokens_per_s": HTTP_GEN * HTTP_GEN_NEW / gen_s,
+            "in_process_wall_s": ref_s,
+            "in_process_tokens_per_s": HTTP_GEN * HTTP_GEN_NEW / ref_s,
+            "ttft_ms_streamed": ttfts,
+            "ttft_ms_median": statistics.median(ttfts),
+            "greedy_equal_in_process": equal, "streams_whole": whole}
+        if not all(equal):
+            return None, (f"HTTP /generate tokens differ from the "
+                          f"in-process engine's: {equal}")
+        if not all(whole):
+            return None, f"a streamed /generate is not whole: {whole}"
+
+        # -- a queue-limited engine sheds; /metrics and /health
+        shed_engine = ServingEngine(net, device=dev, max_batch_size=MAX_BATCH,
+                                    queue_limit=1, registry=reg)
+        shed_server = ServingServer(engine=shed_engine, warmup=False,
+                                    registry=reg).start()
+        row = "[" + ",".join(["0"] * VOCAB) + "]"
+        seq = "[" + ",".join([row] * SEQ) + "]"
+        two_rows = ('{"data": [' + seq + "," + seq + "]}").encode()
+        shed_client = ServingClient(f"http://127.0.0.1:{shed_server.port}",
+                                    timeout=HTTP_TIMEOUT_S)
+        got = _http_error(lambda: shed_client._request(
+            "POST", "/predict", two_rows))
+        shed_count = reg.get("serving_shed_total").labels(
+            "queue_full", "-").value if reg.get("serving_shed_total") \
+            else 0
+        text = client.get_text("/metrics")
+        families = sorted({line.split()[2].split("_")[0]
+                           for line in text.splitlines()
+                           if line.startswith("# TYPE ")})
+        health = client.get("/health")
+        report["shed"] = {"status": got and got[0],
+                          "retry_after": got and got[1]["Retry-After"],
+                          "serving_shed_total_queue_full": shed_count}
+        report["metrics_families"] = families
+        report["health_platform"] = health["platform"]
+        if got is None or got[0] != 429 or \
+                int(got[1]["Retry-After"]) < 1 or shed_count < 1:
+            return None, f"queue-limited engine answered {got}"
+        if not {"serving", "generation", "http"} <= set(families):
+            return None, f"/metrics families {families}"
+        if health["platform"] != "gpu" or not health["ready"]:
+            return None, f"/health reports {health['platform']}, ready " \
+                         f"{health['ready']}"
+
+        # -- hot swap of the LM: /reload from a checkpoint directory
+        t0 = time.perf_counter()
+        swap = client.reload(directory=str(ckpt_dir))
+        reload_s = time.perf_counter() - t0
+        gc = GenerationClient(url, timeout=HTTP_TIMEOUT_S)
+        after = [gc.generate(p, max_new_tokens=HTTP_GEN_NEW)
+                 for p in prompts[:HTTP_SWAP_GEN]]
+        report["hot_swap"] = {
+            "reload": swap, "reload_s": reload_s,
+            "versions_after": [sorted(set(r["model_versions"]))
+                               for r in after],
+            "checkpoint_bytes": sum(
+                f.stat().st_size for f in (
+                    Path(ckpt_dir) / f"ckpt-{swap['step']:08d}").iterdir())
+            if swap.get("step") is not None else None}
+        if not swap.get("promoted") or swap.get("version") != 2:
+            return None, f"/reload of {ckpt_dir} answered {swap}"
+        if any(r["model_versions"] != [2] * HTTP_GEN_NEW for r in after):
+            return None, (f"/generate after the swap reports versions "
+                          f"{report['hot_swap']['versions_after']}")
+    finally:
+        for s in (server, shed_server):
+            if s is not None:
+                s.stop()
+        set_flight_recorder(saved_rec)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        report["seconds"] = round(time.perf_counter() - t_phase, 3)
+        print(json.dumps(report, default=str), flush=True)
+    return predict_launches, None
+
+
+def _char_lstm(args, dev, seed_offset: int):
+    """The zoo char-LSTM, both LSTMs at ``helper="pallas"``, with fresh
+    seeded params on ``dev``."""
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = TextGenerationLSTM(num_classes=LSTM_CLASSES, timesteps=LSTM_T,
+                              hidden=LSTM_HIDDEN,
+                              seed=args.seed + seed_offset).conf()
+    for lc in conf.layers:
+        if isinstance(lc, LSTM):
+            lc.helper = "pallas"
+    return MultiLayerNetwork(conf, device=dev).init()
+
+
+def _char_rows(rng, n):
+    import numpy as np
+    ids = rng.integers(0, LSTM_CLASSES, (n, LSTM_T + 1))
+    eye = np.eye(LSTM_CLASSES, dtype=np.float32)
+    return eye[ids[:, :-1]], eye[ids[:, 1:]]
+
+
+def hot_swap_lstm_phase(args, torch, dev, card):
+    """Phase 34.  Returns ``(lstm_fwd launches, None)`` or ``(None, what
+    failed)``."""
+    import shutil
+    import threading
+    import urllib.error
+    import numpy as np
+    from deeplearning4j_tpu_torch.faulttolerance import (CheckpointConfig,
+                                                         CheckpointManager)
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+    from deeplearning4j_tpu_torch.serving import ServingClient, ServingServer
+
+    t_phase = time.perf_counter()
+    store = REPO / "build" / "serve_watch"
+    shutil.rmtree(store, ignore_errors=True)
+    rng = np.random.default_rng(args.seed + 34)
+    net = _char_lstm(args, dev, 34)
+    batches = [_char_rows(rng, SWAP_BATCH) for _ in range(SWAP_STEPS)]
+    x1 = _char_rows(rng, 1)[0]
+    # the fit step alone, before any client exists
+    alone = []
+    for x, y in batches[:SWAP_ALONE]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    first_step = net.iteration
+    last_step = first_step + SWAP_STEPS
+    mgr = CheckpointManager(str(store), background=False)
+    mgr.save(net, step=first_step)
+    reg = MetricsRegistry()
+    server = ServingServer(checkpoint_dir=str(store), device=dev,
+                           max_batch_size=SWAP_CLIENTS,
+                           registry=reg).start()
+    engine = server.engine
+    swaps = [(engine.model_version, engine.slot.step)]
+    hot_swap = engine.hot_swap
+
+    def logged(model, origin="swap", step=None):
+        v = hot_swap(model, origin=origin, step=step)
+        swaps.append((v, step))
+        return v
+
+    engine.hot_swap = logged
+    url = f"http://127.0.0.1:{server.port}"
+    records = [[] for _ in range(SWAP_CLIENTS)]
+    failures = []
+    stop = threading.Event()
+    progress = threading.Condition()
+
+    def client_loop(mine):
+        client = ServingClient(url, timeout=HTTP_TIMEOUT_S)
+        while not stop.is_set():
+            try:
+                out, version = client.predict_versioned(x1)
+            except (urllib.error.URLError, OSError) as e:
+                failures.append(f"{type(e).__name__}: {e}")
+                continue
+            with progress:
+                mine.append((int(version), np.asarray(out[0], np.float32)))
+                progress.notify_all()
+
+    def tail_seen():
+        last = engine.model_version
+        return all(sum(1 for v, _ in r if v == last) >= SWAP_TAIL
+                   for r in records)
+
+    threads = [threading.Thread(target=client_loop, args=(r,))
+               for r in records]
+    report = {"phase": "hot_swap_lstm", "card": card}
+    try:
+        torch.cuda.synchronize()
+        pl.reset_launches()
+        batches0 = engine.batches_dispatched
+        for t in threads:
+            t.start()
+        with progress:
+            progress.wait_for(lambda: all(len(r) >= SWAP_TAIL
+                                          for r in records), HTTP_TIMEOUT_S)
+        engine.watch(interval_s=SWAP_POLL_S)
+        t0 = time.perf_counter()
+        net.fit(batches, checkpoint=CheckpointConfig(
+            directory=str(store), save_every_n_iterations=SWAP_EVERY,
+            background=True, keep_last=SWAP_STEPS + 1))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        deadline = time.perf_counter() + HTTP_TIMEOUT_S
+        while engine.slot.step != last_step and \
+                time.perf_counter() < deadline:
+            stop.wait(SWAP_POLL_S)
+        with progress:
+            progress.wait_for(tail_seen, HTTP_TIMEOUT_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        launches = pl.launches["lstm_fwd"]
+        batches_served = engine.batches_dispatched - batches0
+    finally:
+        stop.set()
+        server.stop()
+    expected = {}
+    for v, step in swaps:
+        model, _ = mgr.restore(path=mgr.path_for(step), load_updater=False,
+                               device=dev)
+        expected[v] = model.output(x1).cpu().numpy()[0]
+    violations = hot_swap_violations(records, expected, TOL_SWAP)
+    counts = {}
+    for r in records:
+        for v, _ in r:
+            counts[v] = counts.get(v, 0) + 1
+    want_launches = 2 * (SWAP_STEPS + batches_served)
+    report.update({
+        "clients": SWAP_CLIENTS, "fit_steps": SWAP_STEPS,
+        "checkpoint_every": SWAP_EVERY, "fit_s": fit_s,
+        "fit_step_ms_under_clients": fit_s / SWAP_STEPS * 1e3,
+        "fit_step_ms_alone": alone,
+        "swaps": swaps, "promotions": len(swaps) - 1,
+        "requests": sum(len(r) for r in records),
+        "responses_per_version": counts, "failed_requests": failures,
+        "violations": violations[:8], "tol": TOL_SWAP,
+        "versions_monotonic": versions_monotonic(records),
+        "batches_served": batches_served, "lstm_fwd_launches": launches,
+        "expected_launches": want_launches,
+        "seconds": round(time.perf_counter() - t_phase, 3)})
+    print(json.dumps(report, default=str), flush=True)
+    shutil.rmtree(store, ignore_errors=True)
+    if failures:
+        return None, f"{len(failures)} failed requests under hot swap"
+    if len(counts) < 2 or engine.model_version < 2:
+        return None, f"clients saw versions {sorted(counts)} only"
+    if violations:
+        return None, (f"{len(violations)} responses do not match the "
+                      f"version they report: {violations[:4]}")
+    if not versions_monotonic(records):
+        return None, "a client saw its versions move backwards"
+    if launches != want_launches:
+        return None, (f"lstm_fwd launched {launches} times; expected "
+                      f"{want_launches} (2 per fit step and per served "
+                      "batch)")
+    return launches, None
+
+
+def inference_server_phase(args, torch, dev, card):
+    """Phase 35.  Returns ``(lstm_fwd launches per mode, None)`` or
+    ``(None, what failed)``."""
+    import threading
+    import numpy as np
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+    from deeplearning4j_tpu_torch.parallel import InferenceMode
+    from deeplearning4j_tpu_torch.serving import (InferenceClient,
+                                                  InferenceServer)
+
+    t_phase = time.perf_counter()
+    net = _char_lstm(args, dev, 35)
+    rows = _char_rows(np.random.default_rng(args.seed + 35), PI_REQUESTS)[0]
+    want = net.output(rows).cpu().numpy()
+    calls = [0]
+    real_output = net.output
+
+    def counted(x, train=False):
+        calls[0] += 1
+        return real_output(x, train)
+
+    out_launches, report = {}, {"phase": "inference_server", "card": card}
+    for mode in (InferenceMode.BATCHED, InferenceMode.INPLACE):
+        server = InferenceServer(net, inference_mode=mode, device=dev,
+                                 max_batch_size=PI_MAX_BATCH,
+                                 registry=MetricsRegistry()).start()
+        url = f"http://127.0.0.1:{server.port}"
+        got = [None] * PI_REQUESTS
+        errors = []
+
+        def call(i):
+            try:
+                got[i] = InferenceClient(url, timeout=HTTP_TIMEOUT_S
+                                         ).predict(rows[i:i + 1])[0]
+            except Exception as e:
+                errors.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(PI_REQUESTS)]
+        try:
+            torch.cuda.synchronize()
+            pl.reset_launches()
+            calls[0] = 0
+            net.output = counted
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=HTTP_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            health = InferenceClient(url, timeout=HTTP_TIMEOUT_S).get(
+                "/health")
+        finally:
+            del net.output
+            server.stop()
+        launches = pl.launches["lstm_fwd"]
+        worst = max(float(np.abs(np.asarray(g) - w).max())
+                    for g, w in zip(got, want)) if not errors else None
+        report[mode] = {"requests": PI_REQUESTS, "forwards": calls[0],
+                        "lstm_fwd_launches": launches,
+                        "max_abs_err_vs_net_output": worst, "tol": TOL_SWAP,
+                        "wall_s": wall, "platform": health["platform"]}
+        out_launches[mode] = launches
+        if errors:
+            return None, f"InferenceServer {mode}: {errors[:3]}"
+        if worst > TOL_SWAP:
+            return None, (f"InferenceServer {mode} rows differ from "
+                          f"net.output by {worst} > {TOL_SWAP}")
+        if calls[0] == 0 or launches != 2 * calls[0]:
+            return None, (f"InferenceServer {mode}: {launches} lstm_fwd "
+                          f"launches over {calls[0]} forwards; expected 2 "
+                          "per forward")
+        if health["platform"] != "gpu":
+            return None, f"InferenceServer reports {health['platform']}"
+    report["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(json.dumps(report), flush=True)
+    return out_launches, None
+
+
+def fleet_phase(args, torch, dev, card):
+    """Phase 36.  Returns ``(flash launches of the routed predicts,
+    None)`` or ``(None, what failed)``."""
+    import threading
+    import numpy as np
+    from deeplearning4j_tpu_torch.generation import (GenerationConfig,
+                                                     GenerationEngine)
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.serving import (CanaryConfig, FleetClient,
+                                                  FleetServer, ServingFleet,
+                                                  ShedError, TenantAdmission,
+                                                  TenantQuota)
+
+    t_phase = time.perf_counter()
+    net = _lm_net(args, dev, _lm_tree(args, dev, 36))
+    rng = np.random.default_rng(args.seed + 36)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    cfg = GenerationConfig(max_slots=FLEET_SLOTS, max_seq=GEN_MAX_SEQ,
+                           block_size=GEN_BLOCK)
+    reg = MetricsRegistry()
+    fleet = ServingFleet(
+        net, n_replicas=2, device=dev, generation=cfg, registry=reg,
+        engine_kw={"max_batch_size": MAX_BATCH},
+        tenants=TenantAdmission({"noisy": TenantQuota(rate=0.01, burst=2.0)},
+                                registry=reg),
+        canary_config=CanaryConfig(min_samples=FLEET_CANARY_SAMPLES))
+    report = {"phase": "fleet", "replicas": 2, "slots_each": FLEET_SLOTS,
+              "card": card}
+    fleet_server = None
+    try:
+        # as a deployment does before it takes traffic: a cold replica's
+        # first requests would read as a slow canary arm
+        t0 = time.perf_counter()
+        fleet.warmup()
+        report["warmup_s"] = time.perf_counter() - t0
+        # the single-replica greedy oracle for every prompt below
+        prompts = [rng.integers(0, VOCAB, int(n)).tolist() for n in
+                   rng.integers(*HTTP_GEN_PROMPTS, FLEET_SESSIONS + 2)]
+        solo = GenerationEngine.for_model(net, cfg)
+        try:
+            handles = [solo.submit(p, max_new_tokens=FLEET_NEW)
+                       for p in prompts]
+            oracle = [h.future.result(timeout=HTTP_TIMEOUT_S).tokens
+                      for h in handles]
+        finally:
+            solo.shutdown()
+
+        # -- least-loaded predicts through FleetRouter.predict
+        rows = [eye[rng.integers(0, VOCAB, (1, SEQ))] for _ in range(2)]
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        outs = [fleet.router.predict(x) for x in rows]
+        torch.cuda.synchronize()
+        predict_launches = dict(fa.launches)
+        worst = max(float(np.abs(o - net.output(x).cpu().numpy()).max())
+                    for o, x in zip(outs, rows))
+        routed = reg.get("fleet_routed_total")
+        report["predict"] = {"rows": len(rows),
+                             "kernel_launches": predict_launches,
+                             "expected_launches": LAYERS * len(rows),
+                             "max_abs_err_vs_net_output": worst,
+                             "tol": TOL_SERVE,
+                             "routed": {s["labels"]["replica"]: s["value"]
+                                        for s in reg.snapshot()[
+                                            "fleet_routed_total"]["samples"]
+                                        if s["labels"]["route"] ==
+                                        "predict"} if routed else {}}
+        if predict_launches["fwd"] != LAYERS * len(rows):
+            return None, (f"fleet predicts launched {predict_launches}; "
+                          f"expected {LAYERS} forward launches per row")
+        if worst > TOL_SERVE:
+            return None, f"fleet predict rows differ by {worst}"
+
+        # -- tenants: the noisy one sheds, every polite request succeeds
+        noisy = []
+        for _ in range(FLEET_NOISY):
+            try:
+                fleet.generate(prompts[0][:8], max_new_tokens=2,
+                               tenant="noisy", timeout=HTTP_TIMEOUT_S)
+                noisy.append("ok")
+            except ShedError as e:
+                noisy.append(e.status)
+        polite = [fleet.generate(prompts[0], max_new_tokens=FLEET_NEW,
+                                 tenant="polite",
+                                 timeout=HTTP_TIMEOUT_S).tokens == oracle[0]
+                  for _ in range(FLEET_POLITE)]
+        report["tenants"] = {"noisy": noisy, "polite_equal": polite}
+        if noisy.count(429) < FLEET_NOISY - 2 or not all(polite):
+            return None, f"tenant isolation: noisy {noisy}, polite {polite}"
+
+        # -- a 10 % canary promotes; versions never move backwards
+        history = [[r.engine.model_version for r in fleet.replicas]]
+        fleet.canary(net, fraction=FLEET_CANARY_FRACTION, n_replicas=1)
+        history.append([r.engine.model_version for r in fleet.replicas])
+        canary_requests = 0
+        while fleet._canary is not None and canary_requests < 400:
+            fleet.generate(prompts[1][:16], max_new_tokens=2,
+                           timeout=HTTP_TIMEOUT_S)
+            canary_requests += 1
+        history.append([r.engine.model_version for r in fleet.replicas])
+        decision = fleet.canary_controller.status()
+        report["canary"] = {"fraction": FLEET_CANARY_FRACTION,
+                            "requests": canary_requests,
+                            "decision": decision, "versions": history}
+        if decision["decision"] != "promote" or not all(
+                all(a <= b for a, b in zip(h0, h1))
+                for h0, h1 in zip(history, history[1:])):
+            return None, f"canary: {report['canary']}"
+
+        # -- kill a replica once each live session has relayed tokens
+        relayed = [threading.Event() for _ in range(FLEET_SESSIONS)]
+        killed = threading.Event()
+        streams = [None] * FLEET_SESSIONS
+
+        def consume(i):
+            toks, t_resume = [], None
+            for ev_ in fleet.stream(prompts[i], max_new_tokens=FLEET_NEW,
+                                    timeout=HTTP_TIMEOUT_S):
+                if "error" in ev_:
+                    streams[i] = ("error", ev_["error"], None)
+                    return
+                if "token" in ev_:
+                    toks.append(ev_["token"])
+                    if len(toks) == FLEET_RELAYED:
+                        relayed[i].set()
+                        killed.wait(HTTP_TIMEOUT_S)
+                    elif len(toks) == FLEET_RELAYED + 1:
+                        t_resume = time.perf_counter()
+            streams[i] = ("ok", toks, t_resume)
+
+        threads = [threading.Thread(target=consume, args=(i,))
+                   for i in range(FLEET_SESSIONS)]
+        for t in threads:
+            t.start()
+        for e in relayed:
+            e.wait(HTTP_TIMEOUT_S)
+        owners, owner_of = {}, {}
+        for sess in list(fleet.router._sessions.values()):
+            owners[sess.replica.id] = owners.get(sess.replica.id, 0) + 1
+            owner_of[prompts.index(sess.mirror["prompt"])] = sess.replica.id
+        victim = max(owners, key=owners.get)
+        t_kill = time.perf_counter()
+        fleet.kill(victim)
+        kill_s = time.perf_counter() - t_kill
+        killed.set()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        migrated = reg.get("fleet_migrations_total").labels("killed").value
+        # a moved session's next token comes after its re-prefill on the
+        # survivor; a session that stayed had its next token queued
+        resume_ms = {("moved" if owner_of.get(i) == victim else "stayed"):
+                     [] for i in range(FLEET_SESSIONS)}
+        for i, s_ in enumerate(streams):
+            if s_ and s_[0] == "ok" and s_[2] is not None:
+                resume_ms["moved" if owner_of.get(i) == victim
+                          else "stayed"].append((s_[2] - t_kill) * 1e3)
+        equal = [s is not None and s[0] == "ok" and s[1] == oracle[i]
+                 for i, s in enumerate(streams)]
+        report["migration"] = {
+            "sessions": FLEET_SESSIONS, "relayed_before_kill": FLEET_RELAYED,
+            "sessions_per_replica": owners, "victim": victim,
+            "migrated": migrated, "kill_call_ms": kill_s * 1e3,
+            "next_token_after_kill_ms": resume_ms,
+            "streams_equal_single_replica": equal,
+            "live_replicas": fleet.health()["live_replicas"]}
+        if not all(equal) or migrated < owners[victim]:
+            return None, f"migration: {report['migration']}"
+
+        # -- one stream through the FleetServer
+        fleet_server = FleetServer(fleet, registry=reg).start()
+        events = list(FleetClient(f"http://127.0.0.1:{fleet_server.port}",
+                                  timeout=HTTP_TIMEOUT_S).stream(
+            prompts[-1], max_new_tokens=FLEET_NEW))
+        report["fleet_server_stream_whole"] = stream_ok(events, oracle[-1])
+        if not report["fleet_server_stream_whole"]:
+            return None, "the FleetServer stream is not the oracle's"
+    finally:
+        if fleet_server is not None:
+            fleet_server.stop()
+        else:
+            fleet.shutdown()
+        report["seconds"] = round(time.perf_counter() - t_phase, 3)
+        print(json.dumps(report, default=str), flush=True)
+    return predict_launches, None
+
+
+def knn_phase(args, torch, dev, card):
+    """Phase 37.  Returns None, or what failed."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+    from deeplearning4j_tpu_torch.serving import (NearestNeighborsClient,
+                                                  NearestNeighborsServer)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 37)
+    points = rng.standard_normal((KNN_POINTS, KNN_DIM)).astype(np.float32)
+    queries = rng.standard_normal((KNN_QUERIES, KNN_DIM)).astype(np.float32)
+    server = NearestNeighborsServer(points, device=dev,
+                                    registry=MetricsRegistry()).start()
+    try:
+        client = NearestNeighborsClient(f"http://127.0.0.1:{server.port}",
+                                        timeout=HTTP_TIMEOUT_S)
+        times, got = [], []
+        for q in queries:
+            t0 = time.perf_counter()
+            res = client.knn(q, k=KNN_K)
+            times.append((time.perf_counter() - t0) * 1e3)
+            got.append([r["index"] for r in res])
+        health = client.get("/health")
+        index = server._index
+        batch_ms = median_ms(lambda: index.query(queries, KNN_K), torch,
+                             runs=10)
+        _, all_at_once = index.query(queries, KNN_K)
+    finally:
+        server.stop()
+    got = np.asarray(got)
+    mismatched, not_ties = knn_violations(got, queries, points)
+    batch_mismatched, batch_not_ties = knn_violations(all_at_once, queries,
+                                                      points)
+    print(json.dumps({
+        "phase": "knn", "points": KNN_POINTS, "dim": KNN_DIM,
+        "queries": KNN_QUERIES, "k": KNN_K,
+        "points_mb": points.nbytes / 1e6,
+        "http_query_ms_median": statistics.median(times),
+        "http_query_ms_p99": float(np.percentile(times, 99)),
+        "batch_query_ms_cuda_events": batch_ms,
+        "mismatched_ranks": mismatched, "not_ties": not_ties,
+        "batch_mismatched_ranks": batch_mismatched,
+        "batch_not_ties": batch_not_ties,
+        "platform": health["platform"],
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if not_ties or batch_not_ties:
+        return (f"k-NN indices differ from the float64 brute force outside "
+                f"ties: {not_ties} by HTTP, {batch_not_ties} at once")
+    if health["platform"] != "gpu":
+        return f"the k-NN server reports {health['platform']}"
     return None
 
 
@@ -4706,6 +5649,27 @@ def main(argv=None) -> int:
         return fail(err)
     torch.cuda.empty_cache()
 
+    # ---- 33-37. the serving tier over HTTP -----------------------------
+    http_launches, err = serving_http_phase(args, torch, dev, card,
+                                            ckpt_launches["store"])
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    swap_launches, err = hot_swap_lstm_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    pi_launches, err = inference_server_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    fleet_launches, err = fleet_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    err = knn_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -4726,6 +5690,8 @@ def main(argv=None) -> int:
             "launches_checkpoint_uninterrupted":
                 ckpt_launches["uninterrupted"][name],
             "launches_checkpoint_resumed": ckpt_launches["resumed"][name],
+            "launches_serving_http": http_launches[name],
+            "launches_fleet_predict": fleet_launches[name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,
@@ -4750,6 +5716,8 @@ def main(argv=None) -> int:
     bn_record["launches_transfer_resnet"] = slice_launches["tr"]
     lstm_record["launches_early_stop_lstm"] = slice_launches["es"]
     lstm_record["launches_loss_scale_f16_tbptt"] = f16_launches["lstm"]
+    lstm_record["launches_hot_swap_under_load"] = swap_launches
+    lstm_record["launches_inference_server"] = pi_launches
     bf16_totals = bn_record.pop("bfloat16_totals")
     bf16_err = bn_record.pop("bfloat16_max_abs_err")
     records.append(bn_record)

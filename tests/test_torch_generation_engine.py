@@ -551,7 +551,7 @@ def test_serving_engine_generation(nets, as_dict):
     try:
         assert srv.warmup() == len(srv.buckets) + len(
             srv.generation.buckets) + 1
-        assert srv.ready() is True
+        assert srv.ready()[0] is True
         prompt = [3, 1, 4]
         res = srv.generation.generate(prompt, max_new_tokens=6,
                                       timeout=WAIT_S)
@@ -570,9 +570,10 @@ def test_serving_engine_generation(nets, as_dict):
                                    atol=1e-6)
     finally:
         srv.shutdown()
-    assert srv.ready() is False and srv.slot is None
+    assert srv.ready()[0] is False and srv.slot is None
     plain = ServingEngine(tn, device="cpu", max_batch_size=4)
     try:
-        assert plain.generation_status() is None and plain.ready() is True
+        assert plain.generation_status() is None and \
+            plain.ready()[0] is True
     finally:
         plain.shutdown()

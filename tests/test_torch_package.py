@@ -82,7 +82,16 @@ def test_importing_every_module_loads_no_jax():
             "deeplearning4j_tpu_torch.train.solvers",
             "deeplearning4j_tpu_torch.evaluation.binary",
             "deeplearning4j_tpu_torch.evaluation.calibration",
-            "deeplearning4j_tpu_torch.evaluation.tools"} <= set(MODULES)
+            "deeplearning4j_tpu_torch.evaluation.tools",
+            # the serving tier's
+            "deeplearning4j_tpu_torch.utils.http",
+            "deeplearning4j_tpu_torch.utils.profiling",
+            "deeplearning4j_tpu_torch.parallel.inference",
+            "deeplearning4j_tpu_torch.serving.inference_server",
+            "deeplearning4j_tpu_torch.serving.tenancy",
+            "deeplearning4j_tpu_torch.serving.fleet",
+            "deeplearning4j_tpu_torch.serving.nn_server",
+            "deeplearning4j_tpu_torch.clustering.neighbors"} <= set(MODULES)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -211,3 +220,37 @@ def test_zoo_entry_points_refuse_a_silent_cpu_default(no_cuda, name):
     net.fit(x, y)
     assert net._score.device.type == "cpu"
     assert net.output(x).shape == (2, 3)
+
+
+def test_serving_tier_entry_points_refuse_a_silent_cpu_default(no_cuda):
+    from deeplearning4j_tpu_torch.clustering import BruteForceNN
+    from deeplearning4j_tpu_torch.serving import (InferenceServer,
+                                                  NearestNeighborsServer,
+                                                  ServingFleet,
+                                                  ServingServer)
+    net = TransformerLM(vocab_size=8, seq_len=4, embed=8, n_layers=1,
+                        n_heads=1).init(device="cpu")
+    points = np.zeros((4, 2), np.float32)
+    for make in (lambda: ServingServer(),
+                 lambda: ServingEngine(),
+                 lambda: InferenceServer(net),
+                 lambda: ServingFleet(net),
+                 lambda: NearestNeighborsServer(points),
+                 lambda: BruteForceNN(points)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_device_platform_names_the_serving_device():
+    from deeplearning4j_tpu_torch.utils.profiling import device_platform
+    assert device_platform("cpu") == "cpu"
+    assert device_platform(torch.device("cuda", 0)) == "gpu"
+    assert device_platform("meta") == "unknown"
+
+
+def test_serving_exports_the_jax_package_names():
+    import deeplearning4j_tpu.serving as jserving
+
+    import deeplearning4j_tpu_torch.serving as tserving
+    assert tserving.__all__ == jserving.__all__
+    assert all(hasattr(tserving, name) for name in tserving.__all__)
