@@ -268,7 +268,41 @@ if any phase fails:
 37. ``knn``: ``NearestNeighborsServer`` over ``BruteForceNN`` with
     100,000 x 128 f32 points on the card: 256 queries of k = 10 over
     HTTP and at once, indices equal to a float64 brute force outside
-    ties within the f32 rounding bound (``knn_violations``).
+    ties within the f32 rounding bound (``knn_violations``);
+38. ``parallel_lm``: a one-rank NCCL process group on the card (the
+    port's ``initialize_distributed``); from the same weights, 5 steps of
+    the full-width LM through plain ``fit``, ``ParallelWrapper``,
+    ``ParallelWrapper(shard_optimizer_state=True)`` and
+    ``ShardedTrainer``: the wrapped runs equal each other and plain
+    ``fit`` bitwise (params, updater slots, counts, key; at dp 1 every
+    leaf replicates and the world-1 exchange computes plain ``fit``'s
+    ops), 8 launches per kernel per step each; ``per_device_param_bytes``
+    of the layout plan at dp 1, 2, 4 and 8 (a computation).  At world
+    size 1 ``zero3_spec`` replicates every leaf, so ``ShardedTrainer``
+    here (and ``launches_sharded_lm`` in the ``kernels`` line) runs the
+    replicated layout: no all-gather and no reduce-scatter.  Those run
+    over NCCL in ``chip_ranks.py`` on four cards;
+39. ``sharded_checkpoint_lm``: ``ShardedTrainer.save_sharded`` at step 3
+    (``topology.json`` + ``shards-p00.npz``; bytes, write seconds), a
+    fresh net's ``restore_sharded`` continued to step 6 bitwise equal to
+    the uninterrupted run, and ``ServingEngine.promote_latest`` of the
+    sharded directory serving rows equal to ``net.output`` (8 forward
+    launches a batch);
+40. ``elastic_lm``: ``ElasticTrainer(save_freq=2)`` over a
+    ``ShardedTrainer`` crashes after step 5; a fresh process's trainer
+    resumes from step 4 and runs to step 8, bitwise equal to the
+    uninterrupted 8 steps (steps lost, restore seconds);
+41. ``sparse_embedding_lm``: the LM with ``sparse_grad=True`` on its
+    embedding, Zipf-distributed ids: 5 SGD steps within 1e-6 of the dense
+    twin, then 5 Adam steps after which untouched rows and their mu/nu
+    are bit-identical to step 0 (rows touched per step, step times);
+42. ``masters_lm``: ``ParameterAveragingTrainingMaster`` with 2 thread
+    replicas on the card, averaging every 2 of 8 batches (the averaged
+    params equal the mean of the replicas by hand), then
+    ``SharedGradientsTrainingMaster`` with the host threshold/bitmap codec
+    (every message plus its residual equals the raw update within one
+    rounding; encoded bytes per message against the dense bytes, and
+    whether the g++ codec built).
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -282,6 +316,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -5181,6 +5216,562 @@ def knn_phase(args, torch, dev, card):
     return None
 
 
+# ---- 38-42. training across ranks ---------------------------------------
+PAR_STEPS = 5
+PAR_LAYOUT_DPS = (1, 2, 4, 8)
+SHARD_SAVE_AT, SHARD_STEPS = 3, 6
+SERVE_SHARDED_ROWS = 2
+ELASTIC_SAVE_FREQ, ELASTIC_CRASH_AFTER, ELASTIC_STEPS = 2, 5, 8
+SPARSE_STEPS = 5
+SPARSE_SGD_LR = 1e-2
+# the LM's token ids follow a Zipf law, as text does (a = 1.2): a step
+# touches a few thousand of the 8192 rows
+SPARSE_ZIPF_A = 1.2
+# sparse against dense SGD: the same forward, and the table's gradient
+# summed per row by a segment sum instead of the dense backward's
+# accumulation (another order of f32 additions): 1e-6 of each leaf's
+# largest |value|
+TOL_SPARSE_SGD = 1e-6
+MASTER_WORKERS, MASTER_FREQ, MASTER_BATCHES = 2, 2, 8
+# the shared-gradients codec: Adam's updates are ~lr = 3e-4 an element
+MASTER_THRESHOLD = 1e-4
+
+
+def world_of_one(dev):
+    """A one-rank process group for the data-parallel phases (NCCL on the
+    card), through the port's bootstrap; a free localhost port."""
+    import socket
+    from deeplearning4j_tpu_torch.parallel import initialize_distributed
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    if not initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=dev):
+        raise RuntimeError("the process group did not start")
+
+
+def _lm_batches(args, offset: int, steps: int, zipf=None):
+    import numpy as np
+    rng = np.random.default_rng(args.seed + offset)
+    if zipf:
+        toks = np.minimum(rng.zipf(zipf, (steps, TRAIN_BATCH, SEQ + 1)),
+                          VOCAB) - 1
+    else:
+        toks = rng.integers(0, VOCAB, (steps, TRAIN_BATCH, SEQ + 1))
+    return [(b[:, :-1], b[:, 1:]) for b in toks]
+
+
+def _fit_timed(torch, trainer, net, batches):
+    """Each batch through ``trainer.fit``; returns (losses, step ms)."""
+    losses, ms = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.fit(x, y)
+        losses.append(float(net.get_score()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return losses, ms
+
+
+def parallel_lm_phase(args, torch, dev, card):
+    """Phase 38.  Returns ``({"wrapper": launches, "sharded": launches},
+    None)`` or ``(None, what failed)``."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   ShardedTrainer, make_mesh,
+                                                   param_bytes,
+                                                   per_device_param_bytes)
+    t_phase = time.perf_counter()
+    tree = _lm_tree(args, dev, 38)
+    batches = _lm_batches(args, 38, PAR_STEPS)
+    mesh = make_mesh(device=dev)
+    runs = {}
+    for name in ("plain", "wrapper", "zero1", "sharded"):
+        net = _lm_net(args, dev, tree)
+        trainer = {"plain": lambda: net,
+                   "wrapper": lambda: ParallelWrapper(net, mesh),
+                   "zero1": lambda: ParallelWrapper(
+                       net, mesh, shard_optimizer_state=True),
+                   "sharded": lambda: ShardedTrainer(net, mesh)}[name]()
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        losses, ms = _fit_timed(torch, trainer, net, batches)
+        runs[name] = {"losses": losses, "launches": dict(fa.launches),
+                      "step_ms_median": statistics.median(ms[1:]),
+                      "state": training_state(net)}
+        del net, trainer
+        torch.cuda.empty_cache()
+    wrapped = ("wrapper", "zero1", "sharded")
+    diffs = {f"{a}_vs_{b}": state_max_diff(runs[a]["state"],
+                                           runs[b]["state"])
+             for a, b in (("wrapper", "zero1"), ("wrapper", "sharded"),
+                          ("wrapper", "plain"))}
+    loss_diff = max(abs(a - b) / abs(b) for n in wrapped
+                    for a, b in zip(runs[n]["losses"],
+                                    runs["plain"]["losses"]))
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    spec = MultiLayerNetwork(TransformerLM(
+        vocab_size=VOCAB, seq_len=SEQ, embed=EMBED, n_layers=LAYERS,
+        n_heads=HEADS, sparse_labels=True).conf(), device=dev).param_spec()
+    layout = {dp: per_device_param_bytes(spec, dp) for dp in PAR_LAYOUT_DPS}
+    expected = {k: LAYERS * PAR_STEPS for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(json.dumps({
+        "phase": "parallel_lm", "world_size": 1, "backend": "nccl",
+        "model": {"vocab": VOCAB, "seq": SEQ, "embed": EMBED,
+                  "layers": LAYERS, "heads": HEADS, "batch": TRAIN_BATCH,
+                  "updater": "Adam(3e-4)", "dtype": "float32"},
+        "steps": PAR_STEPS,
+        "losses": {n: r["losses"] for n, r in runs.items()},
+        "max_rel_loss_diff_vs_plain": loss_diff,
+        "max_abs_diff": diffs, "gate": 0.0,
+        "step_ms_median": {n: r["step_ms_median"] for n, r in runs.items()},
+        "kernel_launches": {n: r["launches"] for n, r in runs.items()},
+        "expected_launches": expected,
+        "param_bytes": param_bytes(spec),
+        "per_device_param_bytes": layout,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if not all(math.isfinite(v) for r in runs.values()
+               for v in r["losses"]):
+        return None, "parallel LM losses not finite"
+    # at dp 1 zero3_spec replicates every leaf: the three wrapped runs
+    # compute the same ops, and the world-1 exchange (NCCL sums of one
+    # rank) leaves plain fit's numbers as they are
+    if any(d != 0.0 for d in diffs.values()) or loss_diff != 0.0:
+        return None, (f"wrapped LM runs differ: {diffs}, losses "
+                      f"{loss_diff} (gate 0.0)")
+    for n, r in runs.items():
+        if r["launches"] != expected:
+            return None, (f"{n} LM launched {r['launches']}; expected "
+                          f"{expected}")
+    if layout[1] != param_bytes(spec) or not \
+            layout[8] < layout[4] < layout[2] < layout[1]:
+        return None, f"per-device bytes do not shrink with dp: {layout}"
+    return {"wrapper": runs["wrapper"]["launches"],
+            "sharded": runs["sharded"]["launches"]}, None
+
+
+def sharded_checkpoint_phase(args, torch, dev, card):
+    """Phase 39.  Returns ``(flash launches of the resumed sharded run,
+    None)`` or ``(None, what failed)``."""
+    import shutil
+    import numpy as np
+    from deeplearning4j_tpu_torch.faulttolerance import CheckpointManager
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    store = REPO / "build" / "sharded_checkpoint"
+    shutil.rmtree(store, ignore_errors=True)
+    tree = _lm_tree(args, dev, 39)
+    batches = _lm_batches(args, 39, SHARD_STEPS)
+    mesh = make_mesh(device=dev)
+    net_a = _lm_net(args, dev, tree)
+    st_a = ShardedTrainer(net_a, mesh)
+    for x, y in batches[:SHARD_SAVE_AT]:
+        st_a.fit(x, y)
+    mgr = CheckpointManager(str(store), background=False,
+                            keep_last=SHARD_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    path = st_a.save_sharded(mgr)
+    write_s = time.perf_counter() - t1
+    for x, y in batches[SHARD_SAVE_AT:]:
+        st_a.fit(x, y)
+    state_a = training_state(net_a)
+    del net_a, st_a
+    files = sorted(os.listdir(path))
+    with open(os.path.join(path, "manifest.json")) as f:
+        nbytes = sum(v["bytes"] for v in json.load(f)["files"].values())
+    net_b = _lm_net(args, dev, _lm_tree(args, dev, 139))
+    t1 = time.perf_counter()
+    mgr.restore_sharded(path=path, net=net_b, device=dev)
+    restore_s = time.perf_counter() - t1
+    st_b = ShardedTrainer(net_b, mesh)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    for x, y in batches[SHARD_SAVE_AT:]:
+        st_b.fit(x, y)
+    launches_b = dict(fa.launches)
+    diff = state_max_diff(state_a, training_state(net_b))
+    del net_b, st_b
+    torch.cuda.empty_cache()
+    # promote the step-3 directory into a serving slot
+    ref = _lm_net(args, dev, _lm_tree(args, dev, 239))
+    mgr.restore_sharded(path=path, net=ref, device=dev)
+    rng = np.random.default_rng(args.seed + 239)
+    rows = np.eye(VOCAB, dtype=np.float32)[
+        rng.integers(0, VOCAB, (SERVE_SHARDED_ROWS, SEQ))]
+    want = ref.output(rows).cpu().numpy()
+    engine = ServingEngine(device=dev, max_batch_size=SERVE_SHARDED_ROWS)
+    try:
+        t1 = time.perf_counter()
+        step = engine.promote_latest(str(store))
+        promote_s = time.perf_counter() - t1
+        fa.reset_launches()
+        batches0 = engine.batches_dispatched
+        got = engine.predict(rows)
+        served = engine.batches_dispatched - batches0
+        serve_launches = dict(fa.launches)
+    finally:
+        engine.shutdown()
+    row_diff = float(np.abs(got - want).max())
+    expected = {k: LAYERS * (SHARD_STEPS - SHARD_SAVE_AT)
+                for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(json.dumps({
+        "phase": "sharded_checkpoint_lm", "world_size": 1,
+        "saved_at": SHARD_SAVE_AT, "steps": SHARD_STEPS, "files": files,
+        "checkpoint_bytes": nbytes, "write_s": round(write_s, 4),
+        "write_mb_per_s": nbytes / write_s / 1e6,
+        "restore_s": round(restore_s, 4),
+        "max_abs_diff_resumed_vs_uninterrupted": diff, "gate": 0.0,
+        "kernel_launches_resumed": launches_b,
+        "expected_launches": expected,
+        "promoted_step": step, "promote_s": round(promote_s, 4),
+        "served_rows": SERVE_SHARDED_ROWS, "served_batches": served,
+        "serve_launches": serve_launches,
+        "max_abs_diff_served_vs_output": row_diff,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    shutil.rmtree(store, ignore_errors=True)
+    if "topology.json" not in files or "shards-p00.npz" not in files:
+        return None, f"the sharded checkpoint holds {files}"
+    if diff != 0.0:
+        return None, (f"the resumed sharded LM differs from the "
+                      f"uninterrupted run by {diff} (gate 0.0)")
+    if launches_b != expected:
+        return None, (f"the resumed sharded LM launched {launches_b}; "
+                      f"expected {expected}")
+    if step != SHARD_SAVE_AT or row_diff != 0.0 or served != 1 or \
+            serve_launches["fwd"] != LAYERS * served or \
+            serve_launches["bwd_dq"] or serve_launches["bwd_dkv"]:
+        return None, (f"promoted step {step}, served rows off by "
+                      f"{row_diff}, {served} batches launched "
+                      f"{serve_launches}")
+    return launches_b, None
+
+
+class _Crash(RuntimeError):
+    """The elastic phase's injected crash."""
+
+
+def elastic_lm_phase(args, torch, dev, card):
+    """Phase 40.  Returns ``(flash launches of the restarted run, None)``
+    or ``(None, what failed)``."""
+    import shutil
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import (ElasticTrainer,
+                                                   ShardedTrainer, make_mesh)
+    t_phase = time.perf_counter()
+    store = REPO / "build" / "elastic_lm"
+    shutil.rmtree(store, ignore_errors=True)
+    tree = _lm_tree(args, dev, 40)
+    batches = _lm_batches(args, 40, ELASTIC_STEPS)
+    mesh = make_mesh(device=dev)
+    net_r = _lm_net(args, dev, tree)
+    st_r = ShardedTrainer(net_r, mesh)
+    for x, y in batches:
+        st_r.fit(x, y)
+    state_r = training_state(net_r)
+    del net_r, st_r
+
+    def crashing():
+        for i, b in enumerate(batches):
+            if i == ELASTIC_CRASH_AFTER:
+                raise _Crash(f"crash after step {i}")
+            yield b
+
+    net_c = _lm_net(args, dev, tree)
+    et = ElasticTrainer(ShardedTrainer(net_c, mesh), str(store),
+                        save_freq=ELASTIC_SAVE_FREQ, keep_last=ELASTIC_STEPS)
+    try:
+        et.fit(crashing)
+        return None, "the injected crash did not happen"
+    except _Crash:
+        pass
+    crashed_at = net_c.iteration
+    del net_c, et
+    torch.cuda.empty_cache()
+    net_d = _lm_net(args, dev, _lm_tree(args, dev, 140))
+    et = ElasticTrainer(ShardedTrainer(net_d, mesh), str(store),
+                        save_freq=ELASTIC_SAVE_FREQ, keep_last=ELASTIC_STEPS)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    done = et.fit(lambda: iter(batches))
+    torch.cuda.synchronize()
+    restart_s = time.perf_counter() - t1
+    launches = dict(fa.launches)
+    diff = state_max_diff(state_r, training_state(net_d))
+    resumed = et.last_restored_step
+    expected = {k: LAYERS * (ELASTIC_STEPS - resumed)
+                for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(json.dumps({
+        "phase": "elastic_lm", "world_size": 1, "save_freq":
+        ELASTIC_SAVE_FREQ, "crashed_after_step": crashed_at,
+        "resumed_from_step": resumed, "steps": done,
+        "steps_lost": crashed_at - resumed,
+        "restore_s": round(et.last_restore_s, 4),
+        "restart_run_s": round(restart_s, 4),
+        "max_abs_diff_vs_uninterrupted": diff, "gate": 0.0,
+        "kernel_launches_restarted": launches,
+        "expected_launches": expected,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    shutil.rmtree(store, ignore_errors=True)
+    if crashed_at != ELASTIC_CRASH_AFTER or resumed != 4 or \
+            done != ELASTIC_STEPS:
+        return None, (f"crashed at {crashed_at}, resumed from {resumed}, "
+                      f"ended at {done}")
+    if diff != 0.0:
+        return None, (f"the restarted LM differs from the uninterrupted "
+                      f"run by {diff} (gate 0.0)")
+    if launches != expected:
+        return None, f"the restart launched {launches}; expected {expected}"
+    return launches, None
+
+
+def _leaf_rel_diff(a, b) -> float:
+    """Largest |a - b| of a leaf over the leaf's largest |b|, over every
+    parameter of two networks."""
+    worst = 0.0
+    for k, g in b.params.items():
+        for n, p in g.items():
+            scale = p.detach().abs().max().item() or 1.0
+            err = (a.params[k][n].detach() - p.detach()).abs().max().item()
+            worst = max(worst, err / scale)
+    return worst
+
+
+def sparse_embedding_phase(args, torch, dev, card):
+    """Phase 41.  Returns ``(flash launches of the sparse Adam run, None)``
+    or ``(None, what failed)``."""
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Sgd
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    tree = _lm_tree(args, dev, 41)
+    batches = _lm_batches(args, 41, SPARSE_STEPS, zipf=SPARSE_ZIPF_A)
+    nets = {}
+    for name in ("dense", "sparse"):
+        net = _lm_net(args, dev, tree, updater=Sgd(learning_rate=SPARSE_SGD_LR))
+        net.conf.layers[0].sparse_grad = name == "sparse"
+        torch.cuda.synchronize()
+        losses, ms = _fit_timed(torch, net, net, batches)
+        nets[name] = (net, losses, statistics.median(ms[1:]))
+    sgd_diff = _leaf_rel_diff(nets["sparse"][0], nets["dense"][0])
+    loss_diff = max(abs(a - b) / abs(b) for a, b in
+                    zip(nets["sparse"][1], nets["dense"][1]))
+    sgd_ms = {n: v[2] for n, v in nets.items()}
+    del nets
+    torch.cuda.empty_cache()
+    net = _lm_net(args, dev, tree)
+    net.conf.layers[0].sparse_grad = True
+    W0 = net.params["layer_0"]["W"].detach().clone()
+    touched_steps, seen = [], set()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    adam_ms = []
+    for x, y in batches:
+        t1 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        adam_ms.append((time.perf_counter() - t1) * 1e3)
+        touched_steps.append(int(net._last_grad_stats[
+            "embedding_rows_touched"]))
+        seen |= set(x.reshape(-1).tolist())
+    launches = dict(fa.launches)
+    untouched = torch.tensor(sorted(set(range(VOCAB)) - seen),
+                             device=dev, dtype=torch.long)
+    W1 = net.params["layer_0"]["W"].detach()
+    slots = net.opt_state["slots"]["layer_0"]["W"]
+    rows_same = bool(torch.equal(W1[untouched], W0[untouched]))
+    slots_same = all(bool((slots[s][untouched] == 0).all())
+                     for s in ("mu", "nu"))
+    moved = bool((W1[torch.tensor(sorted(seen), device=dev)]
+                  != W0[torch.tensor(sorted(seen), device=dev)]).any())
+    expected = {k: LAYERS * SPARSE_STEPS for k in ("fwd", "bwd_dq",
+                                                   "bwd_dkv")}
+    print(json.dumps({
+        "phase": "sparse_embedding_lm", "vocab": VOCAB,
+        "ids": f"zipf(a={SPARSE_ZIPF_A}) clipped to the vocabulary",
+        "steps": SPARSE_STEPS,
+        "sgd": {"lr": SPARSE_SGD_LR, "max_leaf_rel_diff_vs_dense": sgd_diff,
+                "max_rel_loss_diff": loss_diff, "tol": TOL_SPARSE_SGD,
+                "step_ms_median": sgd_ms},
+        "adam": {"rows_touched_per_step": touched_steps,
+                 "rows_touched_in_all": len(seen),
+                 "untouched_rows": int(untouched.numel()),
+                 "untouched_rows_bit_identical": rows_same,
+                 "untouched_mu_nu_still_zero": slots_same,
+                 "step_ms_median": statistics.median(adam_ms[1:])},
+        "kernel_launches_adam": launches, "expected_launches": expected,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if sgd_diff > TOL_SPARSE_SGD or loss_diff > TOL_SPARSE_SGD:
+        return None, (f"sparse SGD differs from dense by {sgd_diff} (losses "
+                      f"{loss_diff}) > {TOL_SPARSE_SGD}")
+    if not (rows_same and slots_same and moved) or untouched.numel() == 0:
+        return None, (f"lazy Adam: untouched rows same {rows_same}, their "
+                      f"mu/nu zero {slots_same}, touched rows moved "
+                      f"{moved}, {untouched.numel()} untouched")
+    if launches != expected:
+        return None, f"the sparse LM launched {launches}; expected {expected}"
+    return launches, None
+
+
+def masters_phase(args, torch, dev, card):
+    """Phase 42.  Returns ``(flash launches of both masters' runs, None)``
+    or ``(None, what failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import accumulation as acc_mod
+    from deeplearning4j_tpu_torch.parallel import master as master_mod
+    from deeplearning4j_tpu_torch.utils import native
+    t_phase = time.perf_counter()
+    tree = _lm_tree(args, dev, 42)
+    batches = _lm_batches(args, 42, MASTER_BATCHES)
+    # averaging: the trees tree_average is handed, and what it returns
+    averaged = []
+    real_avg = master_mod.tree_average
+
+    def recording(trees, depth=2):
+        out = real_avg(trees, depth)
+        if trees and "layer_0" in trees[0]:
+            averaged.append(([{k: {n: t.clone() for n, t in g.items()}
+                               for k, g in tr.items()} for tr in trees],
+                             out))
+        return out
+
+    net = _lm_net(args, dev, tree)
+    master = master_mod.ParameterAveragingTrainingMaster(
+        num_workers=MASTER_WORKERS, averaging_frequency=MASTER_FREQ)
+    master_mod.tree_average = recording
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    try:
+        master.fit(net, batches)
+    finally:
+        master_mod.tree_average = real_avg
+    torch.cuda.synchronize()
+    avg_s = time.perf_counter() - t1
+    avg_launches = dict(fa.launches)
+    avg_loss = float(net.get_score())
+    by_hand = 0.0
+    for trees, out in averaged:
+        for k, g in trees[0].items():
+            for n, t in g.items():
+                hand = (t + trees[1][k][n]) / 2
+                by_hand = max(by_hand,
+                              (out[k][n] - hand).abs().max().item())
+    last = averaged[-1][1] if averaged else {}
+    installed = max((net.params[k][n].detach() - t).abs().max().item()
+                    for k, g in last.items() for n, t in g.items()) \
+        if last else float("inf")
+    rounds = len(averaged)
+    del master
+    torch.cuda.empty_cache()
+    # shared gradients: each message against the update it encodes
+    net_s = _lm_net(args, dev, tree)
+    shared = master_mod.SharedGradientsTrainingMaster(
+        num_workers=MASTER_WORKERS,
+        handler_factory=lambda: acc_mod.EncodingHandler(
+            initial_threshold=MASTER_THRESHOLD, backend="host"))
+    acc = shared.accumulator
+    lost, kinds = [0.0], []
+    real_store = acc.store_update
+
+    def checked(worker_id, flat_grad):
+        h = acc.handlers[worker_id]
+        raw = flat_grad.detach().float().cpu().numpy().reshape(-1)
+        if h.residual is not None:
+            raw = raw + np.asarray(h.residual, np.float32)
+        msg = real_store(worker_id, flat_grad)
+        back = acc_mod.decode(msg).numpy() + np.asarray(h.residual)
+        # one f32 rounding of (raw - sent) + sent
+        tol = 2.0 ** -22 * max(float(np.abs(raw).max()), msg["threshold"])
+        lost[0] = max(lost[0], float(np.abs(back - raw).max()) / tol)
+        kinds.append(msg["kind"])
+        return msg
+
+    acc.store_update = checked
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    shared.fit(net_s, batches)
+    torch.cuda.synchronize()
+    shared_s = time.perf_counter() - t1
+    shared_launches = dict(fa.launches)
+    shared_loss = float(net_s.get_score())
+    n_params = net_s.num_params()
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in net_s.params.parameters())
+    per_msg = acc.bytes_sent / max(acc.messages_sent, 1)
+    expected = {k: LAYERS * MASTER_BATCHES for k in ("fwd", "bwd_dq",
+                                                    "bwd_dkv")}
+    print(json.dumps({
+        "phase": "masters_lm", "workers": MASTER_WORKERS,
+        "batches": MASTER_BATCHES,
+        "averaging": {"frequency": MASTER_FREQ, "rounds": rounds,
+                      "max_abs_diff_vs_mean_by_hand": by_hand,
+                      "max_abs_diff_installed": installed,
+                      "final_loss": avg_loss, "seconds": round(avg_s, 3),
+                      "kernel_launches": avg_launches},
+        "shared": {"threshold": MASTER_THRESHOLD, "codec": "host",
+                   "gpp_codec_used": native.available(),
+                   "messages": acc.messages_sent, "kinds": kinds,
+                   "encoded_bytes_per_message": per_msg,
+                   "dense_bytes_per_message": 4 * n_params,
+                   "compression": 4 * n_params / per_msg if per_msg
+                   else None,
+                   "worst_loss_over_one_rounding": lost[0],
+                   "final_loss": shared_loss, "seconds": round(shared_s, 3),
+                   "kernel_launches": shared_launches},
+        "expected_launches": expected,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if rounds != MASTER_BATCHES // (MASTER_WORKERS * MASTER_FREQ) or \
+            by_hand != 0.0 or installed != 0.0:
+        return None, (f"averaging: {rounds} rounds, {by_hand} off the mean "
+                      f"by hand, installed params off by {installed}")
+    if not (math.isfinite(avg_loss) and math.isfinite(shared_loss)
+            and finite):
+        return None, f"masters' losses {avg_loss}, {shared_loss} not finite"
+    if acc.messages_sent != MASTER_BATCHES or lost[0] > 1.0:
+        return None, (f"shared gradients: {acc.messages_sent} messages, "
+                      f"sent + residual off the raw update by "
+                      f"{lost[0]} roundings")
+    if avg_launches != expected or shared_launches != expected:
+        return None, (f"masters launched {avg_launches} and "
+                      f"{shared_launches}; expected {expected}")
+    return {k: avg_launches[k] + shared_launches[k] for k in expected}, None
+
+
+def training_across_ranks_phases(args, torch, dev, card):
+    """Phases 38-42 on a one-rank process group (NCCL on the card), which
+    is taken down at the end.  Returns ``(launches by path, None)`` or
+    ``(None, what failed)``."""
+    import torch.distributed as dist
+    world_of_one(dev)
+    out = {}
+    try:
+        for key, phase in (("parallel", parallel_lm_phase),
+                           ("sharded", sharded_checkpoint_phase),
+                           ("elastic", elastic_lm_phase),
+                           ("sparse", sparse_embedding_phase),
+                           ("masters", masters_phase)):
+            out[key], err = phase(args, torch, dev, card)
+            if err:
+                return None, err
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out, None
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5670,6 +6261,12 @@ def main(argv=None) -> int:
         return fail(err)
     torch.cuda.empty_cache()
 
+    # ---- 38-42. training across ranks ----------------------------------
+    rank_launches, err = training_across_ranks_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -5692,6 +6289,13 @@ def main(argv=None) -> int:
             "launches_checkpoint_resumed": ckpt_launches["resumed"][name],
             "launches_serving_http": http_launches[name],
             "launches_fleet_predict": fleet_launches[name],
+            "launches_parallel_wrapper_lm":
+                rank_launches["parallel"]["wrapper"][name],
+            "launches_sharded_lm": rank_launches["parallel"]["sharded"][name],
+            "launches_sharded_resumed_lm": rank_launches["sharded"][name],
+            "launches_elastic_lm": rank_launches["elastic"][name],
+            "launches_sparse_embedding_lm": rank_launches["sparse"][name],
+            "launches_masters_lm": rank_launches["masters"][name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,

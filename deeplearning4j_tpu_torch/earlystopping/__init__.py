@@ -10,12 +10,14 @@ from .terminations import (BestScoreEpochTerminationCondition,
                            MaxScoreIterationTerminationCondition,
                            MaxTimeIterationTerminationCondition,
                            ScoreImprovementEpochTerminationCondition)
-from .trainer import EarlyStoppingGraphTrainer, EarlyStoppingTrainer
+from .trainer import (EarlyStoppingGraphTrainer, EarlyStoppingMasterTrainer,
+                      EarlyStoppingParallelTrainer, EarlyStoppingTrainer)
 
 __all__ = [
     "AccuracyScoreCalculator", "BestScoreEpochTerminationCondition",
     "DataSetLossCalculator", "EarlyStoppingConfiguration",
     "EarlyStoppingResult", "EarlyStoppingTrainer", "EarlyStoppingGraphTrainer",
+    "EarlyStoppingMasterTrainer", "EarlyStoppingParallelTrainer",
     "InMemoryModelSaver", "InvalidScoreIterationTerminationCondition",
     "LocalFileModelSaver",
     "MaxEpochsTerminationCondition", "MaxScoreIterationTerminationCondition",

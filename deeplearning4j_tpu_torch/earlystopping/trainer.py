@@ -1,9 +1,9 @@
 """EarlyStoppingTrainer (reference
 ``earlystopping/trainer/BaseEarlyStoppingTrainer.java:46`` — one class serves
 both MultiLayerNetwork and ComputationGraph since fit/score share a surface).
-Copy of the JAX package's module for the PyTorch port; the
-master-driven variant (``EarlyStoppingMasterTrainer``) waits for the
-training masters (ROADMAP queue 1, item 8).
+Copy of the JAX package's module for the PyTorch port, with the
+master-driven variant (``EarlyStoppingMasterTrainer``) over the training
+masters of ``parallel/master.py``.
 """
 from __future__ import annotations
 
@@ -111,3 +111,27 @@ class EarlyStoppingTrainer:
 # reference has separate EarlyStoppingTrainer / EarlyStoppingGraphTrainer;
 # the graph variant is the same loop here
 EarlyStoppingGraphTrainer = EarlyStoppingTrainer
+
+# reference ``EarlyStoppingParallelTrainer`` (scaleout module): the same
+# loop driving a ParallelWrapper — the wrapper duck-types the model surface
+# (fit_batch/get_score/params/init), so no separate implementation needed.
+EarlyStoppingParallelTrainer = EarlyStoppingTrainer
+
+
+class EarlyStoppingMasterTrainer(EarlyStoppingTrainer):
+    """Early stopping where each epoch is one TrainingMaster pass over the
+    data (reference ``spark/earlystopping/SparkEarlyStoppingTrainer`` /
+    ``BaseSparkEarlyStoppingTrainer``: fit one RDD pass per epoch, score on
+    the coordinating process).  Iteration-level terminations don't apply —
+    the master owns the inner loop, as the Spark workers do in the
+    reference."""
+
+    def __init__(self, config, net, master, train_iterator):
+        super().__init__(config, net, train_iterator)
+        self.master = master
+
+    def _fit_epoch(self):
+        if hasattr(self.train_iterator, "reset"):
+            self.train_iterator.reset()
+        self.master.fit(self.net, self.train_iterator)
+        return None

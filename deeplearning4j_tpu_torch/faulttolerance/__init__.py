@@ -6,8 +6,9 @@ checkpoints, exact resume, fault injection and lease-based membership.
   checkpoint directories, flight-recorder dumps).
 - :mod:`.checkpoint` — :class:`CheckpointManager` (durable store:
   manifest checksums, background saves, retention, corrupt-checkpoint
-  skipping) and the ``fit(checkpoint=, resume_from=)`` integration for
-  exact preemption-safe resume.  Directories are the JAX package's: each
+  skipping), the ``fit(checkpoint=, resume_from=)`` integration for
+  exact preemption-safe resume, and the sharded layout with its
+  multi-writer ``ShardBarrier``.  Directories are the JAX package's: each
   package resumes from the other's.
 - :mod:`.faults` — :class:`FaultInjector` (seeded, deterministic fault
   harness), :class:`RetryPolicy` (exponential backoff + jitter, per-worker
@@ -21,7 +22,7 @@ checkpoints, exact resume, fault injection and lease-based membership.
 from .atomic import atomic_file, atomic_write_bytes, atomic_write_json
 from .checkpoint import (CheckpointConfig, CheckpointManager,
                          CorruptCheckpointError, FitCheckpointer,
-                         ShardBarrier, resume_network)
+                         ShardBarrier, ShardBarrierError, resume_network)
 from .cluster import (ClusterCoordinator, ClusterMember, ClusterView,
                       FileLeaseStore, live_ranks, shard_owner)
 from .faults import (ChaosBroker, ChaosSchedule, FaultInjector,
@@ -29,7 +30,8 @@ from .faults import (ChaosBroker, ChaosSchedule, FaultInjector,
 
 __all__ = ["atomic_file", "atomic_write_bytes", "atomic_write_json",
            "CheckpointConfig", "CheckpointManager", "CorruptCheckpointError",
-           "FitCheckpointer", "ShardBarrier", "resume_network",
+           "FitCheckpointer", "ShardBarrier", "ShardBarrierError",
+           "resume_network",
            "ClusterCoordinator", "ClusterMember", "ClusterView",
            "FileLeaseStore", "live_ranks", "shard_owner",
            "ChaosBroker", "ChaosSchedule",

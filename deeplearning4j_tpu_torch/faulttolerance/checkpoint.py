@@ -1,5 +1,5 @@
-"""Crash-consistent checkpoint store + exact training resume (port of the
-single-device part of ``faulttolerance/checkpoint.py``).
+"""Crash-consistent checkpoint store + exact training resume (port of
+``faulttolerance/checkpoint.py``).
 
 **Store layout** — one directory per step, committed atomically::
 
@@ -36,9 +36,29 @@ padding buys it nothing), so it writes ``shape_policy: null`` and ignores
 a JAX checkpoint's ``shape_policy`` on reading: padding changes no
 result, only which compiled shapes the JAX package reuses.
 
-The sharded layout (``save_sharded``/``restore_sharded`` and its
-``ShardBarrier``) belongs with the parallel trainers and is refused here
-(ROADMAP queue 1, item 8).
+**Sharded layout** (``save_sharded``/``restore_sharded``), written by the
+data-parallel wrappers (``parallel/sharded.py``): each rank writes only
+its blocks, the JAX package's files byte for byte in layout::
+
+    ckpt-00000042/
+      manifest.json        as above, plus "sharded": true
+      model.zip            the container WITHOUT params or updater
+      rng.npy
+      training_state.json  as above, plus "sharded": true
+      topology.json        process count, mesh shape, per-leaf global
+                           shape, dtype and sharded dim (params by
+                           "layer/name", updater leaves by optax order)
+      shards-pNN.npz       rank NN's blocks (np.savez, uncompressed)
+      shards-pNN.json      their index: kind, leaf, dim, start
+
+A restore reassembles the blocks into global leaves at any dp, so
+either package restores the other's directory.  Several writers commit
+through the two-phase ``ShardBarrier``: each stages its block into one
+generation-fenced ``.tmp-barrier-`` directory and posts a
+``block-pNN.json`` marker; the primary commits only after every live
+writer's marker lands (an eviction or a timeout aborts the round with
+``ShardBarrierError``, leaving the store's newest complete checkpoint as
+it was).
 
 Metrics (observability registry): ``checkpoint_write_seconds{mode}``,
 ``checkpoint_bytes``, ``checkpoint_restore_total{result}``.
@@ -57,14 +77,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .atomic import (atomic_write_json, commit_dir, manifest_for,
-                     sha256_file, staging_dir)
+from .atomic import (TMP_PREFIX, atomic_write_json, commit_dir,
+                     manifest_for, sha256_file, staging_dir)
 from ..observability.clock import monotonic_s
 from ..observability.registry import default_registry
 from ..observability.tracer import get_tracer
+from ..utils.device import resolve_device
 
 __all__ = ["CheckpointManager", "CheckpointConfig", "CorruptCheckpointError",
-           "FitCheckpointer", "ShardBarrier", "resume_network"]
+           "FitCheckpointer", "ShardBarrier", "ShardBarrierError",
+           "resume_network"]
 
 log = logging.getLogger("deeplearning4j_tpu_torch.faulttolerance")
 
@@ -75,8 +97,8 @@ _WRITE_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0,
                   30.0, 60.0, 300.0)
 # checkpoint sizes: KB-scale tests to multi-GB models
 _BYTES_BUCKETS = (1e4, 1e5, 1e6, 1e7, 1e8, 1e9, 1e10, 1e11)
-_SHARDED = ("the sharded checkpoint layout is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+_SHARD_FILE_RE = re.compile(r"^shards-p(\d{2,})\.npz$")
+_BLOCK_MARKER_RE = re.compile(r"^block-p(\d{2,})\.json$")
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -87,11 +109,46 @@ class CorruptCheckpointError(RuntimeError):
         super().__init__(f"corrupt checkpoint {self.path}: {detail}")
 
 
-class ShardBarrier:
-    """The multi-writer ``save_sharded`` round's contract: refused."""
+class ShardBarrierError(RuntimeError):
+    """A multi-writer barrier save round aborted: a writer was evicted
+    mid-barrier or its block marker never landed within the budget.  The
+    round's shared staging dir is left as a ``.tmp-`` orphan (discovery
+    never sees it; ``sweep_orphans`` reclaims it) — the store's newest
+    COMPLETE checkpoint is unchanged."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ShardBarrier: {_SHARDED}")
+
+@dataclass
+class ShardBarrier:
+    """Coordination contract for one multi-writer ``save_sharded`` round.
+
+    Every rank of a sharded world stages its ``shards-pNN.npz`` block
+    into ONE shared staging directory, named from the step and the
+    rendezvous ``generation``, so every writer of the same round agrees
+    on it and a stale-generation writer (one that missed an
+    eviction/admission) stages into a DIFFERENT directory no primary
+    will ever commit.  After its block (and index) are durable, each
+    writer posts a generation-fenced ``block-pNN.json`` marker; the
+    primary commits manifest + rename only once every expected writer's
+    marker has landed.
+
+    - ``generation`` — the cluster view's rendezvous generation (0 for a
+      static world): the fence tag baked into the staging-dir name and
+      validated on every marker.
+    - ``timeout_s`` — the primary's bounded barrier wait; expiry aborts
+      the round with :class:`ShardBarrierError`.
+    - ``policy`` — optional ``faults.RetryPolicy`` whose seeded backoff
+      paces the marker polls (``poll_s`` is the flat fallback).
+    - ``live_fn`` — optional ``() -> collection of live writer ranks``;
+      when a missing writer is no longer live (its lease expired — it
+      was evicted mid-barrier) the round aborts immediately instead of
+      waiting out the full timeout.
+    """
+
+    generation: int = 0
+    timeout_s: float = 30.0
+    poll_s: float = 0.05
+    policy: Optional[Any] = None
+    live_fn: Optional[Any] = None
 
 
 def _rng_to_np(key) -> np.ndarray:
@@ -112,6 +169,110 @@ class _Snapshot:
         self.step = self.iteration      # dir-naming step; save() may override
         self.epoch = self.model.epoch
         self.rng = _rng_to_np(net._rng)
+
+
+class _ParamlessModel:
+    """What ``write_model`` needs for a sharded checkpoint's container:
+    configuration, layer state and counters, no params, no updater."""
+
+    def __init__(self, net):
+        from ..utils.model_serializer import _host_tree
+        self.net_class = type(net).__name__
+        self.conf = net.conf
+        self.params: Dict[str, Any] = {}
+        self.state = _host_tree(net.state)
+        self._tx = net._tx
+        self.opt_state = None
+        self.iteration = int(net.iteration)
+        self.epoch = int(net.epoch)
+
+
+def _leaf_blocks(t, dim: Optional[int], rank: int
+                 ) -> Tuple[Optional[int], List[Tuple[int, np.ndarray]]]:
+    """``(sharded_dim, [(start, host_block)])`` of the block of one leaf
+    this rank holds: a leaf sharded on ``dim`` is this rank's block,
+    starting at ``rank`` blocks in; a replicated leaf (``dim`` None) is
+    one whole block at 0.  Blocks are owned host copies."""
+    from ..utils.model_serializer import _host
+    start = 0 if dim is None else rank * int(t.shape[dim])
+    return dim, [(start, _host(t))]
+
+
+def _np_dtype(t) -> str:
+    return str(np.dtype(str(t.dtype).replace("torch.", "")))
+
+
+class _ShardedSnapshot:
+    """Host snapshot of a SHARDED network for ``save_sharded``: the model
+    container is written param-less; each param / updater leaf is
+    captured as this rank's block only (a replicated leaf whole, by the
+    primary alone).  The layout is the one a wrapper installed
+    (``net._shard_layout``: its exchange and plans); a network outside a
+    wrapper saves every leaf whole.  Key-neutral like
+    :class:`_Snapshot`."""
+
+    def __init__(self, net, process_index: int, process_count: int,
+                 save_updater: bool = True):
+        from ..utils.model_serializer import HostModel, updater_layout
+        self.model = HostModel(_ParamlessModel(net))
+        self.iteration = int(net.iteration)
+        self.step = self.iteration
+        self.epoch = int(net.epoch)
+        self.rng = _rng_to_np(net._rng)
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
+        primary = self.process_index == 0
+        layout = getattr(net, "_shard_layout", None)
+        if layout is not None:
+            ex, p_plan, o_plan = layout
+            dp, rank = ex.dp, ex.rank
+            mesh_desc = {"axes": ["data", "model", "seq"],
+                         "shape": [int(dp), 1, 1]}
+        else:
+            p_plan, o_plan, dp, rank, mesh_desc = {}, {}, 1, 0, None
+        spec = net.param_spec()
+        topo_params: Dict[str, Any] = {}
+        self.blocks: List[Tuple[str, str, Optional[int],
+                                List[Tuple[int, np.ndarray]]]] = []
+        for layer in sorted(spec):
+            for name in sorted(spec[layer], key=lambda n: n.split("/")):
+                shape, _ = spec[layer][name]
+                leaf = net.params[layer][name]
+                dim = p_plan.get(layer, {}).get(name)
+                key = f"{layer}/{name}"
+                topo_params[key] = {"shape": [int(n) for n in shape],
+                                    "dtype": _np_dtype(leaf), "dim": dim}
+                if dim is not None or primary:
+                    # replicated leaves are identical everywhere: only
+                    # the primary writes them
+                    self.blocks.append(("param", key,
+                                        *_leaf_blocks(leaf, dim, rank)))
+        topo_opt: List[Dict[str, Any]] = []
+        if net.opt_state is not None and save_updater:
+            names = {k: {n: None for n in g} for k, g in spec.items()}
+            for i, d in enumerate(updater_layout(net._tx, names)):
+                if d[0] == "count":
+                    arr = np.asarray(net.opt_state["count"][d[1]], np.int32)
+                    topo_opt.append({"shape": [], "dtype": "int32",
+                                     "dim": None})
+                    if primary:
+                        self.blocks.append(("opt", str(i),
+                                            *_leaf_blocks(arr, None, 0)))
+                    continue
+                _, _, layer, name, slot = d
+                t = net.opt_state["slots"][layer][name][slot]
+                dim = o_plan.get(layer, {}).get(name)
+                shape = spec[layer][name][0]
+                topo_opt.append({"shape": [int(n) for n in shape],
+                                 "dtype": _np_dtype(t), "dim": dim})
+                if dim is not None or primary:
+                    self.blocks.append(("opt", str(i),
+                                        *_leaf_blocks(t, dim, rank)))
+        self.topology = {"version": 1,
+                         "process_count": self.process_count,
+                         "mesh": mesh_desc,
+                         "params": topo_params,
+                         "opt": topo_opt}
 
 
 class CheckpointManager:
@@ -206,8 +367,69 @@ class CheckpointManager:
             t.start()
         return final
 
-    def save_sharded(self, net, **kw) -> str:
-        raise NotImplementedError(f"save_sharded: {_SHARDED}")
+    def save_sharded(self, net, *, cursor: Optional[Dict[str, int]] = None,
+                     metric: Optional[float] = None,
+                     blocking: Optional[bool] = None,
+                     step: Optional[int] = None,
+                     process_index: Optional[int] = None,
+                     process_count: Optional[int] = None,
+                     barrier: Optional[ShardBarrier] = None) -> str:
+        """Shard-aware checkpoint of a network a ``ShardedTrainer`` (or a
+        ZeRO-1 ``ParallelWrapper``) lays out over its ranks: the model
+        container is written WITHOUT params, and every param/updater leaf
+        is saved as this rank's block (``shards-pNN.npz`` + index) plus a
+        ``topology.json`` manifest (mesh shape, per-leaf sharded dim,
+        global shapes/dtypes), the JAX package's layout file for file.
+        Restore with :meth:`restore_sharded` — onto ANY dp.
+
+        ``process_index``/``process_count`` default to the wrapper's rank
+        and data-axis size (0 and 1 for a network outside a wrapper).  A
+        world of several writers MUST pass a :class:`ShardBarrier`: every
+        rank stages its block into the round's shared generation-fenced
+        staging dir and posts a completion marker; non-primary writers
+        return once their block is durable, and the primary commits
+        manifest + rename only after every live writer's marker lands.
+        Without a barrier a primary-only commit would record
+        ``process_count`` shard files but write ONE — a torn checkpoint
+        every restore refuses; refuse up front."""
+        layout = getattr(net, "_shard_layout", None)
+        if process_index is None:
+            process_index = layout[0].rank if layout is not None else 0
+        if process_count is None:
+            process_count = layout[0].dp if layout is not None else 1
+        if (process_index != 0 or process_count > 1) and barrier is None:
+            raise NotImplementedError(
+                "multi-host save_sharded needs a staged-write barrier "
+                "(every process's shard file must land before the "
+                "primary commits) — pass barrier=ShardBarrier(...) or "
+                "route multi-process saves through the elastic "
+                "coordinator (ElasticTrainer over a ShardedTrainer)")
+        snap = _ShardedSnapshot(net, process_index, process_count,
+                                save_updater=self.save_updater)
+        if step is not None:
+            snap.step = int(step)
+        final = self.path_for(snap.step)
+        self.wait()                       # one write in flight
+        if barrier is not None:
+            # barrier rounds are synchronous by construction: a
+            # background writer racing the next round's markers would
+            # tangle two generations in one staging dir
+            self._write_sharded_barrier(snap, final, cursor, metric,
+                                        barrier)
+            return final
+        if blocking is None:
+            blocking = not self.background
+        if blocking:
+            self._write_sharded(snap, final, cursor, metric, mode="sync")
+        else:
+            t = threading.Thread(
+                target=self._write_guarded,
+                args=(snap, final, cursor, metric, self._write_sharded),
+                daemon=False, name="dl4j-torch-ckpt-writer")
+            with self._lock:
+                self._worker = t
+            t.start()
+        return final
 
     def wait(self) -> None:
         """Block until any in-flight background write commits."""
@@ -216,9 +438,11 @@ class CheckpointManager:
         if t is not None:
             t.join()
 
-    def _write_guarded(self, snap, final, cursor, metric) -> None:
+    def _write_guarded(self, snap, final, cursor, metric,
+                       writer=None) -> None:
         try:
-            self._write(snap, final, cursor, metric, mode="async")
+            (writer or self._write)(snap, final, cursor, metric,
+                                    mode="async")
         except Exception as e:
             self.last_error = e
             log.exception("background checkpoint to %s failed", final)
@@ -248,10 +472,12 @@ class CheckpointManager:
                         self.directory, exc_info=True)
 
     def _finish_staging(self, tmp: str, final: str, snap, cursor,
-                        metric) -> int:
+                        metric, sharded: bool = False,
+                        pre_commit=None) -> int:
         """Write training_state.json + the checksum manifest into a staged
         checkpoint dir, then commit it with ONE rename.  Returns committed
-        bytes."""
+        bytes.  Shared by the dense and sharded writers; ``pre_commit``
+        (barrier path) runs between the manifest write and the rename."""
         state = {
             "cursor": dict(cursor or {}),
             "iteration": snap.iteration,
@@ -260,6 +486,8 @@ class CheckpointManager:
             "shape_policy": None,
             "metric": None if metric is None else float(metric),
         }
+        if sharded:
+            state["sharded"] = True
         with open(os.path.join(tmp, "training_state.json"), "w",
                   encoding="utf-8") as f:
             json.dump(state, f, sort_keys=True, indent=1)
@@ -271,9 +499,211 @@ class CheckpointManager:
                     "metric": state["metric"],
                     "wall_time": time.time(),
                     "files": files}
+        if sharded:
+            manifest["sharded"] = True
         atomic_write_json(os.path.join(tmp, "manifest.json"), manifest)
+        if pre_commit is not None:
+            pre_commit()
         commit_dir(tmp, final)
         return nbytes
+
+    def _write_sharded(self, snap: "_ShardedSnapshot", final: str, cursor,
+                       metric, mode: str) -> None:
+        from ..utils import model_serializer
+
+        t0 = monotonic_s()
+        with get_tracer().span("checkpoint.write_sharded",
+                               step=snap.iteration, mode=mode):
+            tmp = staging_dir(final)
+            # param-less container: conf + replicated layer state + meta
+            model_serializer.write_model(
+                snap.model, os.path.join(tmp, "model.zip"),
+                save_updater=False)
+            np.save(os.path.join(tmp, "rng.npy"), snap.rng)
+            atomic_write_json(os.path.join(tmp, "topology.json"),
+                              snap.topology)
+            if self.chaos is not None:
+                self.chaos.on_commit_stage(snap.step, 1)
+            self._write_shard_block(tmp, snap)
+            if self.chaos is not None:
+                self.chaos.on_commit_stage(snap.step, 2)
+            nbytes = self._finish_staging(tmp, final, snap, cursor, metric,
+                                          sharded=True)
+        self._observe_write(monotonic_s() - t0, nbytes, mode)
+        try:
+            self._apply_retention()
+        except OSError:
+            log.warning("checkpoint retention sweep failed in %s",
+                        self.directory, exc_info=True)
+
+    @staticmethod
+    def _write_shard_block(tmp: str, snap: "_ShardedSnapshot") -> None:
+        """Write THIS rank's shard blocks (``shards-pNN.npz``, ``np.savez``
+        uncompressed) and their index into a staging dir, fsynced — a
+        completion marker posted after this returns only ever advertises
+        durable bytes."""
+        from .atomic import _fsync_path
+        arrays: Dict[str, np.ndarray] = {}
+        index: List[Dict[str, Any]] = []
+        for kind, leaf_key, dim, blocks in snap.blocks:
+            for start, block in blocks:
+                name = f"b{len(index)}"
+                arrays[name] = block
+                index.append({"name": name, "kind": kind,
+                              "leaf": leaf_key, "dim": dim,
+                              "start": int(start)})
+        pidx = snap.process_index
+        npz = os.path.join(tmp, f"shards-p{pidx:02d}.npz")
+        np.savez(npz, **arrays)
+        _fsync_path(npz)
+        atomic_write_json(os.path.join(tmp, f"shards-p{pidx:02d}.json"),
+                          index)
+
+    # ------------------------------------------------- multi-writer barrier
+    def barrier_staging(self, final: str, generation: int) -> str:
+        """The SHARED staging dir for one barrier round: deterministic
+        from (step, generation) so every writer of the round agrees on
+        it, ``.tmp-`` prefixed so discovery ignores it and orphan sweep
+        reclaims an aborted round, and generation-fenced so a
+        stale-generation writer stages into a directory no primary of a
+        newer round will ever commit."""
+        d, base = os.path.split(os.path.abspath(final))
+        return os.path.join(d, f"{TMP_PREFIX}barrier-{base}-"
+                               f"g{int(generation):06d}")
+
+    @staticmethod
+    def _scan_block_markers(tmp: str, generation: int) -> set:
+        """Writer indices whose generation-matching completion marker has
+        landed in ``tmp``.  A marker carrying a different generation is
+        rejected; a torn/unreadable marker is ignored (markers are
+        atomic-rename writes, so this only races a concurrent sweep)."""
+        have = set()
+        try:
+            names = os.listdir(tmp)
+        except OSError:
+            return have
+        for name in names:
+            m = _BLOCK_MARKER_RE.match(name)
+            if not m:
+                continue
+            try:
+                with open(os.path.join(tmp, name), encoding="utf-8") as f:
+                    marker = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if int(marker.get("generation", -1)) != int(generation):
+                log.warning("ignoring stale-generation block marker %s "
+                            "(gen %s != round gen %d)", name,
+                            marker.get("generation"), int(generation))
+                continue
+            have.add(int(m.group(1)))
+        return have
+
+    def _write_sharded_barrier(self, snap: "_ShardedSnapshot", final: str,
+                               cursor, metric,
+                               barrier: ShardBarrier) -> None:
+        """One writer's side of the two-phase multi-writer commit.
+
+        Phase 1 (every writer): stage this rank's shard block into the
+        round's shared staging dir, then post the generation-fenced
+        ``block-pNN.json`` marker.  Non-primary writers return here.
+
+        Phase 2 (primary only): write the param-less container + key +
+        topology, wait — bounded, backoff-paced — for every expected
+        writer's marker, then commit manifest + rename.  A writer
+        evicted mid-barrier (``live_fn``) or a timeout aborts the round:
+        the staging dir is left as a ``.tmp-`` orphan for sweep and
+        :class:`ShardBarrierError` is raised — the store's newest
+        complete checkpoint is untouched."""
+        from ..utils import model_serializer
+
+        t0 = monotonic_s()
+        primary = snap.process_index == 0
+        mode = "barrier-primary" if primary else "barrier"
+        with get_tracer().span("checkpoint.write_sharded_barrier",
+                               step=snap.iteration, mode=mode,
+                               generation=int(barrier.generation)):
+            tmp = self.barrier_staging(final, barrier.generation)
+            os.makedirs(tmp, exist_ok=True)
+            if primary:
+                model_serializer.write_model(
+                    snap.model, os.path.join(tmp, "model.zip"),
+                    save_updater=False)
+                np.save(os.path.join(tmp, "rng.npy"), snap.rng)
+                atomic_write_json(os.path.join(tmp, "topology.json"),
+                                  snap.topology)
+                if self.chaos is not None:
+                    self.chaos.on_commit_stage(snap.step, 1)
+            self._write_shard_block(tmp, snap)
+            if self.chaos is not None:
+                # stage 2 = "mid-block": the shard bytes are staged but
+                # the completion marker is NOT posted
+                self.chaos.on_commit_stage(snap.step, 2)
+            atomic_write_json(
+                os.path.join(tmp, f"block-p{snap.process_index:02d}.json"),
+                {"process_index": int(snap.process_index),
+                 "generation": int(barrier.generation),
+                 "step": int(snap.step),
+                 "complete": True})
+            if not primary:
+                self._observe_write(monotonic_s() - t0, 0, mode)
+                return
+            expected = set(range(snap.process_count))
+            deadline = monotonic_s() + float(barrier.timeout_s)
+            attempt = 0
+            while True:
+                have = self._scan_block_markers(tmp, barrier.generation)
+                missing = sorted(expected - have)
+                if not missing:
+                    break
+                if barrier.live_fn is not None:
+                    try:
+                        live = set(barrier.live_fn())
+                    except Exception:
+                        live = expected     # liveness unknown: keep waiting
+                    dead = sorted(set(missing) - live)
+                    if dead:
+                        self._abort_barrier(
+                            tmp, f"writer(s) {dead} evicted mid-barrier "
+                                 f"(round generation {barrier.generation})")
+                if monotonic_s() > deadline:
+                    self._abort_barrier(
+                        tmp, f"block marker(s) from writer(s) {missing} "
+                             f"never landed within {barrier.timeout_s:.1f}s")
+                attempt += 1
+                if barrier.policy is not None:
+                    barrier.policy.sleep(attempt,
+                                         worker=snap.process_index)
+                else:
+                    time.sleep(barrier.poll_s)
+            if self.chaos is not None:
+                # stage 3 = between barrier and commit
+                self.chaos.on_commit_stage(snap.step, 3)
+            nbytes = self._finish_staging(
+                tmp, final, snap, cursor, metric, sharded=True,
+                # stage 4 = after the manifest, before the rename
+                pre_commit=(None if self.chaos is None else
+                            lambda: self.chaos.on_commit_stage(
+                                snap.step, 4)))
+        self._observe_write(monotonic_s() - t0, nbytes, mode)
+        try:
+            self._apply_retention()
+        except OSError:
+            log.warning("checkpoint retention sweep failed in %s",
+                        self.directory, exc_info=True)
+
+    def _abort_barrier(self, tmp: str, detail: str):
+        """Abort a barrier round: the shared staging dir stays behind as
+        a ``.tmp-`` orphan (never a commit candidate; ``sweep_orphans``
+        reclaims it once it ages past any in-flight round)."""
+        reg = self._reg()
+        if reg.enabled:
+            reg.counter("checkpoint_barrier_aborts_total",
+                        "Multi-writer sharded save rounds aborted before "
+                        "commit").inc()
+        log.warning("sharded barrier save aborted: %s (staging %s left "
+                    "for orphan sweep)", detail, tmp)
+        raise ShardBarrierError(f"sharded barrier save aborted: {detail}")
 
     # ---------------------------------------------------------- discovery
     @staticmethod
@@ -368,6 +798,27 @@ class CheckpointManager:
                 "removing crashed checkpoint staging dir %s", p))
 
     # ----------------------------------------------------------- restore
+    def restore_any(self, path: Optional[str] = None, net=None, *,
+                    mesh=None, min_shard_size: Optional[int] = None,
+                    load_updater: bool = True, device="cuda"):
+        """Restore a checkpoint of EITHER layout: a sharded dir
+        (``topology.json`` present) through :meth:`restore_sharded`, a
+        dense dir through :meth:`restore` — the one place the store's
+        layout sniff lives (serving promotion and elastic restart call
+        it)."""
+        if path is None:
+            path = self.latest()
+            if path is None:
+                raise FileNotFoundError(
+                    f"no valid checkpoint found in {self.directory}")
+        if os.path.isfile(os.path.join(path, "topology.json")):
+            return self.restore_sharded(
+                path=path, net=net, mesh=mesh,
+                min_shard_size=min_shard_size, load_updater=load_updater,
+                device=device)
+        return self.restore(path=path, net=net, load_updater=load_updater,
+                            device=device)
+
     def restore(self, path: Optional[str] = None, net=None,
                 load_updater: bool = True, device="cuda"):
         """Restore from ``path`` (default: ``latest()``).  With ``net``
@@ -375,8 +826,8 @@ class CheckpointManager:
         otherwise a fresh network is built from the saved configuration
         on ``device``.  Returns ``(net, training_state)`` where
         ``training_state`` carries the resume cursor.  Refuses
-        partial/corrupt checkpoints with :class:`CorruptCheckpointError`
-        and sharded ones (ROADMAP queue 1, item 8)."""
+        partial/corrupt checkpoints with :class:`CorruptCheckpointError`;
+        a sharded one goes through :meth:`restore_sharded`."""
         from ..utils import model_serializer
 
         if path is None:
@@ -390,8 +841,9 @@ class CheckpointManager:
             self._count_restore("corrupt")
             raise
         if os.path.isfile(os.path.join(path, "topology.json")):
-            raise NotImplementedError(f"{path} is a sharded checkpoint: "
-                                      f"{_SHARDED}")
+            raise ValueError(
+                f"{path} is a SHARDED checkpoint (its model container "
+                "carries no params) — use restore_sharded()")
         if net is None:
             net = model_serializer.restore_model(
                 os.path.join(path, "model.zip"), load_updater=load_updater,
@@ -405,8 +857,164 @@ class CheckpointManager:
         self._count_restore("ok")
         return net, state
 
-    def restore_sharded(self, path: Optional[str] = None, net=None, **kw):
-        raise NotImplementedError(f"restore_sharded: {_SHARDED}")
+    def restore_sharded(self, path: Optional[str] = None, net=None, *,
+                        mesh=None, min_shard_size: Optional[int] = None,
+                        load_updater: bool = True, device="cuda"):
+        """Restore a :meth:`save_sharded` checkpoint (either package's) at
+        ANY dp: the blocks of every shard file are reassembled into
+        global leaves (bytes moved, never arithmetic, so the global
+        params are bitwise the saved ones) and installed whole in the
+        network; a wrapper lays them out again on its mesh
+        (``ParallelWrapper._place``, which ``ElasticTrainer`` calls).
+        ``mesh`` and ``min_shard_size`` are accepted for the JAX
+        package's signature: the layout belongs to the wrapper here.
+
+        With ``net`` given (same topology) the state goes INTO it; if it
+        is under a wrapper its old layout is dropped.  Otherwise a fresh
+        network is built from the saved configuration on ``device``.
+        Returns ``(net, training_state)``.  Everything is staged and
+        checked before the network is touched: a mismatch leaves it as it
+        was.  Refuses partial/corrupt checkpoints (a shard file failing
+        its checksum, a missing one, a block that does not reassemble)
+        with :class:`CorruptCheckpointError`."""
+        from ..utils import model_serializer
+
+        if path is None:
+            path = self.latest()
+            if path is None:
+                raise FileNotFoundError(
+                    f"no valid checkpoint found in {self.directory}")
+        try:
+            self.validate(path)
+        except CorruptCheckpointError:
+            self._count_restore("corrupt")
+            raise
+        tpath = os.path.join(path, "topology.json")
+        if not os.path.isfile(tpath):
+            raise ValueError(
+                f"{path} is not a sharded checkpoint (no topology.json) — "
+                "use restore()")
+        with open(tpath, encoding="utf-8") as f:
+            topo = json.load(f)
+
+        # ---- gather every process's blocks ---------------------------
+        shard_files = sorted(n for n in os.listdir(path)
+                             if _SHARD_FILE_RE.match(n))
+        want = int(topo.get("process_count", 1))
+        if len(shard_files) != want:
+            self._count_restore("corrupt")
+            raise CorruptCheckpointError(
+                path, f"expected {want} shard file(s), found "
+                      f"{len(shard_files)}")
+        blocks: Dict[Tuple[str, str], List[Tuple[int, np.ndarray]]] = {}
+        dims: Dict[Tuple[str, str], Optional[int]] = {}
+        for fname in shard_files:
+            ipath = os.path.join(path, fname[:-len(".npz")] + ".json")
+            if not os.path.isfile(ipath):
+                self._count_restore("corrupt")
+                raise CorruptCheckpointError(path, f"{fname} has no index")
+            try:
+                with open(ipath, encoding="utf-8") as f:
+                    index = json.load(f)
+                with np.load(os.path.join(path, fname)) as z:
+                    for entry in index:
+                        k = (entry["kind"], entry["leaf"])
+                        dims[k] = entry["dim"]
+                        bl = blocks.setdefault(k, [])
+                        start = int(entry["start"])
+                        if all(s != start for s, _ in bl):
+                            bl.append((start, z[entry["name"]]))
+            except (ValueError, KeyError, OSError) as e:
+                self._count_restore("corrupt")
+                raise CorruptCheckpointError(
+                    path, f"{fname} unreadable: {type(e).__name__}: {e}")
+
+        def assemble(kind: str, leaf_key: str, spec: Dict[str, Any]):
+            k = (kind, leaf_key)
+            if k not in blocks:
+                self._count_restore("corrupt")
+                raise CorruptCheckpointError(
+                    path, f"no shard blocks for {kind} leaf {leaf_key}")
+            dim = dims[k]
+            parts = sorted(blocks[k], key=lambda sb: sb[0])
+            arr = parts[0][1] if dim is None else np.concatenate(
+                [b for _, b in parts], axis=dim)
+            if list(arr.shape) != list(spec["shape"]):
+                self._count_restore("corrupt")
+                raise CorruptCheckpointError(
+                    path, f"{kind} leaf {leaf_key}: reassembled shape "
+                          f"{list(arr.shape)} != manifest {spec['shape']}")
+            return arr
+
+        # ---- the target network --------------------------------------
+        mzip = os.path.join(path, "model.zip")
+        meta, conf_json, _params, state_tree, _ = \
+            model_serializer._read_container(mzip, False)
+        if net is None:
+            conf_cls, net_cls = model_serializer._classes(meta, mzip)
+            net = net_cls(conf_cls.from_json(conf_json),
+                          device=resolve_device(device))
+        elif meta.get("net_class") != type(net).__name__:
+            raise ValueError(
+                f"saved model is a {meta.get('net_class')}, not a "
+                f"{type(net).__name__}")
+
+        # stage EVERYTHING (params and updater) before touching the net
+        spec = net.param_spec()
+        staged: Dict[str, Dict[str, np.ndarray]] = {}
+        saved = topo.get("params", {})
+        for key, pspec in saved.items():
+            layer, _, name = key.partition("/")
+            want_shape = spec.get(layer, {}).get(name, (None,))[0]
+            if want_shape is None:
+                raise ValueError(
+                    f"checkpoint param key {key!r} does not match the "
+                    "target network's param tree")
+            if list(want_shape) != list(pspec["shape"]):
+                raise ValueError(
+                    f"checkpoint param {key!r} has shape {pspec['shape']} "
+                    f"but the target network's is {list(want_shape)} — "
+                    "topology mismatch")
+            staged.setdefault(layer, {})[name] = assemble("param", key,
+                                                          pspec)
+        opt_specs = topo.get("opt") or []
+        opt_leaves = None
+        if load_updater and opt_specs:
+            names = {k: {n: None for n in g} for k, g in spec.items()}
+            tx = net._tx
+            if tx is None:
+                from ..nn._common import build_tx
+                tx = build_tx(net._default_updater(), net._hyper_confs(),
+                              names)
+            need = len(model_serializer.updater_layout(tx, names))
+            if need != len(opt_specs):
+                raise ValueError(
+                    f"updater state mismatch: saved {len(opt_specs)} "
+                    f"leaves, model needs {need}")
+            opt_leaves = [assemble("opt", str(i), s)
+                          for i, s in enumerate(opt_specs)]
+        if getattr(net, "_shard_layout", None) is not None:
+            # a wrapper's sharded layout is gathered back first (every
+            # rank restores together); the wrapper lays it out again
+            from ..parallel.wrapper import _unshard
+            _unshard(net)
+        net.load_params(staged)
+        net.load_state(state_tree)
+        if opt_leaves is not None or not _slots_fit(net):
+            # whole-size slots to install into (a dropped layout leaves
+            # blocks behind)
+            net._init_updater()
+        if opt_leaves is not None:
+            model_serializer.updater_state_from_jax(
+                net, model_serializer._optax_shaped(
+                    net._tx, net._param_tree(), opt_leaves))
+        net.iteration = int(meta.get("iteration", 0))
+        net.epoch = int(meta.get("epoch", 0))
+        net._step = None
+        state = _read_training_state(path)
+        _apply_rng(net, path)
+        self._count_restore("ok")
+        return net, state
 
     # --------------------------------------------------------- retention
     def _apply_retention(self) -> None:
@@ -431,6 +1039,15 @@ class CheckpointManager:
         for step, p, _ in ckpts:
             if step not in keep:
                 shutil.rmtree(p, ignore_errors=True)
+
+
+def _slots_fit(net) -> bool:
+    """Every updater slot has its parameter's shape."""
+    if net.opt_state is None:
+        return True
+    return all(tuple(t.shape) == tuple(net.params[k][n].shape)
+               for k, g in net.opt_state["slots"].items()
+               for n, sl in g.items() for t in sl.values())
 
 
 def _read_training_state(path: str) -> Dict[str, Any]:

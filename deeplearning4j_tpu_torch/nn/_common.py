@@ -1,9 +1,9 @@
 """Machinery shared by the network types (port of ``nn/_common.py``):
 the updater groups (``build_tx``), gradient normalization, constraints,
 the precision casts (``cast_act``, ``cast_floats``, ``precision_cast_map``),
-the refusal of the train-step branch the port lacks (the sparse-embedding
-gradient), the backward-and-update half of a train step (with the loss
-scale's unscale, check and skip), the device-resident epoch
+the backward-and-update half of a train step (with the loss scale's
+unscale, check and skip, and the data-parallel gradient exchange's
+hook), the device-resident epoch
 trainer behind ``fit_on_device``, the fit loop's step forensics
 (``_StepForensics``), and ``Network``, the base of ``MultiLayerNetwork``
 and ``ComputationGraph`` (parameter and state storage, init, loading, the
@@ -28,8 +28,7 @@ frozen group), a label per parameter, and a step count per label.
 from __future__ import annotations
 
 import logging
-from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, \
-    Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,31 +85,57 @@ def _l2(leaves: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
 
 
+class LocalNorms:
+    """The norms of one step's gradients, on one device: a layer's L2
+    norm, a leaf's, and the global one.  The data-parallel exchange
+    (``parallel/exchange.GradientExchange``) overrides them for leaves
+    sharded over the ranks."""
+
+    def group_norm(self, layer: str, group: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+        return _l2(float_grad_leaves(group))
+
+    def leaf_norm(self, layer: str, name: str, g: torch.Tensor
+                  ) -> torch.Tensor:
+        return torch.linalg.norm(g.reshape(-1))
+
+    def global_norm(self, grads: Tree) -> torch.Tensor:
+        gleaves = float_grad_leaves(grads)
+        return torch.sqrt(sum(torch.sum(g * g) for g in gleaves)) \
+            if gleaves else torch.zeros((), dtype=torch.float32)
+
+
+_LOCAL = LocalNorms()
+
+
 def apply_gradient_normalization(mode: Optional[str], threshold: float,
-                                 grads: Dict[str, torch.Tensor]
+                                 grads: Dict[str, torch.Tensor],
+                                 layer: str = "",
+                                 norms: LocalNorms = _LOCAL
                                  ) -> Dict[str, torch.Tensor]:
     """One layer's gradients under the reference's ``preApply`` modes."""
     if not mode or mode == "none":
         return grads
     mode = mode.lower()
-    leaves = float_grad_leaves(grads)
     if mode == "renormalizel2perlayer":
-        norm = _l2(leaves)
+        norm = norms.group_norm(layer, grads)
         return _map_float(lambda g: g / (norm + 1e-8), grads)
     if mode == "renormalizel2perparamtype":
-        return _map_float(
-            lambda g: g / (torch.linalg.norm(g.reshape(-1)) + 1e-8), grads)
+        return {n: g / (norms.leaf_norm(layer, n, g) + 1e-8)
+                if g.is_floating_point() else g for n, g in grads.items()}
     if mode == "clipelementwiseabsolutevalue":
         return _map_float(lambda g: torch.clamp(g, -threshold, threshold),
                           grads)
     if mode == "clipl2perlayer":
-        scale = torch.clamp(threshold / (_l2(leaves) + 1e-8), max=1.0)
+        scale = torch.clamp(threshold / (norms.group_norm(layer, grads)
+                                         + 1e-8), max=1.0)
         return _map_float(lambda g: g * scale, grads)
     if mode == "clipl2perparamtype":
-        def clip(g):
-            n = torch.linalg.norm(g.reshape(-1))
-            return g * torch.clamp(threshold / (n + 1e-8), max=1.0)
-        return _map_float(clip, grads)
+        def clip(n, g):
+            nrm = norms.leaf_norm(layer, n, g)
+            return g * torch.clamp(threshold / (nrm + 1e-8), max=1.0)
+        return {n: clip(n, g) if g.is_floating_point() else g
+                for n, g in grads.items()}
     raise ValueError(f"unknown gradient normalization '{mode}'")
 
 
@@ -193,7 +218,8 @@ def build_tx(default_u: UpdaterConf, confs: Dict[str, Optional[LayerConf]],
 
 def apply_gradient_norm_all(grads: Tree,
                             confs: Dict[str, Optional[LayerConf]],
-                            gn_mode: Optional[str], gn_thr: float) -> Tree:
+                            gn_mode: Optional[str], gn_thr: float,
+                            norms: LocalNorms = _LOCAL) -> Tree:
     """Per-layer ``preApply``; a layer's own setting replaces the
     network's."""
     for name, lc in confs.items():
@@ -203,20 +229,9 @@ def apply_gradient_norm_all(grads: Tree,
         if m and grads.get(name):
             t = getattr(hc, "gradient_normalization_threshold", None)
             t = float(t) if t is not None and own else gn_thr
-            grads[name] = apply_gradient_normalization(m, t, grads[name])
+            grads[name] = apply_gradient_normalization(m, t, grads[name],
+                                                       name, norms)
     return grads
-
-
-def refuse_unported_training(conf, layers: Iterable[Optional[LayerConf]]
-                             ) -> None:
-    """The JAX train step's branch this port does not have, refused when
-    the train step is built: the sparse-embedding gradient (ROADMAP
-    queue 1, item 8)."""
-    for lc in layers:
-        if getattr(lc, "sparse_grad", False):
-            raise NotImplementedError(
-                f"layer '{lc.name}': sparse_grad=True (the sparse-embedding "
-                "gradient) is not ported yet (ROADMAP queue 1, item 8)")
 
 
 def cast_act(h, dtype: Optional[str]):
@@ -293,7 +308,8 @@ def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
                         tx: "UpdaterGroups",
                         confs: Dict[str, Optional[LayerConf]],
                         gn_mode: Optional[str], gn_thr: float,
-                        scale: Optional[torch.Tensor] = None
+                        scale: Optional[torch.Tensor] = None,
+                        exchange=None
                         ) -> Tuple[Dict[str, Any], bool]:
     """The second half of the SGD-path train step: gradients of ``loss``
     by autograd, gradient normalization, then the updaters, in place on
@@ -305,7 +321,16 @@ def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
     gradients are unscaled and checked first (``unscale_and_check``); if
     any is not finite the step is skipped wholesale: no normalization, no
     update, no step count, no constraint.  That check is the step's one
-    host read."""
+    host read.
+
+    ``tx`` is anything with ``step(params, grads, opt_state)``: the
+    updater groups, or the sparse-embedding step's row-space updater
+    (``nn/sparse.RowContext.updater``).  ``exchange`` (a
+    ``parallel/exchange.GradientExchange``) sums the gradients over the
+    data-parallel ranks right after autograd, so the finiteness check and
+    the normalization see the global gradient, and runs the update and
+    the constraints on the ranks' layout; None is the single-device
+    step."""
     keys = [(k, n) for k, group in params.items() for n in group]
     leaves = [params[k][n] for k, n in keys]
     flat = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -313,24 +338,28 @@ def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
     for (k, n), g, p in zip(keys, flat, leaves):
         # a param the loss does not reach has gradient 0, as in JAX
         grads[k][n] = torch.zeros_like(p) if g is None else g
+    norms = _LOCAL if exchange is None else exchange
     finite = None
     with torch.no_grad():
+        if exchange is not None:
+            grads = exchange.reduce(grads)
         if scale is not None:
             grads, finite = _precision.unscale_and_check(grads, scale)
-        grads = apply_gradient_norm_all(grads, confs, gn_mode, gn_thr)
-        gleaves = float_grad_leaves(grads)
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gleaves)) \
-            if gleaves else torch.zeros((), dtype=torch.float32)
-        glayer = {k: torch.sqrt(sum(torch.sum(g * g)
-                                    for g in float_grad_leaves(v)))
-                  for k, v in grads.items() if v}
+            if exchange is not None:
+                finite = exchange.all_finite(finite)
+        grads = apply_gradient_norm_all(grads, confs, gn_mode, gn_thr, norms)
+        gnorm = norms.global_norm(grads)
+        glayer = {k: norms.group_norm(k, v) for k, v in grads.items() if v}
     gstats = {"global_norm": gnorm, "layer_norms": glayer}
     if finite is not None:
         gstats["finite"] = finite
         if not bool(finite):
             return gstats, False
-    tx.step(params, grads, opt_state)
-    apply_constraints_all(params, confs)
+    if exchange is None:
+        tx.step(params, grads, opt_state)
+        apply_constraints_all(params, confs)
+    else:
+        exchange.update(tx, params, grads, opt_state, confs)
     return gstats, True
 
 
@@ -631,6 +660,11 @@ class Network(nn.Module):
         self._last_grad_stats: Optional[Dict[str, Any]] = None
         self._tx = None
         self._step = None
+        # the data-parallel wrapper's GradientExchange (None: one device)
+        # and, while a wrapper shards leaves, (exchange, param plan,
+        # updater plan)
+        self._exchange = None
+        self._shard_layout = None
         self.listeners: List[Any] = []
         self.last_permutations: List[torch.Tensor] = []
         # the running fit's StepProfiler (None outside fit)

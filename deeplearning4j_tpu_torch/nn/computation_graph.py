@@ -27,23 +27,23 @@ each vertex's inputs and params to its compute dtype, as the
 MultiLayerNetwork's step does per layer (``nn/multilayer``);
 ``cache_mode("remat")`` checkpoints each layer vertex.  As in the JAX
 package, a graph trains by SGD whatever ``optimization_algo`` says (the
-legacy solvers drive MultiLayerNetworks).  Not ported, and refused when
-configured: the sparse-embedding gradient; tBPTT is not ported for
-graphs.
+legacy solvers drive MultiLayerNetworks).  As in the JAX package, a
+sparse-gradient vertex is refused (the densified pre-pass is the
+MultiLayerNetwork step's); tBPTT is not ported for graphs.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..utils import _random
+from ..utils import _random, global_batch
 from . import precision as _precision
 from ._common import (Network, backward_and_update, batch_factory, cast_act,
                       cast_params, finish_precision_step,
-                      fit_on_device_epochs, precision_cast_map,
-                      refuse_unported_training)
+                      fit_on_device_epochs, precision_cast_map)
 from .conf.computation_graph import LayerVertex
 from .layers.base import draws
 
@@ -157,17 +157,29 @@ def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
         lp = params.get(name, {})
         if lp:
             reg = reg + v.regularization_score(dict(lp))
-    return total + reg, new_state
+    return total + global_batch.share(reg), new_state
 
 
-def _build_graph_train_step(conf, tx):
+def _build_graph_train_step(conf, tx, exchange=None):
     """``step(params, state, opt_state, xs, ys, label_masks, key=None,
     masks=None) -> (loss, new_state, gstats)``, updating ``params`` and
     ``opt_state`` in place, drawing dropout from ``key``.  Port of the
     reference's graph train step (precision casts per vertex, the loss
-    scale and its skip) without its sparse-gradient branch."""
+    scale and its skip); as there, a sparse-gradient vertex is refused.
+    ``exchange``: one data-parallel rank's step (``nn/multilayer``'s
+    ``_build_train_step`` has the contract)."""
     confs = _vertex_confs(conf)
-    refuse_unported_training(conf, confs.values())
+    for name, lc in confs.items():
+        if getattr(lc, "sparse_grad", False) or \
+                getattr(getattr(lc, "layer", None), "sparse_grad", False):
+            # the densified pre-pass (nn/sparse) is wired into the
+            # MultiLayerNetwork step only, as in the JAX package
+            raise ValueError(
+                f"vertex '{name}': sparse_grad=True is supported on "
+                "MultiLayerNetwork (first-layer embedding) only; the "
+                "ComputationGraph train step has no densified sparse-"
+                "gradient pre-pass — drop the flag, or move the "
+                "embedding model to a MultiLayerNetwork stack")
     gn_mode = conf.defaults.get("gradient_normalization")
     gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
                                      1.0))
@@ -178,21 +190,29 @@ def _build_graph_train_step(conf, tx):
 
     def step(params, state, opt_state, xs, ys, label_masks, key=None,
              masks=None):
+        if exchange is not None:
+            params = exchange.gather(params)
         if pol is not None:
             xs = [cast_act(x, pol.compute_dtype) for x in xs]
         ls = state.get(_precision.SCALE_STATE_KEY) \
             if pol is not None and pol.scaled else None
-        loss, new_state = _graph_loss(conf, cast_params(params, cast_map),
-                                      state, xs, ys, train=True,
-                                      label_masks=label_masks, key=key,
-                                      masks=masks, precision=pol)
-        obj = loss * ls["scale"] if ls is not None else loss
-        gstats, updated = backward_and_update(
-            obj, params, opt_state, tx, confs, gn_mode, gn_thr,
-            scale=None if ls is None else ls["scale"])
+        with (nullcontext() if exchange is None
+              else exchange.batch(int(xs[0].shape[0]))):
+            loss, new_state = _graph_loss(
+                conf, cast_params(params, cast_map), state, xs, ys,
+                train=True, label_masks=label_masks, key=key, masks=masks,
+                precision=pol)
+            obj = loss * ls["scale"] if ls is not None else loss
+            gstats, updated = backward_and_update(
+                obj, params, opt_state, tx, confs, gn_mode, gn_thr,
+                scale=None if ls is None else ls["scale"],
+                exchange=exchange)
         new_state = finish_precision_step(pol, state, new_state, gstats,
                                           updated)
-        return loss.detach(), new_state, gstats
+        loss = loss.detach()
+        if exchange is not None:
+            loss = exchange.total(loss)
+        return loss, new_state, gstats
 
     return step
 
@@ -286,7 +306,8 @@ class ComputationGraph(Network):
         if self._step is None:
             if self.opt_state is None:
                 self._init_updater()
-            self._step = _build_graph_train_step(self.conf, self._tx)
+            self._step = _build_graph_train_step(self.conf, self._tx,
+                                                 self._exchange)
         return self._step
 
     def _fit_one(self, xs, ys, ms, lms) -> torch.Tensor:

@@ -15,7 +15,8 @@ call ``apply`` when ``train`` and a key are given.  Weight noise
 (``nn/layers/base``), which hands param i of the sorted names the key
 ``fold_in(layer key, i)``; ``DropConnect``'s mask is bit-equal to the
 JAX package's, ``WeightNoise`` agrees within its distribution's
-rounding.
+rounding.  Inside a data-parallel step the activation draws are the
+global batch's rows (``utils/global_batch.rows``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from ...utils import _random
+from ...utils import _random, global_batch
 from ...utils.serde import register_serde
 from .distribution import Distribution, NormalDistribution
 
@@ -44,7 +45,8 @@ class Dropout(IDropout):
     p: float = 0.5  # probability of *retaining* a unit, as in DL4J
 
     def apply(self, key, x, iteration=0):
-        keep = _random.bernoulli(key, self.p, x.shape)
+        keep = global_batch.rows(
+            lambda s: _random.bernoulli(key, self.p, s), x.shape)
         return torch.where(keep, x / self.p, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
 
@@ -56,7 +58,8 @@ class GaussianDropout(IDropout):
 
     def apply(self, key, x, iteration=0):
         std = (self.rate / (1.0 - self.rate)) ** 0.5
-        return x * (1.0 + std * _random.normal(key, x.shape).to(x.dtype))
+        noise = global_batch.rows(lambda s: _random.normal(key, s), x.shape)
+        return x * (1.0 + std * noise.to(x.dtype))
 
 
 @register_serde
@@ -65,7 +68,8 @@ class GaussianNoise(IDropout):
     stddev: float = 0.1
 
     def apply(self, key, x, iteration=0):
-        return x + self.stddev * _random.normal(key, x.shape).to(x.dtype)
+        noise = global_batch.rows(lambda s: _random.normal(key, s), x.shape)
+        return x + self.stddev * noise.to(x.dtype)
 
 
 @register_serde
@@ -79,7 +83,8 @@ class AlphaDropout(IDropout):
         p = self.p
         a = (p + self.alpha ** 2 * p * (1 - p)) ** -0.5
         b = -a * (1 - p) * self.alpha
-        keep = _random.bernoulli(key, p, x.shape)
+        keep = global_batch.rows(lambda s: _random.bernoulli(key, p, s),
+                                 x.shape)
         return a * torch.where(keep, x, torch.full((), self.alpha,
                                                    dtype=x.dtype,
                                                    device=x.device)) + b

@@ -35,7 +35,7 @@ import torch
 
 from ...ops.attention import sdpa_reference
 from ...ops.flash_attention import flash_attention
-from ...utils import _random
+from ...utils import _random, global_batch
 from ...utils.serde import register_serde
 from ..activations import gelu
 from ..conf.input_type import InputType
@@ -202,8 +202,9 @@ class MultiHeadAttention(BaseLayerConf):
         probability ``attn_dropout``, drawn from ``fold_in(key, 7)``."""
         if train and self.attn_dropout and key is not None:
             keep = self.attn_dropout
-            mask_d = _random.bernoulli(_random.fold_in(key, 7), keep,
-                                       y.shape)
+            k7 = _random.fold_in(key, 7)
+            mask_d = global_batch.rows(
+                lambda s: _random.bernoulli(k7, keep, s), y.shape)
             y = torch.where(mask_d, y / keep,
                             torch.zeros((), dtype=y.dtype, device=y.device))
         return y

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ...parallel.inference import InvalidInputError
+from ...utils import global_batch
 from ...utils.serde import register_serde
 from .. import losses as _losses
 from ..conf.input_type import InputType
@@ -125,11 +126,13 @@ class CenterLossOutputLayer(OutputLayer):
         per_c = torch.sum((x.detach() - c_sel) ** 2, dim=-1)
         if mask is not None:
             w = mask.reshape(mask.shape[0], -1)[:, 0].to(per_f.dtype)
-            denom = torch.clamp(torch.sum(w), min=1.0)
-            mean_f = torch.sum(w * per_f) / denom
-            mean_c = torch.sum(w * per_c) / denom
+            mean_f = global_batch.masked_mean(torch.sum(w * per_f),
+                                              torch.sum(w))
+            mean_c = global_batch.masked_mean(torch.sum(w * per_c),
+                                              torch.sum(w))
         else:
-            mean_f, mean_c = torch.mean(per_f), torch.mean(per_c)
+            mean_f = global_batch.mean_rows(per_f)
+            mean_c = global_batch.mean_rows(per_c)
         l_feat = 0.5 * self.lambda_ * mean_f
         l_cent = 0.5 * self.alpha * mean_c
         return base + l_feat + l_cent - l_cent.detach()
@@ -226,7 +229,11 @@ class EmbeddingLayer(BaseLayerConf):
         idx = self.decode_ids(x)
         if idx is None:
             idx = torch.argmax(x, dim=-1)
-        z = params["W"][idx]
+        if self.sparse_grad:
+            from .. import sparse as _sparse
+            z = _sparse.embedding_lookup(params["W"], idx)
+        else:
+            z = params["W"][idx]
         if self.has_bias:
             z = z + params["b"]
         return self.act_fn(z)
@@ -286,7 +293,13 @@ class EmbeddingSequenceLayer(BaseLayerConf):
     def apply(self, params, x, *, train=False, key=None):
         W = params["W"]
         idx = self.decode_ids(x)
-        z = x.to(W.dtype) @ W if idx is None else W[idx]
+        if idx is None:
+            z = x.to(W.dtype) @ W
+        elif self.sparse_grad:
+            from .. import sparse as _sparse
+            z = _sparse.embedding_lookup(W, idx)
+        else:
+            z = W[idx]
         return self.act_fn(z)
 
 

@@ -8,7 +8,12 @@ an unbiased running variance).  The backward is the JAX package's
 hand-derived two-pass formula (``_bn_bwd_math``), shared with the fused
 kernel path of ``ops/pallas_bn``.  Both return ``(y, mean, var)`` and
 drop the cotangents of mean and var, which feed only the running-stat
-EMA.
+EMA.  Inside a data-parallel step of more than one rank (``gb``, the
+``utils/global_batch.GlobalBatch`` of the step) both take the global
+batch's statistics (SyncBN, as GSPMD computes them): the sums and sums
+of squares, and the backward's two reductions, are all-reduced and
+divided by the global row count, so the fused kernel applies global
+statistics too.
 
 The running mean and variance are the layer's state, ``{"mean", "var"}``:
 ``forward`` returns the new state (EMA with ``decay``, biased variance)
@@ -31,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import pallas_bn
+from ...utils import global_batch
 from ...utils.serde import register_serde
 from ..conf.input_type import InputType
 from .base import BaseLayerConf, LayerConf
@@ -41,36 +47,52 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
     return torch.promote_types(dt, torch.float32)
 
 
-def _bn_stats(x: torch.Tensor, eps: float):
+def _bn_stats(x: torch.Tensor, eps: float, gb=None):
     """One-pass statistics over every axis but the last: (mean, var, inv)
-    in the accumulation dtype, var = max(E[x²] − E[x]², 0)."""
+    in the accumulation dtype, var = max(E[x²] − E[x]², 0); over the
+    global batch when ``gb`` is given."""
     dims = tuple(range(x.ndim - 1))
     xf = x.to(_acc_dtype(x.dtype))
-    mean = torch.mean(xf, dim=dims)
-    var = torch.clamp(torch.mean(xf * xf, dim=dims) - mean * mean, min=0.0)
+    if gb is None:
+        mean = torch.mean(xf, dim=dims)
+        sq = torch.mean(xf * xf, dim=dims)
+    else:
+        c = x.shape[-1]
+        sums = gb.all_reduce(torch.cat([torch.sum(xf, dim=dims),
+                                        torch.sum(xf * xf, dim=dims)]))
+        n = float((x.numel() // c) * gb.world)
+        mean, sq = sums[:c] / n, sums[c:] / n
+    var = torch.clamp(sq - mean * mean, min=0.0)
     return mean, var, torch.rsqrt(var + eps)
 
 
-def _bn_fwd_math(x, gamma, beta, eps):
-    mean, var, inv = _bn_stats(x, eps)
+def _bn_fwd_math(x, gamma, beta, eps, gb=None):
+    mean, var, inv = _bn_stats(x, eps, gb)
     xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
     return xhat * gamma + beta, mean, var, inv
 
 
-def _bn_bwd_math(x, gamma, mean, inv, dy):
-    """The two-pass backward: (dx, dgamma, dbeta)."""
+def _bn_bwd_math(x, gamma, mean, inv, dy, gb=None):
+    """The two-pass backward: (dx, dgamma, dbeta).  With ``gb`` the two
+    reductions that dx reads are the global batch's, and dgamma/dbeta
+    are this rank's share (the wrappers' gradient exchange sums them)."""
     dims = tuple(range(x.ndim - 1))
-    n = x.numel() // x.shape[-1]
+    c = x.shape[-1]
+    n = x.numel() // c
     acc = _acc_dtype(x.dtype)
     xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
     dyf = dy.to(acc)
     # pass 1: both reductions over (dy, xhat)
     dbeta = torch.sum(dyf, dim=dims)
     dgamma = torch.sum(dyf * xhat.to(acc), dim=dims)
+    sb, sg = dbeta, dgamma
+    if gb is not None:
+        both = gb.all_reduce(torch.cat([dbeta, dgamma]))
+        sb, sg, n = both[:c], both[c:], n * gb.world
     # pass 2: dx = inv·gamma·(dy − dbeta/n − xhat·dgamma/n)
     coef = (inv * gamma.to(acc)).to(x.dtype)
-    dx = coef * (dy - (dbeta / n).to(x.dtype)
-                 - xhat * (dgamma / n).to(x.dtype))
+    dx = coef * (dy - (sb / n).to(x.dtype)
+                 - xhat * (sg / n).to(x.dtype))
     return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
@@ -79,22 +101,25 @@ class _BnTrainNorm(torch.autograd.Function):
     (y, mean, var), mean and var not differentiable."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float):
-        y, mean, var, inv = _bn_fwd_math(x, gamma, beta, eps)
+    def forward(ctx, x, gamma, beta, eps: float, gb):
+        y, mean, var, inv = _bn_fwd_math(x, gamma, beta, eps, gb)
         ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.gb = gb
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, gamma, mean, inv = ctx.saved_tensors
-        dx, dgamma, dbeta = _bn_bwd_math(x, gamma, mean, inv, dy)
-        return dx, dgamma, dbeta, None
+        dx, dgamma, dbeta = _bn_bwd_math(x, gamma, mean, inv, dy, ctx.gb)
+        return dx, dgamma, dbeta, None, None
 
 
-def bn_train_norm(x, gamma, beta, eps: float):
-    """(y, mean, var) of training-mode batch norm over the last axis."""
-    return _BnTrainNorm.apply(x, gamma, beta, eps)
+def bn_train_norm(x, gamma, beta, eps: float, gb=None):
+    """(y, mean, var) of training-mode batch norm over the last axis;
+    over the global batch of a data-parallel step when ``gb`` is
+    given."""
+    return _BnTrainNorm.apply(x, gamma, beta, eps, gb)
 
 
 @register_serde
@@ -156,14 +181,19 @@ class BatchNormalization(BaseLayerConf):
                 xhat = xhat * gamma + beta
             return self.act_fn(xhat), state
         gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
+        # None outside a data-parallel step of more than one rank; inside
+        # one, the support rule sees the global batch's shape, as the JAX
+        # package's (one program over the global batch) does
+        gb = global_batch.current()
+        shape = tuple(x.shape) if gb is None else \
+            (gb.global_rows,) + tuple(x.shape[1:])
         if self.helper == "pallas" and pallas_bn.supports(
-                activation=act, shape=tuple(x.shape),
-                itemsize=x.element_size()):
+                activation=act, shape=shape, itemsize=x.element_size()):
             # the activation is fused into the apply
             y, mean, var = pallas_bn.bn_act_train(x, gamma, beta, self.eps,
-                                                  act)
+                                                  act, gb=gb)
         else:
-            y, mean, var = bn_train_norm(x, gamma, beta, self.eps)
+            y, mean, var = bn_train_norm(x, gamma, beta, self.eps, gb=gb)
             y = self.act_fn(y)
         d = self.decay
         with torch.no_grad():

@@ -13,7 +13,8 @@ package's: ``mse``/``squared_loss``, ``l2``, ``mae``/``l1``,
 ``squared_hinge``, ``kld``/``kl_divergence``, ``poisson``,
 ``cosine_proximity``, ``wasserstein`` and ``fmeasure``.  As there,
 ``l2`` ignores ``unit_weights`` and ``fmeasure`` ignores the mask and
-the unit weights.
+the unit weights.  Inside a data-parallel step the means are over the
+global batch (``utils/global_batch``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..utils import global_batch
 from . import activations
 
 _EPS = 1e-7
@@ -85,10 +87,9 @@ def _apply_mask_and_mean(per_unit: torch.Tensor,
         per_unit = per_unit * mask
         per_example = per_unit.reshape(per_unit.shape[0], -1).sum(dim=1)
         m = mask.reshape(mask.shape[0], -1).amax(dim=1)
-        denom = torch.clamp(m.sum(), min=1.0)
-        return per_example.sum() / denom
+        return global_batch.masked_mean(per_example.sum(), m.sum())
     per_example = per_unit.reshape(per_unit.shape[0], -1).sum(dim=1)
-    return per_example.mean()
+    return global_batch.mean_rows(per_example)
 
 
 def _act(activation, preout):
@@ -240,5 +241,9 @@ def fmeasure(labels, preout, activation="sigmoid", mask=None,
     tp = torch.sum(labels * out)
     fp = torch.sum((1 - labels) * out)
     fn = torch.sum(labels * (1 - out))
+    gb = global_batch.current()
+    if gb is not None:
+        # the counts of the global batch; each rank's share of 1 - F1
+        tp, fp, fn = (global_batch.all_reduce_grad(c) for c in (tp, fp, fn))
     f1 = (2 * tp) / torch.clamp(2 * tp + fp + fn, min=_EPS)
-    return 1.0 - f1
+    return (1.0 - f1) if gb is None else (1.0 - f1) / gb.world

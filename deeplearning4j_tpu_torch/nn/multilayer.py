@@ -51,22 +51,24 @@ the next tBPTT chunk its pre-step carries.  ``cache_mode("remat")``
 checkpoints each layer (``torch.utils.checkpoint``): the backward replays
 its forward, dropout from the same key.  ``optimization_algo`` other than
 sgd trains through the legacy full-batch solvers (``train/solvers.py``).
-Not ported, and refused when configured: the sparse-embedding gradient;
-the shape policy's padding is not ported.
+A first-layer embedding with ``sparse_grad=True`` trains in row space
+(``nn/sparse``).  Under a data-parallel wrapper the step is one rank's
+(``parallel/exchange``).  The shape policy's padding is not ported.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..utils import _random
+from ..utils import _random, global_batch
 from . import precision as _precision
 from ._common import (Network, backward_and_update, batch_factory, cast_act,
                       cast_params, finish_precision_step,
-                      fit_on_device_epochs, precision_cast_map,
-                      refuse_unported_training)
+                      fit_on_device_epochs, precision_cast_map)
+from . import sparse as _sparse
 from .conf.multi_layer import MultiLayerConfiguration
 from .layers.base import draws
 
@@ -183,7 +185,7 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
         lp = params[f"layer_{i}"]
         if lp:
             reg = reg + lc.regularization_score(dict(lp))
-    return loss + reg, new_state
+    return loss + global_batch.share(reg), new_state
 
 
 def _stack_loss(conf, params, x, y, *, train: bool, mask=None,
@@ -199,7 +201,7 @@ def _detached(carries: Dict[str, Any]) -> Dict[str, Any]:
             for k, c in carries.items()}
 
 
-def _build_train_step(conf, tx):
+def _build_train_step(conf, tx, exchange=None):
     """``step(params, state, opt_state, x, y, mask, label_mask, carries=None,
     key=None) -> (loss, new_state, gstats, new_carries)``: one SGD-path
     training step that updates ``params`` and ``opt_state`` in place,
@@ -207,45 +209,118 @@ def _build_train_step(conf, tx):
     stream).  With ``carries`` (tBPTT) the recurrent layers start from
     them, gradients stopped at the chunk boundary, and the step returns
     the carries it ends with (its input carries when an overflow skipped
-    it).  Port of the reference's ``_build_train_step`` without its
-    sparse-embedding branch."""
-    refuse_unported_training(conf, conf.layers)
+    it).  Port of the reference's ``_build_train_step``.
+
+    A first-layer embedding with ``sparse_grad=True`` trains in row space
+    (``nn/sparse``): the table is substituted by the touched rows, its
+    gradient is their coalesced block, and the lazy updater writes back
+    only those rows and their slots.
+
+    ``exchange`` (a ``parallel/exchange.GradientExchange``) makes this the
+    step of one data-parallel rank: the forward runs in the global-batch
+    context (global loss denominators, batch statistics and dropout
+    rows), ZeRO-3 leaves are all-gathered first, the gradients are summed
+    over the ranks before anything reads them, and the returned loss is
+    the global one."""
     gn_mode = conf.defaults.get("gradient_normalization")
     gn_thr = float(conf.defaults.get("gradient_normalization_threshold",
                                      1.0))
     pol = _precision.resolve(conf.defaults)
     confs = _layer_confs(conf)
     cast_map = precision_cast_map(pol, confs)
+    sparse_emb = _sparse.sparse_embedding_conf(conf)
+    skip = ()
+    if sparse_emb is not None and exchange is not None:
+        exchange.rowspace = {_sparse.TABLE}
+        skip = (_sparse.TABLE,)
 
     def step(params, state, opt_state, x, y, mask, label_mask,
              carries=None, key=None):
         # carry state flows INTO the chunk; gradients do not flow back
         # across the chunk boundary (tBPTT truncation)
         cs = None if carries is None else _detached(carries)
+        if exchange is not None:
+            params = exchange.gather(params, skip)
         if pol is not None:
             # floating inputs only: integer ids reach the embedding exact
             x = cast_act(x, pol.compute_dtype)
+        ctx = None
+        params_in, params_fwd, x_in, upd = params, params, x, tx
+        if sparse_emb is not None:
+            # the table's leaf is the touched rows; the forward reads
+            # them with a zero trash row after them, which the ids of
+            # fill slots address
+            ctx = _row_context(sparse_emb, params, x, exchange)
+            params_in = _with_table(params, ctx.rows)
+            params_fwd = _with_table(params, ctx.rows_ext)
+            x_in = ctx.x_sub
+            upd = ctx.updater(tx)
         ls = state.get(_precision.SCALE_STATE_KEY) \
             if pol is not None and pol.scaled else None
-        loss, new_state = _stack_loss_state(
-            conf, cast_params(params, cast_map), state, x, y, train=True,
-            mask=mask, label_mask=label_mask, carries=cs, key=key,
-            precision=pol)
-        # the whole backward sees the scaled loss; the reported loss
-        # stays unscaled
-        obj = loss * ls["scale"] if ls is not None else loss
-        gstats, updated = backward_and_update(
-            obj, params, opt_state, tx, confs, gn_mode, gn_thr,
-            scale=None if ls is None else ls["scale"])
+        with (nullcontext() if exchange is None
+              else exchange.batch(int(x.shape[0]))):
+            loss, new_state = _stack_loss_state(
+                conf, cast_params(params_fwd, cast_map), state, x_in, y,
+                train=True, mask=mask, label_mask=label_mask, carries=cs,
+                key=key, precision=pol)
+            # the whole backward sees the scaled loss; the reported loss
+            # stays unscaled
+            obj = loss * ls["scale"] if ls is not None else loss
+            gstats, updated = backward_and_update(
+                obj, params_in, opt_state, upd, confs, gn_mode, gn_thr,
+                scale=None if ls is None else ls["scale"],
+                exchange=exchange)
+        if ctx is not None:
+            gstats["embedding_rows_touched"] = ctx.touched()
         new_state = finish_precision_step(pol, state, new_state, gstats,
                                           updated)
         if cs is not None:
             # a skipped chunk hands the next one its pre-step carries: the
             # overflowed forward poisoned the ones it made
             cs = _detached(cs if updated else carries)
-        return loss.detach(), new_state, gstats, cs
+        loss = loss.detach()
+        if exchange is not None:
+            loss = exchange.total(loss)
+        return loss, new_state, gstats, cs
 
     return step
+
+
+def _row_context(lc, params, x, exchange) -> "_sparse.RowContext":
+    """The sparse step's touched-row workspace for this batch."""
+    ids = lc.decode_ids(x)
+    if ids is None:
+        # never a silent dense fallback
+        raise ValueError(
+            f"layer '{lc.name}': sparse_grad=True needs an integer id "
+            f"batch for the densified pre-pass, but this input (shape "
+            f"{tuple(x.shape)}, dtype {x.dtype}) rides the one-hot path — "
+            "feed ids (argmax the one-hots upstream), or drop sparse_grad")
+    table = params["layer_0"]["W"]
+    pdim = odim = None
+    shape = list(table.shape)
+    if exchange is not None:
+        pdim = exchange.param_plan.get("layer_0", {}).get("W")
+        odim = exchange.odim("layer_0", "W")
+        if pdim is not None:
+            shape[pdim] *= exchange.dp
+    others = {k: {n: p for n, p in g.items()
+                  if (k, n) != _sparse.TABLE} for k, g in params.items()}
+    others["layer_0"]["W"] = torch.empty(shape, device="meta")
+    if not _sparse.table_is_unambiguous(others, shape):
+        raise ValueError(
+            f"layer '{lc.name}': another parameter leaf shares the table's "
+            f"exact shape {tuple(shape)} — the row-space mirror walk is "
+            "shape-keyed and cannot disambiguate the updater mirrors; "
+            "resize/split the twin parameter or drop sparse_grad")
+    return _sparse.RowContext(table, ids, lc.sparse_grad_capacity, exchange,
+                              pdim, odim)
+
+
+def _with_table(params, table):
+    """``params`` with the sparse embedding's table replaced."""
+    lk, pn = _sparse.TABLE
+    return {**params, lk: {**params[lk], pn: table}}
 
 
 def _normalize_batch(b) -> Tuple[Any, Any, Any, Any]:
@@ -403,7 +478,8 @@ class MultiLayerNetwork(Network):
         if self._step is None:
             if self.opt_state is None:
                 self._init_updater()
-            self._step = _build_train_step(self.conf, self._tx)
+            self._step = _build_train_step(self.conf, self._tx,
+                                           self._exchange)
         return self._step
 
     def _fit_one(self, x, y, m, lm) -> torch.Tensor:

@@ -30,6 +30,7 @@ up to 256), and a shape the reference admits beyond it takes
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 from typing import Callable, Optional, Tuple
 
@@ -50,9 +51,11 @@ BWD_SOURCE = "flash_attn_bwd.cu"
 
 # Kernel launches, one count per kernel, and the same launches by input
 # dtype (``{(kernel, dtype name): n}``); each wrapper adds one to both
-# where it launches its kernel and nowhere else.
+# where it launches its kernel and nowhere else (under a lock: replicas
+# of the training masters launch from several threads).
 launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 launches_by_dtype: Counter = Counter()
+_count_lock = threading.Lock()
 
 _fns = {}
 
@@ -64,8 +67,9 @@ def reset_launches() -> None:
 
 
 def _count(name: str, dtype: torch.dtype) -> None:
-    launches[name] += 1
-    launches_by_dtype[(name, str(dtype).split(".")[-1])] += 1
+    with _count_lock:
+        launches[name] += 1
+        launches_by_dtype[(name, str(dtype).split(".")[-1])] += 1
 
 
 def _tile_ok(t: int) -> bool:

@@ -20,7 +20,8 @@ bound with ``ctypes``.
 - ``bn_apply`` runs the kernel on CUDA tensors and ``bn_apply_plain`` on
   CPU tensors; on a CUDA tensor it launches or raises.
 - ``bn_act_train`` is the reference's ``custom_vjp`` as a
-  ``torch.autograd.Function``: the forward takes the statistics in torch,
+  ``torch.autograd.Function``: the forward takes the statistics in torch
+  (the global batch's inside a data-parallel step of several ranks),
   folds them into ``scale``/``shift`` as ``_fwd_math`` does and applies
   them; the backward is the shared two-pass formula with dy masked by
   ``y > 0`` for relu.  The mean/var cotangents are dropped.
@@ -262,10 +263,10 @@ def bn_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return y
 
 
-def _fwd_math(x, gamma, beta, eps: float, act: str):
+def _fwd_math(x, gamma, beta, eps: float, act: str, gb=None):
     from ..nn.layers.normalization import _bn_stats
     acc = torch.promote_types(x.dtype, torch.float32)
-    mean, var, inv = _bn_stats(x, eps)
+    mean, var, inv = _bn_stats(x, eps, gb)
     scale = (inv * gamma.to(acc)).to(x.dtype)
     shift = (beta.to(acc) - mean * inv * gamma.to(acc)).to(x.dtype)
     y = bn_apply(x, scale, shift, act == "relu")
@@ -276,12 +277,12 @@ class _BnActTrain(torch.autograd.Function):
     """The reference's ``custom_vjp`` ``bn_act_train``."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float, act: str):
-        y, mean, var, inv = _fwd_math(x, gamma, beta, eps, act)
+    def forward(ctx, x, gamma, beta, eps: float, act: str, gb):
+        y, mean, var, inv = _fwd_math(x, gamma, beta, eps, act, gb)
         # y is kept only for the relu mask
         ctx.save_for_backward(x, gamma, mean, inv,
                               y if act == "relu" else None)
-        ctx.act = act
+        ctx.act, ctx.gb = act, gb
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -291,15 +292,18 @@ class _BnActTrain(torch.autograd.Function):
         x, gamma, mean, inv, y = ctx.saved_tensors
         if ctx.act == "relu":
             dy = dy * (y > 0).to(dy.dtype)
-        dx, dgamma, dbeta = _bn_bwd_math(x, gamma, mean, inv, dy)
-        return dx, dgamma, dbeta, None, None
+        dx, dgamma, dbeta = _bn_bwd_math(x, gamma, mean, inv, dy, ctx.gb)
+        return dx, dgamma, dbeta, None, None, None
 
 
-def bn_act_train(x, gamma, beta, eps: float, act: str = "relu"):
+def bn_act_train(x, gamma, beta, eps: float, act: str = "relu", gb=None):
     """Training-mode BN with the activation fused into the apply: returns
     (y after the activation, mean, var), statistics in f32.  Callers check
-    :func:`supports` first; act must be identity or relu."""
+    :func:`supports` first; act must be identity or relu.  ``gb`` (the
+    ``utils/global_batch.GlobalBatch`` of a data-parallel step) makes the
+    statistics the global batch's; the kernel applies them all the
+    same."""
     if act not in _ACTS:
         raise ValueError(f"bn_act_train: activation '{act}' is not one of "
                          f"{_ACTS}")
-    return _BnActTrain.apply(x, gamma, beta, eps, act)
+    return _BnActTrain.apply(x, gamma, beta, eps, act, gb)

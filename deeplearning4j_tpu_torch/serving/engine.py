@@ -26,7 +26,8 @@ versions: in-flight batches finish on the slot they took, later batches
 run the new one.  Promotion restores the newest manifest-complete
 checkpoint of a ``CheckpointManager`` directory (without updater state)
 onto the engine's own device; corrupt checkpoints are skipped by the
-manager's verification and sharded ones are refused (ROADMAP item 8).
+manager's verification, and a sharded checkpoint (a ``ShardedTrainer``'s
+blocks) is gathered into the slot (``CheckpointManager.restore_any``).
 
 ``generation=`` (a ``GenerationConfig``, a dict of its fields, or True
 for the defaults) starts the continuous-batching decode engine of
@@ -448,7 +449,7 @@ class ServingEngine:
         (default: the engine's ``checkpoint_dir``) into the slot,
         restored without updater state onto the engine's device.  Corrupt
         and partial checkpoints are skipped by the manager's verification;
-        a sharded one is refused (ROADMAP item 8).  Returns the promoted
+        a sharded one is gathered into the slot.  Returns the promoted
         step, or None when nothing newer than the served step exists."""
         directory = directory or self.checkpoint_dir
         if not directory:
@@ -462,8 +463,10 @@ class ServingEngine:
         if newest is None:
             return None
         step, path = newest
-        model = for_serving(mgr.restore(path=path, load_updater=False,
-                                        device=self.device)[0])
+        # restore_any: a sharded directory (a ShardedTrainer's, either
+        # package's) is gathered into the slot like a dense one
+        model = for_serving(mgr.restore_any(path=path, load_updater=False,
+                                            device=self.device)[0])
         self.hot_swap(model, origin=path, step=step)
         if self.checkpoint_dir is None:
             self.checkpoint_dir = directory

@@ -158,8 +158,8 @@ class InferenceServer(PredictCircuitMixin):
     def reload(self, path: str) -> None:
         """Hot-swap the served model from a model zip or, given a
         ``CheckpointManager`` directory, from its newest COMPLETE
-        checkpoint; restored without updater state onto the server's
-        device."""
+        checkpoint (dense or sharded); restored without updater state
+        onto the server's device."""
         from ..faulttolerance.checkpoint import CheckpointManager
         from ..utils.model_serializer import restore_model
         if os.path.isdir(path):
@@ -168,8 +168,9 @@ class InferenceServer(PredictCircuitMixin):
             if newest is None:
                 raise FileNotFoundError(
                     f"no complete checkpoint to promote in {path}")
-            new_model, _ = mgr.restore(path=newest[1], load_updater=False,
-                                       device=self.device)
+            new_model, _ = mgr.restore_any(path=newest[1],
+                                           load_updater=False,
+                                           device=self.device)
         else:
             new_model = restore_model(path, load_updater=False,
                                       device=self.device)

@@ -9,6 +9,8 @@ Tolerance for the graph: 1e-6 absolute on outputs, step-0 gradients and
 the params after one Sgd step (f32 on both sides, sums of 4-5 terms in
 another order: ~1e-7).
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,6 @@ from deeplearning4j_tpu.nn.layers.feedforward import DenseLayer as JDense
 from deeplearning4j_tpu.nn.layers.feedforward import OutputLayer as JOut
 from deeplearning4j_tpu.utils.model_serializer import write_model
 from deeplearning4j_tpu_torch.models import zoo as tzoo
-from deeplearning4j_tpu_torch.nn import _common as tcommon
 from deeplearning4j_tpu_torch.nn.computation_graph import _graph_loss
 from deeplearning4j_tpu_torch.nn.layers import attention as tatt
 from deeplearning4j_tpu_torch.nn.layers.feedforward import \
@@ -84,15 +85,25 @@ def test_graph_without_input_types_loads_and_trains_as_jax(tmp_path):
 @pytest.mark.parametrize("case", ["sparse_grad", "moe", "ring", "ulysses",
                                   "keras_h5"])
 def test_every_remaining_refusal_names_its_roadmap_item(case, tmp_path):
-    """The refusals this slice leaves: the sparse-embedding gradient and
-    sequence parallelism (item 8), MoE (item 9 a), the zoo's Keras-HDF5
-    branch of ``pretrained`` (item 9 d)."""
+    """The refusals this slice leaves: tensor and sequence parallelism
+    (item 8), MoE (item 9 a), the zoo's Keras-HDF5 branch of
+    ``pretrained`` (item 9 d).  The sparse-embedding gradient is ported
+    (training across ranks slice): what stays refused is the JAX
+    package's own rule, a sparse-gradient vertex in a ComputationGraph,
+    and tensor parallelism in the data-parallel wrapper names item 8."""
     if case == "sparse_grad":
+        from deeplearning4j_tpu_torch.nn.computation_graph import \
+            _build_graph_train_step
+        from deeplearning4j_tpu_torch.parallel import ParallelWrapper
         lc = EmbeddingSequenceLayer(n_in=4, n_out=2, sparse_grad=True)
-        lc.name = "emb"
+        conf = SimpleNamespace(
+            defaults={}, vertices={"emb": SimpleNamespace(layer=lc)},
+            network_outputs=[], topological_order=["emb"])
+        with pytest.raises(ValueError, match="vertex 'emb': sparse_grad"):
+            _build_graph_train_step(conf, None)
         with pytest.raises(NotImplementedError,
                            match=r"ROADMAP queue 1, item 8\)"):
-            tcommon.refuse_unported_training(None, [lc])
+            ParallelWrapper(None, param_rule=lambda *a: None)
     elif case == "moe":
         with pytest.raises(NotImplementedError,
                            match=r"ROADMAP queue 1, item 9 a\)"):

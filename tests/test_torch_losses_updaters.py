@@ -252,20 +252,17 @@ def test_constraints_and_training_noise_raise():
     training forward draws the JAX package's DropConnect mask (param i of
     the sorted names from ``fold_in(key, i)``, biases skipped); precision
     policies are ported since the precision and memory slice, and the
-    sparse-embedding gradient is still refused, naming its ROADMAP item.
-    Dropout draws only in training with a key."""
+    sparse-embedding gradient since the training-across-ranks slice: no
+    refusal is left for the train step (``refuse_unported_training`` is
+    gone), and a first-layer sparse embedding is the step's row-space
+    table.  Dropout draws only in training with a key."""
+    from deeplearning4j_tpu_torch.nn.sparse import sparse_embedding_conf
     lc = tff.DenseLayer(n_in=2, n_out=2,
                         constraints=[tconstraints.MaxNormConstraint(1.0)])
-    stub = SimpleNamespace(defaults={})
-    tcommon.refuse_unported_training(stub, [lc])
-    # precision policies are ported (precision and memory slice): the
-    # train step no longer refuses them; the sparse-embedding gradient is
-    # still refused, naming its ROADMAP item
-    tcommon.refuse_unported_training(
-        SimpleNamespace(defaults={"precision": "bfloat16"}), [lc])
+    assert not hasattr(tcommon, "refuse_unported_training")
+    assert sparse_embedding_conf(SimpleNamespace(layers=[lc])) is None
     emb = tff.EmbeddingSequenceLayer(n_in=4, n_out=2, sparse_grad=True)
-    with pytest.raises(NotImplementedError, match="sparse_grad.*item 8"):
-        tcommon.refuse_unported_training(stub, [emb])
+    assert sparse_embedding_conf(SimpleNamespace(layers=[emb, lc])) is emb
     rng = np.random.default_rng(9)
     p = {"W": rng.standard_normal((2, 2)).astype(np.float32),
          "b": rng.standard_normal(2).astype(np.float32)}
@@ -275,7 +272,6 @@ def test_constraints_and_training_noise_raise():
     tp = {k: torch.tensor(v) for k, v in p.items()}
     assert torch.equal(noisy.apply(tp, torch.tensor(x)),
                        torch.tensor(x) @ tp["W"] + tp["b"])  # inference
-    tcommon.refuse_unported_training(stub, [noisy])
     key = _random.prng_key(4)
     got = noisy.maybe_noise_weights(tp, True, key)
     from deeplearning4j_tpu.nn.conf.dropout import DropConnect as JDC
@@ -290,7 +286,6 @@ def test_constraints_and_training_noise_raise():
     x = torch.ones(1, 2)
     dropped = tff.DenseLayer(n_in=2, n_out=2, dropout=0.5)
     key = _random.prng_key(0)
-    tcommon.refuse_unported_training(stub, [dropped])
     assert torch.equal(dropped.maybe_dropout_input(x, True), x)  # no key
     assert torch.equal(dropped.maybe_dropout_input(x, False, key), x)
     kept = dropped.maybe_dropout_input(x, True, key)

@@ -254,3 +254,42 @@ def test_serving_exports_the_jax_package_names():
     import deeplearning4j_tpu_torch.serving as tserving
     assert tserving.__all__ == jserving.__all__
     assert all(hasattr(tserving, name) for name in tserving.__all__)
+
+
+def test_parallel_slice_modules_are_checked():
+    for m in ("parallel.mesh", "parallel.exchange", "parallel.wrapper",
+              "parallel.sharded", "parallel.distributed",
+              "parallel.accumulation", "parallel.remote", "parallel.master",
+              "parallel.layer", "nn.sparse", "utils.global_batch",
+              "utils.native", "streaming.broker"):
+        assert f"deeplearning4j_tpu_torch.{m}" in MODULES
+
+
+def test_parallel_exports_the_jax_package_names_of_this_slice():
+    """The port's ``parallel`` exports the JAX package's names but those
+    of pipeline, sequence and expert parallelism (ROADMAP queue 1, item
+    8), and every export resolves."""
+    import deeplearning4j_tpu.parallel as jparallel
+
+    import deeplearning4j_tpu_torch.parallel as tparallel
+    later = {"gpipe", "stack_stage_params", "ring_self_attention",
+             "ulysses_attention", "init_moe_params", "make_moe_train_step",
+             "moe_ffn"}
+    assert set(jparallel.__all__) - set(tparallel.__all__) == later
+    assert all(getattr(tparallel, name) is not None
+               for name in tparallel.__all__)
+
+
+def test_parallel_entry_points_refuse_a_silent_cpu_default(no_cuda):
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayer
+    from deeplearning4j_tpu_torch.parallel import (DistributedLayerTrainer,
+                                                   ParallelWrapper,
+                                                   ShardedTrainer)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistributedLayerTrainer(OutputLayer(n_out=2, activation="softmax"),
+                                input_size=3)
+    # a wrapper trains its network on the network's own device
+    net = TransformerLM(vocab_size=8, seq_len=4, embed=8, n_layers=1,
+                        n_heads=1).init(device="cpu")
+    for w in (ParallelWrapper(net), ShardedTrainer(net)):
+        assert w.mesh.device.type == "cpu" and w.mesh.dp == 1

@@ -11,8 +11,10 @@
 - Hot swap under load: zero failed requests, each response from exactly
   the weights of the version it reports, versions never backwards.
 - ``promote_latest`` skips a corrupt checkpoint and ``watch`` promotes;
-  a directory the JAX ``CheckpointManager`` wrote promotes; a sharded
-  one is refused with ROADMAP item 8.
+  a directory the JAX ``CheckpointManager`` wrote promotes; a torn
+  sharded one (a topology without its shard files) is refused as
+  corrupt (a complete sharded one serves:
+  ``tests/test_torch_serving_sharded.py``).
 - ``/generate`` greedy and seeded-sampled token streams equal the JAX
   server's token for token, streamed equal to non-streamed, and a client
   that disconnects cancels its request.
@@ -44,7 +46,8 @@ from deeplearning4j_tpu.nn.layers.feedforward import OutputLayer as JOutput
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JMLN
 from deeplearning4j_tpu.serving import engine as jeng
 from deeplearning4j_tpu.utils import model_serializer as jms
-from deeplearning4j_tpu_torch.faulttolerance import CheckpointManager
+from deeplearning4j_tpu_torch.faulttolerance import (
+    CheckpointManager, CorruptCheckpointError)
 from deeplearning4j_tpu_torch.generation import GenerationConfig
 from deeplearning4j_tpu_torch.models.zoo import TransformerLM
 from deeplearning4j_tpu_torch.observability import (
@@ -440,16 +443,18 @@ def test_a_sharded_checkpoint_is_refused_with_item_8(pair, tmp_path):
     mgr = CheckpointManager(str(tmp_path), background=False)
     mgr.save(net_a, step=1)
     p2 = mgr.save(net_a, step=2)
-    # the sharded layout's marker beside a manifest-complete checkpoint
+    # the sharded layout's marker beside a manifest-complete checkpoint:
+    # since the sharded layout is ported it reads as a sharded directory
+    # whose shard files are missing, which promotion refuses as corrupt
     with open(os.path.join(p2, "topology.json"), "w") as f:
         f.write("{}")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(CorruptCheckpointError, match="shard file"):
         teng.ServingEngine(checkpoint_dir=str(tmp_path), device="cpu")
     server = teng.ServingServer(device="cpu").start()
     try:
         code, body, _ = _code_and_body(lambda: teng.ServingClient(
             _url(server), timeout=WAIT_S).reload(directory=str(tmp_path)))
-        assert code == 400 and b"item 8" in body
+        assert code == 400 and b"shard file" in body
     finally:
         server.stop()
 

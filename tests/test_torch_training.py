@@ -278,11 +278,16 @@ def test_training_with_stochastic_regularization_raises(field, value):
 
 def test_unported_training_options_raise():
     ids, y = _batch(np.random.default_rng(8), True)
-    # the sparse-embedding gradient is still refused, naming its item
+    # the sparse-embedding gradient is ported (training across ranks):
+    # the LM trains its table in row space, untouched rows unchanged
     tn = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
     tn.conf.layers[0].sparse_grad = True
-    with pytest.raises(NotImplementedError, match="sparse_grad.*item 8"):
-        tn.fit(ids, y)
+    W0 = tn.params["layer_0"]["W"].detach().clone()
+    ids = ids % (VOCAB // 2)         # half the vocabulary stays untouched
+    tn.fit(ids, y)
+    untouched = sorted(set(range(VOCAB)) - set(np.unique(ids).tolist()))
+    assert np.isfinite(tn.get_score())
+    assert torch.equal(tn.params["layer_0"]["W"][untouched], W0[untouched])
     # precision, remat and the legacy solvers are ported (precision and
     # memory slice): each is accepted and trains
     base = TransformerLM(**SMALL, sparse_labels=True).init(device="cpu")
