@@ -302,7 +302,29 @@ if any phase fails:
     ``SharedGradientsTrainingMaster`` with the host threshold/bitmap codec
     (every message plus its residual equals the raw update within one
     rounding; encoded bytes per message against the dense bytes, and
-    whether the g++ codec built).
+    whether the g++ codec built);
+43. ``moe_lm``: the Switch-MoE TransformerLM at full width (the LM of
+    phase 5 with every block's MLP 8 top-1 routed experts, capacity
+    factor 1.25: 1280 slots an expert for 16 x 512 tokens; ~151 M
+    params, f32, TF32 off, Adam 3e-4) trains 5 steps beside its
+    reference-attention twin: losses within ``TOL_MOE_LOSS``, 8 launches
+    of each flash kernel per step, the aux term in the loss (against an
+    aux-weight-0 twin), the tokens routed to another expert than the
+    twin's per layer (``routing_flips_per_layer``); then served through
+    ``ServingEngine`` in requests of 1, 5 and 16 rows, each row equal to
+    ``net.output`` of the padded batch it was served in, 8 forward
+    launches a batch.  Printed: step ms, device busy share, peak
+    allocated bytes, and the dispatch and combine einsums' time (forward
+    and backward, timed alone at the layer's shapes) as a share of the
+    step;
+44. ``model_axes_solo``: on a one-rank NCCL group, every model-axis
+    entry point at one rank against the computation without it: ring
+    attention (within ``TOL_SOLO_RING``) and Ulysses (bitwise, also over
+    the flash kernel) on a seq axis of one, ``gpipe`` with one stage
+    (outputs and gradients), ``moe_ffn`` over a one-rank expert axis,
+    and ``ParallelWrapper(param_rule=megatron_dense_rule)`` at tp 1
+    against plain ``fit`` for 5 steps of an MLP (its Megatron pair) and
+    of the full-width LM (8 launches per kernel per step), bitwise.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -5772,6 +5794,404 @@ def training_across_ranks_phases(args, torch, dev, card):
 
 
 
+
+# ---- 43-44. the model axes ----------------------------------------------
+# The Switch-MoE LM: the full-width TransformerLM with every block's MLP
+# a top-1 routed stack of 8 experts (capacity factor 1.25: 1280 slots an
+# expert for 16 x 512 tokens).
+MOE_EXPERTS, MOE_CAPACITY_FACTOR = 8, 1.25
+MOE_STEPS = 5
+MOE_TIMED_STEPS = 6
+# MoE LM losses, flash path against its reference-attention twin on the
+# same card.  The attention outputs differ by f32 summation order
+# (~1e-6); a router near a tie could then send a token to another expert
+# on one side (a routing flip, counted and printed), which would move
+# that token's output by O(1).  Set from the first card run (PERF.md;
+# H100 80GB HBM3 at 700 W): no flip in any of the 8 layers at
+# this seed, and the largest relative loss gap of the 5 steps 1.04e-7:
+# the dense LM's 1e-5 (TOL_TRAIN_LOSS) holds it 100 times over.
+TOL_MOE_LOSS = 1e-5
+# the aux term in the loss: the step's loss against a twin with aux
+# weight 0 (the same forward and routing) differs by the blocks' aux
+# terms, within f32 rounding of the ~9-nat loss
+TOL_MOE_AUX = 1e-5
+
+
+def _moe_routes(fn):
+    """Wrap ``expert._dispatch_tensors`` so each call appends the argmax
+    expert of every token (a host copy) to ``fn.routes``."""
+    def wrapped(probs, capacity):
+        wrapped.routes.append(probs.argmax(-1).cpu())
+        return fn(probs, capacity)
+    wrapped.routes = []
+    return wrapped
+
+
+def einsum_ms(torch, dev, tokens, experts, capacity, embed):
+    """Forward + backward time of one MoE layer's dispatch and combine
+    einsums (``tec,td->ecd`` and ``tec,ecd->td``) at these shapes, f32,
+    timed alone on the card."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    disp = (torch.rand((tokens, experts, capacity), generator=gen,
+                       device=dev) < 1.0 / capacity).float()
+    x = torch.randn((tokens, embed), generator=gen, device=dev,
+                    requires_grad=True)
+    out = torch.randn((experts, capacity, embed), generator=gen, device=dev,
+                      requires_grad=True)
+    comb = disp.clone().requires_grad_(True)
+    g_in = torch.randn((experts, capacity, embed), generator=gen, device=dev)
+    g_out = torch.randn((tokens, embed), generator=gen, device=dev)
+
+    def step():
+        a = torch.einsum("tec,td->ecd", disp, x)
+        b = torch.einsum("tec,ecd->td", comb, out)
+        torch.autograd.backward((a, b), (g_in, g_out))
+    return median_ms(step, torch, runs=10)
+
+
+def moe_lm_phase(args, torch, dev, card):
+    """Phase 43.  Returns ``({"train": launches, "serve": launches},
+    None)`` or ``(None, what failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.layers.moe import moe_capacity
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import expert
+    from deeplearning4j_tpu_torch.serving.engine import (ServingEngine,
+                                                         _pad_rows_np)
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+    t_phase = time.perf_counter()
+
+    def make(impl="auto", aux_weight=None):
+        conf = TransformerLM(vocab_size=VOCAB, seq_len=SEQ, embed=EMBED,
+                             n_layers=LAYERS, n_heads=HEADS,
+                             moe_experts=MOE_EXPERTS, attn_impl=impl,
+                             sparse_labels=True, seed=args.seed).conf()
+        for lc in conf.layers:
+            if getattr(lc, "moe_experts", 0):
+                lc.moe_capacity_factor = MOE_CAPACITY_FACTOR
+                if aux_weight is not None:
+                    lc.aux_loss_weight = aux_weight
+        return MultiLayerNetwork(conf, device=dev)
+
+    tree = seeded_params(make().param_spec(), args.seed + 43)
+    batches = _lm_batches(args, 43, MOE_STEPS)
+    net = params_from_jax(make(), tree)
+    n_params = net.num_params()
+    blocks = [f"layer_{i}" for i, lc in enumerate(net.conf.layers)
+              if getattr(lc, "AUX_LOSS", False)]
+    # routing of step 0's batch, flash path against reference attention
+    orig = expert._dispatch_tensors
+    twin = params_from_jax(make("reference"), tree)
+    routes = {}
+    for name, m in (("flash", net), ("reference", twin)):
+        expert._dispatch_tensors = _moe_routes(orig)
+        try:
+            m.output(batches[0][0])
+            routes[name] = expert._dispatch_tensors.routes
+        finally:
+            expert._dispatch_tensors = orig
+    flips = [int((a != b).sum()) for a, b in zip(routes["flash"],
+                                                 routes["reference"])]
+    tokens = TRAIN_BATCH * SEQ
+    capacity = moe_capacity(MOE_CAPACITY_FACTOR, tokens, MOE_EXPERTS)
+    # training: the flash net's 5 steps, launches per step, peak bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, launches, aux = [], [], []
+    for x, y in batches:
+        fa.reset_launches()
+        net.fit(x, y)
+        losses.append(float(net.get_score()))
+        launches.append(dict(fa.launches))
+        aux.append(sum(float(net.state[k]["aux_loss"]) for k in blocks))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    twin_losses = []
+    for x, y in batches:
+        twin.fit(x, y)
+        twin_losses.append(float(twin.get_score()))
+    del twin
+    torch.cuda.empty_cache()
+    # the aux term is in the objective: step 0 against an aux-weight-0
+    # twin (the same forward and routing)
+    no_aux = params_from_jax(make(aux_weight=0.0), tree)
+    no_aux.fit(*batches[0])
+    aux_gap = abs((losses[0] - float(no_aux.get_score())) - aux[0])
+    del no_aux
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, twin_losses))
+    # step time, device busy share, the dispatch/combine einsums' share
+    step_ms = _timed_steps(torch, net, batches, MOE_TIMED_STEPS)
+    split = profile_steps(torch, net, batches[:PROFILED_STEPS],
+                          LM_KERNEL_CLASSES)
+    busy = split["device_ms_total_per_step"] / step_ms \
+        if split["device_ms_total_per_step"] else None
+    ein = einsum_ms(torch, dev, tokens, MOE_EXPERTS, capacity, EMBED)
+    # serving: 1-, 5- and 16-row requests, each its own batch; each
+    # served row equals the model's output on the (padded) batch it was
+    # served in
+    rng = np.random.default_rng(args.seed + 43)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    engine = ServingEngine(net, device=dev, max_batch_size=MAX_BATCH)
+    serve = []
+    try:
+        engine.warmup()
+        for n in REQUEST_SIZES:
+            x = eye[rng.integers(0, VOCAB, (n, SEQ))]
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            b0 = engine.batches_dispatched
+            t1 = time.perf_counter()
+            y = engine.predict(x)
+            ms = (time.perf_counter() - t1) * 1e3
+            got = dict(fa.launches)
+            n_batches = engine.batches_dispatched - b0
+            bucket = next(b for b in engine.buckets if n <= b)
+            want = net.output(_pad_rows_np(x, bucket)).cpu().numpy()[:n]
+            serve.append({"rows": n, "bucket": bucket, "batches": n_batches,
+                          "launches": got, "ms": ms,
+                          "max_abs_diff": float(np.abs(y - want).max()),
+                          "finite": bool(np.isfinite(y).all())})
+    finally:
+        engine.shutdown()
+    expected = {k: LAYERS for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(json.dumps({
+        "phase": "moe_lm", "model": {
+            "vocab": VOCAB, "seq": SEQ, "embed": EMBED, "layers": LAYERS,
+            "heads": HEADS, "experts": MOE_EXPERTS,
+            "capacity_factor": MOE_CAPACITY_FACTOR, "capacity": capacity,
+            "batch": TRAIN_BATCH, "updater": "Adam(3e-4)",
+            "dtype": "float32", "num_params": n_params},
+        "steps": MOE_STEPS, "losses": losses, "twin_losses": twin_losses,
+        "max_rel_loss_diff_vs_twin": rel, "tol": TOL_MOE_LOSS,
+        "routing_flips_per_layer": flips, "tokens": tokens,
+        "aux_per_step": aux, "aux_gap_step0": aux_gap,
+        "tol_aux": TOL_MOE_AUX * abs(losses[0]),
+        "kernel_launches_per_step": launches,
+        "expected_launches_per_step": expected,
+        "step_ms_median": step_ms, "device_busy_share": busy,
+        "profile": split, "peak_allocated_bytes": peak,
+        "einsum_ms_per_layer": ein,
+        "einsum_ms_per_step": ein * LAYERS,
+        "einsum_share": ein * LAYERS / step_ms,
+        "serve": serve, "tol_serve": TOL_SERVE,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if not all(math.isfinite(v) for v in losses + twin_losses):
+        return None, f"MoE LM losses not finite: {losses} {twin_losses}"
+    if rel > TOL_MOE_LOSS:
+        return None, (f"MoE LM losses {losses} differ from the reference "
+                      f"twin's {twin_losses} by {rel} > {TOL_MOE_LOSS}")
+    if not all(a > 0 for a in aux) or \
+            aux_gap > TOL_MOE_AUX * abs(losses[0]):
+        return None, (f"the aux term is not in the MoE LM's loss: aux "
+                      f"{aux}, gap {aux_gap}")
+    if any(lc != expected for lc in launches):
+        return None, (f"MoE LM launched {launches}; expected {expected} "
+                      "per step")
+    for r in serve:
+        if r["batches"] != 1 or r["launches"]["fwd"] != LAYERS or \
+                r["launches"]["bwd_dq"] or r["launches"]["bwd_dkv"]:
+            return None, f"MoE serving launched {r}"
+        if not r["finite"] or r["max_abs_diff"] > TOL_SERVE:
+            return None, f"MoE served rows differ from the batch's: {r}"
+    return {"train": {k: sum(lc[k] for lc in launches) for k in expected},
+            "serve": {k: sum(r["launches"][k] for r in serve)
+                      for k in expected}}, None
+
+
+
+SOLO_MLP_BATCH = 64
+# ring attention at n = 1 against sdpa_reference: one online-softmax
+# block against one softmax, f32 on the card, the same products:
+# ~1e-6 of |O| <= ~4
+TOL_SOLO_RING = 1e-5
+
+
+def model_axes_solo_phase(args, torch, dev, card):
+    """Phase 44, on a one-rank NCCL group: every model-axis entry point
+    at one rank against the computation without it.  Returns ``(flash
+    launches of the tensor-parallel LM run, None)`` or ``(None, what
+    failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (DenseLayer,
+                                                                OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops.attention import sdpa_reference
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   make_grid, make_mesh,
+                                                   megatron_dense_rule)
+    from deeplearning4j_tpu_torch.parallel.expert import (init_moe_params,
+                                                          moe_ffn)
+    from deeplearning4j_tpu_torch.parallel.pipeline import gpipe
+    from deeplearning4j_tpu_torch.parallel.sequence import (
+        ring_self_attention, ulysses_attention)
+    from deeplearning4j_tpu_torch.utils import _random
+    t_phase = time.perf_counter()
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 44)
+    # ring and Ulysses over a seq axis of one rank, at the LM's shape
+    seq = make_grid(("seq",), (1,), device=dev)
+    q, k, v = (torch.randn((TRAIN_BATCH, HEADS, SEQ, HEAD_DIM),
+                           generator=gen, device=dev) for _ in range(3))
+    want = sdpa_reference(q, k, v, causal=True)
+    with seq:
+        ring = ring_self_attention(q, k, v, axis_name="seq", causal=True)
+        uly = ulysses_attention(q, k, v, axis_name="seq", causal=True)
+        fa.reset_launches()
+        uly_flash = ulysses_attention(q, k, v, axis_name="seq", causal=True,
+                                      attn_fn=fa.flash_attention)
+        uly_launches = dict(fa.launches)
+    flash = fa.flash_attention(q, k, v, causal=True)
+    out["ring_max_abs_err"] = (ring - want).abs().max().item()
+    out["ulysses_bitwise"] = torch.equal(uly, want)
+    out["ulysses_flash_bitwise"] = torch.equal(uly_flash, flash)
+    out["ulysses_flash_launches"] = uly_launches
+    # gpipe with one stage against the stage
+    pipe = make_grid(("pipe",), (1,), device=dev)
+    w = torch.randn((1, EMBED, EMBED), generator=gen, device=dev) * 0.05
+    b = torch.randn((1, EMBED), generator=gen, device=dev) * 0.05
+    xs = torch.randn((4, 8, EMBED), generator=gen, device=dev)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["W"] + p["b"])
+
+    local = {"W": w.clone().requires_grad_(True),
+             "b": b.clone().requires_grad_(True)}
+    with pipe:
+        ys = gpipe(stage, local, xs, axis_name="pipe")
+        g_pipe = torch.autograd.grad((ys ** 2).sum(), [local["W"],
+                                                       local["b"]])
+    plain = {"W": w[0].clone().requires_grad_(True),
+             "b": b[0].clone().requires_grad_(True)}
+    ys_plain = torch.stack([stage(plain, x) for x in xs])
+    g_plain = torch.autograd.grad((ys_plain ** 2).sum(),
+                                  [plain["W"], plain["b"]])
+    out["gpipe_bitwise"] = torch.equal(ys, ys_plain) and all(
+        torch.equal(a[0], c) for a, c in zip(g_pipe, g_plain))
+    # moe_ffn over an expert axis of one rank against no axis
+    ex = make_grid(("expert",), (1,), device=dev)
+    mp = init_moe_params(_random.prng_key(args.seed), MOE_EXPERTS, EMBED,
+                         4 * EMBED, device=dev)
+    xt = torch.randn((TRAIN_BATCH * SEQ, EMBED), generator=gen, device=dev)
+    cap = int(MOE_CAPACITY_FACTOR * xt.shape[0] / MOE_EXPERTS)
+    with ex:
+        y_ep, aux_ep = moe_ffn(mp, xt, cap, expert_axis="expert")
+    y_one, aux_one = moe_ffn(mp, xt, cap)
+    out["moe_bitwise"] = torch.equal(y_ep, y_one) and \
+        torch.equal(aux_ep, aux_one)
+    del q, k, v, want, ring, uly, uly_flash, flash, xt, y_ep, y_one
+    torch.cuda.empty_cache()
+    # ParallelWrapper(param_rule=megatron_dense_rule) at tp 1 against
+    # plain fit: the dry run's MLP (a Megatron pair) and the full-width
+    # LM (its embedding and output layers split, gathered in the step)
+    mesh = make_mesh(tp=1, device=dev)
+    mlp_conf = lambda: (NeuralNetConfiguration.builder()  # noqa: E731
+                        .seed(args.seed).activation("relu")
+                        .weight_init("xavier")
+                        .updater(Adam(learning_rate=1e-3)).list()
+                        .layer(DenseLayer(n_out=256))
+                        .layer(DenseLayer(n_out=256))
+                        .layer(OutputLayer(n_out=10, activation="softmax",
+                                           loss="mcxent"))
+                        .set_input_type(InputType.feed_forward(784))
+                        .build())
+    rng = np.random.default_rng(args.seed + 44)
+    mlp_batches = [(rng.standard_normal((SOLO_MLP_BATCH, 784)).astype(
+        np.float32), np.eye(10, dtype=np.float32)[
+            rng.integers(0, 10, SOLO_MLP_BATCH)]) for _ in range(PAR_STEPS)]
+    lm_tree = _lm_tree(args, dev, 44)
+    lm_batches = _lm_batches(args, 44, PAR_STEPS)
+    runs = {}
+    for model in ("mlp", "lm"):
+        for name in ("plain", "tp"):
+            net = MultiLayerNetwork(mlp_conf(), device=dev).init() \
+                if model == "mlp" else _lm_net(args, dev, lm_tree)
+            trainer = net if name == "plain" else ParallelWrapper(
+                net, mesh, param_rule=megatron_dense_rule(net.params))
+            batches = mlp_batches if model == "mlp" else lm_batches
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            losses, ms = _fit_timed(torch, trainer, net, batches)
+            state = training_state(net) if name == "plain" else None
+            if name == "tp":
+                trainer.release()
+                state = training_state(net)
+                pairs = sorted(f"{k}/{n}" for k, n in trainer.exchange.local)
+            runs[(model, name)] = {
+                "losses": losses, "launches": dict(fa.launches),
+                "step_ms_median": statistics.median(ms[1:]),
+                "state": state}
+            if name == "tp":
+                runs[(model, name)]["pairs"] = pairs
+            del net, trainer
+            torch.cuda.empty_cache()
+    diffs = {m: state_max_diff(runs[(m, "tp")]["state"],
+                               runs[(m, "plain")]["state"])
+             for m in ("mlp", "lm")}
+    expected = {k: LAYERS * PAR_STEPS for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(json.dumps({
+        "phase": "model_axes_solo", "world_size": 1, "backend": "nccl",
+        **out, "tol_ring": TOL_SOLO_RING,
+        "tp1_max_abs_diff_vs_plain": diffs, "gate": 0.0,
+        "tp1_pairs": {m: runs[(m, "tp")]["pairs"] for m in ("mlp", "lm")},
+        "losses": {f"{m}/{n}": r["losses"] for (m, n), r in runs.items()},
+        "step_ms_median": {f"{m}/{n}": r["step_ms_median"]
+                           for (m, n), r in runs.items()},
+        "lm_kernel_launches": {n: runs[("lm", n)]["launches"]
+                               for n in ("plain", "tp")},
+        "expected_launches": expected,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if out["ring_max_abs_err"] > TOL_SOLO_RING:
+        return None, f"ring attention at n = 1: {out['ring_max_abs_err']}"
+    for key in ("ulysses_bitwise", "ulysses_flash_bitwise", "gpipe_bitwise",
+                "moe_bitwise"):
+        if not out[key]:
+            return None, f"model axes at one rank: {key} is False"
+    if uly_launches != {"fwd": 1, "bwd_dq": 0, "bwd_dkv": 0}:
+        return None, f"Ulysses over flash launched {uly_launches}"
+    if any(d != 0.0 for d in diffs.values()):
+        return None, f"tensor parallelism at tp 1 differs from fit: {diffs}"
+    for n in ("plain", "tp"):
+        if runs[("lm", n)]["launches"] != expected:
+            return None, (f"{n} LM launched {runs[('lm', n)]['launches']}; "
+                          f"expected {expected}")
+    if runs[("mlp", "tp")]["pairs"] != ["layer_0/W", "layer_0/b",
+                                        "layer_1/W"]:
+        return None, f"the MLP's Megatron pair: {runs[('mlp', 'tp')]}"
+    return runs[("lm", "tp")]["launches"], None
+
+
+def model_axes_phases(args, torch, dev, card):
+    """Phases 43-44; 44 on a one-rank process group (NCCL on the card),
+    taken down at the end.  Returns ``(launches by path, None)`` or
+    ``(None, what failed)``."""
+    import torch.distributed as dist
+    out = {}
+    out["moe"], err = moe_lm_phase(args, torch, dev, card)
+    if err:
+        return None, err
+    torch.cuda.empty_cache()
+    world_of_one(dev)
+    try:
+        out["tp"], err = model_axes_solo_phase(args, torch, dev, card)
+        if err:
+            return None, err
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6267,6 +6687,12 @@ def main(argv=None) -> int:
         return fail(err)
     torch.cuda.empty_cache()
 
+    # ---- 43-44. the model axes: the MoE LM, every axis at one rank -----
+    axes_launches, err = model_axes_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -6296,6 +6722,9 @@ def main(argv=None) -> int:
             "launches_elastic_lm": rank_launches["elastic"][name],
             "launches_sparse_embedding_lm": rank_launches["sparse"][name],
             "launches_masters_lm": rank_launches["masters"][name],
+            "launches_moe_lm_train": axes_launches["moe"]["train"][name],
+            "launches_moe_lm_serve": axes_launches["moe"]["serve"][name],
+            "launches_tensor_parallel_lm_tp1": axes_launches["tp"][name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,

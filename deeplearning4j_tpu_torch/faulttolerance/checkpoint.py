@@ -225,6 +225,15 @@ class _ShardedSnapshot:
         layout = getattr(net, "_shard_layout", None)
         if layout is not None:
             ex, p_plan, o_plan = layout
+            if getattr(ex, "model_axis", None) is not None and any(
+                    d is not None for g in p_plan.values()
+                    for d in g.values()):
+                raise NotImplementedError(
+                    "save_sharded: leaves sharded over the 'model' axis (a "
+                    "tensor-parallel param_rule) — the sharded checkpoint "
+                    "format indexes one sharded dim per leaf over the "
+                    "data-parallel writers; save TP-sharded params through "
+                    "the dense path")
             dp, rank = ex.dp, ex.rank
             mesh_desc = {"axes": ["data", "model", "seq"],
                          "shape": [int(dp), 1, 1]}

@@ -304,6 +304,27 @@ def apply_constraints_all(params: Tree,
                     p.copy_(c.apply(p))
 
 
+def carry_thread_context(fn: Callable) -> Callable:
+    """``fn`` run in the calling thread's step contexts: the global batch
+    of a data-parallel step (``utils/global_batch``) and the entered mesh
+    (the axis environment ring and Ulysses attention resolve their axis
+    in).  ``torch.utils.checkpoint`` replays a layer's forward in the
+    backward, which runs on autograd's device thread on CUDA, where those
+    thread-local contexts are not set."""
+    from contextlib import nullcontext
+
+    from ..parallel import mesh
+    from ..utils import global_batch
+    gb = global_batch.snapshot()
+    grid = mesh.current_grid()
+
+    def run(*args, **kwargs):
+        with global_batch.reentered(gb), \
+                (grid if grid is not None else nullcontext()):
+            return fn(*args, **kwargs)
+    return run
+
+
 def backward_and_update(loss: torch.Tensor, params: Tree, opt_state,
                         tx: "UpdaterGroups",
                         confs: Dict[str, Optional[LayerConf]],
@@ -370,7 +391,12 @@ def finish_precision_step(pol, state: Tree, new_state: Tree,
     leaves the compute dtype made are cast back to f32; a skipped step
     keeps the pre-step layer state; the loss-scale state moves on
     (``next_scale_state``) and ``gstats`` gains ``loss_scale`` (the scale
-    this step used) and ``overflow`` (int32 0/1)."""
+    this step used) and ``overflow`` (int32 0/1).  State leaves leave the
+    step detached from its graph (a mixture-of-experts layer's aux term
+    is computed inside it)."""
+    new_state = {k: {n: t.detach() if isinstance(t, torch.Tensor) else t
+                     for n, t in v.items()} if isinstance(v, dict) else v
+                 for k, v in new_state.items()}
     if pol is None:
         return new_state
     key = _precision.SCALE_STATE_KEY

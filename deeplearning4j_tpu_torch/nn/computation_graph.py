@@ -42,8 +42,9 @@ from torch.utils.checkpoint import checkpoint
 from ..utils import _random, global_batch
 from . import precision as _precision
 from ._common import (Network, backward_and_update, batch_factory, cast_act,
-                      cast_params, finish_precision_step,
-                      fit_on_device_epochs, precision_cast_map)
+                      cast_params, carry_thread_context,
+                      finish_precision_step, fit_on_device_epochs,
+                      precision_cast_map)
 from .conf.computation_graph import LayerVertex
 from .layers.base import draws
 
@@ -113,8 +114,9 @@ def _graph_forward(conf, params, state, inputs: List[torch.Tensor], *,
         vkey = _vertex_key(key, vi, v)
         if remat and isinstance(v, LayerVertex):
             acts[name], new_state[name] = checkpoint(
-                _vertex_forward, v, params.get(name, {}),
-                state.get(name, {}), xs, vkey, ms, use_reentrant=False)
+                carry_thread_context(_vertex_forward), v,
+                params.get(name, {}), state.get(name, {}), xs, vkey, ms,
+                use_reentrant=False)
         else:
             acts[name], new_state[name] = v.forward(
                 params.get(name, {}), state.get(name, {}), xs, train=train,
@@ -157,6 +159,11 @@ def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
         lp = params.get(name, {})
         if lp:
             reg = reg + v.regularization_score(dict(lp))
+        if getattr(getattr(v, "layer", None), "AUX_LOSS", False):
+            # a mixture-of-experts vertex's load-balancing term
+            aux = new_state.get(name, {}).get("aux_loss")
+            if aux is not None:
+                reg = reg + aux
     return total + global_batch.share(reg), new_state
 
 

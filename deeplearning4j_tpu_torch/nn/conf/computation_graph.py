@@ -31,8 +31,8 @@ import torch
 from ...utils import serde
 from ...utils.serde import register_serde
 from ..layers import (attention, convolution, feedforward,  # noqa: F401
-                      misc, normalization, pooling,  # (@class registry)
-                      recurrent)
+                      misc, moe, normalization,  # (@class registry)
+                      pooling, recurrent)
 from ..layers.base import LayerConf
 from . import (constraints, distribution, dropout,  # noqa: F401
                schedules, updaters)  # (@class registry)

@@ -20,8 +20,8 @@ from typing import Any, Dict, List, Optional
 from ...utils import serde
 from ...utils.serde import register_serde
 from ..layers import (attention, convolution, feedforward,  # noqa: F401
-                      misc, normalization, pooling,  # (@class registry)
-                      recurrent)
+                      misc, moe, normalization,  # (@class registry)
+                      pooling, recurrent)
 from .. import precision  # noqa: F401  (@class registry)
 from ..layers.base import LayerConf
 from . import (constraints, distribution, dropout,  # noqa: F401

@@ -6,8 +6,11 @@ Attention implementations (``attn_impl``):
   'flash'     — ``ops.flash_attention`` (the Hopper kernel on CUDA).
   'auto'      — reference below ``DEFAULT_FLASH_MIN_SEQ`` tokens or for a
                 masked input, flash at or above it.
-  'ring'/'ulysses' (sequence parallelism) are not ported yet (ROADMAP
-  queue 1, item 8).
+  'ring'/'ulysses' — sequence parallelism (``parallel/sequence``): q/k/v
+                are this rank's shard of the time axis, and ``seq_axis``
+                names the axis of the mesh the caller entered (``with
+                mesh:``; outside one the layer raises ``NameError``).
+                Key-padding masks are refused, as in the reference.
 
 The flash path is differentiable: its backward runs the two Hopper
 backward kernels on CUDA tensors.  ``attn_dropout`` (a retain
@@ -24,7 +27,14 @@ own position).  A carry holding ``kp``/``vp`` block pools attends
 through a block table (``_attend_paged``, the generation engine's paged
 cache).  Positions stay on the device: no host read inside the layer
 walk.  The cached paths always attend through ``sdpa_reference``, as the
-reference does.  The MoE feed-forward comes in a later slice.
+reference does.
+
+``TransformerBlock(moe_experts=E)`` replaces the dense MLP with a top-1
+Switch expert stack (``parallel/expert.moe_ffn``, ``gelu``): params
+``router``/``w1``/``b1``/``w2``/``b2``, and the weighted aux loss in its
+state (``aux_loss``), which the networks add to the objective
+(``AUX_LOSS``).  The carry paths (``rnn_time_step``, tBPTT) run the
+routed MLP and leave the aux term out, as they leave out layer state.
 """
 from __future__ import annotations
 
@@ -78,15 +88,19 @@ DEFAULT_FLASH_MIN_SEQ = 128
 
 
 def _run_attention(q, k, v, *, impl: str, causal: bool, mask=None,
-                   flash_min_seq: Optional[int] = None):
+                   flash_min_seq: Optional[int] = None, seq_axis="seq"):
     """Dispatch ``[b, h, t, d]`` q/k/v to the selected implementation."""
     if impl not in _ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl '{impl}'; expected one of "
                          f"{_ATTN_IMPLS}")
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl='{impl}' (sequence parallelism) is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+        from ...parallel.sequence import (ring_self_attention,
+                                          ulysses_attention)
+        if mask is not None:
+            raise ValueError("sequence-parallel attention does not take "
+                             "key-padding masks (pad to shard boundary)")
+        fn = ring_self_attention if impl == "ring" else ulysses_attention
+        return fn(q, k, v, axis_name=seq_axis, causal=causal)
     if impl == "flash":
         if mask is not None:
             raise ValueError("attn_impl='flash' does not take key-padding "
@@ -190,7 +204,8 @@ class MultiHeadAttention(BaseLayerConf):
         k = self._heads(x, p, "Wk", "bk")
         v = self._heads(x, p, "Wv", "bv")
         o = _run_attention(q, k, v, impl=self.attn_impl, causal=self.causal,
-                           mask=mask, flash_min_seq=self.flash_min_seq)
+                           mask=mask, flash_min_seq=self.flash_min_seq,
+                           seq_axis=self.seq_axis)
         b_, h, t, d = o.shape
         y = o.transpose(1, 2).reshape(b_, t, h * d) @ p["Wo"]
         if self.has_bias:
@@ -400,7 +415,9 @@ class MultiHeadAttention(BaseLayerConf):
 @dataclass
 class TransformerBlock(BaseLayerConf):
     """Pre-norm block: LN -> MHA -> residual, LN -> MLP(GELU) -> residual.
-    The attention half's params carry an ``mha_`` prefix."""
+    The attention half's params carry an ``mha_`` prefix.  With
+    ``moe_experts > 0`` the MLP is a top-1 routed expert stack (Switch)
+    whose aux loss threads through the block's state."""
     n_in: int = 0
     n_heads: int = 4
     ffn_mult: int = 4
@@ -416,12 +433,12 @@ class TransformerBlock(BaseLayerConf):
 
     INPUT_KIND = "rnn"
     HAS_CARRY = True
+    _BIAS_PARAMS = ("mha_bq", "mha_bk", "mha_bv", "mha_bo", "b1", "b2",
+                    "ln1_g", "ln1_b", "ln2_g", "ln2_b")
 
-    def __post_init__(self):
-        if self.moe_experts:
-            raise NotImplementedError(
-                "TransformerBlock(moe_experts>0) is not ported yet "
-                "(ROADMAP queue 1, item 9 a)")
+    @property
+    def AUX_LOSS(self):
+        return self.moe_experts > 0
 
     def set_n_in(self, itype: InputType, override: bool = False) -> None:
         if self.n_in == 0 or override:
@@ -448,11 +465,23 @@ class TransformerBlock(BaseLayerConf):
         params = {f"mha_{k}": v for k, v in
                   self._mha().init(generator, itype, device).items()}
         dt = self._dtype()
+        if self.moe_experts > 0:
+            n = self.moe_experts
+            params.update({
+                "router": self.make_weight(generator, (e, n), device),
+                "w1": self.make_weight(generator, (n, e, f), device),
+                "b1": self.make_bias((n, 1, f), device),
+                "w2": self.make_weight(generator, (n, f, e), device),
+                "b2": self.make_bias((n, 1, e), device),
+            })
+        else:
+            params.update({
+                "W1": self.make_weight(generator, (e, f), device),
+                "b1": self.make_bias((f,), device),
+                "W2": self.make_weight(generator, (f, e), device),
+                "b2": self.make_bias((e,), device),
+            })
         params.update({
-            "W1": self.make_weight(generator, (e, f), device),
-            "b1": self.make_bias((f,), device),
-            "W2": self.make_weight(generator, (f, e), device),
-            "b2": self.make_bias((e,), device),
             "ln1_g": torch.ones(e, dtype=dt, device=device),
             "ln1_b": torch.zeros(e, dtype=dt, device=device),
             "ln2_g": torch.ones(e, dtype=dt, device=device),
@@ -460,7 +489,28 @@ class TransformerBlock(BaseLayerConf):
         })
         return params
 
-    def apply(self, params, x, *, train=False, key=None, mask=None):
+    def init_state(self, itype, device):
+        if self.moe_experts > 0:
+            return {"aux_loss": torch.zeros((), dtype=self._dtype(),
+                                            device=device)}
+        return {}
+
+    def _ffn(self, p, xn):
+        """The dense or routed MLP; returns ``(out, state update)``."""
+        if self.moe_experts == 0:
+            return gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"], {}
+        from ...parallel.expert import moe_ffn
+        from .moe import moe_capacity
+        b, t, e = xn.shape
+        capacity = moe_capacity(self.moe_capacity_factor, b * t,
+                                self.moe_experts)
+        moe_p = {k: p[k] for k in ("router", "w1", "b1", "w2", "b2")}
+        y, aux = moe_ffn(moe_p, xn.reshape(b * t, e), capacity, act=gelu)
+        return y.reshape(b, t, e), {
+            "aux_loss": (self.aux_loss_weight * aux).to(xn.dtype)}
+
+    def forward(self, params, state, x, *, train=False, key=None,
+                mask=None):
         p = self.maybe_noise_weights(params, train, key)
         x = self.maybe_dropout_input(x, train, key)
         mha_p = {k[4:]: v for k, v in p.items() if k.startswith("mha_")}
@@ -468,11 +518,12 @@ class TransformerBlock(BaseLayerConf):
         x = x + self._mha().attend(mha_p, xn, train=train, key=key,
                                    mask=mask)
         xn = _layer_norm(x, p["ln2_g"], p["ln2_b"], self.eps)
-        return x + gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"]
+        ff, st = self._ffn(p, xn)
+        return x + ff, (st if st else state)
 
-    def forward(self, params, state, x, *, train=False, key=None,
-                mask=None):
-        return self.apply(params, x, train=train, key=key, mask=mask), state
+    def apply(self, params, x, *, train=False, key=None, mask=None):
+        return self.forward(params, {}, x, train=train, key=key,
+                            mask=mask)[0]
 
     # ---- KV-cache incremental decoding -----------------------------------
     def init_carry(self, batch, dtype, device, max_len=None):
@@ -490,8 +541,7 @@ class TransformerBlock(BaseLayerConf):
                                                     mask=mask)
         x = x + attn
         xn = _layer_norm(x, p["ln2_g"], p["ln2_b"], self.eps)
-        return x + gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"], \
-            new_carry
+        return x + self._ffn(p, xn)[0], new_carry
 
 
 @register_serde

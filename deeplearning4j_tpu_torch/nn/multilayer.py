@@ -66,8 +66,9 @@ from torch.utils.checkpoint import checkpoint
 from ..utils import _random, global_batch
 from . import precision as _precision
 from ._common import (Network, backward_and_update, batch_factory, cast_act,
-                      cast_params, finish_precision_step,
-                      fit_on_device_epochs, precision_cast_map)
+                      cast_params, carry_thread_context,
+                      finish_precision_step, fit_on_device_epochs,
+                      precision_cast_map)
 from . import sparse as _sparse
 from .conf.multi_layer import MultiLayerConfiguration
 from .layers.base import draws
@@ -96,16 +97,25 @@ def _preprocess(conf, i: int, h, mask):
     return h, mask
 
 
-def _layer_forward(lc, params, state, h, key, mask):
+def _layer_forward(lc, params, state, h, key, mask, role=None):
     """One layer's training forward, the unit ``cache_mode("remat")``
     checkpoints."""
-    return lc.forward(params, state, h, train=True, key=key, mask=mask)
+    return _forward_of(lc, role)(params, state, h, train=True, key=key,
+                                 mask=mask)
+
+
+def _forward_of(lc, role):
+    """``lc.forward``, or ``role``: the forward a tensor-parallel step's
+    exchange gives the layer (``parallel/exchange``'s ``roles``)."""
+    if role is None:
+        return lc.forward
+    return lambda *a, **kw: role(lc, *a, **kw)
 
 
 def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
                    to_layer: Optional[int] = None,
                    carries: Optional[Dict[str, Any]] = None, key=None,
-                   collect: bool = False, precision=None
+                   collect: bool = False, precision=None, roles=None
                    ) -> Tuple[Any, Dict, Optional[torch.Tensor]]:
     """The layers ``[0, to_layer)`` (all by default); returns ``(h,
     new_state, mask)`` with the mask as the next layer would see it (with
@@ -116,7 +126,8 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
     updated in place with the carries it ends with.  ``precision`` (the
     train step's resolved policy) casts each layer's input to its compute
     dtype; in training under ``cache_mode("remat")`` every layer without
-    a carry runs checkpointed."""
+    a carry runs checkpointed.  ``roles`` (``{layer_i: forward}``, a
+    tensor-parallel exchange's) replace those layers' own forward."""
     layers = conf.layers
     n = len(layers) if to_layer is None else to_layer
     remat = train and conf.defaults.get("cache_mode") == "remat"
@@ -129,19 +140,20 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
         if precision is not None:
             h = cast_act(h, precision.layer_dtype(lc))
         lkey = _layer_key(key, i, lc)
+        role = roles.get(name) if roles else None
         if carries is not None and lc.HAS_CARRY:
             h, carries[name] = lc.apply_with_carry(
                 params[name], h, carries.get(name), train=train, key=lkey,
                 mask=mask)
         elif remat:
             h, new_state[name] = checkpoint(
-                _layer_forward, lc, params[name], state.get(name, {}), h,
-                lkey, mask, use_reentrant=False)
+                carry_thread_context(_layer_forward), lc, params[name],
+                state.get(name, {}), h, lkey, mask, role,
+                use_reentrant=False)
         else:
-            h, new_state[name] = lc.forward(params[name],
-                                            state.get(name, {}), h,
-                                            train=train, key=lkey,
-                                            mask=mask)
+            h, new_state[name] = _forward_of(lc, role)(
+                params[name], state.get(name, {}), h, train=train,
+                key=lkey, mask=mask)
         if mask is not None:
             mask = lc.feed_forward_mask(mask, None)
         if collect:
@@ -151,7 +163,8 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
 
 def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
                       label_mask=None, carries=None, key=None,
-                      precision=None) -> Tuple[torch.Tensor, Dict]:
+                      precision=None, roles=None
+                      ) -> Tuple[torch.Tensor, Dict]:
     """Forward to the last layer's loss, plus regularization (reference
     ``computeGradientAndScore``); returns ``(loss, new_state)``.  A free
     function over the configuration, a ``{layer_i: {name: tensor}}``
@@ -161,7 +174,7 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
     h, new_state, pmask = _stack_forward(conf, params, state, x, train=train,
                                          mask=mask, to_layer=n - 1,
                                          carries=carries, key=key,
-                                         precision=precision)
+                                         precision=precision, roles=roles)
     out_conf = layers[-1]
     if not hasattr(out_conf, "compute_loss"):
         raise ValueError(
@@ -185,6 +198,11 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
         lp = params[f"layer_{i}"]
         if lp:
             reg = reg + lc.regularization_score(dict(lp))
+        if getattr(lc, "AUX_LOSS", False):
+            # a mixture-of-experts layer's load-balancing term (its state)
+            aux = new_state.get(f"layer_{i}", {}).get("aux_loss")
+            if aux is not None:
+                reg = reg + aux
     return loss + global_batch.share(reg), new_state
 
 
@@ -262,7 +280,8 @@ def _build_train_step(conf, tx, exchange=None):
             loss, new_state = _stack_loss_state(
                 conf, cast_params(params_fwd, cast_map), state, x_in, y,
                 train=True, mask=mask, label_mask=label_mask, carries=cs,
-                key=key, precision=pol)
+                key=key, precision=pol,
+                roles=None if exchange is None else exchange.roles)
             # the whole backward sees the scaled loss; the reported loss
             # stays unscaled
             obj = loss * ls["scale"] if ls is not None else loss

@@ -1,10 +1,13 @@
-"""parallel of the PyTorch port: the data-parallel mesh and its ZeRO-3
-layout rule, ``ParallelWrapper`` and the ZeRO-3 ``ShardedTrainer`` over
-``torch.distributed``, the multi-process bootstrap and ``ElasticTrainer``,
-quantized gradient sharing and its wire format, the in-process training
-masters, ``DistributedLayerTrainer`` and ``ParallelInference``.  The
-process masters, tensor, sequence, pipeline and expert parallelism wait
-for ROADMAP queue 1, item 8.
+"""parallel of the PyTorch port: meshes of ranks over
+``torch.distributed`` and the ZeRO-3 layout rule, ``ParallelWrapper``
+(data and tensor parallelism) and the ZeRO-3 ``ShardedTrainer``, the
+multi-process bootstrap and ``ElasticTrainer``, quantized gradient
+sharing and its wire format, the in-process training masters,
+``DistributedLayerTrainer``, ``ParallelInference``, and the model axes:
+sequence (ring and Ulysses attention), pipeline (GPipe) and expert
+parallelism over differentiable collectives, the 3D demo and the dry
+run.  The process masters (``master_mp.py`` with ``TcpMessageBroker``)
+wait for ROADMAP queue 1, item 8.
 
 Exports resolve on first use: ``nn`` imports ``parallel.inference``, and
 the trainers import ``nn``.
@@ -34,7 +37,13 @@ _EXPORTS = {
     "ShardedTrainer": "sharded", "param_bytes": "sharded",
     "per_device_param_bytes": "sharded",
     "ParallelWrapper": "wrapper", "megatron_dense_rule": "wrapper",
-    "GradientExchange": "exchange",
+    "GradientExchange": "exchange", "TensorParallelExchange": "exchange",
+    "P": "mesh", "Axis": "mesh", "Grid": "mesh", "make_grid": "mesh",
+    "resolve_axis": "mesh",
+    "gpipe": "pipeline", "stack_stage_params": "pipeline",
+    "ring_self_attention": "sequence", "ulysses_attention": "sequence",
+    "init_moe_params": "expert", "make_moe_train_step": "expert",
+    "moe_ffn": "expert",
 }
 
 __all__ = sorted(_EXPORTS)

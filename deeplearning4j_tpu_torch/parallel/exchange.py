@@ -22,6 +22,11 @@ dims (``mesh.zero3_spec``; None = replicated):
   sharded leaf is reduce-scattered (SUM) to the rank's block, and the
   update runs block-locally on the stored shard.
 
+A fourth layout is tensor parallelism (``TensorParallelExchange``,
+``ParallelWrapper(param_rule=...)``): the leaves a rule splits are held
+as this rank's block over the mesh's ``model`` axis, and the gradients
+are summed over the ``data`` axis only.
+
 Norms (gradient normalization, the step's gradient statistics) of a
 sharded leaf sum its blocks' squares over the ranks.  A leaf that no
 plan shards takes the single-device expression unchanged, so at world
@@ -31,23 +36,37 @@ identity.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Set, Tuple
+from typing import Callable, Dict, Iterable, Optional, Set, Tuple
 
 import torch
 
 from ..nn._common import LocalNorms, apply_constraints_all, hyperparam_conf
 from ..utils import global_batch
-from .mesh import Mesh
+from . import collectives
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 Key = Tuple[str, str]
 
-__all__ = ["GradientExchange"]
+__all__ = ["GradientExchange", "TensorParallelExchange"]
 
 
 def _dist():
     import torch.distributed as dist
     return dist
+
+
+def _all_gather(block: torch.Tensor, dim: int, group, n: int
+                ) -> torch.Tensor:
+    """The ``n`` ranks' blocks of ``group`` joined along ``dim``."""
+    src = block.detach()
+    if dim:
+        src = src.movedim(dim, 0)
+    src = src.contiguous()
+    out = torch.empty((src.shape[0] * n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _dist().all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous() if dim else out
 
 
 class GradientExchange(LocalNorms):
@@ -66,16 +85,44 @@ class GradientExchange(LocalNorms):
         self.param_plan = param_plan or {}
         self.opt_plan = opt_plan if opt_plan is not None else \
             self.param_plan
-        # one rank and no process group: each collective is the identity
-        # (a sum over one rank); with a group, the collectives run even
-        # at dp 1
-        dist = _dist()
-        self.solo = self.dp == 1 and not (dist.is_available()
-                                          and dist.is_initialized())
+        # one rank and no process group over it: each collective is the
+        # identity (a sum over one rank); with a group, the collectives
+        # run even at dp 1
+        self.solo = self.dp == 1 and not mesh.axes[DATA_AXIS].live
         self._storage: Optional[Tree] = None
         # leaves the current step treats as replicated whatever the plan
         # (the sparse table's row-space gradient)
         self.rowspace: Set[Key] = set()
+        # sharded leaves the step computes with as the stored block (the
+        # tensor-parallel pairs), not all-gathered first
+        self.local: Set[Key] = set()
+        # {layer: forward} the network's layer walk runs in place of
+        # those layers' own (the tensor-parallel pairs)
+        self.roles: Dict[str, Callable] = {}
+
+    # ------------------------------------------------- the sharded axis
+    @property
+    def shard_count(self) -> int:
+        """How many blocks a sharded leaf is cut into."""
+        return self.dp
+
+    @property
+    def shard_index(self) -> int:
+        """Which block this rank holds."""
+        return self.rank
+
+    def block_of(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of a whole tensor along ``dim``."""
+        m = t.shape[dim] // self.shard_count
+        return t.narrow(dim, self.shard_index * m, m)
+
+    def gather_blocks(self, block: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of a sharded leaf joined along ``dim``."""
+        return self.all_gather_dim(block, dim)
+
+    def _shard_sum_(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        """An all-reduce over the ranks that hold different blocks."""
+        return self.all_reduce_(t, op)
 
     # ---------------------------------------------------------- layout
     def pdim(self, layer: str, name: str) -> Optional[int]:
@@ -102,15 +149,7 @@ class GradientExchange(LocalNorms):
         """The ``dp`` ranks' blocks concatenated along ``dim``."""
         if self.solo:
             return block.detach().clone()
-        dist = _dist()
-        src = block.detach()
-        if dim:
-            src = src.movedim(dim, 0)
-        src = src.contiguous()
-        out = torch.empty((src.shape[0] * self.dp,) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        dist.all_gather_into_tensor(out, src, group=self.group)
-        return out.movedim(0, dim).contiguous() if dim else out
+        return _all_gather(block, dim, self.group, self.dp)
 
     def reduce_scatter_dim(self, full: torch.Tensor, dim: int
                            ) -> torch.Tensor:
@@ -165,10 +204,10 @@ class GradientExchange(LocalNorms):
             out[k] = {}
             for n, p in group.items():
                 d = self.param_plan.get(k, {}).get(n)
-                if d is None or (k, n) in skip:
+                if d is None or (k, n) in skip or (k, n) in self.local:
                     out[k][n] = p
                 else:
-                    out[k][n] = self.all_gather_dim(p, d).requires_grad_(
+                    out[k][n] = self.gather_blocks(p, d).requires_grad_(
                         p.requires_grad)
         return out
 
@@ -179,22 +218,28 @@ class GradientExchange(LocalNorms):
         rep = [(k, n, g) for k, group in grads.items()
                for n, g in group.items()
                if self.pdim(k, n) is None and g.is_floating_point()]
-        by_dtype: Dict[torch.dtype, list] = {}
-        for k, n, g in rep:
-            by_dtype.setdefault(g.dtype, []).append((k, n, g))
-        out: Tree = {k: dict(group) for k, group in grads.items()}
-        for items in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for _, _, g in items])
-            self.all_reduce_(flat)
-            off = 0
-            for k, n, g in items:
-                out[k][n] = flat[off:off + g.numel()].view_as(g)
-                off += g.numel()
+        out = self._sum_coalesced(grads, rep)
         for k, group in grads.items():
             for n, g in group.items():
                 d = self.pdim(k, n)
                 if d is not None:
                     out[k][n] = self.reduce_scatter_dim(g, d)
+        return out
+
+    def _sum_coalesced(self, grads: Tree, items) -> Tree:
+        """``grads`` with the ``(layer, name, grad)`` items summed over
+        the data axis, one buffer per dtype."""
+        by_dtype: Dict[torch.dtype, list] = {}
+        for k, n, g in items:
+            by_dtype.setdefault(g.dtype, []).append((k, n, g))
+        out: Tree = {k: dict(group) for k, group in grads.items()}
+        for same in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for _, _, g in same])
+            self.all_reduce_(flat)
+            off = 0
+            for k, n, g in same:
+                out[k][n] = flat[off:off + g.numel()].view_as(g)
+                off += g.numel()
         return out
 
     def total(self, loss: torch.Tensor) -> torch.Tensor:
@@ -207,7 +252,7 @@ class GradientExchange(LocalNorms):
         if not self.zero3:
             return finite
         flag = finite.to(torch.int32).reshape(1)
-        self.all_reduce_(flag, op=_dist().ReduceOp.MIN)
+        self._shard_sum_(flag, op=_dist().ReduceOp.MIN)
         return flag[0].bool()
 
     def update(self, tx, params: Tree, grads: Tree, opt_state,
@@ -239,10 +284,9 @@ class GradientExchange(LocalNorms):
                     continue
                 od = self.odim(k, n)
                 if od is not None and (k, n) not in self.rowspace:
-                    m = p.shape[od] // self.dp
-                    view = p.detach().narrow(od, self.rank * m, m)
+                    view = self.block_of(p.detach(), od)
                     targets[k][n] = view
-                    gs[k][n] = g.narrow(od, self.rank * m, m)
+                    gs[k][n] = self.block_of(g, od)
                     post.append((p, od, view))
                     continue
                 targets[k][n], gs[k][n] = p, g
@@ -252,7 +296,7 @@ class GradientExchange(LocalNorms):
     def finish(self, post: list) -> None:
         """All-gather the ZeRO-1 blocks into the replicated parameters."""
         for p, od, view in post:
-            p.detach().copy_(self.all_gather_dim(view, od))
+            p.detach().copy_(self.gather_blocks(view, od))
 
     @torch.no_grad()
     def constrain(self, params: Tree, confs) -> None:
@@ -270,13 +314,12 @@ class GradientExchange(LocalNorms):
                 if d is None or not constrained:
                     full[k][n] = p if d is None else self._storage[k][n]
                     continue
-                t = self.all_gather_dim(self._storage[k][n], d)
+                t = self.gather_blocks(self._storage[k][n], d)
                 full[k][n] = t
                 back.append((k, n, d, t))
         apply_constraints_all(full, confs)
         for k, n, d, t in back:
-            m = t.shape[d] // self.dp
-            self._storage[k][n].copy_(t.narrow(d, self.rank * m, m))
+            self._storage[k][n].copy_(self.block_of(t, d))
 
     # ------------------------------------------------------------ norms
     def _split(self, layer: str, group: Dict[str, torch.Tensor]):
@@ -287,7 +330,7 @@ class GradientExchange(LocalNorms):
 
     def _sq_sharded(self, leaves) -> torch.Tensor:
         s = sum(torch.sum(g * g) for g in leaves).reshape(1).clone()
-        return self.all_reduce_(s)[0]
+        return self._shard_sum_(s)[0]
 
     def group_norm(self, layer: str, group: Dict[str, torch.Tensor]
                    ) -> torch.Tensor:
@@ -319,3 +362,94 @@ class GradientExchange(LocalNorms):
         if rep:
             total = total + sum(torch.sum(g * g) for g in rep)
         return torch.sqrt(total)
+
+
+class TensorParallelExchange(GradientExchange):
+    """The collectives of a tensor-parallel wrapper's step over a ``(data,
+    model)`` mesh.  ``param_plan`` is ``{layer: {name: dim}}`` of the
+    leaves the rule splits over the ``model`` axis (each rank holds its
+    block of them, and of their updater slots); ``local`` the split
+    leaves the step computes with as the block (the Megatron pairs); every
+    other split leaf is all-gathered over ``model`` for the step, as
+    XLA's inserted collective would, and its gradient cut back to the
+    block.  Gradients and the loss are summed over ``data`` only: the
+    ranks of one model group share their rows and compute the same loss."""
+
+    def __init__(self, mesh: Mesh, param_plan: Dict, local=()):
+        super().__init__(mesh, param_plan, param_plan)
+        self.model_axis = mesh.axes[MODEL_AXIS]
+        self.local = set(local)
+        self.roles = _pair_roles(self)
+
+    @property
+    def shard_count(self) -> int:
+        return self.model_axis.size
+
+    @property
+    def shard_index(self) -> int:
+        return int(self.model_axis.index or 0)
+
+    def gather_blocks(self, block: torch.Tensor, dim: int) -> torch.Tensor:
+        ax = self.model_axis
+        if not ax.live:
+            return block.detach().clone()
+        return _all_gather(block, dim, ax.group, ax.size)
+
+    def _shard_sum_(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        ax = self.model_axis
+        if ax.live:
+            if op is None:
+                _dist().all_reduce(t, group=ax.group)
+            else:
+                _dist().all_reduce(t, op=op, group=ax.group)
+        return t
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src`` of the data axis's value over the data axis, then
+        the model axis's first rank's over the model axis: every rank of
+        the mesh ends equal to its first."""
+        super().broadcast_(t, src)
+        ax = self.model_axis
+        if ax.live:
+            _dist().broadcast(t, src=ax.global_rank(0), group=ax.group)
+        return t
+
+    def reduce(self, grads: Tree) -> Tree:
+        """Every gradient summed over the data axis (one buffer per
+        dtype); a leaf the step gathered takes this rank's block."""
+        items = [(k, n, g) for k, group in grads.items()
+                 for n, g in group.items() if g.is_floating_point()]
+        out = self._sum_coalesced(grads, items)
+        for k, group in self.param_plan.items():
+            for n, d in group.items():
+                if d is not None and (k, n) not in self.local and \
+                        n in out.get(k, {}):
+                    out[k][n] = self.block_of(out[k][n], d).contiguous()
+        return out
+
+
+def _pair_roles(ex: TensorParallelExchange) -> Dict[str, Callable]:
+    """``{layer: forward}`` of the pairs' layers in the step, each
+    ``forward(lc, params, state, x, train=, key=, mask=)``: the column
+    layer computes its output columns from an input whose cotangent is
+    summed over ``model``; the row layer sums its partial products over
+    ``model`` before its bias and activation."""
+    ax = ex.model_axis
+    cols = {k for k, n in ex.local if n == "W"
+            and ex.param_plan[k]["W"] == 1}
+    rows = {k for k, n in ex.local if n == "W"
+            and ex.param_plan[k]["W"] == 0}
+
+    def column(lc, params, state, x, *, train=False, key=None, mask=None):
+        return lc.apply(params, collectives.copy_to(x, ax), train=train,
+                        key=key), state
+
+    def row(lc, params, state, x, *, train=False, key=None, mask=None):
+        z = collectives.reduce_from(x @ params["W"], ax)
+        if lc.has_bias:
+            z = z + params["b"]
+        return lc.act_fn(z), state
+
+    out = {k: column for k in cols}
+    out.update({k: row for k in rows})
+    return out

@@ -28,14 +28,13 @@ so either package restores the other's directory at any dp.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .mesh import DEFAULT_MIN_SHARD_SIZE, Mesh, shard_params, zero3_spec
-from .wrapper import ParallelWrapper, _param_shapes, _reshard, _unshard
+from .wrapper import ParallelWrapper, _param_shapes
 
 __all__ = ["ShardedTrainer", "per_device_param_bytes", "param_bytes",
            "DEFAULT_MIN_SHARD_SIZE"]
@@ -128,58 +127,6 @@ class ShardedTrainer(ParallelWrapper):
 
     def global_param_bytes(self) -> int:
         return param_bytes(self.model.param_spec())
-
-    # ----------------------------------------------- full-tensor views
-    @contextmanager
-    def gathered(self):
-        """The network with every leaf whole for the enclosed block
-        (forward-only uses: output, score, evaluation, a clone), then
-        sharded again: each rank cuts its block out of the whole tensors
-        it gathered, with no broadcast (the ranks already agree; only a
-        re-layout, ``init`` or ``remesh``, goes through ``_place``)."""
-        m = self.model
-        layout = m._shard_layout
-        _unshard(m)
-        try:
-            yield m
-        finally:
-            if layout is not None:
-                _reshard(m, layout)
-
-    def full_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Every parameter whole, as new tensors (one all-gather per
-        sharded leaf)."""
-        ex = self.exchange
-        out = {}
-        for k, g in self.model.params.items():
-            out[k] = {}
-            for n, p in g.items():
-                d = ex.param_plan.get(k, {}).get(n)
-                out[k][n] = p.detach().clone() if d is None else \
-                    ex.all_gather_dim(p.detach(), d)
-        return out
-
-    def output(self, *a, **kw):
-        with self.gathered() as m:
-            return m.output(*a, **kw)
-
-    def score(self, *a, **kw) -> float:
-        if not a and not kw:
-            return self.model.score()
-        with self.gathered() as m:
-            return m.score(*a, **kw)
-
-    def evaluate(self, *a, **kw):
-        with self.gathered() as m:
-            return m.evaluate(*a, **kw)
-
-    def clone(self):
-        with self.gathered() as m:
-            out = m.clone()
-        out._exchange = None
-        out._step = None
-        out._shard_layout = None
-        return out
 
     # ---------------------------------------------------------- persist
     def save_sharded(self, manager, **kwargs) -> str:

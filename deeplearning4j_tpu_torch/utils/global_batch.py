@@ -37,7 +37,8 @@ from typing import Callable, Optional, Sequence
 import torch
 
 __all__ = ["GlobalBatch", "current", "global_batch", "mean_rows",
-           "masked_mean", "rows", "share", "all_reduce_grad"]
+           "masked_mean", "rows", "share", "all_reduce_grad", "snapshot",
+           "reentered"]
 
 _local = threading.local()
 
@@ -79,6 +80,25 @@ def global_batch(group, world: int, rank: int, local_rows: int):
     _local.ctx = GlobalBatch(group, world, rank, local_rows)
     try:
         yield _local.ctx
+    finally:
+        _local.ctx = prev
+
+
+def snapshot() -> Optional[GlobalBatch]:
+    """The calling thread's context (None outside a step), to re-enter
+    on another thread with ``reentered``."""
+    return getattr(_local, "ctx", None)
+
+
+@contextmanager
+def reentered(ctx: Optional[GlobalBatch]):
+    """Run the enclosed code in ``ctx`` (a ``snapshot``): a checkpointed
+    layer's forward replays in the backward, on autograd's device thread
+    on CUDA."""
+    prev = getattr(_local, "ctx", None)
+    _local.ctx = ctx
+    try:
+        yield ctx
     finally:
         _local.ctx = prev
 

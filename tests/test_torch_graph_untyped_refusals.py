@@ -85,12 +85,15 @@ def test_graph_without_input_types_loads_and_trains_as_jax(tmp_path):
 @pytest.mark.parametrize("case", ["sparse_grad", "moe", "ring", "ulysses",
                                   "keras_h5"])
 def test_every_remaining_refusal_names_its_roadmap_item(case, tmp_path):
-    """The refusals this slice leaves: tensor and sequence parallelism
-    (item 8), MoE (item 9 a), the zoo's Keras-HDF5 branch of
-    ``pretrained`` (item 9 d).  The sparse-embedding gradient is ported
-    (training across ranks slice): what stays refused is the JAX
-    package's own rule, a sparse-gradient vertex in a ComputationGraph,
-    and tensor parallelism in the data-parallel wrapper names item 8."""
+    """What stays refused, and what the model-axes slice ported in place
+    of a refusal.  The sparse-embedding gradient is ported: what stays
+    refused is the JAX package's own rule, a sparse-gradient vertex in a
+    ComputationGraph, and a tensor-parallel ``param_rule`` with ZeRO-1
+    (the JAX package's refusal).  MoE is ported: a block with
+    ``moe_experts`` builds, and only a wrapper of several ranks refuses
+    it (item 8).  Ring and Ulysses attention are ported: outside a mesh
+    the ``seq`` axis is unbound, as in JAX.  The zoo's Keras-HDF5 branch
+    of ``pretrained`` stays item 9 d."""
     if case == "sparse_grad":
         from deeplearning4j_tpu_torch.nn.computation_graph import \
             _build_graph_train_step
@@ -101,17 +104,26 @@ def test_every_remaining_refusal_names_its_roadmap_item(case, tmp_path):
             network_outputs=[], topological_order=["emb"])
         with pytest.raises(ValueError, match="vertex 'emb': sparse_grad"):
             _build_graph_train_step(conf, None)
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1, item 8\)"):
-            ParallelWrapper(None, param_rule=lambda *a: None)
+        with pytest.raises(ValueError,
+                           match="shard_optimizer_state=True is only "
+                                 "supported with replicated params"):
+            ParallelWrapper(None, param_rule=lambda *a: None,
+                            shard_optimizer_state=True)
     elif case == "moe":
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1, item 9 a\)"):
-            tatt.TransformerBlock(n_in=8, moe_experts=2)
+        block = tatt.TransformerBlock(n_in=8, moe_experts=2)
+        assert block.AUX_LOSS
+        from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+        names = set(block.init(torch.Generator(),
+                               InputType.recurrent(8, 4), "meta"))
+        assert {"router", "w1", "b1", "w2", "b2"} <= names
+        from deeplearning4j_tpu_torch.parallel import wrapper
+        net = tzoo.TransformerLM(vocab_size=7, seq_len=4, embed=8,
+                                 n_layers=1, n_heads=2,
+                                 moe_experts=2).init(device="cpu")
+        assert wrapper._has_aux_loss(net)
     elif case in ("ring", "ulysses"):
         q = torch.zeros(1, 1, 4, 8)
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1, item 8\)"):
+        with pytest.raises(NameError, match="unbound axis name: 'seq'"):
             tatt._run_attention(q, q, q, impl=case, causal=True)
     else:
         h5 = tmp_path / "w.h5"

@@ -104,14 +104,21 @@ def test_transformer_block(impl, t):
 
 
 def test_unported_attention_options_raise():
+    """Ring and Ulysses attention are ported: outside a mesh with a
+    ``seq`` axis they raise as an unbound JAX axis name does (inside one,
+    ``tests/test_torch_sequence_parallel``); a key-padding mask is
+    refused, as in JAX; an unknown impl names the choices; MoE blocks
+    build."""
     q = torch.zeros(1, 1, 8, 4)
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(NameError, match="unbound axis name"):
             tatt._run_attention(q, q, q, impl=impl, causal=True)
+        with pytest.raises(ValueError, match="key-padding"):
+            tatt._run_attention(q, q, q, impl=impl, causal=True,
+                                mask=torch.ones(1, 8))
     with pytest.raises(ValueError, match="unknown attn_impl"):
         tatt._run_attention(q, q, q, impl="bogus", causal=True)
-    with pytest.raises(NotImplementedError, match="moe"):
-        tatt.TransformerBlock(n_in=8, moe_experts=2)
+    assert tatt.TransformerBlock(n_in=8, moe_experts=2).AUX_LOSS
 
 
 def _embedding(cls):

@@ -261,21 +261,20 @@ def test_parallel_slice_modules_are_checked():
               "parallel.sharded", "parallel.distributed",
               "parallel.accumulation", "parallel.remote", "parallel.master",
               "parallel.layer", "nn.sparse", "utils.global_batch",
-              "utils.native", "streaming.broker"):
+              "utils.native", "streaming.broker", "parallel.collectives",
+              "parallel.sequence", "parallel.pipeline", "parallel.expert",
+              "parallel.demo", "parallel.dryrun", "nn.layers.moe"):
         assert f"deeplearning4j_tpu_torch.{m}" in MODULES
 
 
 def test_parallel_exports_the_jax_package_names_of_this_slice():
-    """The port's ``parallel`` exports the JAX package's names but those
-    of pipeline, sequence and expert parallelism (ROADMAP queue 1, item
-    8), and every export resolves."""
+    """The port's ``parallel`` exports every name of the JAX package's
+    (pipeline, sequence and expert parallelism since the model-axes
+    slice), and every export resolves."""
     import deeplearning4j_tpu.parallel as jparallel
 
     import deeplearning4j_tpu_torch.parallel as tparallel
-    later = {"gpipe", "stack_stage_params", "ring_self_attention",
-             "ulysses_attention", "init_moe_params", "make_moe_train_step",
-             "moe_ffn"}
-    assert set(jparallel.__all__) - set(tparallel.__all__) == later
+    assert set(jparallel.__all__) - set(tparallel.__all__) == set()
     assert all(getattr(tparallel, name) is not None
                for name in tparallel.__all__)
 

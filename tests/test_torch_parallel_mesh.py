@@ -1,10 +1,11 @@
 """The port's mesh and ZeRO-3 layout rule against the JAX package's:
 ``zero3_spec`` and the layout plan leaf for leaf over a grid of shapes x
 dp in {1, 2, 3, 4, 8} x ``min_size``, ``per_device_param_bytes`` against
-the JAX ``ShardedTrainer``'s for the same network at dp 2, 4 and 8, the
-oversubscription error, and the refusal of ``model``/``seq`` axes."""
+the JAX ``ShardedTrainer``'s for the same network at dp 2, 4 and 8, and
+the oversubscription error, for ``model``/``seq`` axes too."""
 import itertools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -80,8 +81,15 @@ def test_oversubscription_is_a_clear_error():
 
 @pytest.mark.parametrize("axis", ["tp", "sp"])
 def test_model_and_seq_axes_are_refused_naming_item_8(axis):
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        tmesh.make_mesh(**{axis: 2})
+    """``model`` and ``seq`` axes are ported: a mesh with one needs the
+    ranks for it (one process here), as the JAX ``make_mesh`` needs the
+    devices; the multi-rank meshes run in the model-axis tests."""
+    with pytest.raises(ValueError, match="oversubscribes the 1 available"):
+        tmesh.make_mesh(dp=1, **{axis: 2})
+    with pytest.raises(ValueError, match="oversubscribes the 1 available"):
+        jmake_mesh(dp=1, devices=jax.devices()[:1], **{axis: 2})
+    one = tmesh.make_mesh(device="cpu", **{axis: 1})
+    assert one.shape == {"data": 1, "model": 1, "seq": 1}
 
 
 def test_shard_batch_and_place_sharded_take_this_ranks_block():

@@ -249,10 +249,39 @@ def test_dropout_scenario_draws_masks(runs):
 
 
 def test_param_rule_is_refused_naming_item_8():
+    """Tensor parallelism is ported (``tests/test_torch_tensor_parallel``
+    holds it against JAX).  What a wrapper still refuses: ZeRO-1 with a
+    rule (the JAX package's refusal), a leaf a rule splits over another
+    axis than ``model``, and a mixture-of-experts net over several ranks
+    (item 8)."""
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
     from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
                                                    megatron_dense_rule)
-    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh, P
+    assert callable(megatron_dense_rule({}))
+    with pytest.raises(ValueError, match="shard_optimizer_state"):
+        ParallelWrapper(None, Mesh(1, 0), param_rule=lambda *a: None,
+                        shard_optimizer_state=True)
+    net = load_reference_model_mlp()
+    with pytest.raises(NotImplementedError, match="'model' axis only"):
+        ParallelWrapper(net, Mesh(1, 0, device="cpu"),
+                        param_rule=lambda k, n, leaf: P("data"))
+    moe = TransformerLM(vocab_size=7, seq_len=4, embed=8, n_layers=1,
+                        n_heads=2, moe_experts=2).init(device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
-        megatron_dense_rule({})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ParallelWrapper(None, Mesh(1, 0), param_rule=lambda *a: None)
+        ParallelWrapper(moe, Mesh(2, 0, device="cpu"))
+
+
+def load_reference_model_mlp():
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        DenseLayer, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().list()
+            .layer(DenseLayer(n_out=4))
+            .layer(OutputLayer(n_out=2, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(3)).build())
+    return MultiLayerNetwork(conf, device="cpu").init()
