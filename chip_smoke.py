@@ -324,7 +324,38 @@ if any phase fails:
     (outputs and gradients), ``moe_ffn`` over a one-rank expert axis,
     and ``ParallelWrapper(param_rule=megatron_dense_rule)`` at tp 1
     against plain ``fit`` for 5 steps of an MLP (its Megatron pair) and
-    of the full-width LM (8 launches per kernel per step), bitwise.
+    of the full-width LM (8 launches per kernel per step), bitwise;
+45. ``keras_vgg16``: the zoo VGG16 (224x224x3, 1000 classes; random
+    weights from the seed) exported by ``export_keras_sequential`` in
+    memory (~553 MB; bytes and seconds printed), loaded back through
+    ``VGG16().pretrained(path)`` (the HDF5 branch: ``import_keras_model``
+    and ``import_pretrained``'s transplant; seconds printed): a batch of 8
+    ``TrainedModels.VGG16``-preprocessed images within ``TOL_KERAS_VGG``
+    of the source net's outputs, and the same top-5 ImageNet decoding
+    (ties within twice the error excepted); the batch-8 forward's time;
+46. ``keras_resnet50_finetune``: the zoo ResNet50 at its published
+    widths exported by ``export_keras_model`` and imported back by
+    ``import_keras_model`` (the importer's ``Sgd(0.01)``); every
+    BatchNormalization at ``helper="pallas"`` beside a ``helper=None``
+    twin with the imported params: step-0 loss and gradients
+    (``bn_twin_grad_check``, phase 8's tolerances) and 3 ``fit`` steps
+    of batch 64 (the twin restarted each step from the fused net's
+    params), 53 ``bn_apply`` launches per step; ``fold_batch_norms`` of
+    the fine-tuned net in eval: its logits and pooled features within
+    ``TOL_KERAS_FOLD`` of the unfolded net's, its probabilities within
+    half the logits' difference;
+47. ``keras_char_lstm``: the char-LSTM of phases 10-12 exported and
+    imported back (sigmoid gates), both LSTMs at ``helper="pallas"``:
+    ``output`` on batch 128 x 64 against a ``helper=None`` twin (the
+    first LSTM's sequence within ``lstm_error_bound``), 2 ``lstm_fwd``
+    launches per call; the same net exported with ``hard_sigmoid`` gates
+    and imported at ``helper="pallas"``: 0 launches
+    (``pallas_lstm.supports`` refuses the cell), equal to its twin;
+48. ``activations_on_card``: every activation name and the
+    parameterized forms on a [4096, 1024] card tensor holding the kinks
+    (0, ±1, ±2.5, 6, 0.5), values and gradients against the CPU within
+    ``TOL_ACT_REL``, and the tie gradients of hardtanh, relu6 and
+    hardsigmoid (0.5, and 0.5 x 0.2) exactly.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -1142,14 +1173,66 @@ def lstm_phases(args, torch, dev, card):
                    "ms_with_projection does"}, None
 
 
+def bn_twin_grad_check(torch, net, twin, x, y):
+    """Step-0 loss and gradients of every parameter of a graph with fused
+    BN (``net``) against its unfused twin on one batch, within the
+    ``CNN_GRAD_*`` tolerances; and the unfused twin once more on the batch
+    in reverse row order: the same loss in exact arithmetic (BN statistics
+    and the loss are means over rows), rounded otherwise in every BN and
+    every weight-gradient sum.  That pair is the f32 noise floor of each
+    gradient here.  Returns ``({loss0, worst_ratio, worst_name, rel,
+    grad_rel_l2}, None)`` or ``(None, what failed)``."""
+    from deeplearning4j_tpu_torch.nn.computation_graph import _graph_loss
+    grads, loss0 = [], []
+    for m, xb, yb in ((net, x, y), (twin, x, y), (twin, x.flip(0),
+                                                  y.flip(0))):
+        params = m._param_tree()
+        keys = [(k, n) for k in params for n in params[k]]
+        loss, _ = _graph_loss(m.conf, params, m.state, [xb], [yb],
+                              train=True)
+        grads.append(dict(zip(keys, torch.autograd.grad(
+            loss, [params[k][n] for k, n in keys]))))
+        loss0.append(loss.item())
+        del loss
+    fused_g, twin_g, flip_g = grads
+    net_max = max(g.abs().max().item() for g in twin_g.values())
+    worst_ratio, worst_name, rel = 0.0, "", []
+    sq = {"fused": 0.0, "reordered": 0.0, "norm": 0.0}
+    for key, g in fused_g.items():
+        want = twin_g[key]
+        err = (g - want).abs().max().item()
+        noise = (flip_g[key] - want).abs().max().item()
+        tol = CNN_GRAD_LEAF_K * noise + CNN_TOL_GRAD_NET * net_max
+        if not bool(torch.isfinite(g).all()) or err > tol:
+            return None, (f"step-0 gradient {key} fused vs unfused: {err} > "
+                          f"{tol} ({CNN_GRAD_LEAF_K} x the reordered "
+                          f"twin's {noise})")
+        rel.append((err / noise if noise else float("inf"), "/".join(key)))
+        if err / tol >= worst_ratio:
+            worst_ratio, worst_name = err / tol, "/".join(key)
+        sq["fused"] += ((g - want) ** 2).sum().item()
+        sq["reordered"] += ((flip_g[key] - want) ** 2).sum().item()
+        sq["norm"] += (want ** 2).sum().item()
+    grad_rel_l2 = {k: (sq[k] / sq["norm"]) ** 0.5
+                   for k in ("fused", "reordered")}
+    del grads, fused_g, twin_g, flip_g
+    if grad_rel_l2["fused"] > CNN_GRAD_NOISE_K * grad_rel_l2["reordered"]:
+        return None, (f"step-0 gradients fused vs unfused, relative L2 "
+                      f"{grad_rel_l2['fused']} > {CNN_GRAD_NOISE_K} x the "
+                      f"reordered twin's {grad_rel_l2['reordered']}")
+    return {"loss0": loss0, "worst_ratio": worst_ratio,
+            "worst_name": worst_name, "rel": rel,
+            "grad_rel_l2": grad_rel_l2}, None
+
+
 def cnn_phases(args, torch, dev, card):
     """Phases 7-9 (ResNet50).  Returns ``(the bn_apply kernels record,
     None)``, or ``(None, what failed)``."""
     import numpy as np
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.models.zoo import ResNet50
-    from deeplearning4j_tpu_torch.nn.computation_graph import (
-        ComputationGraph, _graph_loss)
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import pallas_bn as pb
 
@@ -1216,48 +1299,12 @@ def cnn_phases(args, torch, dev, card):
                                   generator=dgen, device=dev),
                     zoo.num_classes).float() for _ in range(CNN_STEPS)]
 
-    # step-0 loss and gradients of every parameter, fused vs unfused; and
-    # the unfused twin once more on the batch in reverse row order: the
-    # same loss in exact arithmetic (BN statistics and the loss are means
-    # over rows), rounded otherwise in every BN and every weight-gradient
-    # sum.  That pair is the f32 noise floor of each gradient here.
-    grads, loss0 = [], []
-    for m, x, y in ((net, xs[0], ys[0]), (twin, xs[0], ys[0]),
-                    (twin, xs[0].flip(0), ys[0].flip(0))):
-        params = m._param_tree()
-        keys = [(k, n) for k in params for n in params[k]]
-        loss, _ = _graph_loss(m.conf, params, m.state, [x], [y],
-                              train=True)
-        grads.append(dict(zip(keys, torch.autograd.grad(
-            loss, [params[k][n] for k, n in keys]))))
-        loss0.append(loss.item())
-        del loss
-    fused_g, twin_g, flip_g = grads
-    net_max = max(g.abs().max().item() for g in twin_g.values())
-    worst_ratio, worst_name, rel = 0.0, "", []
-    sq = {"fused": 0.0, "reordered": 0.0, "norm": 0.0}
-    for key, g in fused_g.items():
-        want = twin_g[key]
-        err = (g - want).abs().max().item()
-        noise = (flip_g[key] - want).abs().max().item()
-        tol = CNN_GRAD_LEAF_K * noise + CNN_TOL_GRAD_NET * net_max
-        if not bool(torch.isfinite(g).all()) or err > tol:
-            return None, (f"step-0 gradient {key} fused vs unfused: {err} > "
-                          f"{tol} ({CNN_GRAD_LEAF_K} x the reordered "
-                          f"twin's {noise})")
-        rel.append((err / noise if noise else float("inf"), "/".join(key)))
-        if err / tol >= worst_ratio:
-            worst_ratio, worst_name = err / tol, "/".join(key)
-        sq["fused"] += ((g - want) ** 2).sum().item()
-        sq["reordered"] += ((flip_g[key] - want) ** 2).sum().item()
-        sq["norm"] += (want ** 2).sum().item()
-    grad_rel_l2 = {k: (sq[k] / sq["norm"]) ** 0.5
-                   for k in ("fused", "reordered")}
-    del grads, fused_g, twin_g, flip_g
-    if grad_rel_l2["fused"] > CNN_GRAD_NOISE_K * grad_rel_l2["reordered"]:
-        return None, (f"step-0 gradients fused vs unfused, relative L2 "
-                      f"{grad_rel_l2['fused']} > {CNN_GRAD_NOISE_K} x the "
-                      f"reordered twin's {grad_rel_l2['reordered']}")
+    check, err = bn_twin_grad_check(torch, net, twin, xs[0], ys[0])
+    if err:
+        return None, err
+    loss0, worst_ratio, worst_name, rel, grad_rel_l2 = (
+        check[k] for k in ("loss0", "worst_ratio", "worst_name", "rel",
+                           "grad_rel_l2"))
 
     # the main path: 5 fit steps of the fused net, counted
     names = [n for n, _ in net.named_parameters()]
@@ -6192,6 +6239,462 @@ def model_axes_phases(args, torch, dev, card):
     return out, None
 
 
+# ------------------------------------------------- 45-48. Keras import
+# The zoo models at their published widths, exported to Keras HDF5 by the
+# port and imported back (modelimport/): VGG16 224x224x3 / 1000 (~553 MB
+# of f32), ResNet50 224x224x3 / 1000, the char-LSTM of phases 10-12.
+KERAS_VGG_KW: dict = {}
+KERAS_RESNET_KW: dict = {}
+KERAS_VGG_BATCH = 8
+KERAS_FT_BATCH, KERAS_FT_STEPS = 64, 3
+KERAS_FOLD_ROWS = 16
+# Outputs of the imported VGG16 against its source net: the same params
+# on the same card through the same kernels; 1e-5 abs at probabilities
+# <= 1 leaves room for another convolution algorithm between the two.
+TOL_KERAS_VGG = 1e-5
+# The folded ResNet50 against the unfolded one in eval.  Three steps at
+# the importer's momentum 0.99 leave the running statistics near their
+# initial 0/1, so in eval this net (no ReLU after its BNs: what the
+# export carries) is un-normalized (pooled features up to ~5e4) and its
+# softmax near one-hot: a rounding of its large logits moves a
+# probability by up to a quarter of it (the probabilities of folded and
+# unfolded nets 1.7e-5 to 3.4e-4 apart in four runs on an H100 80GB HBM3
+# at 700 W), and a saturated softmax hides a wrong fold.  So the gate
+# holds the net's outputs before the softmax, the logits, within 1e-4 of
+# their largest |value| (the fold
+# sums W·scale products where the unfolded net scales sums, through 53
+# convolutions: relative rounding, ~1e-6, not amplified there), and the
+# pooled features the output layer reads likewise; the probabilities
+# within what the logits' difference allows, |Δp| <= |Δz|/2 (the
+# softmax's Lipschitz bound in the max norm) plus 1e-6 for its own
+# rounding.  A wrong fold (a scale or shift off on one layer) moves the
+# logits by O(1).
+TOL_KERAS_FOLD, TOL_SOFTMAX_ROUND = 1e-4, 1e-6
+# Every activation name on a [4096, 1024] card tensor that holds the
+# kinks: card vs the CPU, values and gradients (of sum(f(x)·w), w from
+# the seed).  libdevice's and the CPU's transcendental functions each
+# round within a few ulps, and softmax/logsoftmax sum their rows in
+# another order: 8 ulps (2^-20) of each tensor's largest |value|.
+ACT_SHAPE = (4096, 1024)
+ACT_KINKS = (0.0, 1.0, -1.0, 2.5, -2.5, 6.0, 0.5)
+ACT_PARAMETERIZED = ("leakyrelu:0.3", "lrelu:0.2", "elu:0.7",
+                     "thresholdedrelu:0.5")
+TOL_ACT_REL = 2.0 ** -20
+# (name, kink, its gradient): ties of minimum/maximum split 0.5/0.5 as
+# JAX's differentiation does; hardsigmoid's is 0.5 x its slope 0.2
+ACT_TIES = (("hardtanh", 1.0, 0.5), ("hardtanh", -1.0, 0.5),
+            ("relu6", 6.0, 0.5), ("hardsigmoid", 2.5, (0.5, 0.2)),
+            ("hardsigmoid", -2.5, (0.5, 0.2)))
+
+
+def _keras_file(data: bytes, name: str):
+    """``data`` written to a fresh temporary directory; returns (the
+    directory, the file's path).  The caller removes the directory."""
+    import tempfile
+    d = Path(tempfile.mkdtemp(prefix="keras_smoke_"))
+    path = d / name
+    path.write_bytes(data)
+    return d, path
+
+
+def keras_vgg16_phase(args, torch, dev, card):
+    """Phase 45.  Returns None, or what failed."""
+    import shutil
+    import numpy as np
+    from deeplearning4j_tpu_torch.modelimport import (TrainedModels,
+                                                      export_keras_sequential)
+    from deeplearning4j_tpu_torch.models.zoo import VGG16
+
+    src = VGG16(seed=args.seed, **KERAS_VGG_KW).init(device=dev)
+    t0 = time.perf_counter()
+    data = export_keras_sequential(src)
+    export_s = time.perf_counter() - t0
+    tmp, path = _keras_file(data, "vgg16.h5")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net = VGG16(seed=args.seed + 1, **KERAS_VGG_KW).pretrained(
+            str(path), device=dev)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    it = net.conf.input_type
+    rng = np.random.default_rng(args.seed + 45)
+    images = rng.integers(0, 256, (KERAS_VGG_BATCH, it.height, it.width,
+                                   it.channels)).astype(np.uint8)
+    helper = TrainedModels.VGG16
+    x = torch.as_tensor(helper.preprocess(images), device=dev)
+    want, got = src.output(x), net.output(x)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    fwd_ms = median_ms(lambda: net.output(x), torch, runs=10)
+    top_src = helper.predict_and_decode(src, images, top=5)
+    top_net = helper.predict_and_decode(net, images, top=5)
+    # a class may trade places with another only where the source's
+    # probabilities of the two are within twice the measured error
+    p = want.cpu().numpy()
+    index = {helper.labels.get_label(i): i for i in range(p.shape[1])}
+    swaps = sum(
+        1 for row, (a, b) in enumerate(zip(top_src, top_net))
+        for (la, _), (lb, _) in zip(a, b)
+        if la != lb and abs(p[row, index[la]] - p[row, index[lb]]) > 2 * err)
+    print(json.dumps({
+        "phase": "keras_vgg16", "model": {
+            "name": "VGG16", "input": [it.height, it.width, it.channels],
+            "classes": int(want.shape[-1]), "dtype": "float32",
+            "num_params": net.num_params()},
+        "file_bytes": len(data), "export_s": export_s, "import_s": import_s,
+        "batch": KERAS_VGG_BATCH, "max_abs_err_vs_source": err,
+        "tol": TOL_KERAS_VGG, "forward_ms_median": fwd_ms,
+        "top5_equal": top_src == top_net, "top5_swaps_outside_ties": swaps,
+        "card": card}), flush=True)
+    if not finite or tuple(got.shape) != tuple(want.shape) or \
+            err > TOL_KERAS_VGG:
+        return (f"imported VGG16 differs from its source by {err} "
+                f"(shape {tuple(got.shape)}, finite {finite})")
+    if swaps:
+        return f"imported VGG16's top-5 differs from its source's ({swaps})"
+    return None
+
+
+def keras_resnet50_phase(args, torch, dev, card):
+    """Phase 46.  Returns ``(bn_apply launches per step, None)`` or
+    ``(None, what failed)``."""
+    import copy
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.modelimport import (export_keras_model,
+                                                      import_keras_model)
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.fold import fold_batch_norms
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+
+    zoo = ResNet50(seed=args.seed, **KERAS_RESNET_KW)
+    src = zoo.init(device=dev)
+    t0 = time.perf_counter()
+    data = export_keras_model(src)
+    export_s = time.perf_counter() - t0
+    del src
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = import_keras_model(data, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    bns = [v.layer for v in net.conf.vertices.values()
+           if type(getattr(v, "layer", None)).__name__
+           == "BatchNormalization"]
+    twin_conf = copy.deepcopy(net.conf)
+    for lc in bns:
+        lc.helper = "pallas"
+    twin = ComputationGraph(twin_conf, device=dev)
+    twin.load_params({k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+                      for k, g in net.params.items()})
+    twin.load_state({k: {n: t.cpu().numpy() for n, t in g.items()}
+                     for k, g in net.state.items()})
+    if [n for n, _ in net.named_parameters()] != \
+            [n for n, _ in twin.named_parameters()]:
+        return None, "the twin's parameters are not the imported net's"
+    updater = type(net.conf.defaults["updater"]).__name__
+    h, w, c = zoo.input_shape
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 46)
+    xs = [torch.randn((KERAS_FT_BATCH, h, w, c), generator=dgen, device=dev)
+          for _ in range(KERAS_FT_STEPS)]
+    ys = [F.one_hot(torch.randint(0, zoo.num_classes, (KERAS_FT_BATCH,),
+                                  generator=dgen, device=dev),
+                    zoo.num_classes).float() for _ in range(KERAS_FT_STEPS)]
+    check, err = bn_twin_grad_check(torch, net, twin, xs[0], ys[0])
+    if err:
+        return None, f"imported ResNet50: {err}"
+
+    snaps, step_losses, step_ms = [], [], []
+    torch.cuda.synchronize()
+    pb.reset_launches()
+    for x, y in zip(xs, ys):
+        snaps.append([p.detach().clone() for p in net.parameters()])
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_losses.append(net._score)
+    launches = pb.launches["bn_apply"]
+    losses = [float(v) for v in step_losses]
+    pb.reset_launches()
+    twin_losses, twin_ms = [], []
+    for snap, x, y in zip(snaps, xs, ys):
+        with torch.no_grad():
+            for p, q in zip(twin.parameters(), snap):
+                p.copy_(q)
+        t0 = time.perf_counter()
+        twin.fit(x, y)
+        torch.cuda.synchronize()
+        twin_ms.append((time.perf_counter() - t0) * 1e3)
+        twin_losses.append(twin.get_score())
+    twin_launches = pb.launches["bn_apply"]
+    del snaps
+    loss0 = check["loss0"]
+    loss_diff = max(abs(a - b) / abs(b) for a, b in
+                    zip([loss0[0]] + losses, [loss0[1]] + twin_losses))
+
+    folded = fold_batch_norms(net)
+    xe = xs[0][:KERAS_FOLD_ROWS]
+    ref, got = net.output(xe), folded.output(xe)
+    out = net.conf.network_outputs[0]
+    feat = net.conf.vertex_inputs[out][0]
+
+    def logits(m, f):
+        """The output layer's pre-activation on its input ``f``."""
+        v = m.conf.vertices[out]
+        with torch.no_grad():
+            return v.layer.pre_output(dict(m.params[out].items()),
+                                      v._pre(f, None)[0])
+
+    fa, fb = net.feed_forward(xe)[feat], folded.feed_forward(xe)[feat]
+    za, zb = logits(net, fa), logits(folded, fb)
+    feat_err = ((fb - fa).abs().max() / fa.abs().max()).item()
+    logit_diff = (zb - za).abs().max().item()
+    logit_err = logit_diff / za.abs().max().item()
+    prob_diff = (got - ref).abs().max().item()
+    prob_tol = 0.5 * logit_diff + TOL_SOFTMAX_ROUND
+    left = sum(type(getattr(v, "layer", None)).__name__
+               == "BatchNormalization" for v in folded.conf.vertices.values())
+    # the BN layers whose geometry the kernel door takes at this batch:
+    # all 53 at the published width (checked below)
+    geoms = bn_geometries(net.conf, KERAS_FT_BATCH)
+    kernel_bns = sum(n for (m, ch, a), n in geoms.items()
+                     if pb.supports(activation=a, shape=(m, ch)))
+    expected = kernel_bns * KERAS_FT_STEPS
+    check["rel"].sort(reverse=True)
+    print(json.dumps({
+        "phase": "keras_resnet50_finetune", "model": {
+            "name": "ResNet50 (Keras import)", "input": [h, w, c],
+            "classes": zoo.num_classes, "batch": KERAS_FT_BATCH,
+            "dtype": "float32", "tf32": False, "updater": updater,
+            "bn_layers": len(bns), "bn_layers_on_the_kernel": kernel_bns,
+            "bn_helper": "pallas",
+            "num_params": net.num_params()},
+        "file_bytes": len(data), "export_s": export_s, "import_s": import_s,
+        "steps": KERAS_FT_STEPS, "step0_loss": loss0, "losses": losses,
+        "twin_losses": twin_losses, "max_rel_loss_diff": loss_diff,
+        "tol_loss": CNN_TOL_LOSS,
+        "step0_grad_worst_err_over_tol": check["worst_ratio"],
+        "step0_grad_worst_param": check["worst_name"],
+        "step0_grad_err_over_reordered_noise_worst": check["rel"][:5],
+        "step0_grad_rel_l2": check["grad_rel_l2"],
+        "step_ms": step_ms, "twin_step_ms": twin_ms,
+        "kernel_launches": launches,
+        "expected_launches": expected, "twin_bn_launches": twin_launches,
+        "fold": {"rows": KERAS_FOLD_ROWS, "logits_max_rel_err": logit_err,
+                 "logits_max_abs": za.abs().max().item(),
+                 "features": feat, "features_max_rel_err": feat_err,
+                 "features_max_abs": fa.abs().max().item(),
+                 "tol": TOL_KERAS_FOLD, "probs_max_abs_diff": prob_diff,
+                 "probs_tol": prob_tol, "max_prob": ref.max().item(),
+                 "bn_left": left},
+        "card": card}), flush=True)
+    if updater != "Sgd":
+        return None, f"the importer set {updater}, not Sgd"
+    if (len(bns), kernel_bns) != (53, 53) and not KERAS_RESNET_KW:
+        return None, (f"imported ResNet50 has {len(bns)} BN layers, "
+                      f"{kernel_bns} of them on the kernel; expected 53")
+    if launches != expected or twin_launches:
+        return None, (f"bn_apply launched {launches} times in "
+                      f"{KERAS_FT_STEPS} steps (expected {expected}) and "
+                      f"{twin_launches} in the twin's")
+    if not all(math.isfinite(v) for v in losses) or \
+            loss_diff > CNN_TOL_LOSS:
+        return None, (f"imported ResNet50 losses {losses} differ from the "
+                      f"twin's {twin_losses} by {loss_diff}")
+    if max(logit_err, feat_err) > TOL_KERAS_FOLD or prob_diff > prob_tol \
+            or left:
+        return None, (f"folded ResNet50 differs from the unfolded net by "
+                      f"{logit_err} of the largest logit and {feat_err} of "
+                      f"the largest {feat} feature (tol {TOL_KERAS_FOLD}), "
+                      f"probabilities by {prob_diff} (tol {prob_tol}); "
+                      f"{left} BN layers left")
+    return launches // KERAS_FT_STEPS, None
+
+
+def keras_char_lstm_phase(args, torch, dev, card):
+    """Phase 47.  Returns ``({"sigmoid": launches per output,
+    "hard_sigmoid": ...}, None)`` or ``(None, what failed)``."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.modelimport import (
+        export_keras_sequential, import_keras_sequential_model)
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+
+    zoo = TextGenerationLSTM(num_classes=LSTM_CLASSES, timesteps=LSTM_T,
+                             hidden=LSTM_HIDDEN, seed=args.seed)
+    src = zoo.init(device=dev)
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 47)
+    x = F.one_hot(torch.randint(0, LSTM_CLASSES, (LSTM_BATCH, LSTM_T),
+                                generator=dgen, device=dev),
+                  LSTM_CLASSES).float()
+    out, records = {}, []
+    for gate, keras_gate in (("sigmoid", "sigmoid"),
+                             ("hardsigmoid", "hard_sigmoid")):
+        conf = zoo.conf()
+        for lc in conf.layers:
+            if isinstance(lc, LSTM):
+                lc.gate_activation = gate
+        source = MultiLayerNetwork(conf, device=dev).load_params({
+            k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+            for k, g in src.params.items()})
+        t0 = time.perf_counter()
+        data = export_keras_sequential(source)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nets = {helper: import_keras_sequential_model(data, device=dev)
+                for helper in ("pallas", None)}
+        import_s = (time.perf_counter() - t0) / 2
+        lstms = [lc for lc in nets["pallas"].conf.layers
+                 if isinstance(lc, LSTM)]
+        for lc in lstms:
+            lc.helper = "pallas"
+        gates = sorted({lc.gate_activation for lc in lstms})
+        torch.cuda.synchronize()
+        pl.reset_launches()
+        probs = nets["pallas"].output(x)
+        torch.cuda.synchronize()
+        launches = pl.launches["lstm_fwd"]
+        want = nets[None].output(x)
+        err = (probs - want).abs().max().item()
+        src_err = (want - source.output(x)).abs().max().item()
+        # the first LSTM's sequence against its twin's, within the
+        # recurrence's error bound from these inputs
+        p0 = {n: t.detach() for n, t in nets[None].params["layer_0"].items()}
+        zeros = torch.zeros((LSTM_BATCH, LSTM_HIDDEN), device=dev)
+        y0 = nets["pallas"].feed_forward(x)[0]
+        y0_twin = nets[None].feed_forward(x)[0]
+        y0_err = (y0 - y0_twin).abs().max().item()
+        bound = lstm_error_bound(torch, x, p0["W"], p0["U"], p0["b"], zeros,
+                                 zeros.clone())
+        fwd_ms = median_ms(lambda: nets["pallas"].output(x), torch, runs=10)
+        expected = 2 if gate == "sigmoid" else 0
+        rec = {"gate": keras_gate, "imported_gate_activation": gates,
+               "file_bytes": len(data), "export_s": export_s,
+               "import_s": import_s, "kernel_launches": launches,
+               "expected_launches": expected,
+               "max_abs_err_vs_twin": err, "tol": TOL_LSTM_OUT,
+               "layer0_max_abs_err_vs_twin": y0_err,
+               "layer0_tol_lstm_error_bound": bound,
+               "twin_max_abs_err_vs_source": src_err,
+               "output_ms_median": fwd_ms}
+        records.append(rec)
+        out[keras_gate] = launches
+        if gates != [gate]:
+            return None, f"imported LSTM gates {gates}, exported {gate}"
+        if launches != expected:
+            return None, (f"imported {keras_gate} char-LSTM launched "
+                          f"lstm_fwd {launches} times for one output; "
+                          f"expected {expected}")
+        if tuple(probs.shape) != (LSTM_BATCH, LSTM_T, LSTM_CLASSES) or \
+                not bool(torch.isfinite(probs).all()):
+            return None, f"imported char-LSTM output {tuple(probs.shape)}"
+        if err > TOL_LSTM_OUT or y0_err > bound or src_err > TOL_LSTM_OUT:
+            return None, (f"imported {keras_gate} char-LSTM: output vs twin "
+                          f"{err} (tol {TOL_LSTM_OUT}), first layer {y0_err} "
+                          f"(bound {bound}), twin vs source {src_err}")
+        del nets, probs, want, source
+    print(json.dumps({"phase": "keras_char_lstm", "model": {
+        "name": "TextGenerationLSTM (Keras import)",
+        "classes": LSTM_CLASSES, "hidden": LSTM_HIDDEN, "batch": LSTM_BATCH,
+        "t": LSTM_T, "dtype": "float32", "helper": "pallas"},
+        "runs": records, "card": card}), flush=True)
+    return out, None
+
+
+def activations_phase(args, torch, dev, card):
+    """Phase 48.  Returns None, or what failed."""
+    from deeplearning4j_tpu_torch.nn import activations as act
+
+    gen = torch.Generator().manual_seed(args.seed + 48)
+    x = torch.randn(ACT_SHAPE, generator=gen) * 3
+    flat = x.view(-1)
+    n_kinks = 64       # every kink at 64 places spread over the tensor
+    stride = flat.numel() // (len(ACT_KINKS) * n_kinks)
+    for i, k in enumerate(ACT_KINKS):
+        flat[i * n_kinks * stride:(i + 1) * n_kinks * stride:stride] = k
+    w = torch.randn(ACT_SHAPE, generator=gen)
+    xd, wd = x.to(dev), w.to(dev)
+    worst, rows = {}, []
+    t0 = time.perf_counter()
+    for name in act.names() + list(ACT_PARAMETERIZED):
+        fn = act.get(name)
+        res = []
+        for xx, ww in ((xd, wd), (x, w)):
+            a = xx.clone().requires_grad_(True)
+            y = fn(a)
+            (y * ww).sum().backward()
+            res.append((y.detach(), a.grad))
+        torch.cuda.synchronize()
+        errs = {}
+        for what, g, c in (("value", res[0][0], res[1][0]),
+                           ("grad", res[0][1], res[1][1])):
+            if not bool(torch.isfinite(g).all()):
+                return f"activation {name}: {what} not finite on the card"
+            scale = c.abs().max().item()
+            errs[what] = (g.cpu() - c).abs().max().item() / max(scale,
+                                                                 1e-30)
+        worst[name] = errs
+        if max(errs.values()) > TOL_ACT_REL:
+            rows.append(name)
+    ties = []
+    for name, x0, g0 in ACT_TIES:
+        want = g0 if not isinstance(g0, tuple) else \
+            (torch.tensor(g0[1], dtype=torch.float32) * g0[0]).item()
+        a = torch.full((4,), x0, device=dev, requires_grad=True)
+        act.get(name)(a).sum().backward()
+        got = a.grad.cpu().tolist()
+        ties.append({"name": name, "x": x0, "grad": got[0], "want": want})
+        if any(v != want for v in got):
+            rows.append(f"{name} tie at {x0}")
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"phase": "activations_on_card",
+                      "shape": list(ACT_SHAPE), "kinks": list(ACT_KINKS),
+                      "names": len(worst), "rel_err": worst,
+                      "tol_rel": TOL_ACT_REL, "ties": ties,
+                      "seconds": seconds, "card": card}), flush=True)
+    if rows:
+        return f"activations disagree with the CPU or JAX's ties: {rows}"
+    return None
+
+
+def keras_import_phases(args, torch, dev, card):
+    """Phases 45-48.  Returns ``({"bn": bn_apply launches per fine-tune
+    step, "lstm": {gate: lstm_fwd launches per output}}, None)`` or
+    ``(None, what failed)``."""
+    t0 = time.perf_counter()
+    err = keras_vgg16_phase(args, torch, dev, card)
+    if err:
+        return None, err
+    print(json.dumps({"phase": "keras_vgg16_seconds",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    torch.cuda.empty_cache()
+    out = {}
+    for key, phase in (("bn", keras_resnet50_phase),
+                       ("lstm", keras_char_lstm_phase)):
+        t0 = time.perf_counter()
+        out[key], err = phase(args, torch, dev, card)
+        if err:
+            return None, err
+        print(json.dumps({"phase": f"{phase.__name__}_seconds",
+                          "seconds": time.perf_counter() - t0}), flush=True)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    err = activations_phase(args, torch, dev, card)
+    if err:
+        return None, err
+    print(json.dumps({"phase": "activations_on_card_seconds",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return out, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6693,6 +7196,12 @@ def main(argv=None) -> int:
         return fail(err)
     torch.cuda.empty_cache()
 
+    # ---- 45-48. Keras import and export, the activations ---------------
+    keras_launches, err = keras_import_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -6747,10 +7256,16 @@ def main(argv=None) -> int:
                 "bound_by": bound_by, "library_ms": lib_ms,
                 "ms_device_only": kern_dev})
     bn_record["launches_transfer_resnet"] = slice_launches["tr"]
+    bn_record["launches_keras_resnet50_finetune_per_step"] = \
+        keras_launches["bn"]
     lstm_record["launches_early_stop_lstm"] = slice_launches["es"]
     lstm_record["launches_loss_scale_f16_tbptt"] = f16_launches["lstm"]
     lstm_record["launches_hot_swap_under_load"] = swap_launches
     lstm_record["launches_inference_server"] = pi_launches
+    lstm_record["launches_keras_char_lstm_per_output"] = \
+        keras_launches["lstm"]["sigmoid"]
+    lstm_record["launches_keras_char_lstm_hard_sigmoid_per_output"] = \
+        keras_launches["lstm"]["hard_sigmoid"]
     bf16_totals = bn_record.pop("bfloat16_totals")
     bf16_err = bn_record.pop("bfloat16_max_abs_err")
     records.append(bn_record)

@@ -8,10 +8,10 @@ Each model has the JAX zoo model's fields, defaults, layers, vertex
 names and updater; ``conf()`` gives its configuration and
 ``init(device=...)`` the network with fresh seeded parameters (torch's
 numbers, not JAX's: parity runs load the JAX package's).  ``pretrained``
-loads a local native zip (``load_reference_model``); the Keras HDF5
-branch and ``import_pretrained`` wait for the Keras import bridge
-(ROADMAP queue 1, item 9 d).  ``compute_dtype`` sets the precision
-knob in the defaults where the JAX zoo does.
+loads a local native zip (``load_reference_model``) or a Keras HDF5
+file, which ``import_pretrained`` imports (``modelimport/keras``) and
+transplants onto the zoo model's own network.  ``compute_dtype`` sets
+the precision knob in the defaults where the JAX zoo does.
 """
 from __future__ import annotations
 
@@ -68,8 +68,8 @@ def _with_compute_dtype(dt: Optional[str], defaults: Dict[str, Any]
 def _pretrained(model, weights_path: Optional[str], device):
     """``pretrained`` of any zoo model: a native zip written by the JAX
     package's ``write_model`` (or the port), read by
-    ``load_reference_model``.  A Keras HDF5 file is refused: its import
-    bridge is ROADMAP queue 1, item 9 d (``modelimport/``)."""
+    ``load_reference_model``, or a Keras HDF5 file (by its signature),
+    through ``import_pretrained``."""
     path = weights_path or os.environ.get("DL4J_TPU_PRETRAINED_DIR")
     if not path:
         raise FileNotFoundError(
@@ -80,11 +80,77 @@ def _pretrained(model, weights_path: Optional[str], device):
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"\x89HDF":
-        raise NotImplementedError(
-            f"{path}: a Keras HDF5 file; the Keras import bridge is not "
-            "ported yet (ROADMAP queue 1, item 9 d, modelimport/)")
+        return model.import_pretrained(path, device=device)
     from ..utils.model_serializer import load_reference_model
     return load_reference_model(path, device=device)
+
+
+def _import_pretrained(model, keras_path, device):
+    """``import_pretrained`` of any zoo model: the Keras file imported
+    through the import bridge, its params and state grafted layer for
+    layer onto the zoo model's own network (so its updater, dtype and
+    configuration stay the zoo's)."""
+    from ..modelimport.keras import import_keras_model
+    imported = import_keras_model(keras_path, device=device)
+    target = model.init(device=device)
+    _transplant_params(imported, target,
+                       what=f"{type(model).__name__} <- {keras_path}")
+    return target
+
+
+def _ordered_stateful_keys(model) -> List[str]:
+    """Keys of the layers or vertices holding params or state, in
+    execution order: topological order for a ComputationGraph, layer
+    index for a MultiLayerNetwork."""
+    from ..nn.precision import SCALE_STATE_KEY
+    has = {k for k, g in model.params.items() if len(g)}
+    has |= {k for k, v in model.state.items()
+            if v and k != SCALE_STATE_KEY}
+    order = getattr(model.conf, "topological_order", None)
+    if order:
+        return [k for k in order if k in has]
+    return sorted(has, key=lambda k: int(k.split("_")[-1]))
+
+
+def _transplant_params(src, dst, what: str = "") -> None:
+    """Copy params and state (BN running statistics) from ``src`` onto
+    ``dst`` by execution order, with shape checks: a mismatch raises
+    naming the layer rather than truncating.  Params and state ride the
+    same layer pairing, so a source layer without some optional state
+    cannot shift later layers' running statistics onto the wrong target
+    (state names one side lacks keep the target's values)."""
+    import torch
+    src_layers = _ordered_stateful_keys(src)
+    dst_layers = _ordered_stateful_keys(dst)
+    if len(src_layers) != len(dst_layers):
+        raise ValueError(
+            f"transplant {what}: source has {len(src_layers)} "
+            f"param/state-bearing layers, target {len(dst_layers)} — "
+            "architectures differ")
+    for sk, dk in zip(src_layers, dst_layers):
+        sp = dict(src.params[sk].items()) if sk in src.params else {}
+        dp = dict(dst.params[dk].items()) if dk in dst.params else {}
+        if set(sp) != set(dp):
+            raise ValueError(f"transplant {what}: layer {dk} params "
+                             f"{sorted(dp)} != source {sorted(sp)}")
+        for name in sp:
+            if tuple(sp[name].shape) != tuple(dp[name].shape):
+                raise ValueError(
+                    f"transplant {what}: {dk}.{name} shape "
+                    f"{tuple(dp[name].shape)} != source "
+                    f"{tuple(sp[name].shape)}")
+            with torch.no_grad():
+                dp[name].copy_(sp[name])
+        ss, ds = src.state.get(sk) or {}, dst.state.get(dk) or {}
+        for name, val in ss.items():
+            if name not in ds:
+                continue              # optional state the target lacks
+            if tuple(val.shape) != tuple(ds[name].shape):
+                raise ValueError(
+                    f"transplant {what}: {dk} state '{name}' shape "
+                    f"{tuple(ds[name].shape)} != source {tuple(val.shape)}")
+            ds[name] = val.to(device=ds[name].device,
+                              dtype=ds[name].dtype).clone()
 
 
 def _inception_block(g: GraphBuilder, name: str, inp: str, c1: int, c3r: int,
@@ -108,7 +174,8 @@ def _inception_block(g: GraphBuilder, name: str, inp: str, c1: int, c3r: int,
 class ZooModel:
     """Base of the conv zoo models (reference ``ZooModel``): fields and
     defaults as the JAX package's; ``model_type`` is ``ModelSelector``'s
-    filter key."""
+    filter key.  ``pretrained`` reads a native zip or a Keras HDF5 file,
+    ``import_pretrained`` a Keras HDF5 file."""
     model_type: ClassVar[str] = "cnn"
     num_classes: int = 1000
     seed: int = 123
@@ -154,8 +221,17 @@ class ZooModel:
         """The network from local pretrained weights (the JAX zoo's
         ``pretrained``; the reference downloads, this reads a file):
         ``weights_path``, or ``DL4J_TPU_PRETRAINED_DIR``; a directory
-        means ``<class name, lower case>.zip`` inside it."""
+        means ``<class name, lower case>.zip`` inside it.  A Keras HDF5
+        file (found by its signature) goes to ``import_pretrained``."""
         return _pretrained(self, weights_path, device)
+
+    def import_pretrained(self, keras_path, device="cuda"):
+        """The network with the weights of a Keras HDF5 file (the JAX
+        zoo's ``import_pretrained``): imported through
+        ``modelimport.keras.import_keras_model``, then its params and
+        state grafted by execution order onto this model's fresh network,
+        which keeps the zoo's updater, dtype and configuration."""
+        return _import_pretrained(self, keras_path, device)
 
 
 @dataclass
@@ -337,6 +413,11 @@ class TransformerLM:
         ``ZooModel.pretrained``)."""
         return _pretrained(self, weights_path, device)
 
+    def import_pretrained(self, keras_path, device="cuda"):
+        """The zoo network with the weights of a Keras HDF5 file (see
+        ``ZooModel.import_pretrained``)."""
+        return _import_pretrained(self, keras_path, device)
+
 
 @dataclass
 class ResNet50:
@@ -403,6 +484,11 @@ class ResNet50:
         """The network from local pretrained weights (see
         ``ZooModel.pretrained``)."""
         return _pretrained(self, weights_path, device)
+
+    def import_pretrained(self, keras_path, device="cuda"):
+        """The zoo network with the weights of a Keras HDF5 file (see
+        ``ZooModel.import_pretrained``)."""
+        return _import_pretrained(self, keras_path, device)
 
 
 
@@ -583,6 +669,11 @@ class TextGenerationLSTM:
         """The network from local pretrained weights (see
         ``ZooModel.pretrained``)."""
         return _pretrained(self, weights_path, device)
+
+    def import_pretrained(self, keras_path, device="cuda"):
+        """The zoo network with the weights of a Keras HDF5 file (see
+        ``ZooModel.import_pretrained``)."""
+        return _import_pretrained(self, keras_path, device)
 
 
 ALL_MODELS = [LeNet, SimpleCNN, AlexNet, VGG16, VGG19, ResNet50, GoogLeNet,

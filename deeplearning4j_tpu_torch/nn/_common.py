@@ -849,6 +849,29 @@ class Network(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.params.parameters())
 
+    def param_bytes(self, per_device: bool = False) -> int:
+        """Parameter memory: global bytes (every leaf whole), or with
+        ``per_device=True`` the bytes this device holds, which a ZeRO-3
+        sharded net (``parallel/sharded``) keeps at its blocks."""
+        if per_device:
+            return sum(p.numel() * p.element_size()
+                       for p in self.params.parameters())
+        return sum(int(np.prod(shape, dtype=np.int64))
+                   * torch.empty((), dtype=dt).element_size()
+                   for g in self.param_spec().values()
+                   for shape, dt in g.values())
+
+    def params_flat(self) -> np.ndarray:
+        """All params as one flat host vector, layer by layer (vertex by
+        vertex, in topological order), names sorted within each: a
+        serialization view, as the JAX package's."""
+        leaves = []
+        for key, _, _ in self._layers():
+            group = self.params[key] if key in self.params else {}
+            for name in sorted(group):
+                leaves.append(group[name].detach().cpu().numpy().reshape(-1))
+        return np.concatenate(leaves) if leaves else np.zeros(0, np.float32)
+
     def _on_device(self, a) -> Optional[torch.Tensor]:
         return None if a is None else torch.as_tensor(a, device=self.device)
 

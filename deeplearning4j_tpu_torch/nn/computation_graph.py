@@ -284,6 +284,14 @@ class ComputationGraph(Network):
                       masks=self._masks_on_device(masks))
         return ys[0] if len(ys) == 1 else ys
 
+    def output_single(self, *inputs, train: bool = False, masks=None
+                      ) -> torch.Tensor:
+        """``output`` of a graph with one output; raises on several."""
+        y = self.output(*inputs, train=train, masks=masks)
+        if isinstance(y, list):
+            raise ValueError("output_single on a multi-output graph")
+        return y
+
     def feed_forward(self, *inputs, train: bool = False, masks=None
                      ) -> Dict[str, torch.Tensor]:
         """Every vertex's activation keyed by name; ``train=True`` keeps

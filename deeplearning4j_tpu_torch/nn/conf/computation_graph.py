@@ -520,6 +520,14 @@ class ComputationGraphConfiguration:
                     v.timesteps = ref.timesteps
             it_by_name[name] = v.output_type(itypes)
 
+    def vertex_output_type(self, name: str) -> Optional[InputType]:
+        """The resolved output type of vertex ``name`` (None where an
+        input's type is unknown)."""
+        itypes = self.vertex_input_types.get(name)
+        if itypes is None or any(t is None for t in itypes):
+            return None
+        return self.vertices[name].output_type(itypes)
+
 
 class GraphBuilder:
     """Fluent builder (reference ComputationGraphConfiguration.GraphBuilder)."""

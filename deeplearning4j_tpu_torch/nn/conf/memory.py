@@ -38,13 +38,6 @@ def _elems(itype: InputType) -> int:
     return int(np.prod([d for d in itype.shape(1)[1:]]))
 
 
-def _n_params(layer, itype) -> int:
-    """Elements of the params ``layer.init`` makes for ``itype``, counted
-    on the meta device (nothing is allocated)."""
-    made = layer.init(torch.Generator(), itype, torch.device("meta"))
-    return sum(int(t.numel()) for t in made.values())
-
-
 @dataclass
 class LayerMemoryReport:
     """Per-layer estimate, in ELEMENTS (multiply by dtype width for bytes)."""
@@ -167,7 +160,7 @@ def memory_report(conf, model_class: str = "MultiLayerNetwork"
     for i, layer in enumerate(conf.layers):
         itype = conf.layer_input_types[i]
         otype = layer.output_type(itype)
-        n_params = _n_params(layer, itype)
+        n_params = layer.n_params(itype)
         reports.append(LayerMemoryReport(
             layer_name=layer.name or f"layer_{i}",
             layer_type=type(layer).__name__,
@@ -198,7 +191,7 @@ def memory_report_graph(conf, model_class: str = "ComputationGraph"
             pre = getattr(node, "preprocessor", None)
             if pre is not None:
                 it = pre.output_type(it)
-            n_params = _n_params(layer, it)
+            n_params = layer.n_params(it)
         reports.append(LayerMemoryReport(
             layer_name=name,
             layer_type=type(layer or node).__name__,

@@ -4,8 +4,9 @@ the sinusoidal positional encoding (port of ``nn/layers/attention.py``).
 Attention implementations (``attn_impl``):
   'reference' — ``ops.attention.sdpa_reference``, always correct.
   'flash'     — ``ops.flash_attention`` (the Hopper kernel on CUDA).
-  'auto'      — reference below ``DEFAULT_FLASH_MIN_SEQ`` tokens or for a
-                masked input, flash at or above it.
+  'auto'      — reference below ``DEFAULT_FLASH_MIN_SEQ`` tokens (128,
+                or ``DL4J_TPU_FLASH_MIN_SEQ`` from the environment) or
+                for a masked input, flash at or above it.
   'ring'/'ulysses' — sequence parallelism (``parallel/sequence``): q/k/v
                 are this rank's shard of the time axis, and ``seq_axis``
                 names the axis of the mesh the caller entered (``with
@@ -38,6 +39,7 @@ routed MLP and leave the aux term out, as they leave out layer state.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -83,8 +85,10 @@ class LayerNormLayer(BaseLayerConf):
 _ATTN_IMPLS = ("auto", "reference", "flash", "ring", "ulysses")
 
 # 'auto' switches to flash at this sequence length, as the reference
-# does by default.  The crossover has not been measured on a GPU.
-DEFAULT_FLASH_MIN_SEQ = 128
+# does by default, unless the environment's DL4J_TPU_FLASH_MIN_SEQ says
+# otherwise (read once, at import, as the JAX package reads it).  The
+# crossover has not been measured on a GPU.
+DEFAULT_FLASH_MIN_SEQ = int(os.environ.get("DL4J_TPU_FLASH_MIN_SEQ", 128))
 
 
 def _run_attention(q, k, v, *, impl: str, causal: bool, mask=None,

@@ -164,6 +164,15 @@ class LayerConf:
         unchanged unless the layer changes the time axis."""
         return mask
 
+    def has_params(self) -> bool:
+        return False
+
+    def n_params(self, itype: InputType) -> int:
+        """Elements of the params ``init`` makes for ``itype``, counted on
+        the meta device (nothing is allocated)."""
+        made = self.init(torch.Generator(), itype, torch.device("meta"))
+        return sum(int(t.numel()) for t in made.values())
+
 
 @dataclass
 class BaseLayerConf(LayerConf):
@@ -186,6 +195,9 @@ class BaseLayerConf(LayerConf):
     gradient_normalization_threshold: Optional[float] = None
 
     _BIAS_PARAMS = ("b", "gamma", "beta", "mean", "var")  # bias-like (no l2 by default)
+
+    def has_params(self) -> bool:
+        return True
 
     def apply_global_defaults(self, defaults: Dict[str, Any]) -> None:
         """Fill None fields from network-level defaults."""

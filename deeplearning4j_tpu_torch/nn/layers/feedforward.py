@@ -144,6 +144,9 @@ class LossLayer(BaseLayerConf):
     """Loss-only head, no params (reference ``LossLayer``)."""
     loss: str = "mse"
 
+    def has_params(self):
+        return False
+
     def apply(self, params, x, *, train=False, key=None):
         return self.act_fn(x)
 
@@ -157,6 +160,9 @@ class LossLayer(BaseLayerConf):
 @dataclass
 class ActivationLayer(BaseLayerConf):
     """The activation alone, no params."""
+
+    def has_params(self):
+        return False
 
     def apply(self, params, x, *, train=False, key=None):
         return self.act_fn(x)

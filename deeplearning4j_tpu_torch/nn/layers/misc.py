@@ -30,6 +30,9 @@ class FrozenLayer(LayerConf):
 
     FROZEN = True
 
+    def has_params(self):
+        return self.underlying.has_params()
+
     @property
     def INPUT_KIND(self):  # the auto preprocessor sees the real kind
         return getattr(self.underlying, "INPUT_KIND", "any")

@@ -227,6 +227,9 @@ class Bidirectional(LayerConf):
     fwd: Optional[BaseRecurrentLayer] = None
     mode: str = "concat"           # concat | add | mul | average
 
+    def has_params(self):
+        return True
+
     def __post_init__(self):
         if self.fwd is not None and self.name is None:
             self.name = f"bi_{self.fwd.name or type(self.fwd).__name__}"
@@ -335,6 +338,9 @@ class LastTimeStep(LayerConf):
     layer's output: ``[b, t, h]`` -> ``[b, h]`` (reference
     ``LastTimeStep``).  Streaming and tBPTT state is the wrapped layer's."""
     underlying: Optional[LayerConf] = None
+
+    def has_params(self):
+        return self.underlying.has_params()
 
     @property
     def HAS_CARRY(self):

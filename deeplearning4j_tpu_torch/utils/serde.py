@@ -31,6 +31,11 @@ def registered() -> list:
     return sorted(_CLASS_REGISTRY)
 
 
+def lookup_class(name: str):
+    """The registered class of an ``@class`` tag, or None."""
+    return _CLASS_REGISTRY.get(name)
+
+
 def to_jsonable(obj: Any) -> Any:
     """Registered dataclasses and containers as JSON-able values."""
     if obj is None or isinstance(obj, (bool, int, float, str)):

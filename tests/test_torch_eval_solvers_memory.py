@@ -374,7 +374,10 @@ def test_zoo_pretrained_reads_a_jax_zip_three_ways(tmp_path, monkeypatch):
     zoo model loads from a path, from a directory holding
     ``<class>.zip`` and from ``DL4J_TPU_PRETRAINED_DIR``, with the JAX
     params and outputs; the JAX package reads the same zip back.  A Keras
-    HDF5 file is refused naming ROADMAP item 9 d."""
+    HDF5 file (item 9 d, ported) goes through ``import_pretrained``: a
+    JAX-written one loads with the JAX outputs, and bytes that are not
+    HDF5 beyond the signature raise the reader's ``Hdf5FormatError``, as
+    in the JAX package."""
     from deeplearning4j_tpu.utils.model_serializer import restore_model
     jnet = JTextLSTM(num_classes=6, timesteps=5, hidden=8).init()
     path = tmp_path / "textgenerationlstm.zip"
@@ -393,8 +396,19 @@ def test_zoo_pretrained_reads_a_jax_zip_three_ways(tmp_path, monkeypatch):
     monkeypatch.delenv("DL4J_TPU_PRETRAINED_DIR")
     with pytest.raises(FileNotFoundError, match="DL4J_TPU_PRETRAINED_DIR"):
         model.pretrained(device="cpu")
+    from deeplearning4j_tpu.modelimport import (
+        Hdf5FormatError as JHdf5FormatError, export_keras_sequential)
+    from deeplearning4j_tpu_torch.modelimport import Hdf5FormatError
     h5 = tmp_path / "weights.h5"
     h5.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(8))
-    with pytest.raises(NotImplementedError, match="item 9 d"):
+    with pytest.raises(Hdf5FormatError, match="8-byte offsets"):
         tzoo.LeNet().pretrained(str(h5), device="cpu")
+    with pytest.raises(JHdf5FormatError, match="8-byte offsets"):
+        from deeplearning4j_tpu.models.zoo import LeNet as JLeNet
+        JLeNet().pretrained(str(h5))
+    keras = tmp_path / "textgenerationlstm.h5"
+    export_keras_sequential(jnet, str(keras))
+    np.testing.assert_allclose(
+        model.pretrained(str(keras), device="cpu").output(x).numpy(), want,
+        atol=1e-6)
     assert os.path.exists(path)

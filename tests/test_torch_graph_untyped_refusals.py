@@ -93,7 +93,10 @@ def test_every_remaining_refusal_names_its_roadmap_item(case, tmp_path):
     ``moe_experts`` builds, and only a wrapper of several ranks refuses
     it (item 8).  Ring and Ulysses attention are ported: outside a mesh
     the ``seq`` axis is unbound, as in JAX.  The zoo's Keras-HDF5 branch
-    of ``pretrained`` stays item 9 d."""
+    of ``pretrained`` is ported (item 9 d): a file that is not HDF5
+    beyond its signature raises the reader's ``Hdf5FormatError``, as the
+    JAX package does on the same bytes, and a Keras file that the JAX
+    package wrote loads with the JAX package's outputs."""
     if case == "sparse_grad":
         from deeplearning4j_tpu_torch.nn.computation_graph import \
             _build_graph_train_step
@@ -126,8 +129,26 @@ def test_every_remaining_refusal_names_its_roadmap_item(case, tmp_path):
         with pytest.raises(NameError, match="unbound axis name: 'seq'"):
             tatt._run_attention(q, q, q, impl=case, causal=True)
     else:
+        from deeplearning4j_tpu.modelimport import (
+            Hdf5FormatError as JHdf5FormatError, export_keras_sequential)
+        from deeplearning4j_tpu.models import zoo as jzoo
+        from deeplearning4j_tpu_torch.modelimport import Hdf5FormatError
         h5 = tmp_path / "w.h5"
         h5.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(8))
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1, item 9 d"):
+        with pytest.raises(JHdf5FormatError) as jerr:
+            jzoo.ResNet50().pretrained(str(h5))
+        with pytest.raises(Hdf5FormatError) as terr:
             tzoo.ResNet50().pretrained(str(h5), device="cpu")
+        assert str(terr.value) == str(jerr.value)
+        kw = dict(num_classes=3, input_shape=(8, 8, 3))
+        src = jzoo.SimpleCNN(**kw).init()
+        real = tmp_path / "simplecnn.h5"
+        export_keras_sequential(src, str(real))
+        x = np.random.default_rng(3).standard_normal(
+            (2, 8, 8, 3)).astype(np.float32)
+        want = np.asarray(jzoo.SimpleCNN(**kw).pretrained(str(real)).output(x))
+        got = tzoo.SimpleCNN(**kw).pretrained(str(real), device="cpu")
+        np.testing.assert_allclose(got.output(x).numpy(), want, atol=1e-6,
+                                   rtol=0)
+        np.testing.assert_allclose(want, np.asarray(src.output(x)),
+                                   atol=1e-6, rtol=0)

@@ -178,8 +178,10 @@ def test_gelu_is_the_tanh_approximation():
     want = np.asarray(jax.nn.gelu(jnp.asarray(x)))
     got = activations.get("gelu")(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL_EW, rtol=0)
-    with pytest.raises(ValueError, match="not ported"):
-        activations.get("elu")
+    # elu resolves since the activations slice, as jax.nn.elu
+    np.testing.assert_allclose(
+        activations.get("elu")(torch.from_numpy(x)).numpy(),
+        np.asarray(jax.nn.elu(jnp.asarray(x))), atol=ATOL_EW, rtol=0)
 
 
 def test_decode_ids_reads_no_min_or_max_of_the_tensor(monkeypatch):

@@ -115,11 +115,23 @@ def test_recurrent_layer_matches_jax(name, masked):
 
 
 def test_unported_gate_activation_raises():
-    layer = trec.LSTM(n_in=F, n_out=H, activation="tanh",
-                      gate_activation="hardsigmoid")
+    """The name stays from the slices that refused ``hardsigmoid``: it is
+    ported now (Keras's default LSTM ``recurrent_activation``), and an
+    LSTM with hardsigmoid gates matches the JAX layer, masked or not,
+    with ``helper="pallas"`` too (``pallas_lstm.supports`` refuses the
+    cell, so it takes the plain loop)."""
     rng = np.random.default_rng(30)
-    with pytest.raises(ValueError, match="not ported"):
-        _torch(layer, _lstm_params(rng, F, H), _randn(rng, B, T, F))
+    p = _lstm_params(rng, F, H)
+    x = _randn(rng, B, T, F)
+    mask = _mask(rng, B, T)
+    for m in (None, mask):
+        want = _jax(jrec.LSTM(n_in=F, n_out=H, activation="tanh",
+                              gate_activation="hardsigmoid"), p, x, m)
+        for helper in (None, "pallas"):
+            got = _torch(trec.LSTM(n_in=F, n_out=H, activation="tanh",
+                                   gate_activation="hardsigmoid",
+                                   helper=helper), p, x, m)
+            np.testing.assert_allclose(got, want, atol=ATOL_LAYER, rtol=0)
 
 
 @pytest.mark.parametrize("name", ["simple_rnn", "lstm", "graves_lstm"])
