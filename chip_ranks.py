@@ -40,6 +40,24 @@ card (every rank computes the twin itself):
 * ``dryrun``: ``parallel/dryrun.run(4)`` (NCCL, one rank a card) against
   its MLP trained on one card.
 
+Then the rest of parallel:
+
+* ``moe_wrapper``: the Switch-MoE LM (8 experts, capacity factor 1.25;
+  Sgd 1e-5) under ``ParallelWrapper`` at dp 4, routing the global batch,
+  5 steps against a one-card twin on the global batches: losses within
+  chip_smoke's ``TOL_MOE_LOSS``, step 1's params by ``update_gate`` (plus
+  ``TOL_UPDATE_NET`` of the net's largest update), 8 launches of each
+  flash kernel a step; printed: routing flips against the twin and the
+  tokens a rank-local routing of the same step would route otherwise;
+* ``tp_sharded_ckpt``: the tensor-parallel LM at dp 2 x tp 2 through
+  ``save_sharded`` at step 3 (bytes, write seconds); a fresh net restored
+  in the same layout and trained to step 6 equals the uninterrupted run
+  bit for bit on every rank; a dense restore's outputs equal the gathered
+  net's at the save (0.0);
+* ``zero3_per_layer``: the ``ShardedTrainer`` and ``ParallelWrapper``
+  runs above, each card's peak allocated bytes (after collecting the
+  last run's network): ``ShardedTrainer``'s must be below.
+
 Gates:
 
 * LM: each wrapped run's losses within 1e-5 relative of the twin's;
@@ -73,6 +91,7 @@ last ``{"ok": true, ...}``.  Exits non-zero without enough cards.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import multiprocessing as mp
@@ -222,20 +241,20 @@ def _resnet_run(args, torch, dev, mesh, rank):
 
 
 
-def update_gate(new, old, want_update):
+def update_gate(new, old, want_update, floor=0.0):
     """``(|new - twin_new|, its bound)`` at the element of a parameter
     with the worst ratio of the two after one step.  The twin's new
     value is ``old + want_update`` rounded to f32 like ``new``; each
     element's bound is ``TOL_AXES_UPDATE`` of the leaf's largest |update|
     plus one f32 ulp of that element's |twin_new| (the spacing above it:
     two sums of nearly equal updates onto the same value round at most
-    one ulp apart)."""
+    one ulp apart), plus ``floor``."""
     import torch
     twin_new = (old + want_update).to(new.dtype)
     err = (new - twin_new).abs()
     mag = twin_new.abs()
     ulp = torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag
-    bound = TOL_AXES_UPDATE * want_update.abs().max() + ulp
+    bound = TOL_AXES_UPDATE * want_update.abs().max() + ulp + floor
     worst = torch.argmax(err / bound)
     return err.flatten()[worst].item(), bound.flatten()[worst].item()
 
@@ -489,6 +508,274 @@ def _dryrun_vs_twin(args, card):
     return None
 
 
+# ---- four cards: MoE under the wrapper, the TP sharded checkpoint -------
+# the MoE LM under ParallelWrapper at dp = world: Sgd, so one step's
+# params are held by update_gate (Adam turns a near-zero gradient's f32
+# noise into a step of +-lr, and a row-permuted twin is no noise floor for
+# a router: another row order drops other tokens)
+MOE_WRAPPER_LR = 1e-5
+# ... and each leaf's bound gains 1e-6 of the net's largest update: the
+# step-0 gradient gate's net term (TOL_GRAD_NET in chip_smoke.py), for a
+# leaf whose gradient is 0 in exact arithmetic (the attention's mha_bk:
+# the softmax ignores a per-row shift), whose update is f32 noise alone
+TOL_UPDATE_NET = 1e-6
+TP_CKPT_FIRST, TP_CKPT_STEPS = 3, 6
+
+
+def _moe_recorder(orig, log, local_capacity):
+    """Wrap ``expert._dispatch_tensors``: per call, each token's expert,
+    whether it kept a slot, and (when the call routes the global batch)
+    whether it would keep one under a rank-local routing of its own
+    tokens."""
+    def wrapped(probs, capacity, offset=None):
+        dispatch, combine = orig(probs, capacity, offset)
+        entry = {"top": probs.argmax(-1).cpu(),
+                 "keep": (dispatch.sum((1, 2)) > 0).cpu()}
+        if offset is not None:
+            local, _ = orig(probs, local_capacity)
+            entry["keep_local"] = (local.sum((1, 2)) > 0).cpu()
+        log.append(entry)
+        return dispatch, combine
+    return wrapped
+
+
+def _moe_wrapper_run(args, torch, dev, mesh, world, rank):
+    """The Switch-MoE LM of chip_smoke's phase 43 under ParallelWrapper
+    at dp = world, and its one-card twin on the global batches."""
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.layers.moe import moe_capacity
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, expert
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        params_from_jax
+
+    def make():
+        conf = TransformerLM(vocab_size=cs.VOCAB, seq_len=cs.SEQ,
+                             embed=cs.EMBED, n_layers=cs.LAYERS,
+                             n_heads=cs.HEADS, moe_experts=cs.MOE_EXPERTS,
+                             sparse_labels=True, seed=args.seed,
+                             updater=Sgd(learning_rate=MOE_WRAPPER_LR)
+                             ).conf()
+        for lc in conf.layers:
+            if getattr(lc, "moe_experts", 0):
+                lc.moe_capacity_factor = cs.MOE_CAPACITY_FACTOR
+        return MultiLayerNetwork(conf, device=dev)
+
+    tree = cs.seeded_params(make().param_spec(), args.seed + 80)
+    batches = cs._lm_batches(args, 80, args.steps)
+    local_tokens = cs.TRAIN_BATCH // world * cs.SEQ
+    local_cap = moe_capacity(cs.MOE_CAPACITY_FACTOR, local_tokens,
+                             cs.MOE_EXPERTS)
+    orig = expert._dispatch_tensors
+    runs = {}
+    for name in ("twin", "wrapper"):
+        net = params_from_jax(make(), tree)
+        old = _detached(net.params)
+        trainer = net if name == "twin" else ParallelWrapper(net, mesh)
+        log = []
+        expert._dispatch_tensors = _moe_recorder(orig, log, local_cap)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.reset_launches()
+        try:
+            losses, ms, first = [], [], None
+            for i, (x, y) in enumerate(batches):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                trainer.fit(x, y)
+                losses.append(float(net.get_score()))
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if i == 0:
+                    first = _detached(net.params)
+        finally:
+            expert._dispatch_tensors = orig
+        runs[name] = {"losses": losses, "step_ms": ms, "old": old,
+                      "first": first, "log": log,
+                      "launches": dict(fa.launches),
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        del net, trainer
+        torch.cuda.empty_cache()
+    tw, wr = runs["twin"], runs["wrapper"]
+    lo, hi = rank * local_tokens, (rank + 1) * local_tokens
+    flips = sum(int((a["top"][lo:hi] != b["top"]).sum())
+                for a, b in zip(tw["log"], wr["log"]))
+    keep_diff = sum(int((a["keep"][lo:hi] != b["keep"]).sum())
+                    for a, b in zip(tw["log"], wr["log"]))
+    local_diff = sum(int((b["keep_local"] != b["keep"]).sum())
+                     for b in wr["log"])
+    net_update = max((t - tw["old"][k][n]).abs().max().item()
+                     for k, g in tw["first"].items() for n, t in g.items())
+    gate = {}
+    for k, g in tw["first"].items():
+        for n, t in g.items():
+            gate[f"{k}/{n}"] = update_gate(
+                wr["first"][k][n], tw["old"][k][n], t - tw["old"][k][n],
+                floor=TOL_UPDATE_NET * net_update)
+    worst = max(gate, key=lambda k: gate[k][0] / gate[k][1])
+    return {"losses": wr["losses"], "twin_losses": tw["losses"],
+            "step_ms": wr["step_ms"], "twin_step_ms": tw["step_ms"],
+            "launches": wr["launches"], "twin_launches": tw["launches"],
+            "peak_bytes": wr["peak_bytes"], "twin_peak_bytes":
+            tw["peak_bytes"], "dispatch_calls": len(wr["log"]),
+            "routing_flips_vs_twin": flips,
+            "kept_slot_diff_vs_twin": keep_diff,
+            "tokens_routed_differently_than_rank_local": local_diff,
+            "local_capacity": local_cap,
+            "update_worst_leaf": worst,
+            "update_err_and_bound": gate[worst],
+            "update_gate_ok": all(e <= b for e, b in gate.values())}
+
+
+def _tp_ckpt_run(args, torch, dev, world, rank):
+    """The tensor-parallel LM at dp world/2 x tp 2: save_sharded at step
+    ``TP_CKPT_FIRST``; a fresh net restored in the same layout trained to
+    step ``TP_CKPT_STEPS`` against the uninterrupted run; on rank 0 a
+    dense restore's outputs against the gathered net's at the save."""
+    import shutil
+    import torch.distributed as dist
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.faulttolerance.checkpoint import (
+        CheckpointManager, ShardBarrier)
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   make_mesh,
+                                                   megatron_dense_rule)
+    root = REPO / "build" / "ranks_tp_ckpt"
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+    dist.barrier()
+    tp_mesh = make_mesh(dp=world // 2, tp=2, device=dev)
+    tree = cs._lm_tree(args, dev, 81)
+    batches = cs._lm_batches(args, 81, TP_CKPT_STEPS)
+    probe = batches[0][0][:2]
+
+    def wrap(net):
+        return ParallelWrapper(net, tp_mesh,
+                               param_rule=megatron_dense_rule(net.params))
+
+    net = cs._lm_net(args, dev, tree)
+    w = wrap(net)
+    for x, y in batches[:TP_CKPT_FIRST]:
+        w.fit(x, y)
+    mgr = CheckpointManager(str(root), background=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    path = mgr.save_sharded(net, barrier=ShardBarrier(timeout_s=300))
+    write_s = time.perf_counter() - t1
+    saved_out = w.output(probe).detach().clone()
+    for x, y in batches[TP_CKPT_FIRST:]:
+        w.fit(x, y)
+    uninterrupted = w.full_params()
+    del w, net
+    dist.barrier()
+    fresh = cs._lm_net(args, dev, tree)
+    t1 = time.perf_counter()
+    mgr.restore_sharded(path, net=fresh, device=dev)
+    w2 = wrap(fresh)
+    restore_s = time.perf_counter() - t1
+    for x, y in batches[TP_CKPT_FIRST:]:
+        w2.fit(x, y)
+    resumed = w2.full_params()
+    bitwise = all(torch.equal(resumed[k][n], t)
+                  for k, g in uninterrupted.items() for n, t in g.items())
+    out = {"write_s": write_s, "restore_s": restore_s,
+           "writer": w2.exchange.writer_index, "bitwise": bitwise}
+    del w2, fresh, resumed, uninterrupted
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        import os
+        out["bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                           for f in os.listdir(path))
+        with open(os.path.join(path, "topology.json")) as f:
+            out["mesh"] = json.load(f)["mesh"]
+        dense, _ = mgr.restore_sharded(path, device=dev)
+        got = dense.output(probe)
+        out["dense_max_abs_diff"] = (got - saved_out).abs().max().item()
+        del dense
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _item8_gates(results, args, card):
+    """Print the moe_wrapper, tp_sharded_ckpt and zero3_per_layer
+    records; returns what failed, or None."""
+    import chip_smoke as cs
+    ranks = range(args.ranks)
+    moe = [results[r]["moe_wrapper"] for r in ranks]
+    m0 = moe[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(m0["losses"],
+                                                  m0["twin_losses"]))
+    expected = {k: cs.LAYERS * args.steps
+                for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    print(json.dumps({
+        "phase": "ranks_moe_wrapper", "ranks": args.ranks,
+        "experts": cs.MOE_EXPERTS,
+        "capacity_factor": cs.MOE_CAPACITY_FACTOR,
+        "global_batch": cs.TRAIN_BATCH, "steps": args.steps,
+        "updater": f"Sgd({MOE_WRAPPER_LR})",
+        "losses": m0["losses"], "twin_losses": m0["twin_losses"],
+        "max_rel_loss_diff_vs_twin": rel, "tol": cs.TOL_MOE_LOSS,
+        "per_rank": [{k: v for k, v in m.items()
+                      if k not in ("losses", "twin_losses")} for m in moe],
+        "tol_update": TOL_AXES_UPDATE, "card": card}), flush=True)
+    if not all(math.isfinite(v) for v in m0["losses"]) or \
+            rel > cs.TOL_MOE_LOSS:
+        return f"moe_wrapper losses {m0['losses']} against the twin's " \
+               f"{m0['twin_losses']}: {rel}"
+    for r, m in enumerate(moe):
+        if not m["update_gate_ok"]:
+            return f"moe_wrapper rank {r}: step-1 params against the " \
+                   f"twin {m['update_worst_leaf']} {m['update_err_and_bound']}"
+        if m["launches"] != expected:
+            return f"moe_wrapper rank {r} launched {m['launches']}"
+    tp = [results[r]["tp_ckpt"] for r in ranks]
+    print(json.dumps({
+        "phase": "ranks_tp_sharded_ckpt", "ranks": args.ranks,
+        "shape": [args.ranks // 2, 2], "saved_at": TP_CKPT_FIRST,
+        "steps": TP_CKPT_STEPS, "bytes": tp[0].get("bytes"),
+        "mesh": tp[0].get("mesh"),
+        "write_s_per_rank": [t["write_s"] for t in tp],
+        "restore_s_per_rank": [t["restore_s"] for t in tp],
+        "resumed_bitwise_per_rank": [t["bitwise"] for t in tp],
+        "writers": [t["writer"] for t in tp],
+        "dense_restore_max_abs_diff": tp[0].get("dense_max_abs_diff"),
+        "card": card}), flush=True)
+    if not all(t["bitwise"] for t in tp):
+        return "tp_sharded_ckpt: the resumed run differs from the " \
+               "uninterrupted one"
+    if tp[0].get("dense_max_abs_diff") != 0.0:
+        return f"tp_sharded_ckpt: dense restore's outputs differ by " \
+               f"{tp[0].get('dense_max_abs_diff')}"
+    pw = [results[r]["wrapper"]["peak_bytes"] for r in ranks]
+    z3 = [results[r]["sharded"]["peak_bytes"] for r in ranks]
+    print(json.dumps({
+        "phase": "ranks_zero3_per_layer", "ranks": args.ranks,
+        "steps": args.steps,
+        "sharded_peak_bytes_per_card": z3,
+        "wrapper_peak_bytes_per_card": pw,
+        "sharded_allocated_at_start": [results[r]["sharded"][
+            "allocated_at_start"] for r in ranks],
+        "wrapper_allocated_at_start": [results[r]["wrapper"][
+            "allocated_at_start"] for r in ranks],
+        "sharded_losses": results[0]["sharded"]["losses"],
+        "wrapper_losses": results[0]["wrapper"]["losses"],
+        "sharded_step_ms_median": results[0]["sharded"]["step_ms_median"],
+        "wrapper_step_ms_median": results[0]["wrapper"]["step_ms_median"],
+        "card": card}), flush=True)
+    if not all(a < b for a, b in zip(z3, pw)):
+        return f"zero3_per_layer: ShardedTrainer's peak {z3} is not below " \
+               f"ParallelWrapper's {pw}"
+    return None
+
+
 def _rank_run(rank, world, port, args):
     sys.path.insert(0, str(REPO))
     import torch
@@ -538,8 +825,13 @@ def _rank_run(rank, world, port, args):
         else:
             w = ParallelWrapper(net, tp_mesh, param_rule=
                                 megatron_dense_rule(net.params))
+        # the last run's network is cyclic garbage until collected: its
+        # params and slots must not count in this run's peak
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
         fa.reset_launches()
         losses, ms = cs._fit_timed(torch, w, net, batches)
         launches = dict(fa.launches)
@@ -551,6 +843,7 @@ def _rank_run(rank, world, port, args):
         res[name] = {"losses": losses,
                      "step_ms_median": statistics.median(ms[1:]),
                      "launches": launches, "peak_bytes": peak,
+                     "allocated_at_start": start,
                      "max_abs_diff_vs_rank0": _max_diff_vs_rank0(full),
                      "max_rel_err_vs_twin": errs[worst_leaf],
                      "worst_leaf": worst_leaf}
@@ -565,6 +858,11 @@ def _rank_run(rank, world, port, args):
     torch.cuda.empty_cache()
     res["resnet"] = _resnet_run(args, torch, dev, mesh, rank)
     res["axes"] = _model_axes_run(args, torch, dev, world)
+    torch.cuda.empty_cache()
+    res["moe_wrapper"] = _moe_wrapper_run(args, torch, dev, mesh, world,
+                                          rank)
+    torch.cuda.empty_cache()
+    res["tp_ckpt"] = _tp_ckpt_run(args, torch, dev, world, rank)
     dist.barrier()
     return res
 
@@ -695,6 +993,9 @@ def main(argv=None) -> int:
                     f"{record['bn_apply_launches_per_rank']}; expected "
                     f"{RN_BN_LAUNCHES} a step on every rank")
     err = _model_axes_gates(results, args, card)
+    if err:
+        return fail(err)
+    err = _item8_gates(results, args, card)
     if err:
         return fail(err)
     err = _dryrun_vs_twin(args, card)

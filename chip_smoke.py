@@ -356,6 +356,22 @@ if any phase fails:
     (0, ±1, ±2.5, 6, 0.5), values and gradients against the CPU within
     ``TOL_ACT_REL``, and the tie gradients of hardtanh, relu6 and
     hardsigmoid (0.5, and 0.5 x 0.2) exactly.
+49. ``masters_mp_lm``: the full-width LM under ``MultiprocessMaster`` with
+    2 worker processes on the card and the ``TcpMessageBroker`` hub in
+    this process.  Averaging (frequency 2, 8 batches): each averaged frame
+    the mean of the two up-frames by hand (0.0), the parent's params the
+    last frame bit for bit, 8 launches of each flash kernel a step in
+    every worker's result; the same with worker 1 killed in round 1
+    (``retried_workers == {1}``, within ``TOL_MP_RETRY`` of the fault-free
+    run, bitwise printed); shared gradients with the host codec (every
+    worker applied exactly what its peer declared, the final tables within
+    ``agreement_tol``); ``evaluate`` (accuracy equal to the parent's) and
+    ``score`` (within ``TOL_MP_SCORE``) fanned out.  Printed: each
+    worker's spawn-to-first-step seconds and peak bytes, round seconds,
+    frame and message bytes, hub frames a second;
+50. ``tcp_broker_interop``: a port hub here and a port client in another
+    process carrying ``RemoteGradientSharing`` messages; every frame
+    received equals the one sent, bit for bit, and decodes to it.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -6695,6 +6711,392 @@ def keras_import_phases(args, torch, dev, card):
     return out, None
 
 
+# ---- 49-50. the process masters over the TCP hub -----------------------
+# MultiprocessMaster on the full-width LM: 2 worker processes on the one
+# card, the hub a TcpMessageBroker in this process.  Averaging at
+# frequency 2 over 8 batches (2 rounds a worker; params and Adam slots in
+# a 403 MB frame: the respawn restarts from the frame, so a frame without
+# the slots would restart Adam), then the same with worker 1 killed in
+# round 1 before it publishes (the respawn restarts the round from the
+# last averaged frame), then shared gradients with the host codec, then
+# evaluate and score fanned out, the two jobs side by side.
+MP_WORKERS, MP_FREQ, MP_BATCHES = 2, 2, 8
+# evaluate: one-hot labels of 2 rows a batch (the LM's ids would be read
+# as [b, t] probability rows); score: id batches of 16
+MP_EVAL_BATCHES, MP_EVAL_ROWS, MP_SCORE_BATCHES = 2, 2, 4
+# the respawned run against the fault-free one: the replacement redoes
+# round 1 from the same averaged frame with the same kernels on the same
+# card, so any gap is one of float noise: 1e-6 of each leaf's scale
+TOL_MP_RETRY = 1e-6
+# score fanned out (per-batch means times rows, summed on the master)
+# against one score over the concatenated batches: f32 sums in another
+# order
+TOL_MP_SCORE = 1e-6
+MP_TIMEOUT_S = 300.0
+TCP_INTEROP_MESSAGES = 6
+TCP_INTEROP_SIZE = 1 << 20
+
+
+def _mp_frames(master_mp):
+    """Record the frames the master decodes (the workers' up-frames) and
+    encodes (the averaged frames), with the time each averaged frame
+    left; returns ``(records, undo)``."""
+    rec = {"up": [], "avg": [], "avg_at": [], "up_bytes": []}
+    real_dec, real_enc = master_mp._decode_frame, master_mp._encode_frame
+
+    def dec(data):
+        wid, rnd, vec = real_dec(data)
+        if wid >= 0:
+            rec["up"].append((wid, rnd, vec))
+            rec["up_bytes"].append(len(data))
+        return wid, rnd, vec
+
+    def enc(wid, rnd, vec):
+        if wid < 0:
+            rec["avg"].append((rnd, vec))
+            rec["avg_at"].append(time.perf_counter())
+        return real_enc(wid, rnd, vec)
+
+    master_mp._decode_frame, master_mp._encode_frame = dec, enc
+
+    def undo():
+        master_mp._decode_frame, master_mp._encode_frame = real_dec, real_enc
+    return rec, undo
+
+
+def _hub_counter():
+    """Count the frames and bytes the hub's topics fan out from this
+    process (``LocalMessageBroker.publish``); returns ``(counts, undo)``."""
+    from deeplearning4j_tpu_torch.streaming import broker as broker_mod
+    counts = {"frames": 0, "bytes": 0}
+    real = broker_mod.LocalMessageBroker.publish
+
+    def publish(self, topic, payload):
+        counts["frames"] += 1
+        counts["bytes"] += len(payload)
+        return real(self, topic, payload)
+
+    broker_mod.LocalMessageBroker.publish = publish
+
+    def undo():
+        broker_mod.LocalMessageBroker.publish = real
+    return counts, undo
+
+
+def _worker_records(master, steps_key="steps"):
+    out = []
+    for r in master.last_results:
+        w = int(r["wid"])
+        first = r.get("first_step_at")
+        out.append({"wid": w, "steps": r.get(steps_key),
+                    "resumed": r.get("resumed"), "device": r.get("device"),
+                    "kernel_launches": r.get("kernel_launches"),
+                    "spawn_to_first_step_s": None if first is None else
+                    first - master.spawn_times[w],
+                    "peak_allocated_bytes": r.get("peak_allocated_bytes")})
+    return out
+
+
+def _launches_per_step_ok(records) -> bool:
+    for r in records:
+        want = LAYERS * int(r["steps"] or 0)
+        if r["steps"] and r["kernel_launches"] != {
+                "fwd": want, "bwd_dq": want, "bwd_dkv": want}:
+            return False
+    return True
+
+
+def masters_mp_phase(args, torch, dev, card):
+    """Phase 49.  Returns ``(flash launches summed over the fault-free
+    averaging run's workers, None)`` or ``(None, what failed)``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.parallel import master_mp
+    from deeplearning4j_tpu_torch.parallel import remote as remote_mod
+    t_phase = time.perf_counter()
+    tree = _lm_tree(args, dev, 49)
+    batches = _lm_batches(args, 49, MP_BATCHES)
+    workdir = tempfile.mkdtemp(prefix="mp_lm_", dir=str(REPO / "build"))
+    out = {}
+    try:
+        # ---- averaging, fault-free and with worker 1 killed in round 1
+        runs = {}
+        for name, fault in (("clean", None),
+                            ("retry", {"die_before_publish": {"1": 1}})):
+            net = _lm_net(args, dev, tree)
+            master = master_mp.MultiprocessMaster(
+                num_workers=MP_WORKERS, mode="averaging",
+                averaging_frequency=MP_FREQ, device=str(dev),
+                timeout=MP_TIMEOUT_S, fault_injection=fault,
+                workdir=workdir)
+            rec, undo = _mp_frames(master_mp)
+            hub, undo_hub = _hub_counter()
+            t1 = time.perf_counter()
+            try:
+                master.fit(net, iter(batches))
+            finally:
+                undo()
+                undo_hub()
+            seconds = time.perf_counter() - t1
+            vec, _ = master_mp._ravel(net, True)
+            runs[name] = {"net": net, "master": master, "rec": rec,
+                          "seconds": seconds, "hub": dict(hub), "start": t1,
+                          "vec": vec,
+                          "workers": _worker_records(master)}
+        clean = runs["clean"]
+        rec = clean["rec"]
+        by_hand = 0.0
+        rounds = sorted({rnd for _, rnd, _ in rec["up"]})
+        for rnd, avg in rec["avg"]:
+            ups = [v for _, r, v in sorted(rec["up"], key=lambda u: u[0])
+                   if r == rnd]
+            hand = (ups[0] + ups[1]) / np.float32(2)
+            by_hand = max(by_hand, float(np.abs(avg - hand).max()))
+        installed_bitwise = bool(np.array_equal(clean["vec"],
+                                                rec["avg"][-1][1]))
+        at = rec["avg_at"]
+        # the first round's time includes the workers' start
+        round_s = [b - a for a, b in zip([clean["start"]] + at[:-1], at)]
+        worst_retry, retry_bitwise = 0.0, True
+        for k, g in clean["net"].params.items():
+            for n, p in g.items():
+                a = p.detach()
+                b = runs["retry"]["net"].params[k][n].detach()
+                retry_bitwise &= bool(torch.equal(a, b))
+                worst_retry = max(worst_retry, (a - b).abs().max().item()
+                                  / (a.abs().max().item() or 1.0))
+        retried = set(runs["retry"]["master"].retried_workers)
+        avg_launches = {k: sum(r["kernel_launches"][k]
+                               for r in clean["workers"])
+                        for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        out["averaging"] = {
+            "frequency": MP_FREQ, "rounds": len(rec["avg"]),
+            "max_abs_diff_avg_vs_mean_by_hand": by_hand,
+            "installed_equals_last_frame_bitwise": installed_bitwise,
+            "frame_bytes": max(rec["up_bytes"]) if rec["up_bytes"] else 0,
+            "round_seconds": round_s, "seconds": clean["seconds"],
+            "hub_frames": clean["hub"]["frames"],
+            "hub_bytes": clean["hub"]["bytes"],
+            "hub_frames_per_s": clean["hub"]["frames"] / clean["seconds"],
+            "workers": clean["workers"]}
+        out["averaging_retry"] = {
+            "fault": {"die_before_publish": {"1": 1}},
+            "retried_workers": sorted(retried),
+            "max_rel_diff_vs_fault_free": worst_retry,
+            "bitwise_equal_fault_free": retry_bitwise,
+            "tol": TOL_MP_RETRY, "seconds": runs["retry"]["seconds"],
+            "workers": runs["retry"]["workers"]}
+        del runs
+        torch.cuda.empty_cache()
+        # ---- shared gradients, host codec
+        net = _lm_net(args, dev, tree)
+        master = master_mp.MultiprocessMaster(
+            num_workers=MP_WORKERS, mode="shared",
+            threshold=MASTER_THRESHOLD, codec="host", device=str(dev),
+            timeout=MP_TIMEOUT_S, workdir=workdir)
+        msg_bytes = []
+        real_decode = remote_mod.decode_message_bytes
+
+        def decode(data):
+            msg_bytes.append(len(data))
+            return real_decode(data)
+        remote_mod.decode_message_bytes = decode
+        hub, undo_hub = _hub_counter()
+        t1 = time.perf_counter()
+        try:
+            master.fit(net, iter(batches))
+        finally:
+            remote_mod.decode_message_bytes = real_decode
+            undo_hub()
+        seconds = time.perf_counter() - t1
+        res = master.last_results
+        counts_ok = all(
+            r["applied_per_peer"] == {str(p["wid"]): p["messages_sent"]
+                                      for p in res if p is not r}
+            for r in res)
+        shared_workers = _worker_records(master)
+        out["shared"] = {
+            "threshold": MASTER_THRESHOLD, "codec": "host",
+            "messages_sent": [r["messages_sent"] for r in res],
+            "messages_applied": [r["messages_applied"] for r in res],
+            "applied_equals_declared": counts_ok,
+            "table_spread": master.last_table_spread,
+            "agreement_tol": master.agreement_tol,
+            "message_bytes_mean": statistics.mean(msg_bytes)
+            if msg_bytes else None,
+            "dense_bytes_per_message": 4 * net.num_params(),
+            "seconds": seconds, "hub_frames": hub["frames"],
+            "hub_frames_per_s": hub["frames"] / seconds,
+            "workers": shared_workers}
+        shared_loss_finite = all(math.isfinite(r["score"]) for r in res)
+        del net, master
+        torch.cuda.empty_cache()
+        # ---- evaluate and score fanned out, against the parent's
+        net = _lm_net(args, dev, tree)
+        rng = np.random.default_rng(args.seed + 490)
+        eye = np.eye(VOCAB, dtype=np.float32)
+        eval_batches = []
+        for _ in range(MP_EVAL_BATCHES):
+            toks = rng.integers(0, VOCAB, (MP_EVAL_ROWS, SEQ + 1))
+            eval_batches.append((toks[:, :-1], eye[toks[:, 1:]]))
+        score_batches = _lm_batches(args, 491, MP_SCORE_BATCHES)
+        # an 8192-class Evaluation travels as JSON (its confusion matrix
+        # as 67 M numbers a worker): the score job runs beside it
+        masters = [master_mp.MultiprocessMaster(
+            num_workers=MP_WORKERS, device=str(dev), timeout=MP_TIMEOUT_S,
+            workdir=workdir) for _ in range(2)]
+
+        def timed(fn, *a):
+            t1 = time.perf_counter()
+            return fn(*a), time.perf_counter() - t1
+        with ThreadPoolExecutor(2) as pool:
+            ev_job = pool.submit(timed, masters[0].evaluate, net,
+                                 iter(eval_batches))
+            sc_job = pool.submit(timed, masters[1].score, net,
+                                 iter(score_batches))
+            merged, eval_s = ev_job.result()
+            got_score, score_s = sc_job.result()
+        local = net.evaluate(iter(eval_batches))
+        want_score = net.score(
+            x=np.concatenate([b[0] for b in score_batches]),
+            y=np.concatenate([b[1] for b in score_batches]))
+        rel_score = abs(got_score - want_score) / abs(want_score)
+        out["evaluate"] = {"accuracy": merged.accuracy(),
+                           "parent_accuracy": local.accuracy(),
+                           "examples": merged.confusion.total(),
+                           "seconds": eval_s}
+        out["score"] = {"score": got_score, "parent_score": want_score,
+                        "rel_diff": rel_score, "tol": TOL_MP_SCORE,
+                        "seconds": score_s}
+        del net, masters
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({
+        "phase": "masters_mp_lm", "workers": MP_WORKERS,
+        "batches": MP_BATCHES, "device": str(dev),
+        "model": {"vocab": VOCAB, "seq": SEQ, "embed": EMBED,
+                  "layers": LAYERS, "heads": HEADS, "batch": TRAIN_BATCH,
+                  "updater": "Adam(3e-4)", "dtype": "float32"},
+        **out, "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    avg = out["averaging"]
+    if avg["rounds"] != MP_BATCHES // (MP_WORKERS * MP_FREQ) or \
+            avg["max_abs_diff_avg_vs_mean_by_hand"] != 0.0 or \
+            not avg["installed_equals_last_frame_bitwise"]:
+        return None, (f"process averaging: {avg['rounds']} rounds, "
+                      f"{avg['max_abs_diff_avg_vs_mean_by_hand']} off the "
+                      "mean by hand, installed params equal the last frame: "
+                      f"{avg['installed_equals_last_frame_bitwise']}")
+    if not _launches_per_step_ok(avg["workers"]) or \
+            sum(r["steps"] for r in avg["workers"]) != MP_BATCHES:
+        return None, (f"process averaging workers: {avg['workers']}; "
+                      f"expected {LAYERS} launches of each kernel a step")
+    retry = out["averaging_retry"]
+    if retry["retried_workers"] != [1] or \
+            retry["max_rel_diff_vs_fault_free"] > TOL_MP_RETRY:
+        return None, f"process averaging with a fault: {retry}"
+    sh = out["shared"]
+    if not sh["applied_equals_declared"] or sh["table_spread"] is None or \
+            sh["table_spread"] > sh["agreement_tol"] or \
+            not shared_loss_finite or \
+            not _launches_per_step_ok(sh["workers"]):
+        return None, f"process shared gradients: {sh}"
+    ev, sc = out["evaluate"], out["score"]
+    if ev["accuracy"] != ev["parent_accuracy"] or \
+            ev["examples"] != MP_EVAL_BATCHES * MP_EVAL_ROWS * SEQ or \
+            not math.isfinite(sc["score"]) or sc["rel_diff"] > TOL_MP_SCORE:
+        return None, f"process evaluate/score: {ev}, {sc}"
+    return avg_launches, None
+
+
+_TCP_CLIENT = """
+import sys
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.parallel.accumulation import EncodingHandler
+from deeplearning4j_tpu_torch.parallel.remote import RemoteGradientSharing
+from deeplearning4j_tpu_torch.streaming import TcpMessageBroker
+port, n, size, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), \\
+    sys.argv[4]
+broker = TcpMessageBroker(port=port)
+sent = []
+real = broker.publish
+
+
+def publish(topic, payload):
+    sent.append(payload)
+    real(topic, payload)
+
+
+broker.publish = publish
+sharing = RemoteGradientSharing(broker, 3, topic="g", ack=True,
+                                handler=EncodingHandler(1e-3))
+rng = np.random.default_rng(int(sys.argv[5]))
+for i in range(n):
+    scale = 1e-2 if i % 2 else 4e-4
+    sharing.publish_update(torch.as_tensor(
+        rng.standard_normal(size).astype(np.float32) * scale))
+np.savez(out, *[np.frombuffer(s, np.uint8) for s in sent])
+broker.shutdown()
+"""
+
+
+def tcp_broker_interop_phase(args, torch, dev, card):
+    """Phase 50.  Returns None or what failed."""
+    import tempfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.parallel.accumulation import decode
+    from deeplearning4j_tpu_torch.parallel.remote import decode_message_bytes
+    from deeplearning4j_tpu_torch.streaming import TcpMessageBroker
+    t_phase = time.perf_counter()
+    hub = TcpMessageBroker(max_queue=0).serve()
+    out_dir = tempfile.mkdtemp(prefix="tcp_", dir=str(REPO / "build"))
+    sent_file = os.path.join(out_dir, "sent.npz")
+    try:
+        sub = hub.subscribe("g", ack=True)
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        proc = subprocess.run(
+            [sys.executable, "-c", _TCP_CLIENT, str(hub.port),
+             str(TCP_INTEROP_MESSAGES), str(TCP_INTEROP_SIZE), sent_file,
+             str(args.seed)], env=env, capture_output=True, text=True,
+            timeout=300)
+        got = []
+        while len(got) < TCP_INTEROP_MESSAGES:
+            f = sub.poll(timeout=10)
+            if f is None:
+                break
+            got.append(f)
+        if proc.returncode != 0:
+            return f"TCP interop client failed: {proc.stderr[-2000:]}"
+        with np.load(sent_file) as z:
+            sent = [z[f"arr_{i}"].tobytes() for i in range(len(z.files))]
+    finally:
+        hub.shutdown()
+        import shutil
+        shutil.rmtree(out_dir, ignore_errors=True)
+    same = len(got) == len(sent) == TCP_INTEROP_MESSAGES and \
+        all(a == b for a, b in zip(got, sent))
+    kinds, decoded_equal = [], True
+    for a, b in zip(got, sent):
+        _, _, ma = decode_message_bytes(a)
+        _, _, mb = decode_message_bytes(b)
+        kinds.append(ma["kind"])
+        decoded_equal &= bool(torch.equal(decode(ma), decode(mb)))
+    print(json.dumps({"phase": "tcp_broker_interop",
+                      "messages": len(got), "sent": len(sent),
+                      "elements": TCP_INTEROP_SIZE, "kinds": kinds,
+                      "bytes": [len(g) for g in got],
+                      "frames_bitwise_equal": same,
+                      "decoded_bitwise_equal": decoded_equal,
+                      "seconds": round(time.perf_counter() - t_phase, 3),
+                      "card": card}), flush=True)
+    if not same or not decoded_equal:
+        return "TCP interop: the decoded messages differ from those sent"
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7202,6 +7604,18 @@ def main(argv=None) -> int:
         return fail(err)
     torch.cuda.empty_cache()
 
+    # ---- 49-50. the process masters over the TCP hub -------------------
+    t0 = time.perf_counter()
+    mp_launches, err = masters_mp_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    torch.cuda.empty_cache()
+    err = tcp_broker_interop_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+    print(json.dumps({"phase": "process_masters_seconds",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -7234,6 +7648,7 @@ def main(argv=None) -> int:
             "launches_moe_lm_train": axes_launches["moe"]["train"][name],
             "launches_moe_lm_serve": axes_launches["moe"]["serve"][name],
             "launches_tensor_parallel_lm_tp1": axes_launches["tp"][name],
+            "launches_masters_mp_lm_workers": mp_launches[name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,

@@ -187,14 +187,29 @@ class _ParamlessModel:
         self.epoch = int(net.epoch)
 
 
-def _leaf_blocks(t, dim: Optional[int], rank: int
+def _cut_dim(t, cuts: List[Tuple[int, str]], gshape) -> Optional[int]:
+    """The one dim a leaf is cut on (``cuts``: ``[(dim, axis)]`` of its
+    layout), None for a replicated leaf.  The format indexes blocks by ONE
+    sharded dim; a leaf partitioned over two or more axes cannot be
+    represented — refused at save time, in the JAX package's words."""
+    if len(cuts) > 1:
+        raise NotImplementedError(
+            f"save_sharded: leaf sharded over {len(cuts)} axes "
+            f"(shard {tuple(t.shape)} of {tuple(gshape)}) — the sharded "
+            "checkpoint format indexes one sharded dim per leaf (the "
+            "ZeRO-3 layout); save TP-sharded params through the dense "
+            "path")
+    return cuts[0][0] if cuts else None
+
+
+def _leaf_blocks(t, dim: Optional[int], index: int
                  ) -> Tuple[Optional[int], List[Tuple[int, np.ndarray]]]:
     """``(sharded_dim, [(start, host_block)])`` of the block of one leaf
-    this rank holds: a leaf sharded on ``dim`` is this rank's block,
-    starting at ``rank`` blocks in; a replicated leaf (``dim`` None) is
-    one whole block at 0.  Blocks are owned host copies."""
+    this rank holds: a leaf cut on ``dim`` is this rank's block, the
+    ``index``-th along it; a replicated leaf (``dim`` None) is one whole
+    block at 0.  Blocks are owned host copies."""
     from ..utils.model_serializer import _host
-    start = 0 if dim is None else rank * int(t.shape[dim])
+    start = 0 if dim is None else index * int(t.shape[dim])
     return dim, [(start, _host(t))]
 
 
@@ -206,10 +221,12 @@ class _ShardedSnapshot:
     """Host snapshot of a SHARDED network for ``save_sharded``: the model
     container is written param-less; each param / updater leaf is
     captured as this rank's block only (a replicated leaf whole, by the
-    primary alone).  The layout is the one a wrapper installed
-    (``net._shard_layout``: its exchange and plans); a network outside a
-    wrapper saves every leaf whole.  Key-neutral like
-    :class:`_Snapshot`."""
+    primary alone; a block that ranks of another axis hold too, by the
+    first of them: a tensor-parallel leaf is written by the ranks of
+    data index 0).  The layout is the one a wrapper installed
+    (``net._shard_layout``: its exchange and plans, whose ``leaf_cuts``
+    name each leaf's cut); a network outside a wrapper saves every leaf
+    whole.  Key-neutral like :class:`_Snapshot`."""
 
     def __init__(self, net, process_index: int, process_count: int,
                  save_updater: bool = True):
@@ -225,20 +242,16 @@ class _ShardedSnapshot:
         layout = getattr(net, "_shard_layout", None)
         if layout is not None:
             ex, p_plan, o_plan = layout
-            if getattr(ex, "model_axis", None) is not None and any(
-                    d is not None for g in p_plan.values()
-                    for d in g.values()):
-                raise NotImplementedError(
-                    "save_sharded: leaves sharded over the 'model' axis (a "
-                    "tensor-parallel param_rule) — the sharded checkpoint "
-                    "format indexes one sharded dim per leaf over the "
-                    "data-parallel writers; save TP-sharded params through "
-                    "the dense path")
-            dp, rank = ex.dp, ex.rank
+            index, replica = ex.shard_index, ex.block_replica
             mesh_desc = {"axes": ["data", "model", "seq"],
-                         "shape": [int(dp), 1, 1]}
+                         "shape": [int(ex.mesh.dp), int(ex.mesh.tp),
+                                   int(ex.mesh.sp)]}
         else:
-            p_plan, o_plan, dp, rank, mesh_desc = {}, {}, 1, 0, None
+            ex, p_plan, o_plan, mesh_desc = None, {}, {}, None
+            index, replica = 0, 0
+
+        def cuts(dim):
+            return [] if dim is None else ex.leaf_cuts(dim)
         spec = net.param_spec()
         topo_params: Dict[str, Any] = {}
         self.blocks: List[Tuple[str, str, Optional[int],
@@ -247,15 +260,16 @@ class _ShardedSnapshot:
             for name in sorted(spec[layer], key=lambda n: n.split("/")):
                 shape, _ = spec[layer][name]
                 leaf = net.params[layer][name]
-                dim = p_plan.get(layer, {}).get(name)
+                dim = _cut_dim(leaf, cuts(p_plan.get(layer, {}).get(name)),
+                               shape)
                 key = f"{layer}/{name}"
                 topo_params[key] = {"shape": [int(n) for n in shape],
                                     "dtype": _np_dtype(leaf), "dim": dim}
-                if dim is not None or primary:
-                    # replicated leaves are identical everywhere: only
-                    # the primary writes them
+                if (replica == 0) if dim is not None else primary:
+                    # replicated leaves (and blocks) are identical on
+                    # every holder: only the first writes them
                     self.blocks.append(("param", key,
-                                        *_leaf_blocks(leaf, dim, rank)))
+                                        *_leaf_blocks(leaf, dim, index)))
         topo_opt: List[Dict[str, Any]] = []
         if net.opt_state is not None and save_updater:
             names = {k: {n: None for n in g} for k, g in spec.items()}
@@ -270,13 +284,14 @@ class _ShardedSnapshot:
                     continue
                 _, _, layer, name, slot = d
                 t = net.opt_state["slots"][layer][name][slot]
-                dim = o_plan.get(layer, {}).get(name)
                 shape = spec[layer][name][0]
+                dim = _cut_dim(t, cuts(o_plan.get(layer, {}).get(name)),
+                               shape)
                 topo_opt.append({"shape": [int(n) for n in shape],
                                  "dtype": _np_dtype(t), "dim": dim})
-                if dim is not None or primary:
+                if (replica == 0) if dim is not None else primary:
                     self.blocks.append(("opt", str(i),
-                                        *_leaf_blocks(t, dim, rank)))
+                                        *_leaf_blocks(t, dim, index)))
         self.topology = {"version": 1,
                          "process_count": self.process_count,
                          "mesh": mesh_desc,
@@ -403,9 +418,11 @@ class CheckpointManager:
         every restore refuses; refuse up front."""
         layout = getattr(net, "_shard_layout", None)
         if process_index is None:
-            process_index = layout[0].rank if layout is not None else 0
+            process_index = layout[0].writer_index if layout is not None \
+                else 0
         if process_count is None:
-            process_count = layout[0].dp if layout is not None else 1
+            process_count = layout[0].writer_count if layout is not None \
+                else 1
         if (process_index != 0 or process_count > 1) and barrier is None:
             raise NotImplementedError(
                 "multi-host save_sharded needs a staged-write barrier "

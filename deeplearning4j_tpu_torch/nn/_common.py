@@ -28,6 +28,7 @@ frozen group), a label per parameter, and a step count per label.
 from __future__ import annotations
 
 import logging
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -36,7 +37,7 @@ from torch import nn
 
 from ..observability.clock import monotonic_s, wall_s
 from ..observability.registry import default_registry
-from ..utils import _random
+from ..utils import _random, global_batch
 from ..utils.device import resolve_device
 from . import precision as _precision
 from .conf.updaters import Sgd, UpdaterConf
@@ -272,6 +273,57 @@ def precision_cast_map(pol, confs: Mapping[str, Any]
             dt = pol.layer_dtype(lc)
             if dt not in (None, "float32"):
                 out[name] = _precision.torch_dtype(dt)
+    return out
+
+
+def layer_scope(fetch, name: str, lp):
+    """A context giving layer ``name`` the params it computes with:
+    ``lp`` itself, or ``fetch(name, lp)``'s (a ZeRO-3 step gathers the
+    layer's sharded leaves there, ``parallel/exchange.at_use``)."""
+    return nullcontext(lp) if fetch is None else fetch(name, lp)
+
+
+def exchange_fetch(exchange, cast_map):
+    """The walk's ``fetch`` for a data-parallel step: None unless the
+    exchange gathers this step's sharded leaves at their use, then each
+    layer's leaves gathered and cast to its compute dtype."""
+    if not exchange.per_layer:
+        return None
+    return lambda name, lp: exchange.at_use(name, lp, cast_map.get(name))
+
+
+def regularization(fetch, name: str, lc, lp) -> torch.Tensor:
+    """A layer's l1/l2 term; under a ``fetch`` a layer with coefficients
+    reads its leaves whole (``layer_scope``)."""
+    hc = hyperparam_conf(getattr(lc, "layer", lc))
+    if fetch is None or hc is None or not any(
+            float(hc.resolved(a, 0.0) or 0.0)
+            for a in ("l1", "l2", "l1_bias", "l2_bias")):
+        return lc.regularization_score(dict(lp))
+    with fetch(name, lp) as full:
+        return lc.regularization_score(dict(full))
+
+
+def aux_term(reg: torch.Tensor, aux: torch.Tensor, shares: list
+             ) -> torch.Tensor:
+    """Add a mixture-of-experts layer's aux term to the objective's terms:
+    outside a step of several ranks it joins the replicated terms
+    ``reg``; in one it is this rank's share of the global term
+    (``parallel/expert``), kept in ``shares`` for every rank's objective.
+    Returns the new ``reg``."""
+    if global_batch.current() is None:
+        return reg + aux
+    shares.append(aux)
+    return reg
+
+
+def objective(loss: torch.Tensor, reg: torch.Tensor, shares: list
+              ) -> torch.Tensor:
+    """``loss`` plus the replicated terms counted once over the ranks
+    (``global_batch.share``) plus this rank's aux shares."""
+    out = loss + global_batch.share(reg)
+    for aux in shares:
+        out = out + aux
     return out
 
 

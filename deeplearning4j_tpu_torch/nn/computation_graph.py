@@ -39,12 +39,13 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..utils import _random, global_batch
+from ..utils import _random
 from . import precision as _precision
-from ._common import (Network, backward_and_update, batch_factory, cast_act,
-                      cast_params, carry_thread_context,
-                      finish_precision_step, fit_on_device_epochs,
-                      precision_cast_map)
+from ._common import (Network, aux_term, backward_and_update, batch_factory,
+                      cast_act, cast_params, carry_thread_context,
+                      exchange_fetch, finish_precision_step,
+                      fit_on_device_epochs, layer_scope, objective,
+                      precision_cast_map, regularization)
 from .conf.computation_graph import LayerVertex
 from .layers.base import draws
 
@@ -82,14 +83,16 @@ def _vertex_forward(v, params, state, xs, key, masks):
 
 def _graph_forward(conf, params, state, inputs: List[torch.Tensor], *,
                    train: bool, key=None, masks=None,
-                   exclude_outputs: bool = False, precision=None
+                   exclude_outputs: bool = False, precision=None, fetch=None
                    ) -> Tuple[Dict[str, torch.Tensor], Dict, Dict]:
     """Walk the topological order; returns ``(acts, new_state,
     mask_of)``, acts and masks keyed by vertex name (plus the network
     inputs).  With ``exclude_outputs``, output layers that nothing
     consumes are skipped: the loss applies them itself.  ``precision``
     casts each vertex's inputs to its compute dtype; in training under
-    ``cache_mode("remat")`` every layer vertex runs checkpointed."""
+    ``cache_mode("remat")`` every layer vertex runs checkpointed.
+    ``fetch`` (a ZeRO-3 step's, ``_common.layer_scope``) gives each
+    vertex the params it computes with, for its forward only."""
     acts = dict(zip(conf.network_inputs, inputs))
     mask_of = {n: (masks[i] if masks and i < len(masks) else None)
                for i, n in enumerate(conf.network_inputs)}
@@ -112,28 +115,29 @@ def _graph_forward(conf, params, state, inputs: List[torch.Tensor], *,
             vdt = precision.layer_dtype(getattr(v, "layer", None) or v)
             xs = [cast_act(x, vdt) for x in xs]
         vkey = _vertex_key(key, vi, v)
-        if remat and isinstance(v, LayerVertex):
-            acts[name], new_state[name] = checkpoint(
-                carry_thread_context(_vertex_forward), v,
-                params.get(name, {}), state.get(name, {}), xs, vkey, ms,
-                use_reentrant=False)
-        else:
-            acts[name], new_state[name] = v.forward(
-                params.get(name, {}), state.get(name, {}), xs, train=train,
-                key=vkey, masks=ms)
+        with layer_scope(fetch, name, params.get(name, {})) as vp:
+            if remat and isinstance(v, LayerVertex):
+                acts[name], new_state[name] = checkpoint(
+                    carry_thread_context(_vertex_forward), v, vp,
+                    state.get(name, {}), xs, vkey, ms, use_reentrant=False)
+            else:
+                acts[name], new_state[name] = v.forward(
+                    vp, state.get(name, {}), xs, train=train, key=vkey,
+                    masks=ms)
+        del vp
         mask_of[name] = v.feed_forward_mask(ms, xs)
     return acts, new_state, mask_of
 
 
 def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
-                label_masks=None, key=None, masks=None, precision=None
-                ) -> Tuple[torch.Tensor, Dict]:
+                label_masks=None, key=None, masks=None, precision=None,
+                fetch=None) -> Tuple[torch.Tensor, Dict]:
     """Sum of the output layers' losses plus regularization; returns
     ``(loss, new_state)``.  An output's label mask defaults to the
     features mask that reaches it."""
     acts, new_state, mask_of = _graph_forward(
         conf, params, state, inputs, train=train, key=key, masks=masks,
-        exclude_outputs=True, precision=precision)
+        exclude_outputs=True, precision=precision, fetch=fetch)
     total = None
     for oi, name in enumerate(conf.network_outputs):
         if not _is_loss_output(conf, name):
@@ -150,21 +154,24 @@ def _graph_loss(conf, params, state, inputs, labels, *, train: bool,
             # the head's product in the compute dtype; the loss
             # reductions widen to f32 inside nn/losses
             h = cast_act(h, precision.layer_dtype(v.layer))
-        loss = v.compute_loss(
-            params.get(name, {}), h, labels[oi], train=train,
-            key=_vertex_key(key, 10_000 + oi, v), mask=lm)
+        with layer_scope(fetch, name, params.get(name, {})) as vp:
+            loss = v.compute_loss(
+                vp, h, labels[oi], train=train,
+                key=_vertex_key(key, 10_000 + oi, v), mask=lm)
+        del vp
         total = loss if total is None else total + loss
     reg = torch.zeros((), dtype=total.dtype, device=total.device)
+    shares = []
     for name, v in conf.vertices.items():
         lp = params.get(name, {})
         if lp:
-            reg = reg + v.regularization_score(dict(lp))
+            reg = reg + regularization(fetch, name, v, lp)
         if getattr(getattr(v, "layer", None), "AUX_LOSS", False):
             # a mixture-of-experts vertex's load-balancing term
             aux = new_state.get(name, {}).get("aux_loss")
             if aux is not None:
-                reg = reg + aux
-    return total + global_batch.share(reg), new_state
+                reg = aux_term(reg, aux, shares)
+    return objective(total, reg, shares), new_state
 
 
 def _build_graph_train_step(conf, tx, exchange=None):
@@ -197,8 +204,10 @@ def _build_graph_train_step(conf, tx, exchange=None):
 
     def step(params, state, opt_state, xs, ys, label_masks, key=None,
              masks=None):
+        fetch = None
         if exchange is not None:
             params = exchange.gather(params)
+            fetch = exchange_fetch(exchange, cast_map)
         if pol is not None:
             xs = [cast_act(x, pol.compute_dtype) for x in xs]
         ls = state.get(_precision.SCALE_STATE_KEY) \
@@ -206,9 +215,9 @@ def _build_graph_train_step(conf, tx, exchange=None):
         with (nullcontext() if exchange is None
               else exchange.batch(int(xs[0].shape[0]))):
             loss, new_state = _graph_loss(
-                conf, cast_params(params, cast_map), state, xs, ys,
-                train=True, label_masks=label_masks, key=key, masks=masks,
-                precision=pol)
+                conf, params if fetch else cast_params(params, cast_map),
+                state, xs, ys, train=True, label_masks=label_masks, key=key,
+                masks=masks, precision=pol, fetch=fetch)
             obj = loss * ls["scale"] if ls is not None else loss
             gstats, updated = backward_and_update(
                 obj, params, opt_state, tx, confs, gn_mode, gn_thr,

@@ -503,13 +503,16 @@ class TransformerBlock(BaseLayerConf):
         """The dense or routed MLP; returns ``(out, state update)``."""
         if self.moe_experts == 0:
             return gelu(xn @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"], {}
-        from ...parallel.expert import moe_ffn
+        from ...parallel.expert import moe_ffn, routing_axis
         from .moe import moe_capacity
         b, t, e = xn.shape
-        capacity = moe_capacity(self.moe_capacity_factor, b * t,
+        ax = routing_axis()
+        capacity = moe_capacity(self.moe_capacity_factor,
+                                b * t * (1 if ax is None else ax.size),
                                 self.moe_experts)
         moe_p = {k: p[k] for k in ("router", "w1", "b1", "w2", "b2")}
-        y, aux = moe_ffn(moe_p, xn.reshape(b * t, e), capacity, act=gelu)
+        y, aux = moe_ffn(moe_p, xn.reshape(b * t, e), capacity, act=gelu,
+                         data_axis=ax)
         return y.reshape(b, t, e), {
             "aux_loss": (self.aux_loss_weight * aux).to(xn.dtype)}
 

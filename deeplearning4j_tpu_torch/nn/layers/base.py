@@ -77,7 +77,8 @@ INHERITED_DEFAULTS = {
     "gradient_normalization_threshold": 1.0,
 }
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 def flatten_group(group: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:

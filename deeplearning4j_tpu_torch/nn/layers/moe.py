@@ -7,6 +7,10 @@ The load-balancing aux loss goes through the layer's state
 networks' loss (the ``AUX_LOSS`` flag), which keeps it right under remat
 and in checkpoints.  Feed-forward ``[b, f]``, recurrent ``[b, t, f]`` and
 convolutional ``[b, h, w, c]`` inputs (flattened) are taken as they are.
+In a data-parallel wrapper's step of several ranks the layer routes the
+global batch (``parallel/expert.routing_axis``): the capacity is the
+global token count's, and the aux term is this rank's share of the
+global one (its state holds that share).
 """
 from __future__ import annotations
 
@@ -73,15 +77,18 @@ class MixtureOfExpertsLayer(BaseLayerConf):
 
     def forward(self, params, state, x, *, train=False, key=None,
                 mask=None):
-        from ...parallel.expert import moe_ffn
+        from ...parallel.expert import moe_ffn, routing_axis
         x = self.maybe_dropout_input(x, train, key)
         if x.ndim == 4:   # CNN [b,h,w,c] -> flat [b, h*w*c]
             x = x.reshape(x.shape[0], -1)
         shape = x.shape
         x2d = x.reshape(-1, shape[-1])
-        capacity = moe_capacity(self.capacity_factor, x2d.shape[0],
+        ax = routing_axis()
+        capacity = moe_capacity(self.capacity_factor,
+                                x2d.shape[0] * (1 if ax is None else ax.size),
                                 self.n_experts)
-        y, aux = moe_ffn(params, x2d, capacity, act=self.act_fn)
+        y, aux = moe_ffn(params, x2d, capacity, act=self.act_fn,
+                         data_axis=ax)
         new_state = {"aux_loss": (self.aux_loss_weight * aux).to(x.dtype)}
         return y.reshape(shape[:-1] + (self.n_out,)), new_state
 

@@ -63,12 +63,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..utils import _random, global_batch
+from ..utils import _random
 from . import precision as _precision
-from ._common import (Network, backward_and_update, batch_factory, cast_act,
-                      cast_params, carry_thread_context,
-                      finish_precision_step, fit_on_device_epochs,
-                      precision_cast_map)
+from ._common import (Network, aux_term, backward_and_update, batch_factory,
+                      cast_act, cast_params, carry_thread_context,
+                      exchange_fetch, finish_precision_step,
+                      fit_on_device_epochs, layer_scope, objective,
+                      precision_cast_map, regularization)
 from . import sparse as _sparse
 from .conf.multi_layer import MultiLayerConfiguration
 from .layers.base import draws
@@ -115,8 +116,8 @@ def _forward_of(lc, role):
 def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
                    to_layer: Optional[int] = None,
                    carries: Optional[Dict[str, Any]] = None, key=None,
-                   collect: bool = False, precision=None, roles=None
-                   ) -> Tuple[Any, Dict, Optional[torch.Tensor]]:
+                   collect: bool = False, precision=None, roles=None,
+                   fetch=None) -> Tuple[Any, Dict, Optional[torch.Tensor]]:
     """The layers ``[0, to_layer)`` (all by default); returns ``(h,
     new_state, mask)`` with the mask as the next layer would see it (with
     ``collect``, ``h`` is the list of every layer's activation).  Layer i
@@ -127,7 +128,9 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
     train step's resolved policy) casts each layer's input to its compute
     dtype; in training under ``cache_mode("remat")`` every layer without
     a carry runs checkpointed.  ``roles`` (``{layer_i: forward}``, a
-    tensor-parallel exchange's) replace those layers' own forward."""
+    tensor-parallel exchange's) replace those layers' own forward.
+    ``fetch(layer_i, params)`` (a ZeRO-3 step's, ``layer_scope``) gives
+    each layer the params it computes with, for its forward only."""
     layers = conf.layers
     n = len(layers) if to_layer is None else to_layer
     remat = train and conf.defaults.get("cache_mode") == "remat"
@@ -141,19 +144,21 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
             h = cast_act(h, precision.layer_dtype(lc))
         lkey = _layer_key(key, i, lc)
         role = roles.get(name) if roles else None
-        if carries is not None and lc.HAS_CARRY:
-            h, carries[name] = lc.apply_with_carry(
-                params[name], h, carries.get(name), train=train, key=lkey,
-                mask=mask)
-        elif remat:
-            h, new_state[name] = checkpoint(
-                carry_thread_context(_layer_forward), lc, params[name],
-                state.get(name, {}), h, lkey, mask, role,
-                use_reentrant=False)
-        else:
-            h, new_state[name] = _forward_of(lc, role)(
-                params[name], state.get(name, {}), h, train=train,
-                key=lkey, mask=mask)
+        with layer_scope(fetch, name, params[name]) as lp:
+            if carries is not None and lc.HAS_CARRY:
+                h, carries[name] = lc.apply_with_carry(
+                    lp, h, carries.get(name), train=train, key=lkey,
+                    mask=mask)
+            elif remat:
+                h, new_state[name] = checkpoint(
+                    carry_thread_context(_layer_forward), lc, lp,
+                    state.get(name, {}), h, lkey, mask, role,
+                    use_reentrant=False)
+            else:
+                h, new_state[name] = _forward_of(lc, role)(
+                    lp, state.get(name, {}), h, train=train, key=lkey,
+                    mask=mask)
+        del lp
         if mask is not None:
             mask = lc.feed_forward_mask(mask, None)
         if collect:
@@ -163,18 +168,20 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
 
 def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
                       label_mask=None, carries=None, key=None,
-                      precision=None, roles=None
+                      precision=None, roles=None, fetch=None
                       ) -> Tuple[torch.Tensor, Dict]:
     """Forward to the last layer's loss, plus regularization (reference
     ``computeGradientAndScore``); returns ``(loss, new_state)``.  A free
     function over the configuration, a ``{layer_i: {name: tensor}}``
-    params mapping and the layers' state."""
+    params mapping and the layers' state.  ``fetch``: as
+    ``_stack_forward``'s, for the output layer and the l1/l2 terms too."""
     layers = conf.layers
     n = len(layers)
     h, new_state, pmask = _stack_forward(conf, params, state, x, train=train,
                                          mask=mask, to_layer=n - 1,
                                          carries=carries, key=key,
-                                         precision=precision, roles=roles)
+                                         precision=precision, roles=roles,
+                                         fetch=fetch)
     out_conf = layers[-1]
     if not hasattr(out_conf, "compute_loss"):
         raise ValueError(
@@ -189,21 +196,24 @@ def _stack_loss_state(conf, params, state, x, y, *, train: bool, mask=None,
     # per-step masking when labelsMask is absent; LastTimeStep or global
     # pooling consumes the time axis and nulls it)
     lm = label_mask if label_mask is not None else pmask
-    loss = out_conf.compute_loss(params[f"layer_{n - 1}"], h, y,
-                                 train=train,
-                                 key=_layer_key(key, n - 1, out_conf),
-                                 mask=lm)
+    name = f"layer_{n - 1}"
+    with layer_scope(fetch, name, params[name]) as lp:
+        loss = out_conf.compute_loss(lp, h, y, train=train,
+                                     key=_layer_key(key, n - 1, out_conf),
+                                     mask=lm)
+    del lp
     reg = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    shares = []
     for i, lc in enumerate(layers):
         lp = params[f"layer_{i}"]
         if lp:
-            reg = reg + lc.regularization_score(dict(lp))
+            reg = reg + regularization(fetch, f"layer_{i}", lc, lp)
         if getattr(lc, "AUX_LOSS", False):
             # a mixture-of-experts layer's load-balancing term (its state)
             aux = new_state.get(f"layer_{i}", {}).get("aux_loss")
             if aux is not None:
-                reg = reg + aux
-    return loss + global_batch.share(reg), new_state
+                reg = aux_term(reg, aux, shares)
+    return objective(loss, reg, shares), new_state
 
 
 def _stack_loss(conf, params, x, y, *, train: bool, mask=None,
@@ -257,8 +267,10 @@ def _build_train_step(conf, tx, exchange=None):
         # carry state flows INTO the chunk; gradients do not flow back
         # across the chunk boundary (tBPTT truncation)
         cs = None if carries is None else _detached(carries)
+        fetch = None
         if exchange is not None:
             params = exchange.gather(params, skip)
+            fetch = exchange_fetch(exchange, cast_map)
         if pol is not None:
             # floating inputs only: integer ids reach the embedding exact
             x = cast_act(x, pol.compute_dtype)
@@ -278,10 +290,12 @@ def _build_train_step(conf, tx, exchange=None):
         with (nullcontext() if exchange is None
               else exchange.batch(int(x.shape[0]))):
             loss, new_state = _stack_loss_state(
-                conf, cast_params(params_fwd, cast_map), state, x_in, y,
-                train=True, mask=mask, label_mask=label_mask, carries=cs,
-                key=key, precision=pol,
-                roles=None if exchange is None else exchange.roles)
+                conf, params_fwd if fetch else cast_params(params_fwd,
+                                                           cast_map),
+                state, x_in, y, train=True, mask=mask,
+                label_mask=label_mask, carries=cs, key=key, precision=pol,
+                roles=None if exchange is None else exchange.roles,
+                fetch=fetch)
             # the whole backward sees the scaled loss; the reported loss
             # stays unscaled
             obj = loss * ls["scale"] if ls is not None else loss

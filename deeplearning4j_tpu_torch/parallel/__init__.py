@@ -2,12 +2,12 @@
 ``torch.distributed`` and the ZeRO-3 layout rule, ``ParallelWrapper``
 (data and tensor parallelism) and the ZeRO-3 ``ShardedTrainer``, the
 multi-process bootstrap and ``ElasticTrainer``, quantized gradient
-sharing and its wire format, the in-process training masters,
+sharing and its wire format, the in-process training masters and the
+process masters over ``TcpMessageBroker`` (``MultiprocessMaster``),
 ``DistributedLayerTrainer``, ``ParallelInference``, and the model axes:
 sequence (ring and Ulysses attention), pipeline (GPipe) and expert
 parallelism over differentiable collectives, the 3D demo and the dry
-run.  The process masters (``master_mp.py`` with ``TcpMessageBroker``)
-wait for ROADMAP queue 1, item 8.
+run.
 
 Exports resolve on first use: ``nn`` imports ``parallel.inference``, and
 the trainers import ``nn``.
@@ -31,6 +31,7 @@ _EXPORTS = {
     "ParameterAveragingTrainingMaster": "master",
     "SharedGradientsTrainingMaster": "master", "TrainingMaster": "master",
     "TrainingMasterStats": "master", "tree_average": "master",
+    "MultiprocessMaster": "master_mp",
     "DATA_AXIS": "mesh", "MODEL_AXIS": "mesh", "SEQ_AXIS": "mesh",
     "Mesh": "mesh", "make_mesh": "mesh", "place_sharded": "mesh",
     "shard_batch": "mesh", "shard_params": "mesh", "zero3_spec": "mesh",

@@ -25,6 +25,10 @@ the backward, outside autograd):
 * ``broadcast_from_last`` (``pipeline._broadcast_from_last``): the last
   place's value on every rank; the backward counts the cotangent once,
   on the last place.
+* ``all_gather`` (``lax.all_gather(..., tiled=True)``): the places'
+  inputs joined along dim 0 in place order.  Backward: the cotangent
+  summed over the places, each place keeping its own block
+  (``reduce_scatter_tensor``).
 
 Every rank of the axis must call the same collectives in the same order,
 forward and backward (NCCL's rule, and gloo's).
@@ -37,8 +41,8 @@ import torch
 
 from .mesh import Axis, resolve_axis
 
-__all__ = ["ppermute", "all_to_all", "psum_", "pmean_", "copy_to",
-           "reduce_from", "broadcast_from_last"]
+__all__ = ["ppermute", "all_to_all", "all_gather", "psum_", "pmean_",
+           "copy_to", "reduce_from", "broadcast_from_last"]
 
 
 def _dist():
@@ -130,6 +134,36 @@ def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int
     """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``."""
     ax = resolve_axis(axis)
     return _AllToAll.apply(x, ax, split_axis % x.ndim, concat_axis % x.ndim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        if not ax.live:
+            return x.clone()
+        src = x.contiguous()
+        out = torch.empty((ax.size * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        _dist().all_gather_into_tensor(out, src, group=ax.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        if not ax.live:
+            return g, None
+        src = g.contiguous()
+        out = torch.empty((src.shape[0] // ax.size,) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        _dist().reduce_scatter_tensor(out, src, group=ax.group)
+        return out, None
+
+
+def all_gather(x: torch.Tensor, axis) -> torch.Tensor:
+    """``lax.all_gather(x, axis, tiled=True)``: every place's ``x`` joined
+    along dim 0, place 0 first."""
+    return _AllGather.apply(x, resolve_axis(axis))
 
 
 def _all_reduce(t: torch.Tensor, ax: Axis) -> torch.Tensor:

@@ -39,7 +39,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     ``MASTER_ADDR``:``MASTER_PORT``); the world size and rank come from
     ``DL4J_TPU_NPROCS``/``DL4J_TPU_PROC_ID`` or ``WORLD_SIZE``/``RANK``.
     The backend is NCCL when ``device`` is CUDA (the default where CUDA
-    is up), else gloo."""
+    is up), else gloo.  With no device and no backend given and no CUDA,
+    it raises: a caller who wants gloo on the CPU passes
+    ``device="cpu"`` or ``backend="gloo"``."""
     import torch.distributed as dist
     env = os.environ
     if coordinator_address is None:
@@ -57,7 +59,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         process_id = int(env.get("DL4J_TPU_PROC_ID", env.get("RANK", 0)))
     if backend is None:
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device: pass device='cpu' (or backend='gloo') "
+                    "to start the process group on the CPU")
+            device = "cuda"
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     addr = coordinator_address
     if "://" not in addr:

@@ -18,9 +18,18 @@ dims (``mesh.zero3_spec``; None = replicated):
   block of each sharded leaf from its block of the slots, then the blocks
   are all-gathered into the replicated parameter;
 * ``ShardedTrainer`` (ZeRO-3): parameters and their slots sharded.  The
-  step all-gathers each sharded leaf once (``gather``), the gradient of a
-  sharded leaf is reduce-scattered (SUM) to the rank's block, and the
-  update runs block-locally on the stored shard.
+  network's layer walk all-gathers a layer's sharded leaves just before
+  its forward (``at_use``) and drops them after it: the ops that need a
+  leaf in the backward save a token in its place
+  (``saved_tensors_hooks``), and the backward gathers it again.  Each
+  gathered leaf's gradient is reduce-scattered (SUM) to the rank's block
+  as the backward reaches it, and the update runs block-locally on the
+  stored shard.  So at most one layer's leaves are whole at a time, and
+  the collectives and their sums are those of gathering every leaf for
+  the whole step (a layer with l1/l2 gathers its leaves once more for
+  that term, whose gradient is then reduce-scattered apart from the
+  forward's).  Under ``cache_mode("remat")`` the checkpointed layer
+  keeps its gathered leaves for its replay.
 
 A fourth layout is tensor parallelism (``TensorParallelExchange``,
 ``ParallelWrapper(param_rule=...)``): the leaves a rule splits are held
@@ -36,11 +45,13 @@ identity.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Callable, Dict, Iterable, Optional, Set, Tuple
 
 import torch
 
-from ..nn._common import LocalNorms, apply_constraints_all, hyperparam_conf
+from ..nn._common import (LocalNorms, apply_constraints_all, cast_floats,
+                          hyperparam_conf)
 from ..utils import global_batch
 from . import collectives
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
@@ -67,6 +78,32 @@ def _all_gather(block: torch.Tensor, dim: int, group, n: int
                       dtype=src.dtype, device=src.device)
     _dist().all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous() if dim else out
+
+
+class _GatherAtUse(torch.autograd.Function):
+    """A sharded leaf gathered whole for one layer; the backward
+    reduce-scatters its gradient (SUM) to this rank's block."""
+
+    @staticmethod
+    def forward(ctx, block, ex, dim):
+        ctx.ex, ctx.dim = ex, dim
+        return ex.gather_blocks(block, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ex.reduce_scatter_dim(g, ctx.dim), None, None
+
+
+class _Regather:
+    """What a saved whole leaf is packed into: its block, the sharded dim
+    and the saved view's geometry."""
+
+    __slots__ = ("block", "dim", "size", "stride", "offset")
+
+    def __init__(self, block, dim, t):
+        self.block, self.dim = block, dim
+        self.size, self.stride = t.size(), t.stride()
+        self.offset = t.storage_offset()
 
 
 class GradientExchange(LocalNorms):
@@ -99,6 +136,10 @@ class GradientExchange(LocalNorms):
         # {layer: forward} the network's layer walk runs in place of
         # those layers' own (the tensor-parallel pairs)
         self.roles: Dict[str, Callable] = {}
+        # the current step gathers its sharded leaves layer by layer
+        # (``at_use``), so their gradients arrive as blocks
+        self.per_layer = False
+        self._skip: Set[Key] = set()
 
     # ------------------------------------------------- the sharded axis
     @property
@@ -110,6 +151,27 @@ class GradientExchange(LocalNorms):
     def shard_index(self) -> int:
         """Which block this rank holds."""
         return self.rank
+
+    @property
+    def block_replica(self) -> int:
+        """Which of the ranks that hold this rank's blocks it is (0: the
+        one that writes them to a sharded checkpoint)."""
+        return 0
+
+    @property
+    def writer_count(self) -> int:
+        """Ranks that write a sharded checkpoint of this layout."""
+        return self.dp
+
+    @property
+    def writer_index(self) -> int:
+        """This rank's place among them."""
+        return self.rank
+
+    def leaf_cuts(self, dim: int):
+        """``[(dim, axis)]``: the cuts of a leaf this layout shards on
+        ``dim``."""
+        return [(dim, DATA_AXIS)]
 
     def block_of(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block of a whole tensor along ``dim``."""
@@ -141,7 +203,8 @@ class GradientExchange(LocalNorms):
     def batch(self, local_rows: int):
         """The global-batch context of one step (``utils/global_batch``)."""
         return global_batch.global_batch(self.group, self.dp, self.rank,
-                                         local_rows)
+                                         local_rows,
+                                         self.mesh.axes[DATA_AXIS])
 
     # ------------------------------------------------------ collectives
     def all_gather_dim(self, block: torch.Tensor, dim: int
@@ -191,12 +254,21 @@ class GradientExchange(LocalNorms):
         return t
 
     # ------------------------------------------------------------ step
+    #: whether a step may gather a layer's leaves at its use (``at_use``)
+    #: instead of every leaf up front
+    GATHERS_AT_USE = True
+
     def gather(self, storage: Tree, skip: Iterable[Key] = ()) -> Tree:
-        """The full parameters one step differentiates: each ZeRO-3 leaf
-        all-gathered into a fresh leaf tensor (once per step); replicated
-        leaves (and ``skip``) are the stored tensors themselves."""
+        """The parameters one step differentiates.  With ZeRO-3 leaves
+        and ``GATHERS_AT_USE`` these are the stored blocks, and the layer
+        walk gathers each layer's leaves at its use (``at_use``); else
+        each sharded leaf is all-gathered here into a fresh leaf tensor
+        (once per step).  Replicated leaves (and ``skip``) are the stored
+        tensors themselves."""
         self._storage = storage
-        if not self.zero3:
+        self.per_layer = self.zero3 and self.GATHERS_AT_USE
+        self._skip = set(skip)
+        if not self.zero3 or self.per_layer:
             return storage
         skip = set(skip)
         out: Tree = {}
@@ -211,14 +283,57 @@ class GradientExchange(LocalNorms):
                         p.requires_grad)
         return out
 
+    @contextmanager
+    def at_use(self, layer: str, lp: Dict[str, torch.Tensor],
+               dtype: Optional[torch.dtype] = None):
+        """A layer's params for its forward: each sharded leaf gathered
+        whole (``_GatherAtUse``), the whole layer cast to ``dtype`` (a
+        precision policy's compute dtype) after that.  While the block
+        runs, an op that saves a view of a gathered leaf for its backward
+        saves a ``_Regather`` token instead, which the backward gathers
+        again; the whole leaves die with the caller's references after
+        the block."""
+        full, owners = {}, {}
+        for n, p in lp.items():
+            d = self.pdim(layer, n)
+            if d is None or (layer, n) in self._skip or \
+                    (layer, n) in self.local:
+                full[n] = p
+                continue
+            t = _GatherAtUse.apply(p, self, d)
+            owners[t.untyped_storage().data_ptr()] = (p, d)
+            full[n] = t
+        if dtype is not None:
+            full = cast_floats(full, dtype)
+        if not owners:
+            yield full
+            return
+
+        def pack(t):
+            own = owners.get(t.untyped_storage().data_ptr()) \
+                if t.layout == torch.strided else None
+            return t if own is None else _Regather(own[0], own[1], t)
+
+        def unpack(s):
+            if not isinstance(s, _Regather):
+                return s
+            whole = self.gather_blocks(s.block, s.dim)
+            return whole.as_strided(s.size, s.stride, s.offset)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield full
+
     def reduce(self, grads: Tree) -> Tree:
         """The global gradient: replicated leaves all-reduced (SUM, one
         coalesced buffer per dtype), ZeRO-3 leaves reduce-scattered to
-        this rank's block."""
+        this rank's block (in the backward already, where the step
+        gathered them at use)."""
         rep = [(k, n, g) for k, group in grads.items()
                for n, g in group.items()
                if self.pdim(k, n) is None and g.is_floating_point()]
         out = self._sum_coalesced(grads, rep)
+        if self.per_layer:
+            return out
         for k, group in grads.items():
             for n, g in group.items():
                 d = self.pdim(k, n)
@@ -375,6 +490,11 @@ class TensorParallelExchange(GradientExchange):
     block.  Gradients and the loss are summed over ``data`` only: the
     ranks of one model group share their rows and compute the same loss."""
 
+    # the split leaves that are not paired are gathered for the whole
+    # step: their gradients are summed over ``data`` with the rest before
+    # each rank keeps its block
+    GATHERS_AT_USE = False
+
     def __init__(self, mesh: Mesh, param_plan: Dict, local=()):
         super().__init__(mesh, param_plan, param_plan)
         self.model_axis = mesh.axes[MODEL_AXIS]
@@ -388,6 +508,23 @@ class TensorParallelExchange(GradientExchange):
     @property
     def shard_index(self) -> int:
         return int(self.model_axis.index or 0)
+
+    @property
+    def block_replica(self) -> int:
+        return self.rank
+
+    @property
+    def writer_count(self) -> int:
+        return self.dp * self.mesh.tp * self.mesh.sp
+
+    @property
+    def writer_index(self) -> int:
+        seq = self.mesh.axes["seq"]
+        return (self.rank * self.mesh.tp + self.shard_index) \
+            * self.mesh.sp + int(seq.index or 0)
+
+    def leaf_cuts(self, dim: int):
+        return [(dim, MODEL_AXIS)]
 
     def gather_blocks(self, block: torch.Tensor, dim: int) -> torch.Tensor:
         ax = self.model_axis

@@ -12,18 +12,33 @@ outside any Pallas kernel).
 ``expert_axis`` names an axis of the grid the caller entered (``with
 grid:``), or is an :class:`~.mesh.Axis`.  ``make_moe_train_step`` is the
 step of one rank of a ``("data", "expert")`` grid.
+
+``data_axis`` routes the global batch of a data-parallel step, as the
+JAX package's one program over that batch does: the tokens are sharded
+over the axis in rank order (``shard_batch``'s rows), the experts are
+replicated on it, and the capacity is the global token count's.  A
+token's slot in its expert is the tokens routed there on lower ranks
+(one all-gather of the ranks' ``[E]`` counts) plus its place in the
+local cumsum, and the Switch aux term takes the global fraction routed
+(the gathered counts) times each rank's share of the global mean
+router probability (its tokens' sum over the global count): the ranks'
+terms sum to the global term, and the exchange's SUM of their gradients
+is its gradient.  ``routing_axis`` is the axis a wrapper's step routes
+over (``utils/global_batch``), None outside one.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..utils import _random
-from .collectives import all_to_all, pmean_, psum_
+from ..utils import _random, global_batch
+from .collectives import all_gather, all_to_all, pmean_, psum_
+from .mesh import DATA_AXIS, Axis, resolve_axis
 
-__all__ = ["init_moe_params", "moe_ffn", "make_moe_train_step"]
+__all__ = ["init_moe_params", "moe_ffn", "make_moe_train_step",
+           "routing_axis"]
 
 
 def init_moe_params(key, n_experts: int, embed: int, hidden: int,
@@ -46,14 +61,28 @@ def init_moe_params(key, n_experts: int, embed: int, hidden: int,
             "w2": draw(k2, (n_experts, hidden, embed), s2)}
 
 
-def _dispatch_tensors(router_probs: torch.Tensor, capacity: int
+def routing_axis() -> Optional[Axis]:
+    """The data axis a wrapper's step routes its mixture-of-experts
+    layers over (the global-batch context of more than one rank), or
+    None."""
+    gb = global_batch.current()
+    if gb is None:
+        return None
+    if gb.axis is not None:
+        return gb.axis
+    return Axis(DATA_AXIS, gb.world, gb.rank, group=gb.group)
+
+
+def _dispatch_tensors(router_probs: torch.Tensor, capacity: int,
+                      offset: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 dispatch/combine tensors ``[T, E, C]`` (Switch): token t goes
     to its argmax expert (the first of equal maxima) at its position in
     that expert's queue, and is dropped when the queue is past
-    ``capacity``.  The one-hots are comparisons, as ``jax.nn.one_hot``
-    gives them: a position of -1 (another expert) or >= capacity (a
-    dropped token) is a zero row."""
+    ``capacity``.  ``offset`` (``[E]``) starts each queue after the tokens
+    lower ranks routed there.  The one-hots are comparisons, as
+    ``jax.nn.one_hot`` gives them: a position of -1 (another expert) or
+    >= capacity (a dropped token) is a zero row."""
     dt = router_probs.dtype
     dev = router_probs.device
     n_experts = router_probs.shape[-1]
@@ -61,6 +90,8 @@ def _dispatch_tensors(router_probs: torch.Tensor, capacity: int
     onehot = (expert_idx[:, None] == torch.arange(
         n_experts, device=dev)).to(dt)                             # [T, E]
     pos = torch.cumsum(onehot, dim=0) - 1.0                        # [T, E]
+    if offset is not None:
+        pos = pos + offset
     keep = (pos < capacity).to(dt) * onehot
     pos_oh = (pos.to(torch.int64)[..., None] == torch.arange(
         capacity, device=dev)).to(dt)                              # [T, E, C]
@@ -71,7 +102,7 @@ def _dispatch_tensors(router_probs: torch.Tensor, capacity: int
 
 
 def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, capacity: int,
-            expert_axis=None, act=torch.relu
+            expert_axis=None, act=torch.relu, data_axis=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN over local tokens ``x [T, D]``.
 
@@ -82,10 +113,39 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, capacity: int,
         [E, C, D] --a2a(split E, concat C)--> [E/ep, ep*C, D]   (to owners)
         [E/ep, ep*C, D] --a2a(split C, concat E)--> [E, C, D]   (back)
 
+    With ``data_axis`` of more than one place, ``x`` is this rank's block
+    of the global batch's tokens, ``capacity`` the global one, and the
+    aux loss this rank's share of the global term (module doc).
+
     Returns ``(output [T, D], the Switch load-balancing aux loss)``."""
     probs = torch.softmax(x @ params["router"], dim=-1)            # [T, E]
     n_experts = probs.shape[-1]
+    ax = None if data_axis is None else resolve_axis(data_axis)
+    if ax is not None and ax.size > 1:
+        top = torch.argmax(probs, dim=-1)
+        counts = (top[:, None] == torch.arange(
+            n_experts, device=probs.device)).to(probs.dtype).sum(0)
+        every = all_gather(counts[None], ax)                       # [dp, E]
+        dispatch, combine = _dispatch_tensors(
+            probs, capacity, every[:ax.index].sum(0))
+        tokens = float(probs.shape[0] * ax.size)
+        frac = every.sum(0) / tokens
+        aux = n_experts * torch.sum(frac * (probs.sum(0) / tokens))
+        return _experts(params, x, dispatch, combine, expert_axis,
+                        act), aux
     dispatch, combine = _dispatch_tensors(probs, capacity)
+    y = _experts(params, x, dispatch, combine, expert_axis, act)
+    # Switch aux loss: the fraction routed times the mean router
+    # probability, per expert
+    top = torch.argmax(probs, dim=-1)
+    frac = torch.mean((top[:, None] == torch.arange(
+        n_experts, device=probs.device)).to(probs.dtype), dim=0)
+    aux = n_experts * torch.sum(frac * torch.mean(probs, dim=0))
+    return y, aux
+
+
+def _experts(params, x, dispatch, combine, expert_axis, act):
+    """Dispatch, the experts' FFN and combine: ``[T, D]``."""
     expert_in = torch.einsum("tec,td->ecd", dispatch, x)           # [E, C, D]
     if expert_axis is not None:
         expert_in = all_to_all(expert_in, expert_axis, split_axis=0,
@@ -99,14 +159,7 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, capacity: int,
         out = out + params["b2"]
     if expert_axis is not None:
         out = all_to_all(out, expert_axis, split_axis=1, concat_axis=0)
-    y = torch.einsum("tec,ecd->td", combine, out)
-    # Switch aux loss: the fraction routed times the mean router
-    # probability, per expert
-    top = torch.argmax(probs, dim=-1)
-    frac = torch.mean((top[:, None] == torch.arange(
-        n_experts, device=probs.device)).to(probs.dtype), dim=0)
-    aux = n_experts * torch.sum(frac * torch.mean(probs, dim=0))
-    return y, aux
+    return torch.einsum("tec,ecd->td", combine, out)
 
 
 def make_moe_train_step(capacity: int, lr: float = 0.1,

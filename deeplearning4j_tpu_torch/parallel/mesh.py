@@ -363,11 +363,13 @@ def shard_params(mesh_or_dp, tree,
 def shard_of(t: torch.Tensor, dim: Optional[int], dp: int,
              rank: int) -> torch.Tensor:
     """Rank ``rank``'s block of ``t`` along ``dim`` (``t`` itself when
-    ``dim`` is None), as a contiguous copy."""
+    ``dim`` is None), as a copy: a view (``contiguous()`` of a dim-0
+    block is one) would keep the whole tensor's storage alive."""
     if dim is None:
         return t
     n = t.shape[dim] // dp
-    return t.narrow(dim, rank * n, n).contiguous()
+    return t.narrow(dim, rank * n, n).clone(
+        memory_format=torch.contiguous_format)
 
 
 def place_sharded(x, mesh: Mesh, dim: Optional[int]):

@@ -6,7 +6,9 @@ Reference: the Aeron transport under ``SharedTrainingMaster`` —
 encoded-update messages (``parallel/accumulation.py`` formats) get a
 compact binary wire format, byte for byte the JAX package's (a frame
 either package encodes decodes in the other), and ride any broker with
-publish/subscribe(topic): in-process, ``streaming.LocalMessageBroker``.
+publish/subscribe(topic): in-process, ``streaming.LocalMessageBroker``;
+across processes, ``streaming.TcpMessageBroker`` (the process masters'
+shared mode, ``parallel/master_mp.py``).
 Dense data-parallel sharing is ``ParallelWrapper``'s all-reduce; this is
 for the bandwidth-starved boundary.
 """

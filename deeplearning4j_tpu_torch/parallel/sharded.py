@@ -6,9 +6,13 @@ are held as this rank's block, leaf for leaf by ``zero3_spec`` (the first
 axis divisible by dp; leaves below ``min_shard_size`` elements
 replicate, as in the JAX package, so the per-rank layout and
 ``per_device_param_bytes`` equal the JAX ``ShardedTrainer``'s).  Each
-step all-gathers every sharded leaf once for the forward, reduce-scatters
-its gradient (SUM) back to the rank's block, all-reduces the replicated
-leaves' gradients, and updates block-locally (``parallel/exchange``).
+step gathers a layer's sharded leaves just before its forward, drops
+them after it and gathers them again in its backward, as the JAX
+package's GSPMD program gathers each leaf at its use; each gradient is
+reduce-scattered (SUM) back to the rank's block as the backward reaches
+it, the replicated leaves' gradients are all-reduced, and the update runs
+block-locally (``parallel/exchange``).  At most one layer's leaves are
+whole at a time.
 The explicit ``all_gather_into_tensor`` / ``reduce_scatter_tensor`` per
 leaf around the port's functional step replaces GSPMD's derived
 collectives; FSDP is not used (it cannot leave a leaf replicated).
@@ -19,8 +23,9 @@ gathered from their owners, and each rank updates the touched rows it
 owns (``nn/sparse``).
 
 ``gather_compute_overlap`` is accepted for the JAX package's signature;
-the port schedules nothing asynchronously, so ``overlap_armed`` stays
-False, as on the JAX package's CPU rig.
+the port issues each layer's gather when the layer starts, not a layer
+ahead, so ``overlap_armed`` stays False, as on the JAX package's CPU
+rig.
 
 Checkpoints: ``save_sharded`` writes this rank's blocks plus the topology
 manifest (``faulttolerance/checkpoint``), in the JAX package's layout,

@@ -36,9 +36,11 @@ block, as XLA's inserted collective would.  The result equals the data-parallel 
 ``output``, ``score``, ``evaluate`` and ``clone`` gather the leaves
 first (``gathered``).  ``shard_optimizer_state=True`` with a rule is
 refused, as in the JAX package: the rule already shards the updater
-state.  A mixture-of-experts layer (``AUX_LOSS``) routes over the global
-batch in the JAX package's step, and a rank's step here would route its
-own rows: a wrapper of more than one rank refuses it.
+state.  A mixture-of-experts layer (``AUX_LOSS``) routes the global
+batch, as in the JAX package's step: the exchange's global-batch context
+carries the data axis, over which each layer exchanges its ranks'
+per-expert counts (``parallel/expert``); the experts stay replicated on
+the data axis.
 """
 from __future__ import annotations
 
@@ -150,12 +152,6 @@ class ParallelWrapper:
         if m.opt_state is None:
             m._init_updater()
         _unshard(m)
-        if self.mesh.size > 1 and _has_aux_loss(m):
-            raise NotImplementedError(
-                "a mixture-of-experts layer (AUX_LOSS) under a wrapper of "
-                f"{self.mesh.size} ranks: the JAX package routes the "
-                "global batch, a rank's step here would route its own "
-                "rows (ROADMAP queue 1, item 8)")
         ex = self._exchange()
         if self.mesh.size > 1:
             with torch.no_grad():
@@ -453,13 +449,6 @@ def _unshard(m) -> None:
                     for s in list(sl):
                         sl[s] = ex.gather_blocks(sl[s], d)
     m._shard_layout = None
-
-
-def _has_aux_loss(m) -> bool:
-    confs = m._hyper_confs().values()
-    return any(getattr(lc, "AUX_LOSS", False) or
-               getattr(getattr(lc, "layer", None), "AUX_LOSS", False)
-               for lc in confs)
 
 
 def _model_plan(m, rule) -> Dict[str, Dict[str, Optional[int]]]:

@@ -46,13 +46,17 @@ _local = threading.local()
 class GlobalBatch:
     """One rank's view of the global batch: ``world`` ranks of
     ``local_rows`` rows each; this rank holds rows ``[row_offset,
-    row_offset + local_rows)`` of ``global_rows``."""
+    row_offset + local_rows)`` of ``global_rows``.  ``axis`` is the data
+    axis of the wrapper's mesh (``parallel.mesh.Axis``), over which a
+    mixture-of-experts layer routes the global batch."""
 
     __slots__ = ("group", "world", "rank", "local_rows", "row_offset",
-                 "global_rows")
+                 "global_rows", "axis")
 
-    def __init__(self, group, world: int, rank: int, local_rows: int):
+    def __init__(self, group, world: int, rank: int, local_rows: int,
+                 axis=None):
         self.group = group
+        self.axis = axis
         self.world = int(world)
         self.rank = int(rank)
         self.local_rows = int(local_rows)
@@ -74,10 +78,11 @@ def current() -> Optional[GlobalBatch]:
 
 
 @contextmanager
-def global_batch(group, world: int, rank: int, local_rows: int):
+def global_batch(group, world: int, rank: int, local_rows: int,
+                 axis=None):
     """Run the enclosed step as rank ``rank`` of ``world`` equal slices."""
     prev = getattr(_local, "ctx", None)
-    _local.ctx = GlobalBatch(group, world, rank, local_rows)
+    _local.ctx = GlobalBatch(group, world, rank, local_rows, axis)
     try:
         yield _local.ctx
     finally:

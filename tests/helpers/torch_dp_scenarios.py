@@ -99,13 +99,31 @@ def _bn_calls(on):
         normalization.bn_train_norm = unfused
 
 
+@contextmanager
+def _rank_local_routing(on):
+    """With ``on``, every mixture-of-experts layer routes its own rank's
+    tokens only (no routing axis): the routing the global one replaces."""
+    if not on:
+        yield
+        return
+    from deeplearning4j_tpu_torch.parallel import expert
+    real = expert.routing_axis
+    expert.routing_axis = lambda: None
+    try:
+        yield
+    finally:
+        expert.routing_axis = real
+
+
 def fit(job, mesh):
     """``job["steps"]`` batches through a wrapper; the losses after each
-    step, the params (and slots) after the last."""
+    step, the params (and slots) after the last.  ``local_routing``
+    routes each rank's tokens alone (``_rank_local_routing``)."""
     net = _net(job)
     w = _wrap(job["kind"], net, mesh, job)
     losses = []
-    with _bn_calls(job.get("count_fused_bn")) as calls:
+    with _bn_calls(job.get("count_fused_bn")) as calls, \
+            _rank_local_routing(job.get("local_routing")):
         for b in job["batches"]:
             x, y, m, lm = (list(b) + [None, None])[:4]
             w.fit(x, y, mask=m, label_mask=lm)
@@ -220,7 +238,51 @@ def elastic_survivor(job, mesh):
             "params": _full(w), "losses": [float(net.get_score())]}
 
 
-_FNS = {"fit": fit, "save_sharded": save_sharded,
+def zero3_gathers(job, mesh):
+    """``job["batches"]`` through a ShardedTrainer, every whole leaf the
+    exchange gathers (forward and backward) watched by a weak reference:
+    after each gather, the layers that still have a whole leaf alive.
+    Returns the most such layers at once, the gathers counted, and the
+    whole params."""
+    import gc
+    import time
+    import weakref
+    from deeplearning4j_tpu_torch.parallel.exchange import GradientExchange
+    net = _net(job)
+    w = _wrap("zero3", net, mesh, job)
+    owner = {id(p): k for k, g in net.params.items() for p in g.values()}
+    seen, worst = [], [0]
+    real = GradientExchange.gather_blocks
+
+    def alive():
+        return {k for k, r in seen if r() is not None}
+
+    def watched(self, block, dim):
+        out = real(self, block, dim)
+        layer = owner.get(id(block))
+        if layer is not None:
+            seen.append((layer, weakref.ref(out)))
+            # gloo's worker thread lets go of a finished collective's
+            # output a moment after the caller's wait returns: give it
+            # that moment before counting what the step still holds
+            deadline = time.monotonic() + 2.0
+            while len(alive()) > 1 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            worst[0] = max(worst[0], len(alive()))
+        return out
+    gc.disable()        # liveness by reference counts alone
+    GradientExchange.gather_blocks = watched
+    try:
+        for b in job["batches"]:
+            w.fit(*b)
+    finally:
+        GradientExchange.gather_blocks = real
+        gc.enable()
+    return {"most_layers_alive": worst[0], "gathers": len(seen),
+            "layers": sorted({k for k, _ in seen}), "params": _full(w)}
+
+
+_FNS = {"fit": fit, "save_sharded": save_sharded, "zero3_gathers": zero3_gathers,
         "restore_sharded": restore_sharded,
         "elastic_survivor": elastic_survivor}
 

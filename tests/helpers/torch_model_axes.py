@@ -239,8 +239,74 @@ def tensor_parallel(job, rank):
     return out
 
 
+def tp_checkpoint(job, rank):
+    """The tensor-parallel layout through ``save_sharded`` and
+    ``restore_sharded`` on a ``(data, model)`` mesh: train
+    ``job["first"]`` batches, save (every rank through a barrier round),
+    train the rest; restore the save into a fresh net in the same layout
+    and train the rest again; restore ``job["jax_path"]`` (the JAX
+    package's save of the same layout) likewise.  Rank 0 also restores
+    both saves into a dense net."""
+    from deeplearning4j_tpu_torch.faulttolerance.checkpoint import (
+        CheckpointManager, ShardBarrier)
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   make_mesh,
+                                                   megatron_dense_rule)
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        load_reference_model
+    dp, tp = job["shape"]
+    mesh = make_mesh(dp=dp, tp=tp, device="cpu")
+    if not mesh.member:
+        return None
+    probe = job["probe"]
+
+    def wrap(net):
+        return ParallelWrapper(net, mesh, param_rule=megatron_dense_rule(
+            net.params))
+
+    def full(w):
+        return {k: {n: _np(t) for n, t in g.items()}
+                for k, g in w.full_params().items()}
+
+    batches = job["batches"]
+    net = load_reference_model(job["zip"], device="cpu")
+    w = wrap(net)
+    for x, y in batches[:job["first"]]:
+        w.fit(x, y)
+    mgr = CheckpointManager(job["dir"], background=False)
+    path = mgr.save_sharded(net, barrier=ShardBarrier(timeout_s=60))
+    saved_out = _np(w.output(probe))
+    saved = full(w)
+    for x, y in batches[job["first"]:]:
+        w.fit(x, y)
+    out = {"path": path, "saved_output": saved_out, "saved": saved,
+           "uninterrupted": full(w),
+           "writer": w.exchange.writer_index}
+    fresh = load_reference_model(job["zip"], device="cpu")
+    mgr.restore_sharded(path, net=fresh, device="cpu")
+    w2 = wrap(fresh)
+    out["restored_iteration"] = fresh.iteration
+    for x, y in batches[job["first"]:]:
+        w2.fit(x, y)
+    out["resumed"] = full(w2)
+    other = load_reference_model(job["zip"], device="cpu")
+    CheckpointManager(job["jax_dir"]).restore_sharded(
+        job["jax_path"], net=other, device="cpu")
+    w3 = wrap(other)
+    out["jax_restored_output"] = _np(w3.output(probe))
+    out["jax_restored"] = full(w3)
+    if rank == 0:
+        dense, _ = mgr.restore_sharded(path, device="cpu")
+        out["dense_output"] = _np(dense.output(probe))
+        dense_jax, _ = CheckpointManager(job["jax_dir"]).restore_sharded(
+            job["jax_path"], device="cpu")
+        out["dense_jax_output"] = _np(dense_jax.output(probe))
+    return out
+
+
 _FNS = {"seq_attention": seq_attention, "seq_mha": seq_mha, "gpipe": gpipe,
         "demo3d": demo3d, "moe": moe, "tensor_parallel": tensor_parallel,
+        "tp_checkpoint": tp_checkpoint,
         "gpipe_other_thread": gpipe_other_thread}
 
 

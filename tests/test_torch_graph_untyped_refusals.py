@@ -90,8 +90,8 @@ def test_every_remaining_refusal_names_its_roadmap_item(case, tmp_path):
     refused is the JAX package's own rule, a sparse-gradient vertex in a
     ComputationGraph, and a tensor-parallel ``param_rule`` with ZeRO-1
     (the JAX package's refusal).  MoE is ported: a block with
-    ``moe_experts`` builds, and only a wrapper of several ranks refuses
-    it (item 8).  Ring and Ulysses attention are ported: outside a mesh
+    ``moe_experts`` builds, and a wrapper of several ranks routes its
+    global batch (``tests/test_torch_wrapper_routing.py``).  Ring and Ulysses attention are ported: outside a mesh
     the ``seq`` axis is unbound, as in JAX.  The zoo's Keras-HDF5 branch
     of ``pretrained`` is ported (item 9 d): a file that is not HDF5
     beyond its signature raises the reader's ``Hdf5FormatError``, as the
@@ -119,11 +119,11 @@ def test_every_remaining_refusal_names_its_roadmap_item(case, tmp_path):
         names = set(block.init(torch.Generator(),
                                InputType.recurrent(8, 4), "meta"))
         assert {"router", "w1", "b1", "w2", "b2"} <= names
-        from deeplearning4j_tpu_torch.parallel import wrapper
         net = tzoo.TransformerLM(vocab_size=7, seq_len=4, embed=8,
                                  n_layers=1, n_heads=2,
                                  moe_experts=2).init(device="cpu")
-        assert wrapper._has_aux_loss(net)
+        assert any(getattr(lc, "AUX_LOSS", False)
+                   for lc in net.conf.layers)
     elif case in ("ring", "ulysses"):
         q = torch.zeros(1, 1, 4, 8)
         with pytest.raises(NameError, match="unbound axis name: 'seq'"):

@@ -292,3 +292,19 @@ def test_parallel_entry_points_refuse_a_silent_cpu_default(no_cuda):
                         n_heads=1).init(device="cpu")
     for w in (ParallelWrapper(net), ShardedTrainer(net)):
         assert w.mesh.device.type == "cpu" and w.mesh.dp == 1
+
+
+def test_process_master_modules_are_checked():
+    """The process masters, their worker entry (``python -m`` of the same
+    module) and the TCP broker are among the modules the two tests above
+    hold to no JAX import (``tests/test_torch_masters_mp.py`` checks the
+    spawned worker's own import log)."""
+    for m in ("parallel.master_mp", "streaming.broker", "streaming",
+              "parallel.remote", "parallel.exchange"):
+        assert f"deeplearning4j_tpu_torch.{m}" in MODULES
+    from deeplearning4j_tpu_torch.parallel import master_mp
+    assert master_mp.MultiprocessMaster._WORKER_MODULE == \
+        "deeplearning4j_tpu_torch.parallel.master_mp"
+    src = Path(master_mp.__file__).read_text()
+    assert 'if __name__ == "__main__":' in src
+

@@ -251,13 +251,17 @@ def test_dropout_scenario_draws_masks(runs):
 def test_param_rule_is_refused_naming_item_8():
     """Tensor parallelism is ported (``tests/test_torch_tensor_parallel``
     holds it against JAX).  What a wrapper still refuses: ZeRO-1 with a
-    rule (the JAX package's refusal), a leaf a rule splits over another
-    axis than ``model``, and a mixture-of-experts net over several ranks
-    (item 8)."""
+    rule (the JAX package's refusal) and a leaf a rule splits over
+    another axis than ``model``.  A mixture-of-experts net is no longer
+    refused: the wrapper builds, and its step's
+    global-batch context hands the layers the data axis to route over
+    (``tests/test_torch_wrapper_routing.py`` holds the routing against the
+    JAX package on two gloo ranks)."""
     from deeplearning4j_tpu_torch.models.zoo import TransformerLM
     from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
                                                    megatron_dense_rule)
-    from deeplearning4j_tpu_torch.parallel.mesh import Mesh, P
+    from deeplearning4j_tpu_torch.parallel.expert import routing_axis
+    from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, P
     assert callable(megatron_dense_rule({}))
     with pytest.raises(ValueError, match="shard_optimizer_state"):
         ParallelWrapper(None, Mesh(1, 0), param_rule=lambda *a: None,
@@ -268,8 +272,14 @@ def test_param_rule_is_refused_naming_item_8():
                         param_rule=lambda k, n, leaf: P("data"))
     moe = TransformerLM(vocab_size=7, seq_len=4, embed=8, n_layers=1,
                         n_heads=2, moe_experts=2).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ParallelWrapper(moe, Mesh(2, 0, device="cpu"))
+    w = ParallelWrapper(moe, Mesh(1, 0, device="cpu"))
+    with w.exchange.batch(4):
+        assert routing_axis() is None          # one rank: local routing
+    two = Mesh(2, 0, device="cpu")
+    from deeplearning4j_tpu_torch.parallel.exchange import GradientExchange
+    with GradientExchange(two).batch(4):
+        assert routing_axis() is two.axes[DATA_AXIS]
+    assert routing_axis() is None
 
 
 def load_reference_model_mlp():

@@ -19,6 +19,7 @@ Losses within 1e-5 relative; params within 1e-5 of each leaf's largest
 |value| (the all-reduce of the pair's partial sums and the ranks' loss
 shares reorder f32 sums, as in the data-parallel tests).
 """
+import json
 import os
 import sys
 
@@ -193,22 +194,41 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_tensor_parallel_layout_is_refused_by_save_sharded(tmp_path):
-    """The sharded checkpoint format indexes one data-axis block per
-    writer; a leaf a rule splits over ``model`` refuses at save time (the
-    JAX package refuses a leaf cut over two axes there), and the dense
-    path saves the gathered net."""
+    """A leaf a rule splits over ``model`` is written as its blocks along
+    that dim (the JAX package's ``_leaf_blocks``; at tp 1 one block), and
+    ``restore_sharded`` reads the directory back bit for bit.  What stays
+    refused is the JAX package's case: a leaf cut over two axes, with
+    its words; the dense path saves the gathered net as before.
+    (``tests/test_torch_tp_checkpoint.py`` crosses dp 2 x tp 2 with the
+    JAX package.)"""
     from deeplearning4j_tpu_torch.faulttolerance.checkpoint import \
         CheckpointManager
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
         MultiLayerConfiguration
-    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
-        _mlp().conf.to_json()), device="cpu").init()
+    conf_json = _mlp().conf.to_json()
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
+                            device="cpu").init()
     w = ParallelWrapper(net, make_mesh(tp=1, device="cpu"),
                         param_rule=megatron_dense_rule(net.params))
     mgr = CheckpointManager(str(tmp_path), background=False)
-    with pytest.raises(NotImplementedError, match="'model' axis"):
-        mgr.save_sharded(net)
+    path = mgr.save_sharded(net)
+    with open(f"{path}/topology.json") as f:
+        topo = json.load(f)
+    assert topo["mesh"] == {"axes": ["data", "model", "seq"],
+                            "shape": [1, 1, 1]}
+    assert topo["params"]["layer_0/W"]["dim"] == 1
+    assert topo["params"]["layer_1/W"]["dim"] == 0
+    back, _ = mgr.restore_sharded(path, device="cpu")
+    for k, g in net.params.items():
+        for n, p in g.items():
+            assert torch.equal(back.params[k][n].detach(), p.detach())
+    ex = w.exchange
+    ex.leaf_cuts = lambda dim: [(dim, "data"), (1 - dim, "model")]
+    with pytest.raises(NotImplementedError,
+                       match="leaf sharded over 2 axes .* save TP-sharded "
+                             "params through the dense path"):
+        mgr.save_sharded(net, step=99)
     with w.gathered() as m:
         mgr.save(m, blocking=True)
 
