@@ -371,7 +371,38 @@ if any phase fails:
     frame and message bytes, hub frames a second;
 50. ``tcp_broker_interop``: a port hub here and a port client in another
     process carrying ``RemoteGradientSharing`` messages; every frame
-    received equals the one sent, bit for bit, and decodes to it.
+    received equals the one sent, bit for bit, and decodes to it;
+51. ``pretrain_rbm_stack``: the DL4J examples' DeepAutoEncoderExample RBM
+    stack (784 -> 1000 -> 500 -> 250 -> 100 -> 30, CD-1, binary units,
+    Sgd) on MNIST-shaped binary rows of batch 1000: one CD step of layer
+    0 on the card against the CPU twin from the same key (Gibbs-sample
+    flips counted and printed; the gradients within ``TOL_CD_REL`` of the
+    largest plus the differing rows' share), then
+    ``pretrain(MultipleEpochsIterator(2, ...))`` with a listener that
+    checks that each iteration moves the params of the layer being
+    pretrained and of no other, and 3 ``fit`` steps of the mirrored
+    decoder to 784 (sigmoid, xent); every loss finite;
+52. ``vae_mnist``: the DL4J examples' VariationalAutoEncoderExample VAE
+    (784 inputs, encoder and decoder (256, 256), latent 2, leaky ReLU,
+    Bernoulli reconstruction, RmsProp(1e-3), l2 1e-4, batch 128): 20
+    pretraining steps, each loss within ``TOL_VAE_LOSS`` of the CPU
+    twin's from the same key; ``generate_at_mean_given_z`` on a 20 x 20
+    latent grid and ``reconstruction_probability`` (16 samples, 1000
+    rows) against the CPU from the same params and key;
+53. ``tiny_yolo_voc``: Tiny YOLOv2 (tiny-yolo-voc.cfg, 416x416x3, 13x13
+    cells, 5 VOC anchors, 20 classes) as a ComputationGraph with every
+    BatchNormalization at ``helper="pallas"``: ``bn_apply`` against its
+    plain version at the 7 BN shapes; step-0 loss and gradients against
+    the ``helper=None`` twin (``bn_twin_grad_check``); 3 Adam steps of
+    batch 16 on synthetic boxes (8 ``bn_apply`` launches a step, the
+    twin restarted each step from the net's params); step time, images
+    a second, the profiler's busy share and ``device_memory_stats`` (peak
+    bytes); a served batch of
+    8 through ``output``, ``get_predicted_objects`` and
+    ``non_max_suppression`` (no launch: inference normalises with the
+    running statistics); and ``check_graph_gradients`` in float64 on the
+    card on a 2-conv stack with a YOLO head.  Phases 51-53 print their
+    seconds together.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -7097,6 +7128,614 @@ def tcp_broker_interop_phase(args, torch, dev, card):
     return None
 
 
+# ---- 51-53. pretraining and detection -------------------------------
+# Phase 51: the RBM stack of the DL4J examples' DeepAutoEncoderExample
+# (784 -> 1000 -> 500 -> 250 -> 100 -> 30, CD-1, binary units) on
+# MNIST-shaped binary rows, then its mirrored decoder to 784.
+RBM_WIDTHS = (784, 1000, 500, 250, 100, 30)
+RBM_BATCH, RBM_BATCHES, RBM_EPOCHS, RBM_FIT_STEPS = 1000, 10, 2, 3
+RBM_LR = 0.1
+# One CD step on the card against the CPU twin from the same key.  The
+# CD gradient is the mean over rows of terms each in [-1, 1] that change
+# only where a row's Gibbs sample differs: with d such rows of B, the
+# gradients may differ by d/B on top of f32 rounding (sums of <= 1000
+# products in another order: 1e-5 of the largest |g|).
+TOL_CD_REL = 1e-5
+# Phase 52: the VAE of the DL4J examples' VariationalAutoEncoderExample.
+VAE_IN, VAE_LATENT, VAE_HIDDEN = 784, 2, (256, 256)
+VAE_BATCH, VAE_STEPS, VAE_LR, VAE_L2 = 128, 20, 1e-3, 1e-4
+VAE_GRID, VAE_RP_ROWS, VAE_RP_SAMPLES = 20, 1000, 16
+TOL_VAE_LOSS = 1e-5
+# decoded probabilities and log p(x) estimates from the same params on
+# the card and on the CPU: f32 sums of <= 256 products, exp/log/sigmoid
+TOL_VAE_GEN, TOL_VAE_LOGP = 1e-5, 1e-5
+# Phase 53: Tiny YOLOv2 (darknet tiny-yolo-voc.cfg; YOLO9000, Redmon &
+# Farhadi 2016) at 416x416x3, 13x13 cells, 5 VOC anchors, 20 classes.
+TINY_YOLO_INPUT, TINY_YOLO_CLASSES = (416, 416, 3), 20
+TINY_YOLO_ANCHORS = ((1.08, 1.19), (3.42, 4.41), (6.63, 11.38),
+                     (9.42, 5.11), (16.62, 10.52))
+TINY_YOLO_WIDTHS = (16, 32, 64, 128, 256, 512)
+TINY_YOLO_BATCH, TINY_YOLO_STEPS, TINY_YOLO_TIMED = 16, 3, 5
+TINY_YOLO_SERVE, TINY_YOLO_KEEP, TINY_YOLO_NMS = 8, 0.99, 0.45
+TINY_YOLO_LR = 1e-3
+# bn_apply against its plain version at the Tiny-YOLO shapes (f32): one
+# rounding of x*scale + shift, relative to the largest |x*scale|+|shift|
+TOL_TINY_YOLO_BN = 2.0 ** -22
+# the f64 gradient check on the card: a 2-conv stack with a YOLO head
+GC_SHAPE, GC_BOXES, GC_CLASSES, GC_SUBSET = (2, 13, 13, 8), \
+    ((0.2, 0.2), (0.3, 0.25)), 3, 8
+
+
+def _binary_rows(rng, n, width):
+    """MNIST-shaped binary rows: a seeded per-pixel ink probability (a
+    mean near MNIST's 0.13), each pixel drawn from it."""
+    import numpy as np
+    ink = rng.beta(0.4, 2.6, width)
+    return (rng.random((n, width)) < ink).astype(np.float32)
+
+
+class _StackWatch:
+    """Listener of phase 51: after each iteration, which layers' params
+    moved since the previous one, and the loss."""
+
+    def __init__(self, torch, net):
+        self.torch, self.net = torch, net
+        self.snap = self._take()
+        self.changed, self.losses = [], []
+
+    def _take(self):
+        return {k: [p.detach().clone() for p in g.values()]
+                for k, g in self.net.params.items()}
+
+    def iteration_done(self, model, iteration, epoch):
+        now = self._take()
+        self.changed.append(sorted(
+            k for k in now if any(not self.torch.equal(a, b)
+                                  for a, b in zip(now[k], self.snap[k]))))
+        self.snap = now
+        self.losses.append(float(model._score))
+
+
+class _Losses:
+    def __init__(self):
+        self.losses = []
+
+    def iteration_done(self, model, iteration, epoch):
+        self.losses.append(float(model._score))
+
+
+def _rbm_stack_conf(seed):
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (DenseLayer,
+                                                               OutputLayer)
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import RBM
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(Sgd(learning_rate=RBM_LR)).weight_init("xavier").list())
+    for n in RBM_WIDTHS[1:]:
+        b = b.layer(RBM(n_out=n, k=1))
+    for n in RBM_WIDTHS[-2:0:-1]:
+        b = b.layer(DenseLayer(n_out=n, activation="sigmoid"))
+    return b.layer(OutputLayer(n_out=RBM_WIDTHS[0], activation="sigmoid",
+                               loss="xent")).set_input_type(
+        InputType.feed_forward(RBM_WIDTHS[0])).build()
+
+
+def _host_params(net):
+    return {k: {n: p.detach().cpu().numpy().copy() for n, p in g.items()}
+            for k, g in net.params.items()}
+
+
+def pretrain_rbm_phase(args, torch, dev, card):
+    """Phase 51.  Returns ``(None, None)`` or ``(None, what failed)``."""
+    import copy
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import (
+        INDArrayDataSetIterator, MultipleEpochsIterator)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import _random
+
+    rng = np.random.default_rng(args.seed + 51)
+    data = _binary_rows(rng, RBM_BATCH * RBM_BATCHES, RBM_WIDTHS[0])
+    conf = _rbm_stack_conf(args.seed)
+    net = MultiLayerNetwork(conf, device=dev).init()
+    cpu = MultiLayerNetwork(copy.deepcopy(conf), device="cpu")
+    cpu.load_params(_host_params(net))
+    n_rbm = len(RBM_WIDTHS) - 1
+
+    # one CD step of layer 0 from one key, card vs CPU: samples, flips,
+    # gradients
+    rbm = net.conf.layers[0]
+    x0 = data[:RBM_BATCH]
+    key = _random.fold_in(_random.prng_key(args.seed), 51)
+    out = {}
+    for name, m in (("card", net), ("cpu", cpu)):
+        p = {n: t.detach().requires_grad_(True)
+             for n, t in m.params["layer_0"].items()}
+        xx = torch.as_tensor(x0, device=m.device)
+        k = key.to(m.device)
+        with torch.no_grad():
+            h, v2 = rbm.gibbs_step(p, xx, _random.fold_in(k, 0))
+        loss = rbm.pretrain_loss(p, xx, key=k)
+        g = torch.autograd.grad(loss, list(p.values()))
+        out[name] = (h.cpu(), v2.cpu(), loss.item(),
+                     {n: t.cpu() for n, t in zip(p, g)})
+    (hc, vc, lc, gc), (hh, vh, lh, gh) = out["card"], out["cpu"]
+    flips_h = int((hc != hh).sum())
+    flips_v = int((vc != vh).sum())
+    rows_v = int((vc != vh).any(dim=1).sum())
+    cd = {}
+    for n in gh:
+        err = (gc[n] - gh[n]).abs().max().item()
+        tol = TOL_CD_REL * gh[n].abs().max().item() + rows_v / RBM_BATCH
+        cd[n] = {"max_abs_err": err, "tol": tol}
+    loss_diff = abs(lc - lh) / abs(lh)
+    print(json.dumps({"phase": "pretrain_rbm_cd_step", "rows": RBM_BATCH,
+                      "widths": RBM_WIDTHS[:2], "flips_hidden": flips_h,
+                      "flips_visible": flips_v,
+                      "visible_rows_differing": rows_v,
+                      "update": f"-{RBM_LR} x gradient (Sgd)",
+                      "gradient": cd, "loss_card": lc, "loss_cpu": lh,
+                      "rel_loss_diff": loss_diff, "card": card}),
+          flush=True)
+    if any(v["max_abs_err"] > v["tol"] for v in cd.values()) or \
+            loss_diff > TOL_CD_REL + rows_v / RBM_BATCH:
+        return None, (f"RBM CD step card vs CPU: {cd}, loss {lc} vs {lh} "
+                      f"({flips_h} hidden, {flips_v} visible flips)")
+    del cpu, out
+
+    watch = _StackWatch(torch, net)
+    net.set_listeners(watch)
+    it = INDArrayDataSetIterator(data, data, RBM_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(MultipleEpochsIterator(RBM_EPOCHS, it))
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    per_layer = RBM_BATCHES * RBM_EPOCHS
+    expected = [[f"layer_{i}"] for i in range(n_rbm)
+                for _ in range(per_layer)]
+    net.set_listeners()
+    # the pretraining step's time per layer, without the listener's syncs
+    step_ms = []
+    for i in range(n_rbm):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.pretrain_layer(i, it)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / RBM_BATCHES)
+    fit_losses = []
+    for s in range(RBM_FIT_STEPS):
+        xb = torch.as_tensor(data[s * RBM_BATCH:(s + 1) * RBM_BATCH],
+                             device=dev)
+        net.fit(xb, xb)
+        fit_losses.append(net.get_score())
+    print(json.dumps({"phase": "pretrain_rbm_stack", "model": {
+        "name": "DeepAutoEncoderExample RBM stack", "widths": RBM_WIDTHS,
+        "k": 1, "units": "binary", "updater": f"Sgd({RBM_LR})",
+        "batch": RBM_BATCH, "batches": RBM_BATCHES, "epochs": RBM_EPOCHS,
+        "dtype": "float32", "num_params": net.num_params()},
+        "iterations": net.iteration, "pretrain_seconds": pretrain_s,
+        "pretrain_losses_first_last": [
+            [watch.losses[i * per_layer], watch.losses[(i + 1) * per_layer
+                                                        - 1]]
+            for i in range(n_rbm)],
+        "pretrain_step_ms_per_layer": step_ms,
+        "layers_moved_as_expected": watch.changed == expected,
+        "fit_losses": fit_losses, "card": card}), flush=True)
+    if watch.changed != expected:
+        bad = next(i for i, (a, b) in enumerate(zip(watch.changed,
+                                                    expected)) if a != b) \
+            if len(watch.changed) == len(expected) else len(watch.changed)
+        return None, (f"pretraining moved layers {watch.changed[bad:bad + 1]}"
+                      f" at iteration {bad + 1}; expected "
+                      f"{expected[bad:bad + 1]}")
+    if not all(math.isfinite(v) for v in watch.losses + fit_losses):
+        return None, "RBM stack: a loss is not finite"
+    return None, None
+
+
+def _vae_conf(seed):
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.updaters import RmsProp
+    from deeplearning4j_tpu_torch.nn.conf.variational import \
+        BernoulliReconstructionDistribution
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import \
+        VariationalAutoencoder
+    return (NeuralNetConfiguration.builder().seed(seed)
+            .updater(RmsProp(learning_rate=VAE_LR)).weight_init("xavier")
+            .l2(VAE_L2).list()
+            .layer(VariationalAutoencoder(
+                n_out=VAE_LATENT, encoder_layer_sizes=list(VAE_HIDDEN),
+                decoder_layer_sizes=list(VAE_HIDDEN),
+                activation="leakyrelu", pzx_activation="identity",
+                reconstruction_distribution=(
+                    BernoulliReconstructionDistribution("sigmoid"))))
+            .set_input_type(InputType.feed_forward(VAE_IN)).build())
+
+
+def vae_mnist_phase(args, torch, dev, card):
+    """Phase 52.  Returns ``(None, None)`` or ``(None, what failed)``."""
+    import copy
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import _random
+
+    rng = np.random.default_rng(args.seed + 52)
+    data = _binary_rows(rng, VAE_BATCH * VAE_STEPS, VAE_IN)
+    batches = [data[i:i + VAE_BATCH] for i in range(0, len(data), VAE_BATCH)]
+    conf = _vae_conf(args.seed)
+    net = MultiLayerNetwork(conf, device=dev).init()
+    cpu = MultiLayerNetwork(copy.deepcopy(conf), device="cpu")
+    cpu.load_params(_host_params(net))
+    rec = {}
+    for name, m in (("card", net), ("cpu", cpu)):
+        rec[name] = _Losses()
+        m.set_listeners(rec[name])
+        m.pretrain(batches)
+    losses, cpu_losses = rec["card"].losses, rec["cpu"].losses
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    net.set_listeners()
+    # generation and log p(x) from the card's params, card vs CPU
+    cpu.load_params(_host_params(net))
+    vae, p_card = net.conf.layers[0], dict(net.params["layer_0"].items())
+    p_cpu = dict(cpu.params["layer_0"].items())
+    g = torch.linspace(-3.0, 3.0, VAE_GRID)
+    z = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    xr = torch.as_tensor(_binary_rows(rng, VAE_RP_ROWS, VAE_IN))
+    key = _random.fold_in(_random.prng_key(args.seed), 52)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = vae.generate_at_mean_given_z(p_card, z.to(dev))
+        logp = vae.reconstruction_probability(p_card, xr.to(dev), key.to(dev),
+                                              num_samples=VAE_RP_SAMPLES)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_cpu = vae.generate_at_mean_given_z(p_cpu, z)
+        logp_cpu = vae.reconstruction_probability(p_cpu, xr, key,
+                                                  num_samples=VAE_RP_SAMPLES)
+    gen_err = (gen.cpu() - gen_cpu).abs().max().item()
+    logp_err = ((logp.cpu() - logp_cpu).abs()
+                / logp_cpu.abs().clamp(min=1.0)).max().item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(batches)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    print(json.dumps({"phase": "vae_mnist", "model": {
+        "name": "VariationalAutoEncoderExample VAE", "inputs": VAE_IN,
+        "encoder": VAE_HIDDEN, "decoder": VAE_HIDDEN, "latent": VAE_LATENT,
+        "activation": "leakyrelu", "reconstruction": "Bernoulli(sigmoid)",
+        "updater": f"RmsProp({VAE_LR})", "l2": VAE_L2, "batch": VAE_BATCH,
+        "dtype": "float32", "num_params": net.num_params()},
+        "steps": VAE_STEPS, "losses": losses, "cpu_losses": cpu_losses,
+        "max_rel_loss_diff": loss_diff, "tol_loss": TOL_VAE_LOSS,
+        "generate_grid": [VAE_GRID, VAE_GRID], "generate_max_abs_err": gen_err,
+        "reconstruction_probability": {
+            "rows": VAE_RP_ROWS, "samples": VAE_RP_SAMPLES,
+            "mean": logp.mean().item(), "max_rel_err": logp_err},
+        "tol_generate": TOL_VAE_GEN, "tol_logp": TOL_VAE_LOGP,
+        "generate_and_logp_seconds": gen_s,
+        "pretrain_step_ms": step_ms, "card": card}), flush=True)
+    if not all(math.isfinite(v) for v in losses) or loss_diff > TOL_VAE_LOSS:
+        return None, (f"VAE pretraining losses {losses} differ from the CPU "
+                      f"twin's {cpu_losses} by {loss_diff}")
+    if tuple(gen.shape) != (VAE_GRID ** 2, VAE_IN) or \
+            not bool(((gen >= 0) & (gen <= 1)).all()) or \
+            gen_err > TOL_VAE_GEN:
+        return None, f"VAE generation: shape {tuple(gen.shape)}, {gen_err}"
+    if tuple(logp.shape) != (VAE_RP_ROWS,) or \
+            not bool(torch.isfinite(logp).all()) or logp_err > TOL_VAE_LOGP:
+        return None, f"VAE reconstruction probability off by {logp_err}"
+    return None, None
+
+
+def tiny_yolo_conf(seed, helper, updater=None):
+    """Tiny YOLOv2 as a ComputationGraph (darknet's tiny-yolo-voc.cfg):
+    six 3x3 convolutions of 16...512 filters, each followed by batch
+    norm, leaky ReLU 0.1 and a 2x2 max pool (stride 2, the last stride 1
+    ``same``), two 3x3 convolutions of 1024 with batch norm and leaky
+    ReLU, a 1x1 convolution to 5 x (5 + 20) channels and the YOLOv2
+    head.  Convolutions ahead of a batch norm have no bias."""
+    from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+        GraphBuilder
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import \
+        ActivationLayer
+    from deeplearning4j_tpu_torch.nn.layers.normalization import \
+        BatchNormalization
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import \
+        Yolo2OutputLayer
+    h, w, c = TINY_YOLO_INPUT
+    g = GraphBuilder({"activation": "identity", "weight_init": "relu",
+                      "updater": updater or Adam(learning_rate=TINY_YOLO_LR)},
+                     seed=seed)
+    g.add_inputs("in").set_input_types(InputType.convolutional(h, w, c))
+    x = "in"
+
+    def conv_bn(i, n):
+        g.add_layer(f"conv{i}", ConvolutionLayer(
+            n_out=n, kernel_size=(3, 3), convolution_mode="same",
+            has_bias=False), x)
+        g.add_layer(f"bn{i}", BatchNormalization(helper=helper), f"conv{i}")
+        g.add_layer(f"act{i}", ActivationLayer(activation="leakyrelu:0.1"),
+                    f"bn{i}")
+        return f"act{i}"
+
+    for i, n in enumerate(TINY_YOLO_WIDTHS, 1):
+        x = conv_bn(i, n)
+        last = i == len(TINY_YOLO_WIDTHS)
+        g.add_layer(f"pool{i}", SubsamplingLayer(
+            pooling_type="max", kernel_size=(2, 2),
+            stride=(1, 1) if last else (2, 2),
+            convolution_mode="same" if last else "truncate"), x)
+        x = f"pool{i}"
+    for i in (7, 8):
+        x = conv_bn(i, 1024)
+    g.add_layer("conv9", ConvolutionLayer(
+        n_out=len(TINY_YOLO_ANCHORS) * (5 + TINY_YOLO_CLASSES),
+        kernel_size=(1, 1)), x)
+    g.add_layer("yolo", Yolo2OutputLayer(
+        boxes=[list(a) for a in TINY_YOLO_ANCHORS], lambda_coord=5.0,
+        lambda_no_obj=0.5), "conv9")
+    g.set_outputs("yolo")
+    return g.build()
+
+
+def yolo_labels(rng, batch, grid, classes, max_objects=3):
+    """Synthetic VOC-style targets ``[b, grid, grid, 4 + classes]``: 1 to
+    ``max_objects`` boxes an image, corners in grid units, 0.5 to 6 cells
+    wide and tall, a random class, each in the cell of its centre."""
+    import numpy as np
+    labels = np.zeros((batch, grid, grid, 4 + classes), np.float32)
+    for b in range(batch):
+        for _ in range(int(rng.integers(1, max_objects + 1))):
+            cx, cy = rng.uniform(0, grid, 2)
+            bw, bh = rng.uniform(0.5, 6.0, 2)
+            r, c = int(cy), int(cx)
+            labels[b, r, c] = 0.0
+            labels[b, r, c, :4] = [cx - bw / 2, cy - bh / 2, cx + bw / 2,
+                                   cy + bh / 2]
+            labels[b, r, c, 4 + int(rng.integers(classes))] = 1.0
+    return labels
+
+
+def _corner_yolo_labels(rng, batch, grid, classes):
+    """One object an image, a 0.1-cell square in the top-left corner of
+    its cell, which small untrained predictors (centres near the middle
+    of their cells) do not overlap: every IoU is 0, the detached IoU
+    target and the responsible box are locally constant, and central
+    differences see the function autograd differentiates."""
+    import numpy as np
+    labels = np.zeros((batch, grid, grid, 4 + classes))
+    for b in range(batch):
+        r, c = rng.integers(0, grid, 2)
+        labels[b, r, c, :4] = [c + 0.02, r + 0.02, c + 0.12, r + 0.12]
+        labels[b, r, c, 4 + int(rng.integers(classes))] = 1.0
+    return labels
+
+
+def _gradient_check_graph(seed, dev):
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+        GraphBuilder
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.layers.convolution import \
+        ConvolutionLayer
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import \
+        Yolo2OutputLayer
+    _, h, w, c = GC_SHAPE
+    g = GraphBuilder({"activation": "identity"}, seed=seed)
+    g.add_inputs("in").set_input_types(InputType.convolutional(h, w, c))
+    g.add_layer("c1", ConvolutionLayer(
+        n_out=16, kernel_size=(3, 3), convolution_mode="same",
+        activation="leakyrelu:0.1"), "in")
+    g.add_layer("c2", ConvolutionLayer(
+        n_out=len(GC_BOXES) * (5 + GC_CLASSES), kernel_size=(1, 1)), "c1")
+    g.add_layer("yolo", Yolo2OutputLayer(boxes=[list(b) for b in GC_BOXES]),
+                "c2")
+    g.set_outputs("yolo")
+    return ComputationGraph(g.build(), device=dev).init()
+
+
+def tiny_yolo_phase(args, torch, dev, card):
+    """Phase 53.  Returns ``({"step": bn_apply launches per training
+    step, "serve": per served batch}, None)`` or ``(None, what
+    failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.computation_graph import (
+        ComputationGraph, check_graph_gradients)
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import (
+        get_predicted_objects, non_max_suppression)
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+    from deeplearning4j_tpu_torch.utils.profiling import device_memory_stats
+
+    net = ComputationGraph(tiny_yolo_conf(args.seed, "pallas"),
+                           device=dev).init()
+    twin = ComputationGraph(tiny_yolo_conf(args.seed, None), device=dev)
+    twin.load_params(_host_params(net))
+    h, w, c = TINY_YOLO_INPUT
+    grid = net.conf.vertex_input_types["yolo"][0].shape(1)[1]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 53)
+    rng = np.random.default_rng(args.seed + 53)
+    n_batches = TINY_YOLO_STEPS + TINY_YOLO_TIMED
+    xs = [torch.rand((TINY_YOLO_BATCH, h, w, c), generator=gen, device=dev)
+          for _ in range(n_batches)]
+    ys = [torch.as_tensor(yolo_labels(rng, TINY_YOLO_BATCH, grid,
+                                      TINY_YOLO_CLASSES), device=dev)
+          for _ in range(n_batches)]
+
+    # bn_apply against its plain version at the path's shapes
+    geoms = bn_geometries(net.conf, TINY_YOLO_BATCH)
+    admitted = sum(n for (m, ch, a), n in geoms.items()
+                   if pb.supports(activation=a, shape=(m, ch)))
+    bn_shapes = [net.conf.vertex_input_types[v][0].shape(TINY_YOLO_BATCH)
+                 for v in net.conf.topological_order if v.startswith("bn")]
+    bn_err, bn_tol = 0.0, 0.0
+    for shape in dict.fromkeys(tuple(s) for s in bn_shapes):
+        x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+        scale = torch.randn(shape[-1], generator=gen, device=dev)
+        shift = torch.randn(shape[-1], generator=gen, device=dev)
+        y = pb.bn_apply(x, scale, shift, False)
+        want = pb.bn_apply_plain(x, scale, shift, False)
+        err = (y - want).abs().max().item()
+        tol = TOL_TINY_YOLO_BN * (x.abs() * scale.abs()
+                                  + shift.abs()).max().item()
+        print(json.dumps({"phase": "bn_kernel_vs_plain_tiny_yolo",
+                          "shape": list(shape), "max_abs_err": err,
+                          "tol": tol}), flush=True)
+        if not bool(torch.isfinite(y).all()) or err > tol:
+            return None, f"bn_apply disagrees with plain at {shape}: {err}"
+        bn_err, bn_tol = max(bn_err, err), max(bn_tol, tol)
+        del x, y, want
+
+    check, err = bn_twin_grad_check(torch, net, twin, xs[0], ys[0])
+    if err:
+        return None, f"Tiny YOLOv2: {err}"
+
+    snaps, losses, twin_losses = [], [], []
+    torch.cuda.synchronize()
+    pb.reset_launches()
+    for x, y in zip(xs[:TINY_YOLO_STEPS], ys[:TINY_YOLO_STEPS]):
+        snaps.append([p.detach().clone() for p in net.parameters()])
+        net.fit(x, y)
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    step_launches = pb.launches["bn_apply"]
+    losses = [float(v) for v in losses]
+    for snap, x, y in zip(snaps, xs, ys):
+        with torch.no_grad():
+            for p, q in zip(twin.parameters(), snap):
+                p.copy_(q)
+        twin.fit(x, y)
+        twin_losses.append(twin.get_score())
+    del snaps, twin
+    loss0 = check["loss0"]
+    loss_diff = max(abs(a - b) / abs(b) for a, b in
+                    zip([loss0[0]] + losses, [loss0[1]] + twin_losses))
+
+    step_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for x, y in zip(xs[TINY_YOLO_STEPS:], ys[TINY_YOLO_STEPS:]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    mem = device_memory_stats(dev)
+    med = statistics.median(step_ms)
+    split = profile_steps(torch, net, list(zip(xs, ys))[:PROFILED_STEPS],
+                          CNN_KERNEL_CLASSES)
+    busy = split["device_ms_total_per_step"] / med \
+        if split["device_ms_total_per_step"] else None
+
+    # serve a batch: output, decode, NMS
+    xserve = xs[0][:TINY_YOLO_SERVE]
+    torch.cuda.synchronize()
+    pb.reset_launches()
+    t0 = time.perf_counter()
+    act = net.output(xserve)
+    act = act[0] if isinstance(act, list) else act
+    # the threshold that keeps the most confident 1 % of the boxes: an
+    # untrained head's confidences sit in a narrow band
+    thr = torch.quantile(act[..., 4].flatten().float(),
+                         TINY_YOLO_KEEP).item()
+    dets = get_predicted_objects(act, threshold=thr)
+    kept = [non_max_suppression(d, TINY_YOLO_NMS) for d in dets]
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches = pb.launches["bn_apply"]
+    want_dets = (act[..., 4] >= thr).sum(dim=(1, 2, 3)).tolist()
+    decoded = tuple(act.shape) == (TINY_YOLO_SERVE, grid, grid,
+                                   len(TINY_YOLO_ANCHORS),
+                                   5 + TINY_YOLO_CLASSES) and \
+        bool(torch.isfinite(act).all()) and \
+        [len(d) for d in dets] == want_dets and sum(want_dets) > 0 and \
+        all(np.isfinite(d).all() and d.shape[1] == 6 for d in dets) and \
+        all(len(k) <= len(d) and (np.diff(k[:, 4]) <= 0).all()
+            for k, d in zip(kept, dets))
+
+    # the f64 gradient check on the card: a 2-conv stack, YOLO head
+    gnet = _gradient_check_graph(args.seed, dev)
+    grng = np.random.default_rng(args.seed + 530)
+    gx = 0.3 * grng.standard_normal(GC_SHAPE)
+    glabels = _corner_yolo_labels(grng, GC_SHAPE[0], GC_SHAPE[1], GC_CLASSES)
+    t0 = time.perf_counter()
+    gc_ok = check_graph_gradients(gnet, gx, glabels, subset=GC_SUBSET)
+    gc_s = time.perf_counter() - t0
+
+    print(json.dumps({
+        "phase": "tiny_yolo_voc", "model": {
+            "name": "Tiny YOLOv2 (tiny-yolo-voc.cfg)",
+            "input": list(TINY_YOLO_INPUT), "grid": grid,
+            "anchors": TINY_YOLO_ANCHORS, "classes": TINY_YOLO_CLASSES,
+            "batch": TINY_YOLO_BATCH, "dtype": "float32", "tf32": False,
+            "updater": f"Adam({TINY_YOLO_LR})", "bn_helper": "pallas",
+            "bn_layers": len(bn_shapes), "bn_layers_on_the_kernel": admitted,
+            "num_params": net.num_params()},
+        "bn_kernel_max_abs_err": bn_err, "bn_kernel_tol": bn_tol,
+        "step0_loss": loss0, "losses": losses, "twin_losses": twin_losses,
+        "max_rel_loss_diff": loss_diff, "tol_loss": CNN_TOL_LOSS,
+        "step0_grad_worst_err_over_tol": check["worst_ratio"],
+        "step0_grad_worst_param": check["worst_name"],
+        "step0_grad_rel_l2": check["grad_rel_l2"],
+        "kernel_launches_train": step_launches,
+        "expected_launches_train": admitted * TINY_YOLO_STEPS,
+        "step_ms": step_ms, "step_ms_median": med,
+        "images_per_s": TINY_YOLO_BATCH / med * 1e3,
+        "profile": split, "device_busy_share": busy,
+        "memory": mem,
+        "serve": {"batch": TINY_YOLO_SERVE, "ms": serve_ms,
+                  "bn_apply_launches": serve_launches,
+                  "threshold": thr,
+                  "detections": [len(d) for d in dets],
+                  "after_nms": [len(k) for k in kept], "decoded": decoded},
+        "gradient_check_f64": {"passed": gc_ok, "subset": GC_SUBSET,
+                               "seconds": gc_s},
+        "card": card}), flush=True)
+    if (len(bn_shapes), admitted) != (8, 8):
+        return None, (f"Tiny YOLOv2 has {len(bn_shapes)} BN layers, "
+                      f"{admitted} on the kernel; expected 8")
+    if step_launches != admitted * TINY_YOLO_STEPS:
+        return None, (f"bn_apply launched {step_launches} times in "
+                      f"{TINY_YOLO_STEPS} steps; expected {admitted} a step")
+    if not all(math.isfinite(v) for v in losses) or \
+            loss_diff > CNN_TOL_LOSS:
+        return None, (f"Tiny YOLOv2 losses {losses} differ from the eager "
+                      f"twin's {twin_losses} by {loss_diff}")
+    if not decoded:
+        return None, "Tiny YOLOv2 detections did not decode"
+    if not gc_ok:
+        return None, "the f64 YOLO gradient check failed on the card"
+    return {"step": step_launches // TINY_YOLO_STEPS,
+            "serve": serve_launches}, None
+
+
+def pretrain_detection_phases(args, torch, dev, card):
+    """Phases 51-53.  Returns ``(bn_apply launches of phase 53, None)``
+    or ``(None, what failed)``."""
+    t0 = time.perf_counter()
+    for phase in (pretrain_rbm_phase, vae_mnist_phase):
+        _, err = phase(args, torch, dev, card)
+        if err:
+            return None, err
+        torch.cuda.empty_cache()
+    launches, err = tiny_yolo_phase(args, torch, dev, card)
+    if err:
+        return None, err
+    print(json.dumps({"phase": "pretrain_detection_seconds",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return launches, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7615,6 +8254,12 @@ def main(argv=None) -> int:
         return fail(err)
     print(json.dumps({"phase": "process_masters_seconds",
                       "seconds": time.perf_counter() - t0}), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 51-53. pretraining (RBM stack, VAE), Tiny YOLOv2 ---------------
+    yolo_launches, err = pretrain_detection_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
 
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
@@ -7673,6 +8318,8 @@ def main(argv=None) -> int:
     bn_record["launches_transfer_resnet"] = slice_launches["tr"]
     bn_record["launches_keras_resnet50_finetune_per_step"] = \
         keras_launches["bn"]
+    bn_record["launches_tiny_yolo_step"] = yolo_launches["step"]
+    bn_record["launches_tiny_yolo_serve"] = yolo_launches["serve"]
     lstm_record["launches_early_stop_lstm"] = slice_launches["es"]
     lstm_record["launches_loss_scale_f16_tbptt"] = f16_launches["lstm"]
     lstm_record["launches_hot_swap_under_load"] = swap_launches

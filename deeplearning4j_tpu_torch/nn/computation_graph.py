@@ -34,7 +34,7 @@ MultiLayerNetwork step's); tBPTT is not ported for graphs.
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -409,3 +409,32 @@ class ComputationGraph(Network):
                 label_masks=self._masks_on_device(lms),
                 masks=self._masks_on_device(ms))
         return float(loss)
+
+
+def check_graph_gradients(net: ComputationGraph, inputs, labels, *,
+                          epsilon: float = 1e-6, max_rel_error: float = 1e-3,
+                          min_abs_error: float = 1e-8, masks=None,
+                          label_masks=None, print_results: bool = False,
+                          subset: Optional[int] = None, seed: int = 12345,
+                          exclude: tuple = ("centers",)) -> bool:
+    """The gradient check of ``utils/gradient_check`` for a graph
+    (reference ``checkGradients``, graph variant): float64 central
+    differences against autograd, ``train=False``, on the network's
+    device, the elements drawn as the JAX package draws them."""
+    from ..utils.gradient_check import (_f64_on, _f64_tree,
+                                        check_loss_gradients)
+    if not net.params:
+        net.init()
+    dev = net.device
+    state = _f64_tree(net.state)
+    xs = [_f64_on(x, dev) for x in _as_list(inputs)]
+    ys = [_f64_on(y, dev) for y in _as_list(labels)]
+    ms, lms = net._masks_on_device(masks), net._masks_on_device(label_masks)
+
+    def loss_fn(p):
+        return _graph_loss(net.conf, p, state, xs, ys, train=False,
+                           label_masks=lms, masks=ms)[0]
+
+    return check_loss_gradients(loss_fn, net._param_tree(), epsilon,
+                                max_rel_error, min_abs_error, print_results,
+                                subset, seed, exclude)

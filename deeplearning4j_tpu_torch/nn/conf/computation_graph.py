@@ -32,7 +32,7 @@ from ...utils import serde
 from ...utils.serde import register_serde
 from ..layers import (attention, convolution, feedforward,  # noqa: F401
                       misc, moe, normalization,  # (@class registry)
-                      pooling, recurrent)
+                      objdetect, pooling, pretrain, recurrent)
 from ..layers.base import LayerConf
 from . import (constraints, distribution, dropout,  # noqa: F401
                schedules, updaters)  # (@class registry)

@@ -52,7 +52,9 @@ checkpoints each layer (``torch.utils.checkpoint``): the backward replays
 its forward, dropout from the same key.  ``optimization_algo`` other than
 sgd trains through the legacy full-batch solvers (``train/solvers.py``).
 A first-layer embedding with ``sparse_grad=True`` trains in row space
-(``nn/sparse``).  Under a data-parallel wrapper the step is one rank's
+(``nn/sparse``).  ``pretrain``/``pretrain_layer`` train the pretrainable
+layers (AutoEncoder, RBM, VAE) greedily, each on the features of the
+layers below it, with its own updater (``_build_pretrain_step``).  Under a data-parallel wrapper the step is one rank's
 (``parallel/exchange``).  The shape policy's padding is not ported.
 """
 from __future__ import annotations
@@ -65,10 +67,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..utils import _random
 from . import precision as _precision
-from ._common import (Network, aux_term, backward_and_update, batch_factory,
-                      cast_act, cast_params, carry_thread_context,
-                      exchange_fetch, finish_precision_step,
-                      fit_on_device_epochs, layer_scope, objective,
+from ._common import (Network, UpdaterGroups, aux_term, backward_and_update,
+                      batch_factory, cast_act, cast_params,
+                      carry_thread_context, exchange_fetch,
+                      finish_precision_step, fit_on_device_epochs,
+                      hyperparam_conf, layer_scope, objective,
                       precision_cast_map, regularization)
 from . import sparse as _sparse
 from .conf.multi_layer import MultiLayerConfiguration
@@ -315,6 +318,31 @@ def _build_train_step(conf, tx, exchange=None):
         if exchange is not None:
             loss = exchange.total(loss)
         return loss, new_state, gstats, cs
+
+    return step
+
+
+def _build_pretrain_step(conf, tx, i: int):
+    """``step(params, state, opt_state, x, key) -> loss``: one pretraining
+    step of layer ``i`` (JAX ``_build_pretrain_step``).  The layers below
+    run in inference mode without gradients; layer i's ``pretrain_loss``
+    draws from ``key`` and its gradient steps layer i's params in place
+    through ``tx`` (the updater of that layer alone)."""
+    lc = conf.layers[i]
+    name = f"layer_{i}"
+
+    def step(params, state, opt_state, x, key):
+        feats = x
+        if i > 0:
+            with torch.no_grad():
+                feats = _stack_forward(conf, params, state, x, train=False,
+                                       to_layer=i)[0]
+        group = params[name]
+        loss = lc.pretrain_loss(group, feats, key=key, train=True)
+        names = list(group)
+        grads = torch.autograd.grad(loss, [group[n] for n in names])
+        tx.step({name: group}, {name: dict(zip(names, grads))}, opt_state)
+        return loss.detach()
 
     return step
 
@@ -630,6 +658,79 @@ class MultiLayerNetwork(Network):
                                         self._on_device(x),
                                         self._on_device(y), train=False)
         return float(loss)
+
+    # ----------------------------------------------------------- pretrain
+    def pretrain(self, data, epochs: int = 1) -> "MultiLayerNetwork":
+        """Greedy layerwise unsupervised pretraining (reference
+        ``MultiLayerNetwork.pretrain(DataSetIterator)``): every
+        ``PRETRAINABLE`` layer (AutoEncoder, RBM, VAE), in order, trains
+        on the features of the layers below it."""
+        if not self.params:
+            self.init()
+        for i, lc in enumerate(self.layer_confs):
+            if getattr(lc, "PRETRAINABLE", False):
+                self.pretrain_layer(i, data, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, i: int, data, epochs: int = 1) -> None:
+        """Pretrain layer ``i`` (reference ``pretrainLayer``), with its
+        own updater (the network's where it has none) from fresh updater
+        state.  Each step splits the network's key stream (``_rng, key
+        = split(_rng)``), updates layer i's params in place and counts an
+        iteration for the listeners; the prefix 0..i-1 runs in inference
+        mode.  Afterwards the network's updater state starts afresh, as
+        in the JAX package, so fine-tuning starts clean."""
+        lc = self.layer_confs[i]
+        if not getattr(lc, "PRETRAINABLE", False):
+            return
+        if not self.params:
+            self.init()
+        hc = hyperparam_conf(lc)
+        updater = hc.updater if hc is not None and hc.updater is not None \
+            else self._default_updater()
+        name = f"layer_{i}"
+        tx = UpdaterGroups({"default": updater},
+                           {name: {n: "default" for n in self.params[name]}})
+        params = self._param_tree()
+        opt = tx.init({name: params[name]})
+        step = _build_pretrain_step(self.conf, tx, i)
+        if epochs > 1 and not hasattr(data, "shape") and \
+                not isinstance(data, (tuple, list)) and \
+                not hasattr(data, "features") and \
+                not hasattr(data, "reset") and \
+                hasattr(data, "__iter__") and iter(data) is data:
+            # a bare generator: kept for the later epochs (a list is a
+            # sequence of batches; only a tuple is one (x, y) pair)
+            data = list(data)
+        for _ in range(epochs):
+            for batch in self._pretrain_batches(data):
+                self._score = step(params, self.state, opt,
+                                   self._on_device(batch), self._next_key())
+                self.iteration += 1
+                self._iteration_done()
+        self._score = float(self._score)
+        if self._tx is None:
+            self._init_updater()
+        else:
+            self.opt_state = self._tx.init(self._param_tree())
+
+    def _pretrain_batches(self, data):
+        """The feature batches of ``data``: an array, an ``(x, y)`` tuple
+        or a ``DataSet`` (one batch each), or an iterable of batches
+        (reset first where it can be)."""
+        if hasattr(data, "shape"):
+            yield data
+            return
+        if isinstance(data, tuple) and len(data) in (2, 4):
+            yield _normalize_batch(data)[0]
+            return
+        if hasattr(data, "features"):
+            yield _normalize_batch(data)[0]
+            return
+        if hasattr(data, "reset"):
+            data.reset()
+        for b in data:
+            yield b if hasattr(b, "shape") else _normalize_batch(b)[0]
 
     # ---------------------------------------------------- stateful RNN API
     def rnn_time_step(self, x) -> torch.Tensor:

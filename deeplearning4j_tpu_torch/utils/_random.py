@@ -15,7 +15,10 @@ A raw ``[2] uint32`` key (no typed key wrapper) and the counter layout of
   ``jax.random.bits`` gives;
 * ``uniform`` puts the top 23 bits into the mantissa of a float in
   [1, 2) and subtracts 1; ``bernoulli(key, p, shape)`` is ``uniform <
-  p``, bit for bit;
+  p``, bit for bit.  A float64 draw takes the 64-bit word ``(o0 << 32) |
+  o1`` (no XOR) and its top 52 bits, as JAX's under ``jax_enable_x64``;
+  ``bernoulli`` with a tensor ``p`` draws uniforms in p's dtype, as
+  ``jax.random.bernoulli`` with an array ``p``;
 * ``normal`` is ``sqrt(2) * erfinv(uniform(nextafter(-1, +inf), 1))``
   and ``gumbel`` is ``-log(-log(uniform(tiny, 1)))``; their last step
   rounds as the device's ``erfinv`` and ``log`` do, so they agree with
@@ -118,41 +121,73 @@ def bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return o0 ^ o1
 
 
-def _floats(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
-    """uint32 words -> float32 in ``[minval, maxval)``: the top 23 bits as
-    the mantissa of a float in [1, 2), minus 1, scaled and floored at
-    ``minval``, each step rounded to float32 as ``jax.random.uniform``."""
-    mant = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    f32 = dict(dtype=torch.float32, device=b.device)
-    lo = torch.tensor(minval, **f32)
-    hi = torch.tensor(maxval, **f32)
-    floats = mant - torch.tensor(1.0, **f32)
+def _scaled(mant: torch.Tensor, minval: float, maxval: float
+            ) -> torch.Tensor:
+    """A float in [1, 2) minus 1, scaled and floored at ``minval``, each
+    step rounded to the float's dtype as ``jax.random.uniform``."""
+    f = dict(dtype=mant.dtype, device=mant.device)
+    lo = torch.tensor(minval, **f)
+    hi = torch.tensor(maxval, **f)
+    floats = mant - torch.tensor(1.0, **f)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def _floats(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """uint32 words -> float32 in ``[minval, maxval)``: the top 23 bits as
+    the mantissa of a float in [1, 2)."""
+    mant = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return _scaled(mant, minval, maxval)
+
+
+def _floats64(key: torch.Tensor, shape, minval: float, maxval: float
+              ) -> torch.Tensor:
+    """float64 uniforms of one ``[2]`` key: the top 52 bits of the word
+    ``(o0 << 32) | o1`` as the mantissa of a float in [1, 2)."""
+    lo = torch.arange(_numel(shape), dtype=torch.int64, device=key.device)
+    o0, o1 = _hash(key, lo)
+    mant = ((o0 << 20) | (o1 >> 12)) | 0x3FF0000000000000
+    return _scaled(mant.view(torch.float64), minval, maxval).reshape(
+        tuple(shape))
+
+
 def uniform(keys: torch.Tensor, n, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
     """``[S, n]`` float32 uniforms, one row per ``[S, 2]`` key row, as
     ``jax.random.uniform(keys[s], (n,), minval=, maxval=)``; or, for one
-    ``[2]`` key and a shape ``n``, ``jax.random.uniform(key, n)``."""
+    ``[2]`` key and a shape ``n``, ``jax.random.uniform(key, n, dtype)``
+    (float32 or float64)."""
+    if dtype == torch.float64:
+        if keys.ndim != 1:
+            raise ValueError("float64 uniforms take one [2] key")
+        return _floats64(keys, n, minval, maxval)
+    if dtype != torch.float32:
+        raise ValueError(f"uniform draws float32 or float64, not {dtype}")
     if keys.ndim == 1:
         return _floats(random_bits(keys, n), minval, maxval)
     return _floats(bits(keys, n), minval, maxval)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
-    """``jax.random.bernoulli(key, p, shape)`` with x64 off: a bool
-    tensor, ``uniform < float32(p)``."""
+def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: a bool tensor.  A float
+    ``p`` compares float32 uniforms with ``float32(p)`` (x64 off); a
+    tensor ``p`` draws uniforms of its shape (or ``shape``) in its dtype
+    and compares ``uniform < p``."""
+    if isinstance(p, torch.Tensor):
+        u = uniform(key, tuple(p.shape) if shape is None else shape,
+                    dtype=p.dtype)
+        return u < p
     u = uniform(key, shape)
     return u < torch.tensor(p, dtype=torch.float32, device=u.device)
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in float32: ``sqrt(2) *
-    erfinv(u)``, u uniform in ``[nextafter(-1, +inf), 1)``.  ``erfinv``
-    is torch's, not XLA's ``erf_inv``: equal within float32 rounding."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return torch.tensor(2.0 ** 0.5, dtype=torch.float32,
+def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``: ``sqrt(2) * erfinv(u)``,
+    u uniform in ``[nextafter(-1, +inf), 1)`` of the dtype (float32 or
+    float64).  ``erfinv`` is torch's, not XLA's ``erf_inv``: equal within
+    the dtype's rounding."""
+    lo = _NORMAL_LO if dtype != torch.float64 else -1.0 + 2.0 ** -53
+    u = uniform(key, shape, lo, 1.0, dtype=dtype)
+    return torch.tensor(2.0 ** 0.5, dtype=dtype,
                         device=u.device) * torch.erfinv(u)
 
 

@@ -386,16 +386,22 @@ def test_element_wise_vertex_matches_jax(op):
 def test_graph_json_the_port_cannot_run_raises():
     jn = JCG(_small_graph(JAX_PKG, helper=None)).init()
     d = json.loads(jn.conf.to_json())
-    # every vertex and preprocessor class is ported (the conv zoo slice);
-    # a layer or updater class that is not still raises when read
+    # every vertex and preprocessor class is ported (the conv zoo slice),
+    # and the YOLOv2 head since the pretraining and detection slice: it
+    # reads back as itself; a class the port still lacks (a UI chart
+    # component) raises when read
     merged = json.loads(json.dumps(d))
     merged["vertices"]["p_add"] = {"@class": "LayerVertex", "layer": {
         "@class": "Yolo2OutputLayer"}}
+    read = tcg.ComputationGraphConfiguration.from_json(json.dumps(merged))
+    assert type(read.vertices["p_add"].layer).__name__ == "Yolo2OutputLayer"
+    merged["vertices"]["p_add"]["layer"] = {"@class": "ChartLine"}
     with pytest.raises(ValueError, match="not ported"):
         tcg.ComputationGraphConfiguration.from_json(json.dumps(merged))
     # every updater is ported since the rest-of-training slice: RmsProp
     # reads back as itself; so does a precision policy since the
-    # precision and memory slice; a pretraining layer's class still raises
+    # precision and memory slice, and a pretraining layer's class since
+    # the pretraining and detection slice
     pre = json.loads(json.dumps(d))
     pre["vertices"]["stem"]["layer"]["updater"] = {"@class": "RmsProp"}
     read = tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
@@ -404,8 +410,9 @@ def test_graph_json_the_port_cannot_run_raises():
     read = tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
     assert type(read.defaults["precision"]).__name__ == "PrecisionPolicy"
     pre["vertices"]["stem"]["layer"]["updater"] = {"@class": "AutoEncoder"}
-    with pytest.raises(ValueError, match="not ported"):
-        tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
+    read = tcg.ComputationGraphConfiguration.from_json(json.dumps(pre))
+    assert type(read.vertices["stem"].layer.updater).__name__ == \
+        "AutoEncoder"
     # a layer vertex with a preprocessor reshapes before its layer: NHWC
     # flattened in (h, w, c) order
     v = tcg.LayerVertex(layer=tff.ActivationLayer(activation="identity"),

@@ -202,9 +202,16 @@ class _Broken:
 
 def test_canary_auto_rollback_on_error_rate(mlp):
     jn, tn = mlp
+    # no background health sweep: the canary's verdict must come from the
+    # router's own ticks.  With the sweep running, its consecutive-failure
+    # circuit (3 faults) could eject the broken canary replica before the
+    # controller saw the 5 canary errors its rollback needs, which the
+    # JAX package's fleet orders the same way; under load that ejection
+    # won and the canary never resolved
     fleet = ServingFleet(
         tn, n_replicas=2, device="cpu", registry=MetricsRegistry(),
-        canary_config=CanaryConfig(min_samples=50, max_error_rate=0.1))
+        canary_config=CanaryConfig(min_samples=50, max_error_rate=0.1),
+        start_health=False)
     try:
         x = np.ones(4, np.float32)
         want = np.asarray(jn.output(x[None]))[0]

@@ -104,14 +104,16 @@ def test_param_tree_mismatch_raises(jax_net):
 
 
 def test_unported_class_and_corrupt_zip_raise(jax_net, tmp_path):
-    # every updater is ported since the rest-of-training slice, and the
-    # precision policy since the precision and memory slice: a class the
-    # port still lacks (a pretraining layer) raises when read
-    js = jax_net.conf.to_json().replace('"Adam"', '"PrecisionPolicy"', 1)
-    read = MultiLayerConfiguration.from_json(js)
-    assert any(type(lc.updater).__name__ == "PrecisionPolicy"
-               for lc in read.layers)
-    js = jax_net.conf.to_json().replace('"Adam"', '"AutoEncoder"', 1)
+    # every updater is ported since the rest-of-training slice, the
+    # precision policy since the precision and memory slice, and the
+    # pretraining layers since the pretraining and detection slice: each
+    # reads back as itself; a class the port still lacks (a UI chart
+    # component) raises when read
+    for name in ("PrecisionPolicy", "AutoEncoder"):
+        js = jax_net.conf.to_json().replace('"Adam"', f'"{name}"', 1)
+        read = MultiLayerConfiguration.from_json(js)
+        assert any(type(lc.updater).__name__ == name for lc in read.layers)
+    js = jax_net.conf.to_json().replace('"Adam"', '"ChartLine"', 1)
     with pytest.raises(ValueError, match="not ported"):
         MultiLayerConfiguration.from_json(js)
     bad = tmp_path / "bad.zip"
