@@ -58,6 +58,22 @@ Then the rest of parallel:
   runs above, each card's peak allocated bytes (after collecting the
   last run's network): ``ShardedTrainer``'s must be below.
 
+Then the input pipeline:
+
+* ``prefetch_mesh``: a small CNN (32x32x3; two 3x3 convolutions of 32
+  and 64 channels, each followed by a BatchNormalization at
+  ``helper="pallas"`` with relu; average pooling; softmax 10; Nesterovs
+  0.01) under
+  ``ParallelWrapper`` at dp 4, 6 steps of global batches of 64 and a
+  ragged last one of 66 (trimmed to 64), fed by
+  ``DevicePrefetchIterator(mesh=...)`` (the trimmed global batch placed
+  on each rank's card) and, from the same weights, by the host batches:
+  params, running statistics and losses bitwise equal on every rank, 2
+  ``bn_apply`` launches a step, and against a one-card twin on the
+  global batches (the statistics of the global batch): losses within
+  ``TOL_PREFETCH`` of the twin's, running statistics within 4x the
+  distance of a twin fed the rows permuted.
+
 Gates:
 
 * LM: each wrapped run's losses within 1e-5 relative of the twin's;
@@ -776,6 +792,167 @@ def _item8_gates(results, args, card):
     return None
 
 
+PREFETCH_BATCHES = (64, 64, 64, 64, 64, 66)
+# the wrapped BN sums its statistics over the ranks (an all-reduce of
+# per-rank sums) where the twin sums the global batch at once: the same
+# sums in another order.  Losses within 1e-5 relative; the running
+# statistics within max(1e-5, 4x the distance of a second twin fed each
+# batch's rows permuted) of each leaf's largest |value| (a variance as
+# E[x^2] - E[x]^2 cancels, so its noise floor sits above 1e-5)
+TOL_PREFETCH, PREFETCH_FLOOR_K = 1e-5, 4.0
+
+
+def prefetch_cnn(seed, dev, helper="pallas"):
+    """The small CNN of the ``prefetch_mesh`` phase."""
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.layers.convolution import \
+        ConvolutionLayer
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.normalization import \
+        BatchNormalization
+    from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPoolingLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(Nesterovs(learning_rate=0.01, momentum=0.9)).list())
+    for ch in (32, 64):
+        b = (b.layer(ConvolutionLayer(n_out=ch, kernel_size=(3, 3),
+                                      padding=(1, 1), activation="identity"))
+             .layer(BatchNormalization(activation="relu", helper=helper)))
+    conf = (b.layer(GlobalPoolingLayer(pooling_type="avg"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.convolutional(32, 32, 3)).build())
+    return MultiLayerNetwork(conf, device=dev)
+
+
+def _prefetch_run(args, torch, dev, mesh, rank):
+    """The CNN under ``ParallelWrapper`` fed by the mesh prefetcher and by
+    host batches from the same weights, and a one-card twin."""
+    import numpy as np
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.data.dataset import (DataSet,
+                                                       ExistingDataSetIterator)
+    from deeplearning4j_tpu_torch.data.pipeline import DevicePrefetchIterator
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    rng = np.random.default_rng(args.seed + 63)
+    batches = [DataSet(rng.standard_normal((n, 32, 32, 3)).astype(np.float32),
+                       np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)])
+               for n in PREFETCH_BATCHES]
+    first = prefetch_cnn(args.seed, dev).init()
+    tree0 = cs._host_tree(first)
+    res = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        perm = [rng.permutation(len(b.features) // mesh.dp * mesh.dp)
+                for b in batches]
+        for name in ("host", "prefetch", "twin", "twin_permuted"):
+            net = first if name == "host" else \
+                prefetch_cnn(args.seed, dev).load_params(tree0)
+            feed = ExistingDataSetIterator(batches)
+            if name == "prefetch":
+                feed = DevicePrefetchIterator(feed, depth=2, mesh=mesh)
+            clock = cs._StepClock()
+            net.set_listeners(clock)
+            torch.cuda.synchronize()
+            pb.reset_launches()
+            if name.startswith("twin"):
+                # the whole (trimmed) global batches on this card alone
+                rows = perm if name == "twin_permuted" else \
+                    [np.arange(len(q)) for q in perm]
+                net.fit(ExistingDataSetIterator(
+                    [DataSet(b.features[r], b.labels[r])
+                     for b, r in zip(batches, rows)]))
+            else:
+                ParallelWrapper(net, mesh).fit(feed)
+            torch.cuda.synchronize()
+            losses = [float(v) for v in clock.losses]
+            res[name] = {"losses": losses,
+                         "bn_apply_launches": pb.launches["bn_apply"],
+                         "last_batch_size": net.last_batch_size,
+                         "params": _detached(net.params),
+                         "state": {k: {n: t.clone() for n, t in g.items()}
+                                   for k, g in net.state.items()}}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out = {"losses": {k: res[k]["losses"] for k in res},
+           "bn_apply_launches": {k: res[k]["bn_apply_launches"]
+                                 for k in res},
+           "last_batch_size": {k: res[k]["last_batch_size"] for k in res}}
+    h, p, t = res["host"], res["prefetch"], res["twin"]
+
+    def state_rel(a):
+        return max(((a["state"][k][n] - t["state"][k][n]).abs().max()
+                    / t["state"][k][n].abs().max().clamp(min=1e-30)).item()
+                   for k in t["state"] for n in t["state"][k])
+
+    out["params_max_abs_diff"] = max(
+        (h["params"][k][n] - p["params"][k][n]).abs().max().item()
+        for k in h["params"] for n in h["params"][k])
+    out["state_max_abs_diff"] = max(
+        (h["state"][k][n] - p["state"][k][n]).abs().max().item()
+        for k in h["state"] for n in h["state"][k])
+    out["state_max_rel_diff_vs_twin"] = state_rel(p)
+    out["state_floor_permuted_twin"] = state_rel(res["twin_permuted"])
+    out["max_abs_diff_vs_rank0"] = _max_diff_vs_rank0(p["params"])
+    return out
+
+
+def _prefetch_gates(results, args, card):
+    """Gates and record of the ``prefetch_mesh`` phase; None or what
+    failed."""
+    rs = [results[r]["prefetch"] for r in sorted(results)]
+    r0 = rs[0]
+    steps = len(PREFETCH_BATCHES)
+    twin_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(r0["losses"]["prefetch"], r0["losses"]["twin"]))
+    record = {"phase": "prefetch_mesh", "ranks": args.ranks,
+              "global_batches": list(PREFETCH_BATCHES),
+              "losses": r0["losses"],
+              "max_rel_loss_diff_vs_twin": twin_rel,
+              "bn_apply_launches_per_rank": [r["bn_apply_launches"]
+                                             for r in rs],
+              "last_batch_size": r0["last_batch_size"],
+              "params_max_abs_diff_host_vs_prefetch": [
+                  r["params_max_abs_diff"] for r in rs],
+              "state_max_abs_diff_host_vs_prefetch": [
+                  r["state_max_abs_diff"] for r in rs],
+              "state_max_rel_diff_vs_twin": [
+                  r["state_max_rel_diff_vs_twin"] for r in rs],
+              "state_tol": [max(TOL_PREFETCH, PREFETCH_FLOOR_K
+                                * r["state_floor_permuted_twin"])
+                            for r in rs],
+              "max_abs_diff_vs_rank0": max(r["max_abs_diff_vs_rank0"]
+                                           for r in rs),
+              "tol": TOL_PREFETCH, "card": card}
+    print(json.dumps(record), flush=True)
+    if any(r["params_max_abs_diff"] or r["state_max_abs_diff"] or
+           r["losses"]["host"] != r["losses"]["prefetch"] for r in rs):
+        return "prefetch-fed training differs from host-fed on some rank"
+    if any(n != 2 * steps for r in rs
+           for n in r["bn_apply_launches"].values()):
+        return (f"bn_apply launches {record['bn_apply_launches_per_rank']}"
+                f"; expected 2 a step")
+    last = PREFETCH_BATCHES[-1] // args.ranks * args.ranks
+    if r0["last_batch_size"]["prefetch"] != last:
+        return (f"last_batch_size {r0['last_batch_size']}: expected the "
+                f"global {last}")
+    if not all(math.isfinite(v) for v in r0["losses"]["prefetch"]) or \
+            twin_rel > TOL_PREFETCH or \
+            any(e > t for e, t in zip(record["state_max_rel_diff_vs_twin"],
+                                      record["state_tol"])):
+        return (f"the wrapped CNN is not the one-card twin on the global "
+                f"batch: losses {twin_rel}, running statistics "
+                f"{record['state_max_rel_diff_vs_twin']}")
+    if record["max_abs_diff_vs_rank0"] != 0.0:
+        return "prefetch_mesh: ranks' params differ from rank 0's"
+    return None
+
+
 def _rank_run(rank, world, port, args):
     sys.path.insert(0, str(REPO))
     import torch
@@ -863,6 +1040,8 @@ def _rank_run(rank, world, port, args):
                                           rank)
     torch.cuda.empty_cache()
     res["tp_ckpt"] = _tp_ckpt_run(args, torch, dev, world, rank)
+    torch.cuda.empty_cache()
+    res["prefetch"] = _prefetch_run(args, torch, dev, mesh, rank)
     dist.barrier()
     return res
 
@@ -996,6 +1175,9 @@ def main(argv=None) -> int:
     if err:
         return fail(err)
     err = _item8_gates(results, args, card)
+    if err:
+        return fail(err)
+    err = _prefetch_gates(results, args, card)
     if err:
         return fail(err)
     err = _dryrun_vs_twin(args, card)

@@ -402,7 +402,49 @@ if any phase fails:
     ``non_max_suppression`` (no launch: inference normalises with the
     running statistics); and ``check_graph_gradients`` in float64 on the
     card on a 2-conv stack with a YOLO head.  Phases 51-53 print their
-    seconds together.
+    seconds together;
+54. ``cifar_pipeline_resnet50``: the five CIFAR-10 training batch files
+    written from the seed in the published 3073-byte record format
+    (50,000 records, 153.65 MB; ``CIFAR_DIR`` for this process), decoded
+    by the native ``decode_cifar`` (the library must build; its rate and
+    the numpy twin's printed); the zoo ResNet50 at 32x32x3, 10 classes,
+    published widths, f32, every BN at ``helper="pallas"``, batch 128
+    with a random crop (pad 4) and flip, cuDNN deterministic: 10 ``fit``
+    steps fed by the host iterator with the transform composed in this
+    process, then 10 from the same params fed by
+    ``build_input_pipeline(num_workers=4, depth=2)``.  Every batch on the
+    card bitwise equal to the host batch of the same number, losses,
+    params and running statistics bitwise equal, 53 ``bn_apply``
+    launches a step in both, and while the workers run, no process but
+    this one on the card (``nvidia-smi --query-compute-apps`` lists one
+    process, the same as before the workers started, and no worker pid)
+    and no CUDA library mapped into a worker (``/proc/<pid>/maps``).
+    Printed:
+    step time (median), images a second, the profiler's busy share,
+    ``training_etl_seconds`` per stage and the starved counts, peak
+    device memory, for both runs;
+55. ``mnist_lenet_records``: MNIST's 60,000 training images and labels
+    as IDX files from the seed; ``MnistDataSetIterator`` feeds the zoo
+    LeNet through ``build_input_pipeline(num_workers=0, depth=2)`` for
+    20 steps, losses and params bitwise equal to the host-fed twin's; a
+    ``RecordReaderDataSetIterator`` over a 100,000 x 20 CSV (through
+    ``parse_csv``) feeds a 3-layer MLP for 5 steps, losses equal to the
+    same MLP fed the arrays; no kernel launches;
+56. ``clustering``: ``KMeans(k=100)`` on 100,000 x 128 f32 points (100
+    Gaussian blobs from the seed), k-means++ and 20 Lloyd steps on the
+    card, steps 0, 1, 10 and 19 each held against the CPU and float64
+    from the same input centers (assignments equal to the CPU's outside
+    ties by value, the refreshed centers and the cost within
+    ``TOL_KM_CENTERS`` of float64; the cost printed);
+    ``BaseClusteringAlgorithm`` with an ``OptimisationStrategy`` on the
+    same points, its first and last steps held the same way (and the
+    per-cluster distances within the f32 expansion's bound), splits
+    applied; exact ``Tsne`` on 5,000 x 50, perplexity 30, 300 iterations
+    on the card (KL, a step's time), P on 1 row in 9 and the gradient,
+    KL and update of steps 0, 260 and 299 against the CPU from the
+    card's inputs (``TOL_TSNE_*``); ``BarnesHutTsne`` at n 1,000 for 20
+    iterations (kNN and calibration on the card, the SPTree on the
+    host).  Phases 54-56 print their seconds together.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -7736,6 +7778,915 @@ def pretrain_detection_phases(args, torch, dev, card):
     return launches, None
 
 
+# ---- 54-56. the input pipeline, the data readers, clustering ----------
+# CIFAR-10's five training batches: 10,000 records of 3073 bytes each
+# (label, then 3x32x32 CHW pixels), 153.65 MB, written from the seed
+CIFAR_FILES, CIFAR_PER_FILE, CIFAR_RECORD = 5, 10_000, 3073
+PIPE_BATCH, PIPE_STEPS, PIPE_WORKERS, PIPE_DEPTH, PIPE_PAD = 128, 10, 4, 2, 4
+MNIST_TRAIN, MNIST_BATCH, MNIST_STEPS = 60_000, 64, 20
+CSV_ROWS, CSV_COLS, CSV_CLASSES, CSV_BATCH, CSV_STEPS = \
+    100_000, 20, 10, 1000, 5
+# KMeans on 100 Gaussian blobs in 128-d, half of them twice as wide:
+# the blobs sit ~64 apart, a blob's points ~11 (or ~23) from its center
+KM_POINTS, KM_DIM, KM_K, KM_ITERS = 100_000, 128, 100, 20
+KM_BLOB_SCALE = 4.0
+KM_OPT_ITERS, KM_OPT_PERIOD = 6, 3
+KM_OPT_AVG = 16.0               # between the narrow and the wide blobs' ~11/~23
+# The card's Lloyd steps, each held against the CPU and float64 from the
+# same input centers (a free-running twin drifts: a point within rounding
+# of two centers goes either way, and the centers carry that on):
+# - an assignment may differ from the CPU's only where the point's two
+#   distances (f64) are within TOL_KM_TIE: the f32 expansion
+#   |x|^2 - 2xc + |c|^2 with |x| ~ 45 rounds d by ~1e-5;
+# - the refreshed centers within TOL_KM_CENTERS of the largest |center|
+#   from the f64 means over the card's own assignment (f32 sums of ~1000
+#   points: ~1e-6), the cost within TOL_KM_CENTERS relative of its f64
+#   value, the per-cluster mean and max distances within the f32
+#   expansion's own bound (``_distance_tol``: sqrt((2D + 2) ulps of
+#   max|x|^2), ~0.25 here, approached where a center is a point).
+TOL_KM_CENTERS, TOL_KM_TIE = 1e-5, 1e-4
+KM_CHECKED_STEPS = (0, 1, 10, 19)
+TSNE_N, TSNE_DIM, TSNE_PERPLEXITY, TSNE_ITERS = 5000, 50, 30.0, 300
+# Exact t-SNE on the card, held against the CPU from the card's own
+# inputs: the conditional P of TSNE_CHECKED_ROWS rows (the bisection is
+# row-wise), and the gradient, KL and update at TSNE_CHECKED_STEPS (one
+# step in the exaggerated phase, one after the momentum switch, the
+# last).  The same f32 ops summed in another order: P within 1e-5 of
+# its largest entry, the gradient within 1e-4 of its largest |g| (a sum
+# of 5000 terms of either sign), KL within 1e-5 relative.  The update is
+# elementwise, so the CPU's equals the card's where it takes the same
+# branch; the gains branch on the sign of grad vs vel, so an element
+# whose gradient is within rounding of 0 may take the other one (a gain
+# x0.8 instead of +0.2) and move by lr x gain x |grad| with |grad| at
+# the rounding level: fed the card's gradient, the update within 1e-6 of
+# the embedding's largest |y|.
+TSNE_CHECKED_ROWS, TSNE_CHECKED_STEPS = 512, (0, 260, 299)
+TOL_TSNE_P, TOL_TSNE_GRAD, TOL_TSNE_KL, TOL_TSNE_Y = 1e-5, 1e-4, 1e-5, 1e-6
+BH_N, BH_ITERS = 1000, 20
+
+
+class _StepClock:
+    """A training listener that stamps the host clock after each step and
+    keeps each step's loss (a device scalar: no sync)."""
+
+    def __init__(self):
+        self.stamps, self.losses = [], []
+
+    def iteration_done(self, model, iteration, epoch):
+        self.stamps.append(time.perf_counter())
+        self.losses.append(model._score)
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+
+class _Recorded:
+    """An iterator that keeps every batch it yields (the yielded objects
+    themselves: device tensors stay on the device)."""
+
+    def __init__(self, underlying, limit):
+        self.underlying = underlying
+        self.limit = limit
+        self.batches = []
+
+    def reset(self):
+        self.underlying.reset()
+
+    def __iter__(self):
+        it = iter(self.underlying)
+        try:
+            for _ in range(self.limit):
+                ds = next(it, None)
+                if ds is None:
+                    return
+                self.batches.append(ds)
+                yield ds
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+
+class _InProcessETL:
+    """The in-process composition the multiprocess ETL stage reproduces:
+    the source (reset once per epoch) with ``transform`` drawn from
+    ``np.random.default_rng((seed, epoch, seq))`` for batch ``seq``.
+    (``TransformingDataSetIterator`` draws one stream per epoch, as the
+    JAX package's does, so its draws cannot equal the workers'.)"""
+
+    def __init__(self, source, transform, seed):
+        self.source, self.transform, self.seed = source, transform, seed
+        self.epoch = 0
+
+    def reset(self):
+        self.epoch += 1
+        self.source.reset()
+
+    def __iter__(self):
+        import numpy as np
+        from deeplearning4j_tpu_torch.data.dataset import DataSet
+        for seq, ds in enumerate(self.source):
+            rng = np.random.default_rng((self.seed, self.epoch, seq))
+            yield DataSet(np.ascontiguousarray(self.transform(
+                np.asarray(ds.features), rng)), ds.labels,
+                ds.features_mask, ds.labels_mask)
+
+
+def write_cifar_batches(directory, seed):
+    """The five CIFAR-10 training batch files in the published binary
+    format, random labels and pixels from ``seed``; returns their bytes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    total = 0
+    for i in range(1, CIFAR_FILES + 1):
+        rec = rng.integers(0, 256, (CIFAR_PER_FILE, CIFAR_RECORD),
+                           dtype=np.uint8)
+        rec[:, 0] %= 10
+        (Path(directory) / f"data_batch_{i}.bin").write_bytes(rec.tobytes())
+        total += rec.nbytes
+    return total
+
+
+def write_mnist_idx(directory, seed, n):
+    """MNIST's training images and labels as IDX files (big-endian
+    header: magic 0x0803 / 0x0801, then the dims), from ``seed``."""
+    import struct
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, n, dtype=np.uint8)
+    # noise below 64, and a class patch 150 brighter
+    images = rng.integers(0, 64, (n, 28, 28), dtype=np.uint8)
+    for c in range(10):
+        r, col = divmod(c, 4)
+        images[labels == c, 4 + r * 6:12 + r * 6, 2 + col * 6:10 + col * 6] \
+            += 150
+    d = Path(directory)
+    (d / "train-images-idx3-ubyte").write_bytes(
+        struct.pack(">IIII", 0x0803, n, 28, 28) + images.tobytes())
+    (d / "train-labels-idx1-ubyte").write_bytes(
+        struct.pack(">II", 0x0801, n) + labels.tobytes())
+    return images, labels
+
+
+def _registry_summary(reg) -> dict:
+    """``training_etl_seconds`` (count, seconds) and the starved counts
+    per stage, from one registry."""
+    out = {"etl": {}, "starved": {}}
+    h = reg.get("training_etl_seconds")
+    if h is not None:
+        for labels, child in h.samples():
+            out["etl"][labels[0]] = {"count": child.count,
+                                     "seconds": child.sum}
+    c = reg.get("training_pipeline_starved_total")
+    if c is not None:
+        for labels, child in c.samples():
+            out["starved"][labels[0]] = child.value
+    return out
+
+
+def _cuda_in(pid: int):
+    """The CUDA libraries mapped into process ``pid`` (read from its
+    ``/proc/<pid>/maps``; a process with none cannot hold a context)."""
+    try:
+        maps = Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return None
+    return sorted({ln.rsplit("/", 1)[-1] for ln in maps.splitlines()
+                   if "libcuda" in ln or "libtorch_cuda" in ln})
+
+
+def _compute_app_pids():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return sorted(int(t) for t in out.split() if t.strip().isdigit())
+
+
+def _worker_watch(pipe, seen, stop):
+    """While the ETL workers of ``pipe`` live: their pids, the card's
+    compute processes (nvidia-smi) and the CUDA libraries mapped into
+    each worker, twice.  (In a PID namespace nvidia-smi reports the
+    processes under pids of the host's, so the list is compared with the
+    one taken before the workers started.)"""
+    etl = pipe.underlying
+    while not stop.is_set() and not any(
+            p.is_alive() for p in getattr(etl, "workers", [])):
+        time.sleep(0.01)
+    for _ in range(2):
+        alive = [p.pid for p in etl.workers if p.is_alive()]
+        if not alive:
+            break
+        seen.append({"worker_pids": alive,
+                     "compute_app_pids": _compute_app_pids(),
+                     "worker_cuda_libs": {p: _cuda_in(p) for p in alive}})
+        time.sleep(0.2)
+
+
+def _fit_run(torch, net, feed, steps):
+    """``fit`` over ``feed`` (at most ``steps`` batches) with a fresh
+    registry, a step clock and ``bn_apply`` counted.  Returns the run's
+    record, the yielded batches and the step losses."""
+    from deeplearning4j_tpu_torch.observability.registry import (
+        MetricsRegistry, set_default_registry)
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+    rec = _Recorded(feed, steps)
+    clock = _StepClock()
+    net.set_listeners(clock)
+    reg = MetricsRegistry()
+    prev = set_default_registry(reg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pb.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        net.fit(rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        set_default_registry(prev)
+        net.set_listeners()
+    steps_ms = [(b - a) * 1e3 for a, b in zip(clock.stamps, clock.stamps[1:])]
+    out = {"steps": len(clock.stamps),
+           "bn_apply_launches": pb.launches["bn_apply"],
+           "wall_s": wall, "step_ms": steps_ms,
+           "step_ms_median": statistics.median(steps_ms)
+           if steps_ms else None,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           **_registry_summary(reg)}
+    return out, rec.batches, [float(v) for v in clock.losses]
+
+
+def _busy_split_us(prof):
+    """The card's busy time (the union of its kernel and copy intervals)
+    on either side of the longest idle gap of a trace that holds two
+    runs, in microseconds: the two runs of phase 54, between which the
+    card idles while the ETL workers start."""
+    # the raw kineto events: building the profiler's FunctionEvents for
+    # two runs' kernels takes ~19 s on that host
+    spans = sorted((ev.start_ns() / 1e3, ev.end_ns() / 1e3)
+                   for ev in prof.profiler.kineto_results.events()
+                   if "CUDA" in str(ev.device_type()))
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    if len(merged) < 2:
+        return None
+    cut = max(range(1, len(merged)),
+              key=lambda i: merged[i][0] - merged[i - 1][1])
+    busy = [sum(b - a for a, b in merged[:cut]),
+            sum(b - a for a, b in merged[cut:])]
+    return busy, merged[cut][0] - merged[cut - 1][1]
+
+
+def cifar_pipeline_phase(args, torch, dev, card):
+    """Phase 54.  Returns ``(bn_apply launches per step of the pipeline
+    run, None)`` or ``(None, what failed)``."""
+    import functools
+    import tempfile
+    import threading
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.fetchers import CifarDataSetIterator
+    from deeplearning4j_tpu_torch.data.pipeline import build_input_pipeline
+    from deeplearning4j_tpu_torch.data.transforms import (
+        ComposeTransform, RandomCropTransform, RandomFlipTransform)
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    spans, t_mark = {}, [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        spans[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    if not native.available():
+        return None, "the native host library did not build: no decode_cifar"
+    tmp = tempfile.TemporaryDirectory(prefix="cifar10-")
+    old_dir = os.environ.get("CIFAR_DIR")
+    os.environ["CIFAR_DIR"] = tmp.name
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_cifar_batches(tmp.name, args.seed + 54)
+        write_s = time.perf_counter() - t0
+        raw = (Path(tmp.name) / "data_batch_1.bin").read_bytes()
+        t0 = time.perf_counter()
+        labels_n, images_n = native.decode_cifar(raw)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        labels_p, images_p = native.decode_cifar(raw, use_native=False)
+        numpy_s = time.perf_counter() - t0
+        decode_equal = bool(np.array_equal(labels_n, labels_p)
+                            and np.array_equal(images_n, images_p))
+        del images_n, images_p
+        mark("data")
+
+        zoo = ResNet50(input_shape=(32, 32, 3), num_classes=10,
+                       seed=args.seed)
+        nets = []
+        for _ in range(2):
+            conf = zoo.conf()
+            for v in conf.vertices.values():
+                lc = getattr(v, "layer", None)
+                if type(lc).__name__ == "BatchNormalization":
+                    lc.helper = "pallas"
+            nets.append(ComputationGraph(conf, device=dev))
+        host_net = nets[0].init()
+        pipe_net = nets[1].load_params({
+            k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+            for k, g in host_net.params.items()})
+        transform = ComposeTransform([RandomCropTransform(PIPE_PAD),
+                                      RandomFlipTransform()])
+        factory = functools.partial(CifarDataSetIterator, PIPE_BATCH,
+                                    seed=args.seed)
+        mark("nets")
+        on_card = torch.device(dev).type == "cuda"
+        det = torch.backends.cudnn.deterministic
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        prof = None
+        try:
+            if on_card:
+                # one trace over both runs, of the card only: recording
+                # every host op would slow these launch-bound steps
+                # severalfold, and each trace costs ~10 s to close
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+            # (a) the host iterator, the transform in this process
+            t0 = time.perf_counter()
+            host_feed = _InProcessETL(factory(), transform, args.seed)
+            host_load_s = time.perf_counter() - t0
+            host_rec, host_batches, host_losses = _fit_run(
+                torch, host_net, host_feed, PIPE_STEPS)
+            mark("host_run")
+            # (b) 4 ETL processes, 2-deep prefetch onto the card
+            apps_before = _compute_app_pids()
+            pipe = build_input_pipeline(
+                factory, transform, num_workers=PIPE_WORKERS,
+                depth=PIPE_DEPTH, seed=args.seed, device=dev)
+            seen, stop = [], threading.Event()
+            watch = threading.Thread(target=_worker_watch,
+                                     args=(pipe, seen, stop), daemon=True)
+            watch.start()
+            pipe_rec, pipe_batches, pipe_losses = _fit_run(
+                torch, pipe_net, pipe, PIPE_STEPS)
+            mark("pipeline_run")
+            stop.set()
+            watch.join(timeout=30)
+            mark("watch_join")
+            workers_left = [p.pid for p in pipe.underlying.workers
+                            if p.is_alive()]
+        finally:
+            torch.backends.cudnn.deterministic = det
+            torch.backends.cudnn.benchmark = bench
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                mark("profiler_close")
+        split = _busy_split_us(prof) if prof is not None else None
+        mark("profiler_events")
+    finally:
+        if old_dir is None:
+            os.environ.pop("CIFAR_DIR", None)
+        else:
+            os.environ["CIFAR_DIR"] = old_dir
+        tmp.cleanup()
+    mark("cleanup")
+
+    # every batch on the card against the host batch of the same number
+    batch_equal = len(pipe_batches) == len(host_batches) == PIPE_STEPS
+    for hb, pb_ in zip(host_batches, pipe_batches):
+        for h, p in ((hb.features, pb_.features), (hb.labels, pb_.labels)):
+            on_card &= isinstance(p, torch.Tensor) and p.device.type == "cuda"
+            batch_equal &= isinstance(p, torch.Tensor) and np.array_equal(
+                p.cpu().numpy(), np.asarray(h)) and \
+                p.dtype == torch.from_numpy(np.asarray(h)).dtype
+    param_diff = max(
+        (a - b).abs().max().item() for a, b in
+        zip(host_net.parameters(), pipe_net.parameters()))
+    state_diff = max(
+        (host_net.state[k][n] - t).abs().max().item()
+        for k, g in pipe_net.state.items() for n, t in g.items())
+    loss_diff = max((abs(a - b) for a, b in zip(host_losses, pipe_losses)),
+                    default=float("inf"))
+    own = os.getpid()
+    workers_seen = {p for s in seen for p in s["worker_pids"]}
+    # a worker on the card would add a compute process to the list (or
+    # show under its own pid where nvidia-smi shares our PID namespace)
+    foreign = [s["compute_app_pids"] for s in seen
+               if s["compute_app_pids"] != apps_before
+               or workers_seen & set(s["compute_app_pids"])]
+    worker_cuda = {p: libs for s in seen
+                   for p, libs in s["worker_cuda_libs"].items() if libs}
+    for i, rec in enumerate((host_rec, pipe_rec)):
+        rec["images_per_s"] = PIPE_BATCH / rec["step_ms_median"] * 1e3 \
+            if rec["step_ms_median"] else None
+        if split is not None:
+            # the card's busy time over the run's wall, and over the wall
+            # less the trainer's waits on the iterator (the workers'
+            # start, in the pipeline run)
+            busy_s = split[0][i] / 1e6
+            fetch_s = rec["etl"].get("fetch", {}).get("seconds", 0.0)
+            rec["device_busy_ms"] = busy_s * 1e3
+            rec["device_busy_share"] = busy_s / rec["wall_s"]
+            rec["device_busy_share_outside_fetch"] = \
+                busy_s / (rec["wall_s"] - fetch_s)
+    print(json.dumps({
+        "phase": "cifar_pipeline_resnet50",
+        "data": {"files": CIFAR_FILES, "records": CIFAR_FILES
+                 * CIFAR_PER_FILE, "bytes": nbytes, "write_s": write_s,
+                 "native_available": native.available(),
+                 "decode_MB_per_s": {"native": len(raw) / native_s / 1e6,
+                                     "numpy_twin": len(raw) / numpy_s / 1e6},
+                 "decode_native_equals_twin": decode_equal,
+                 "host_source_load_s": host_load_s},
+        "model": {"name": "ResNet50", "input": [32, 32, 3], "classes": 10,
+                  "batch": PIPE_BATCH, "dtype": "float32", "tf32": False,
+                  "bn_helper": "pallas", "cudnn_deterministic": True,
+                  "transform": f"RandomCrop(pad {PIPE_PAD}) + RandomFlip"},
+        "host": host_rec, "pipeline": {
+            **pipe_rec, "num_workers": PIPE_WORKERS, "depth": PIPE_DEPTH},
+        "batches_bitwise_equal": batch_equal, "batches_on_card": on_card,
+        "losses": {"host": host_losses, "pipeline": pipe_losses},
+        "final_params_max_abs_diff": param_diff,
+        "running_stats_max_abs_diff": state_diff,
+        "loss_max_abs_diff": loss_diff,
+        "phase_spans_s": spans,
+        "idle_gap_between_runs_ms": split[1] / 1e3 if split else None,
+        "worker_checks": seen, "own_pid": own,
+        "compute_app_pids_before_workers": apps_before,
+        "compute_app_pids_changed": foreign, "workers_left": workers_left,
+        "seconds": time.perf_counter() - t_phase, "card": card}),
+        flush=True)
+    expected = 53 * PIPE_STEPS
+    if not decode_equal:
+        return None, "native decode_cifar differs from its numpy twin"
+    if host_rec["bn_apply_launches"] != expected or \
+            pipe_rec["bn_apply_launches"] != expected:
+        return None, (f"bn_apply launched {host_rec['bn_apply_launches']} "
+                      f"(host) / {pipe_rec['bn_apply_launches']} (pipeline) "
+                      f"times in {PIPE_STEPS} steps; expected 53 a step")
+    if not (batch_equal and on_card):
+        return None, "a prefetched batch differs from the host batch"
+    if len(host_losses) != PIPE_STEPS or \
+            not all(map(math.isfinite, host_losses)):
+        return None, f"ResNet50 losses {host_losses}: not {PIPE_STEPS} finite"
+    if param_diff or state_diff or loss_diff:
+        return None, (f"pipeline-fed training differs from host-fed: params "
+                      f"{param_diff}, running stats {state_diff}, loss "
+                      f"{loss_diff} (cuDNN deterministic: expected 0)")
+    if not seen:
+        return None, "the ETL workers were never seen alive"
+    if foreign or worker_cuda or len(apps_before) != 1:
+        return None, (f"an ETL worker touched the card: compute pids "
+                      f"{apps_before} before the workers, {foreign} while "
+                      f"they ran, CUDA libraries {worker_cuda}")
+    if workers_left:
+        return None, f"ETL workers {workers_left} outlived the pipeline"
+    return pipe_rec["bn_apply_launches"] // PIPE_STEPS, None
+
+
+def mnist_records_phase(args, torch, dev, card):
+    """Phase 55.  Returns ``(None, None)`` or ``(None, what failed)``."""
+    import functools
+    import tempfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import (
+        EarlyTerminationDataSetIterator, INDArrayDataSetIterator)
+    from deeplearning4j_tpu_torch.data.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.data.pipeline import build_input_pipeline
+    from deeplearning4j_tpu_torch.data.records import (
+        CSVRecordReader, RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.models.zoo import LeNet
+    from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        DenseLayer, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_bn as pb
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+    from deeplearning4j_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    for mod in (fa, pb, pl):
+        mod.reset_launches()
+    tmp = tempfile.TemporaryDirectory(prefix="mnist-")
+    old_dir = os.environ.get("MNIST_DIR")
+    os.environ["MNIST_DIR"] = tmp.name
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        images, labels = write_mnist_idx(tmp.name, args.seed + 55,
+                                         MNIST_TRAIN)
+        idx_write_s = time.perf_counter() - t0
+        factory = functools.partial(MnistDataSetIterator, MNIST_BATCH,
+                                    seed=args.seed)
+        probe = factory()
+        read_ok = not probe.synthetic and np.array_equal(
+            probe.data.features, images.reshape(MNIST_TRAIN, -1)
+            .astype(np.float32) / 255.0) and np.array_equal(
+            probe.data.labels.argmax(1), labels)
+        zoo = LeNet(num_classes=10, seed=args.seed)
+        host_net = zoo.init(device=dev)
+        pipe_net = MultiLayerNetwork(zoo.conf(), device=dev).load_params({
+            k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+            for k, g in host_net.params.items()})
+        runs = {}
+        for name, net, feed in (
+                ("host", host_net, factory()),
+                ("pipeline", pipe_net, build_input_pipeline(
+                    factory, num_workers=0, depth=2, device=dev))):
+            clock = _StepClock()
+            net.set_listeners(clock)
+            t0 = time.perf_counter()
+            net.fit(EarlyTerminationDataSetIterator(feed, MNIST_STEPS))
+            torch.cuda.synchronize()
+            net.set_listeners()
+            runs[name] = {"losses": [float(v) for v in clock.losses],
+                          "seconds": time.perf_counter() - t0}
+        mnist_diff = max((abs(a - b) for a, b in zip(
+            runs["host"]["losses"], runs["pipeline"]["losses"])),
+            default=float("inf"))
+        mnist_params = max((a - b).abs().max().item() for a, b in zip(
+            host_net.parameters(), pipe_net.parameters()))
+
+        # a CSV of 100,000 x 20 through parse_csv and the record reader;
+        # multiples of 1/256 in [-8, 8): exact in f32 and in "%.8f"
+        rng = np.random.default_rng(args.seed + 550)
+        feats = (rng.integers(-2048, 2048, (CSV_ROWS, CSV_COLS - 1))
+                 / 256).astype(np.float32)
+        cls = rng.integers(0, CSV_CLASSES, CSV_ROWS)
+        path = Path(tmp.name) / "records.csv"
+        t0 = time.perf_counter()
+        np.savetxt(path, np.concatenate([feats, cls[:, None]], axis=1),
+                   fmt="%.8f", delimiter=",")
+        csv_write_s = time.perf_counter() - t0
+        reader = CSVRecordReader(str(path))
+        t0 = time.perf_counter()
+        parsed = reader._parsed()
+        parse_s = time.perf_counter() - t0
+        parse_ok = parsed is not None and parsed.shape == (
+            CSV_ROWS, CSV_COLS) and np.array_equal(parsed[:, :-1], feats) \
+            and np.array_equal(parsed[:, -1], cls.astype(np.float32))
+
+        def mlp():
+            conf = (NeuralNetConfiguration.builder().seed(args.seed)
+                    .updater(Adam(learning_rate=1e-3)).list()
+                    .layer(DenseLayer(n_out=256, activation="relu"))
+                    .layer(DenseLayer(n_out=256, activation="relu"))
+                    .layer(OutputLayer(n_out=CSV_CLASSES,
+                                       activation="softmax",
+                                       loss="mcxent"))
+                    .set_input_type(InputType.feed_forward(CSV_COLS - 1))
+                    .build())
+            return MultiLayerNetwork(conf, device=dev).init()
+
+        csv_runs = {}
+        for name, feed in (
+                ("records", RecordReaderDataSetIterator(
+                    reader, CSV_BATCH, label_index=-1,
+                    n_classes=CSV_CLASSES)),
+                ("arrays", INDArrayDataSetIterator(
+                    feats, np.eye(CSV_CLASSES, dtype=np.float32)[cls],
+                    CSV_BATCH))):
+            net = mlp()
+            clock = _StepClock()
+            net.set_listeners(clock)
+            t0 = time.perf_counter()
+            net.fit(EarlyTerminationDataSetIterator(feed, CSV_STEPS))
+            torch.cuda.synchronize()
+            csv_runs[name] = {"losses": [float(v) for v in clock.losses],
+                              "seconds": time.perf_counter() - t0}
+        csv_equal = csv_runs["records"]["losses"] == \
+            csv_runs["arrays"]["losses"]
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if old_dir is None:
+            os.environ.pop("MNIST_DIR", None)
+        else:
+            os.environ["MNIST_DIR"] = old_dir
+        tmp.cleanup()
+    launches = {**fa.launches, **pb.launches, **pl.launches}
+    print(json.dumps({
+        "phase": "mnist_lenet_records",
+        "mnist": {"images": MNIST_TRAIN, "idx_write_s": idx_write_s,
+                  "read_equals_written": bool(read_ok),
+                  "model": "LeNet (28x28x1, 10 classes)",
+                  "batch": MNIST_BATCH, **{k: v for k, v in runs.items()},
+                  "loss_max_abs_diff": mnist_diff,
+                  "params_max_abs_diff": mnist_params},
+        "csv": {"rows": CSV_ROWS, "cols": CSV_COLS,
+                "write_s": csv_write_s, "parse_csv_s": parse_s,
+                "native": native.available(),
+                "parse_equals_written": bool(parse_ok),
+                "mlp": "Dense 256 relu x2, softmax 10, Adam 1e-3",
+                "batch": CSV_BATCH, **csv_runs,
+                "losses_equal": csv_equal},
+        "kernel_launches": launches,
+        "seconds": time.perf_counter() - t_phase, "card": card}),
+        flush=True)
+    if not read_ok:
+        return None, "MnistDataSetIterator did not read the written IDX files"
+    if len(runs["host"]["losses"]) != MNIST_STEPS or mnist_diff or \
+            mnist_params or not all(map(math.isfinite,
+                                        runs["host"]["losses"])):
+        return None, (f"LeNet fed by the pipeline differs from host-fed: "
+                      f"losses {mnist_diff}, params {mnist_params}")
+    if not parse_ok:
+        return None, "parse_csv did not return the written records"
+    if not csv_equal or len(csv_runs["records"]["losses"]) != CSV_STEPS:
+        return None, (f"the record reader's MLP losses "
+                      f"{csv_runs['records']['losses']} differ from the "
+                      f"array-fed {csv_runs['arrays']['losses']}")
+    if any(launches.values()):
+        return None, f"phase 55 launched a kernel: {launches}"
+    return None, None
+
+
+def _blobs(seed):
+    """KM_POINTS x KM_DIM points around KM_K centers; the second half of
+    the blobs twice as wide."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((KM_K, KM_DIM)) * KM_BLOB_SCALE
+    which = rng.integers(0, KM_K, KM_POINTS)
+    width = np.where(which < KM_K // 2, 1.0, 2.0)[:, None]
+    return (centers[which] + width * rng.standard_normal(
+        (KM_POINTS, KM_DIM))).astype(np.float32)
+
+
+def _recorded(mod, name, log, keep=None):
+    """Replace ``mod.name`` by a wrapper that keeps ``(args, result)`` of
+    its calls (those numbered in ``keep``, or all) in the dict ``log`` by
+    call number; returns the original."""
+    real = getattr(mod, name)
+    calls = [0]
+
+    def wrapper(*a):
+        out = real(*a)
+        if keep is None or calls[0] in keep:
+            log[calls[0]] = (a, out)
+        calls[0] += 1
+        return out
+
+    setattr(mod, name, wrapper)
+    return real
+
+
+def _distance_tol(pts64) -> float:
+    """How far an f32 distance from the expansion |x|^2 - 2xc + |c|^2
+    can sit from the exact one: the cross term, a sum of D products,
+    rounds by up to D ulps of max|x|^2 (the standard bound), the two
+    norms by one each, and the square root turns an error e of d^2 near
+    0 into sqrt(e) (a center that IS a point, as a split or a reseed
+    makes it)."""
+    d = pts64.shape[1]
+    return math.sqrt((2 * d + 2) * 2.0 ** -24
+                     * float((pts64 ** 2).sum(1).max()))
+
+
+def _lloyd_errors(torch, pts64, pts_cpu, centers, assign, counts,
+                  new_centers, avg_d=None, max_d=None):
+    """One card Lloyd step against the CPU and float64 from its input
+    ``centers``: untied assignments differing from the CPU's, count
+    mismatches, the refreshed centers' error against the float64 means
+    over the card's own assignment (relative to the largest |center|),
+    and the per-cluster mean and max distances' absolute errors against
+    float64 over that assignment."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.clustering.neighbors import \
+        pairwise_distance
+    c = centers.cpu()
+    c64 = c.double().numpy()
+    a = assign.cpu()
+    want = torch.argmin(pairwise_distance(pts_cpu, c), dim=1)
+    diff = torch.nonzero(a != want)[:, 0].numpy()
+    a, want = a.numpy(), want.numpy()
+    p = pts64[diff]
+    gap = np.abs(np.linalg.norm(p - c64[a[diff]], axis=1)
+                 - np.linalg.norm(p - c64[want[diff]], axis=1))
+    k = len(c64)
+    n = np.bincount(a, minlength=k)
+    ta = torch.as_tensor(a)
+    sums = torch.zeros(c64.shape, dtype=torch.float64).index_add_(
+        0, ta, torch.as_tensor(pts64)).numpy()
+    live = n > 0
+    means = np.where(live[:, None], sums / np.maximum(n, 1)[:, None], c64)
+    out = {"differing": len(diff), "untied": int((gap > TOL_KM_TIE).sum()),
+           "counts_wrong": int((counts.cpu().numpy() != n).sum()),
+           "centers": float(np.abs(new_centers.cpu().double().numpy()
+                                   - means).max() / np.abs(c64).max())}
+    if avg_d is not None:
+        d = np.linalg.norm(pts64 - c64[a], axis=1)
+        avg = np.bincount(a, d, minlength=k) / np.maximum(n, 1)
+        mx = torch.zeros(k, dtype=torch.float64).scatter_reduce_(
+            0, ta, torch.as_tensor(d), "amax").numpy()
+        out["avg_distance"] = float(np.abs(avg_d.cpu().numpy() - avg).max())
+        out["max_distance"] = float(np.abs(max_d.cpu().numpy() - mx).max())
+    return out
+
+
+def clustering_phase(args, torch, dev, card):
+    """Phase 56.  Returns ``(None, None)`` or ``(None, what failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.clustering import (
+        BarnesHutTsne, BaseClusteringAlgorithm, ClusteringOptimizationType,
+        KMeans, OptimisationStrategy, Tsne)
+    from deeplearning4j_tpu_torch.clustering import algorithm as alg_mod
+    from deeplearning4j_tpu_torch.clustering import kmeans as km_mod
+    from deeplearning4j_tpu_torch.clustering import tsne as tsne_mod
+
+    t_phase = time.perf_counter()
+    pts = _blobs(args.seed + 56)
+    pts64 = pts.astype(np.float64)
+    pts_cpu = torch.as_tensor(pts)
+    tol_d = _distance_tol(pts64)
+    out, errs = {}, []
+
+    def worst(checks, key):
+        return max(c[key] for c in checks)
+
+    # KMeans: k-means++, then 20 Lloyd steps (tol 0: all 20 run)
+    steps = {}
+    real = _recorded(km_mod, "_lloyd_step", steps, set(KM_CHECKED_STEPS))
+    try:
+        t0 = time.perf_counter()
+        cs = KMeans(KM_K, max_iterations=KM_ITERS, tol=0.0, seed=args.seed,
+                    device=dev).fit(pts)
+        torch.cuda.synchronize()
+        km_s = time.perf_counter() - t0
+    finally:
+        km_mod._lloyd_step = real
+    checks = []
+    for i in sorted(steps):
+        (_, centers, _), (new_c, assign, counts, cost, far) = steps[i]
+        e = _lloyd_errors(torch, pts64, pts_cpu, centers, assign, counts,
+                          new_c)
+        c64 = centers.cpu().double().numpy()
+        a = assign.cpu().numpy()
+        d_cost = np.linalg.norm(pts64 - c64[a], axis=1).sum()
+        e["cost"] = abs(float(cost) - d_cost) / d_cost
+        checks.append(e)
+    out["kmeans"] = {"points": list(pts.shape), "k": KM_K,
+                     "iterations": cs.iterations, "cost": cs.cost,
+                     "seconds": km_s, "checked_steps": sorted(steps),
+                     "checks": checks}
+    if cs.iterations != KM_ITERS:
+        errs.append(f"KMeans ran {cs.iterations} iterations, not {KM_ITERS}")
+    if worst(checks, "untied") or worst(checks, "counts_wrong") or \
+            worst(checks, "centers") > TOL_KM_CENTERS or \
+            worst(checks, "cost") > TOL_KM_CENTERS:
+        errs.append(f"a KMeans step on the card differs from the CPU / "
+                    f"float64: {checks}")
+
+    # the strategy framework: split clusters whose mean distance > 16
+    steps = {}
+    real = _recorded(alg_mod, "_classify_and_refresh", steps)
+    try:
+        strat = OptimisationStrategy.setup(KM_K).optimize(
+            ClusteringOptimizationType
+            .MINIMIZE_AVERAGE_POINT_TO_CENTER_DISTANCE, KM_OPT_AVG)
+        strat.optimize_when_iteration_count_multiple_of(KM_OPT_PERIOD)
+        strat.end_when_iteration_count_equals(KM_OPT_ITERS)
+        algo = BaseClusteringAlgorithm.setup(
+            strat, seed=args.seed, max_iterations=KM_OPT_ITERS, device=dev)
+        t0 = time.perf_counter()
+        oc = algo.apply_to(pts)
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t0
+    finally:
+        alg_mod._classify_and_refresh = real
+    opt_checks = []
+    for (_, centers, _, _), res in (steps[0], steps[max(steps)]):
+        new_c, assign, counts, avg_d, max_d = res[:5]
+        opt_checks.append(_lloyd_errors(
+            torch, pts64, pts_cpu, centers, assign, counts, new_c,
+            avg_d=avg_d, max_d=max_d))
+    applied = sum(i.strategy_applied for i in algo.history.iterations.values())
+    out["optimisation_strategy"] = {
+        "target": f"MINIMIZE_AVERAGE_POINT_TO_CENTER_DISTANCE {KM_OPT_AVG}",
+        "clusters": [KM_K, len(oc.centers)], "iterations": oc.iterations,
+        "strategy_applied": applied, "cost": oc.cost, "seconds": opt_s,
+        "checks_first_and_last_step": opt_checks, "tol_distance": tol_d}
+    if applied == 0 or worst(opt_checks, "untied") or \
+            worst(opt_checks, "counts_wrong") or \
+            worst(opt_checks, "centers") > TOL_KM_CENTERS or \
+            max(worst(opt_checks, k) for k in
+                ("avg_distance", "max_distance")) > tol_d:
+        errs.append(f"the OptimisationStrategy run: {opt_checks}, "
+                    f"{applied} splits")
+
+    # exact t-SNE: 300 iterations on the card, checked steps on the CPU
+    rng = np.random.default_rng(args.seed + 560)
+    x = rng.standard_normal((TSNE_N, TSNE_DIM)).astype(np.float32)
+    cal, grads, updates = {}, {}, {}
+    keep = set(TSNE_CHECKED_STEPS)
+    reals = [(name, _recorded(tsne_mod, name, log, k)) for name, log, k in
+             (("_calibrate_p", cal, None), ("_tsne_grad_exact", grads, keep),
+              ("_gd_update", updates, keep))]
+    try:
+        ts = Tsne(perplexity=TSNE_PERPLEXITY, max_iter=TSNE_ITERS,
+                  seed=args.seed, device=dev)
+        t0 = time.perf_counter()
+        y_card = ts.fit(x)
+        torch.cuda.synchronize()
+        tsne_s = time.perf_counter() - t0
+    finally:
+        for name, real in reals:
+            setattr(tsne_mod, name, real)
+    (d2, perp), p_card = cal[0]
+    rows = np.arange(0, TSNE_N, TSNE_N // TSNE_CHECKED_ROWS)
+    p_cpu = tsne_mod._calibrate_p(d2[rows].cpu(), perp)
+    p_err = ((p_card[rows].cpu() - p_cpu).abs().max()
+             / p_cpu.max()).item()
+    t_checks = []
+    for i in TSNE_CHECKED_STEPS:
+        (y, p_eff), (g_card, kl_card) = grads[i]
+        g_cpu, kl_cpu = tsne_mod._tsne_grad_exact(y.cpu(), p_eff.cpu())
+        (y_u, g_u, vel, gains, lr, mom), y_next = updates[i]
+        u_cpu = tsne_mod._gd_update(y_u.cpu(), g_u.cpu(), vel.cpu(),
+                                    gains.cpu(), lr, mom)
+        t_checks.append({
+            "step": i,
+            "grad": ((g_card.cpu() - g_cpu).abs().max()
+                     / g_cpu.abs().max()).item(),
+            "kl": abs(float(kl_card) - float(kl_cpu)) / abs(float(kl_cpu)),
+            "update": max(((a.cpu() - b).abs().max()
+                           / b.abs().max().clamp(min=1e-30)).item()
+                          for a, b in zip(y_next, u_cpu))})
+    del cal, grads, updates, d2, p_card
+    yt = torch.as_tensor(y_card, device=dev)
+    pt = torch.full((TSNE_N, TSNE_N), 1.0 / TSNE_N ** 2, device=dev)
+    vel, gains = torch.zeros_like(yt), torch.ones_like(yt)
+
+    def step():
+        g, _ = tsne_mod._tsne_grad_exact(yt, pt)
+        tsne_mod._gd_update(yt, g, vel, gains, 100.0, 0.8)
+    step_ms = median_ms(step, torch, runs=10)
+    del pt
+    out["tsne_exact"] = {
+        "n": TSNE_N, "dim": TSNE_DIM, "perplexity": TSNE_PERPLEXITY,
+        "iterations": TSNE_ITERS, "kl": ts.kl_divergence,
+        "seconds": tsne_s, "step_ms": step_ms,
+        "p_rows_checked": len(rows), "p_max_rel_err": p_err,
+        "checked_steps": t_checks,
+        "tol": {"p": TOL_TSNE_P, "grad": TOL_TSNE_GRAD, "kl": TOL_TSNE_KL,
+                "update": TOL_TSNE_Y}}
+    if not (np.isfinite(y_card).all() and math.isfinite(ts.kl_divergence)):
+        errs.append("exact t-SNE gave a non-finite embedding or KL")
+    if p_err > TOL_TSNE_P or worst(t_checks, "grad") > TOL_TSNE_GRAD or \
+            worst(t_checks, "kl") > TOL_TSNE_KL or \
+            worst(t_checks, "update") > TOL_TSNE_Y:
+        errs.append(f"exact t-SNE on the card vs the CPU: P {p_err}, "
+                    f"steps {t_checks}")
+
+    # Barnes-Hut: kNN and calibration on the card, SPTree on the host
+    t0 = time.perf_counter()
+    bh = BarnesHutTsne(perplexity=TSNE_PERPLEXITY, max_iter=BH_ITERS,
+                       seed=args.seed, device=dev)
+    yb = bh.fit(x[:BH_N])
+    out["tsne_barnes_hut"] = {"n": BH_N, "iterations": BH_ITERS,
+                              "kl": bh.kl_divergence,
+                              "seconds": time.perf_counter() - t0}
+    if not (np.isfinite(yb).all() and math.isfinite(bh.kl_divergence)):
+        errs.append("Barnes-Hut t-SNE gave a non-finite embedding or KL")
+    print(json.dumps({"phase": "clustering", **out,
+                      "seconds": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return None, (errs[0] if errs else None)
+
+
+def pipeline_data_clustering_phases(args, torch, dev, card):
+    """Phases 54-56.  Returns ``(bn_apply launches per step of phase 54's
+    pipeline run, None)`` or ``(None, what failed)``."""
+    t0 = time.perf_counter()
+    launches, err = cifar_pipeline_phase(args, torch, dev, card)
+    if err:
+        return None, err
+    torch.cuda.empty_cache()
+    for phase in (mnist_records_phase, clustering_phase):
+        _, err = phase(args, torch, dev, card)
+        if err:
+            return None, err
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "pipeline_data_clustering_seconds",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return launches, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8261,6 +9212,13 @@ def main(argv=None) -> int:
     if err:
         return fail(err)
 
+    # ---- 54-56. the input pipeline, the data readers, clustering -------
+    torch.cuda.empty_cache()
+    pipe_launches, err = pipeline_data_clustering_phases(args, torch, dev,
+                                                         card)
+    if err:
+        return fail(err)
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -8320,6 +9278,7 @@ def main(argv=None) -> int:
         keras_launches["bn"]
     bn_record["launches_tiny_yolo_step"] = yolo_launches["step"]
     bn_record["launches_tiny_yolo_serve"] = yolo_launches["serve"]
+    bn_record["launches_cifar_pipeline_resnet50_per_step"] = pipe_launches
     lstm_record["launches_early_stop_lstm"] = slice_launches["es"]
     lstm_record["launches_loss_scale_f16_tbptt"] = f16_launches["lstm"]
     lstm_record["launches_hot_swap_under_load"] = swap_launches

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.pipeline import ETL_BUCKETS as _ETL_BUCKETS
 from ..observability.clock import monotonic_s, wall_s
 from ..observability.registry import default_registry
 from ..utils import _random, global_batch
@@ -51,9 +52,6 @@ log = logging.getLogger("deeplearning4j_tpu_torch.nn")
 # first steps (kernel builds) in the "compile" phase series
 _STEP_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                  0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
-# time blocked on the data pipeline per batch (the JAX package's
-# data/pipeline.ETL_BUCKETS)
-_ETL_BUCKETS = _STEP_BUCKETS
 
 
 def hyperparam_conf(lc: Optional[LayerConf]) -> Optional[BaseLayerConf]:

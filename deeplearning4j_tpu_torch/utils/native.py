@@ -1,13 +1,16 @@
-"""ctypes loader for the host gradient codec (port of the codec half of
-``utils/native.py``): ``csrc/host_codec.cpp``, built with g++ at first use
-into ``build/native/`` at the repository root (or
+"""ctypes loader for the host codecs (port of ``utils/native.py``, less
+``index_corpus``, which serves ``nlp``): ``csrc/host_codec.cpp``, built
+with g++ at first use into ``build/native/`` at the repository root (or
 ``$DL4J_TPU_TORCH_NATIVE_BUILD_DIR``) and cached.
 
-Every entry point has a NumPy twin, used where the library cannot be
-built or loaded (no g++, a read-only tree), exactly as the JAX
-package's loader does; ``available()`` reports which path is active.
-The native path releases the GIL while it encodes, so worker threads
-overlap their codec work.
+The gradient codec (threshold and bitmap encode/decode) serves the
+training masters; the decodes (``u8_to_f32``, ``decode_cifar``,
+``parse_csv``) serve the data readers.  Every entry point has a NumPy
+twin, used where the library cannot be built or loaded (no g++, a
+read-only tree), exactly as the JAX package's loader does, or where the
+caller passes ``use_native=False``; ``available()`` reports which path
+is active.  The native path releases the GIL while it runs, so worker
+threads overlap their codec and decode work.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 __all__ = ["available", "threshold_encode_native", "threshold_decode_native",
-           "bitmap_encode_native", "bitmap_decode_native"]
+           "bitmap_encode_native", "bitmap_decode_native", "decode_cifar",
+           "u8_to_f32", "parse_csv"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -81,6 +85,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dl4j_bitmap_decode.restype = None
     lib.dl4j_bitmap_decode.argtypes = [
         _u8, ctypes.c_int64, ctypes.c_float, _f32]
+    lib.dl4j_u8_to_f32.restype = None
+    lib.dl4j_u8_to_f32.argtypes = [_u8, ctypes.c_int64, ctypes.c_float,
+                                   _f32]
+    lib.dl4j_decode_cifar.restype = None
+    lib.dl4j_decode_cifar.argtypes = [_u8, ctypes.c_int64, ctypes.c_float,
+                                      _i32, _f32]
+    lib.dl4j_parse_csv.restype = ctypes.c_int64
+    lib.dl4j_parse_csv.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_char, _f32,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -184,3 +198,61 @@ def bitmap_decode_native(packed: np.ndarray, threshold: float, n: int, *,
     codes = quads.reshape(-1)[:n]
     return np.where(codes == 1, threshold,
                     np.where(codes == 2, -threshold, 0.0)).astype(np.float32)
+
+
+def u8_to_f32(data: np.ndarray, scale: float = 1.0 / 255.0, *,
+              use_native: bool = True) -> np.ndarray:
+    """u8 array -> f32 of the same shape, times ``scale``."""
+    data = np.ascontiguousarray(data, np.uint8)
+    lib = _load() if use_native else None
+    if lib is not None:
+        out = np.empty(data.size, np.float32)
+        lib.dl4j_u8_to_f32(data.reshape(-1), data.size, scale, out)
+        return out.reshape(data.shape)
+    return data.astype(np.float32) * scale
+
+
+def decode_cifar(raw: bytes, scale: float = 1.0 / 255.0, *,
+                 use_native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """CIFAR binary batch -> (labels int32[n], images f32 NHWC [n,32,32,3])."""
+    buf = np.frombuffer(raw, np.uint8)
+    if buf.size % 3073:
+        raise ValueError("CIFAR batch not a multiple of 3073 bytes")
+    n = buf.size // 3073
+    lib = _load() if use_native else None
+    if lib is not None:
+        labels = np.empty(n, np.int32)
+        images = np.empty(n * 3072, np.float32)
+        lib.dl4j_decode_cifar(np.ascontiguousarray(buf), n, scale, labels,
+                              images)
+        return labels, images.reshape(n, 32, 32, 3)
+    rec = buf.reshape(n, 3073)
+    labels = rec[:, 0].astype(np.int32)
+    chw = rec[:, 1:].reshape(n, 3, 32, 32)
+    return labels, chw.transpose(0, 2, 3, 1).astype(np.float32) * scale
+
+
+def parse_csv(text: bytes, delimiter: str = ",", *,
+              use_native: bool = True) -> np.ndarray:
+    """ASCII float CSV -> [rows, cols] f32.  Both paths take the same
+    strict grammar (one value between delimiters, rows of one width) and
+    raise ``ValueError`` on what it rejects."""
+    if isinstance(text, str):
+        text = text.encode()
+    lib = _load() if use_native else None
+    if lib is not None:
+        max_out = max(len(text) // 2 + 16, 64)  # >= one value per 2 chars
+        out = np.empty(max_out, np.float32)
+        ncols = ctypes.c_int64(0)
+        nvals = lib.dl4j_parse_csv(text, len(text),
+                                   delimiter.encode()[0], out, max_out,
+                                   ctypes.byref(ncols))
+        if nvals < 0:
+            raise ValueError("malformed CSV (native parser)")
+        c = ncols.value
+        if c == 0:
+            return np.empty((0, 0), np.float32)
+        return out[:nvals].reshape(-1, c).copy()
+    rows = [r for r in text.decode().splitlines() if r.strip()]
+    return np.asarray([[float(v) for v in r.split(delimiter)] for r in rows],
+                      np.float32)
