@@ -444,7 +444,36 @@ if any phase fails:
     KL and update of steps 0, 260 and 299 against the CPU from the
     card's inputs (``TOL_TSNE_*``); ``BarnesHutTsne`` at n 1,000 for 20
     iterations (kNN and calibration on the card, the SPTree on the
-    host).  Phases 54-56 print their seconds together.
+    host).  Phases 54-56 print their seconds together;
+57. ``word2vec``: the JAX package's ``word2vec_words_per_sec``
+    configuration (its ``utils/benchmarks.py``: 20,000 Zipf(1.3)
+    sentences of 20 words over 5,000 words, skip-gram NS, layer 128,
+    window 5, negative 5, seed 1, one epoch) through ``Word2Vec`` on the
+    card, the bulk path with the native ``index_corpus`` (the library
+    must build), the process's TF32 switch on: a cold fit and the median
+    of 3 re-fits (words/s, each clock closed by a sync), every re-fit's
+    tables bitwise equal to the first; a profiled fit (kernel launches a
+    dispatch block, the card's busy share); the first block re-run whole
+    on the card (bitwise) and its first ``W2V_TWIN_STEPS`` steps against
+    the CPU in f32 and f64 (within ``W2V_FLOOR_K`` times the f32 floor);
+    ``_table_add``'s dense and scatter branches timed at this shape; then
+    CBOW-NS, skip-gram HS, CBOW HS, PV-DBOW, PV-DM with ``infer_vector``
+    and GloVe on a cut of the corpus, each against its CPU twins the same
+    way; and a fit of ~71,000 words at layer 300 on the scatter branch
+    (distinct words counted first), fitted twice (bitwise) and its first
+    block held the same way;
+58. ``word2vec_processes``: ``Word2VecProcessMaster`` with 2 worker
+    processes on the card against ``train_word2vec_distributed``'s
+    threads (``TOL_W2V_WORKERS``), no JAX or JAX-package module in any
+    worker; a full model written and read back resumes training to the
+    bits of the model it was written from; the text and binary vector
+    files read back;
+59. ``deepwalk``: DeepWalk (one walk a vertex) and Node2Vec (walks from
+    the first ``N2V_START_VERTICES`` start vertices) on a seeded
+    synthetic graph of BlogCatalog's size (10,312 vertices, 333,983
+    edges), walk length 40, window 10, layer 128: words/s, HS blocks,
+    launches a block, busy share.  Phases 57-59 print their seconds
+    together.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -8687,6 +8716,622 @@ def pipeline_data_clustering_phases(args, torch, dev, card):
     return launches, None
 
 
+# ---- 57-59: the embedding family (nlp/, graph/) -------------------------
+# 57: the repo's own word2vec_words_per_sec configuration (the JAX
+# package's utils/benchmarks.py:162): 20,000 Zipf(1.3) sentences of 20
+# words over a 5,000-word vocabulary (_zipf_sentences, seed 0), skip-gram
+# NS, layer 128, window 5, negative 5, seed 1, one epoch, through the bulk
+# path with the native index_corpus.
+W2V_VOCAB, W2V_SENTS, W2V_LEN = 5000, 20000, 20
+W2V_KW = dict(layer_size=128, window=5, negative=5, epochs=1, seed=1,
+              min_word_frequency=1)
+W2V_STEADY_RUNS = 3
+# The benchmark's corpus gives w0 a quarter of all tokens, so a step of
+# 512 rows sums ~400 stale updates into its rows: the first block grows
+# unstable after ~100 of its 256 steps in both packages (the JAX package's
+# tables reach |x| ~ 4e5 by its end, f32 and f64 runs of the same inputs
+# part by 2e-4 at step 96 and by 25 at step 128, measured on the CPU).
+# The block is held against its CPU twin over its first W2V_TWIN_STEPS
+# steps, where f32 rounding (~6e-6) is what separates the runs, and is
+# re-run whole on the card, which must give the fit's bits.
+W2V_TWIN_STEPS = 64
+# A card fit or block against its CPU twin (f32, the scatter branch: the
+# duplicate sums in another order than the card's one-hot product) is
+# gated at W2V_FLOOR_K times the f32 rounding floor of the same run, the
+# CPU twin's distance from a float64 twin of the same inputs (the f32
+# deviations of two f32 runs from the f64 one add up to at most ~2x the
+# larger), and never below one f32 ulp of the largest entry.
+W2V_FLOOR_K = 4.0
+# the smaller fits (CBOW-NS, skip-gram HS, CBOW HS, PV-DBOW, PV-DM with
+# infer_vector) on the first sentences of the same corpus, GloVe on fewer
+# (its cooccurrence count is a host dict)
+W2V_SMALL_SENTS, GLOVE_SENTS = 1000, 300
+# one fit whose vocabulary takes _table_add's scatter branch (V > 65,536)
+# at the Google News vectors' width: half of the tokens Zipf(1.3) as
+# above, half uniform over BIG_UNIFORM words, so that nearly every word
+# of the uniform half occurs (~4 times each)
+BIG_UNIFORM, BIG_SENTS, BIG_LAYER = 72000, 30000, 300
+# 58: two worker processes on the card against the thread version
+W2V_MP_SENTS = 4000
+# both averages are the mean of the same two shard fits, each run on the
+# card by the same deterministic steps (threads in this process, or a
+# worker process each): 2e-6, the CPU tests' JAX-vs-port bound, leaves
+# room for a different cuBLAS choice in another process
+TOL_W2V_WORKERS = 2e-6
+# 59: a seeded synthetic graph of BlogCatalog's size (DeepWalk paper
+# section 6.1: 10,312 vertices, 333,983 edges), endpoints drawn with
+# probability ~ rank^-0.5 (max degree ~3,300; BlogCatalog's is 3,992),
+# walk length 40, window 10, layer 128.  DeepWalk takes one walk per
+# vertex (the paper: 80); Node2Vec walks from the first N2V_START_VERTICES
+# start vertices of its pass (its second-order step is host work).
+BLOG_N, BLOG_M, BLOG_EXPONENT = 10312, 333983, 0.5
+BLOG_WALK, BLOG_WINDOW, BLOG_LAYER = 40, 10, 128
+N2V_START_VERTICES, N2V_P, N2V_Q = 1000, 1.0, 0.5
+
+
+def _zipf_ids(rng, vocab, n):
+    import numpy as np
+    return np.clip(rng.zipf(1.3, size=n), 1, vocab) - 1
+
+
+def zipf_sentences(vocab, n_sent, sent_len):
+    """The JAX package's benchmark corpus (``utils/benchmarks.py``
+    ``_zipf_sentences``): the same sentences."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    toks = ["w%d" % i for i in _zipf_ids(rng, vocab, n_sent * sent_len)]
+    return [" ".join(toks[i * sent_len:(i + 1) * sent_len])
+            for i in range(n_sent)]
+
+
+def _big_vocab_sentences(seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = BIG_SENTS * W2V_LEN
+    ids = np.where(rng.random(n) < 0.5, _zipf_ids(rng, W2V_VOCAB, n),
+                   rng.integers(0, BIG_UNIFORM, n))
+    toks = ["w%d" % i for i in ids]
+    return [" ".join(toks[i * W2V_LEN:(i + 1) * W2V_LEN])
+            for i in range(BIG_SENTS)]
+
+
+class _BlockTap:
+    """Wraps an S-step function of ``nlp/sequence_vectors``: counts its
+    calls (the dispatch blocks) and, while ``capture`` is set, keeps host
+    copies of the first call's arguments (taken before the call, which
+    updates the tables in place) and results."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name = mod, name
+        self.real = getattr(mod, name)
+        self.calls, self.capture, self.first = 0, False, None
+        setattr(mod, name, self)
+
+    def __call__(self, *a, **k):
+        keep = self.capture and self.first is None
+        if keep:
+            args = [x.cpu().clone() if hasattr(x, "cpu") else x for x in a]
+        out = self.real(*a, **k)
+        if keep:
+            self.first = (args, dict(k), [t.cpu().clone() for t in out])
+        self.calls += 1
+        return out
+
+    def restore(self):
+        setattr(self.mod, self.name, self.real)
+
+
+class _ScatterBranch:
+    """``_table_add`` on its scatter branch for the ``with`` body."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.nlp import elements
+        self.prev = elements._DENSE_TABLE_MAX_V
+        elements._DENSE_TABLE_MAX_V = 0
+
+    def __exit__(self, *exc):
+        from deeplearning4j_tpu_torch.nlp import elements
+        elements._DENSE_TABLE_MAX_V = self.prev
+
+
+def _tables(model):
+    lt = model.lookup_table
+    return {n: getattr(lt, n).detach().cpu().clone()
+            for n in ("syn0", "syn1", "syn1neg")
+            if getattr(lt, n) is not None}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[n].double() - b[n].double()).abs().max()) for n in a)
+
+
+def _floor_gate(cpu32: dict, cpu64: dict) -> float:
+    floor = _max_diff(cpu32, cpu64)
+    top = max(float(t.abs().max()) for t in cpu64.values())
+    return max(W2V_FLOOR_K * floor, 2.0 ** -23 * top), floor
+
+
+def _block_twin(torch, tap, dev):
+    """The first captured block: re-run whole on the card (its bits must
+    be the fit's), and its first W2V_TWIN_STEPS steps on the card beside
+    the CPU, f32 and f64, on the scatter branch."""
+    args, kw, out = tap.first
+    names = [f"t{i}" for i in range(len(out))]
+
+    def run(device, dtype, steps):
+        a = [x.to(device) if hasattr(x, "to") else x for x in args]
+        for i in range(len(out)):
+            a[i] = a[i].to(dtype).clone()
+        if device == "cpu":
+            with _ScatterBranch():
+                res = tap.real(*a, **dict(kw, active=steps))
+        else:
+            res = tap.real(*a, **dict(kw, active=steps))
+        return dict(zip(names, (r.cpu() for r in res)))
+    whole = run(dev, torch.float32, None)
+    same = all(torch.equal(whole[n], o) for n, o in zip(names, out))
+    card = run(dev, torch.float32, W2V_TWIN_STEPS)
+    cpu32 = run("cpu", torch.float32, W2V_TWIN_STEPS)
+    cpu64 = run("cpu", torch.float64, W2V_TWIN_STEPS)
+    gate, floor = _floor_gate(cpu32, cpu64)
+    return {"steps": int(args[3].shape[0]), "rows_per_step":
+            int(args[3].shape[1]), "rerun_bitwise_equal": same,
+            "twin_steps": W2V_TWIN_STEPS,
+            "max_abs_err": _max_diff(card, cpu32), "gate": gate,
+            "f32_floor": floor}
+
+
+def _to_f64(model):
+    lt = model.lookup_table
+    for n in ("syn0", "syn1", "syn1neg"):
+        if getattr(lt, n) is not None:
+            setattr(lt, n, getattr(lt, n).double())
+
+
+def _kernel_spans(prof):
+    """(kernel launches, busy microseconds) of a card-only trace: the
+    kernels counted, the union of kernel and copy intervals summed."""
+    spans, kernels = [], 0
+    for ev in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(ev.device_type()):
+            continue
+        spans.append((ev.start_ns() / 1e3, ev.end_ns() / 1e3))
+        name = ev.name().lower()
+        if "memcpy" not in name and "memset" not in name:
+            kernels += 1
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return kernels, busy
+
+
+def _timed_fit(torch, model):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _profiled_fit(torch, model, tap):
+    """One more fit under a card-only ``torch.profiler`` trace: kernel
+    launches per dispatch block and the card's busy share of the fit."""
+    from torch.profiler import ProfilerActivity, profile
+    model.lookup_table.reset_weights()
+    torch.cuda.synchronize()
+    calls = tap.calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = _timed_fit(torch, model)
+    blocks = tap.calls - calls
+    kernels, busy_us = _kernel_spans(prof)
+    return {"blocks": blocks, "launches_per_block": kernels / max(blocks, 1),
+            "busy_share": busy_us / 1e6 / wall, "profiled_wall_s": wall}
+
+
+def _twin_fit(torch, make, dev, words, infer_text=None):
+    """A fit on the card (timed) beside its CPU twins: f32 on the scatter
+    branch and f64.  ``make(device)`` builds the unfitted model."""
+    card = make(dev)
+    card.build_vocab()
+    wall = _timed_fit(torch, card)
+    res = {"words_per_sec": words / wall, "seconds": wall,
+           "vocab": card.vocab.num_words()}
+    twins = {}
+    for dtype in ("float32", "float64"):
+        m = make("cpu")
+        m.build_vocab()
+        if dtype == "float64":
+            _to_f64(m)
+        with _ScatterBranch():
+            m.fit()
+        twins[dtype] = m
+    t_card = _tables(card)
+    t32, t64 = _tables(twins["float32"]), _tables(twins["float64"])
+    gate, floor = _floor_gate(t32, t64)
+    res.update(max_abs_err=_max_diff(t_card, t32), gate=gate, f32_floor=floor)
+    ok = res["max_abs_err"] <= gate
+    if infer_text is not None:
+        import numpy as np
+        v = {k: m.infer_vector(infer_text) for k, m in
+             (("card", card), ("cpu32", twins["float32"]),
+              ("cpu64", twins["float64"]))}
+        err = float(np.abs(v["card"] - v["cpu32"]).max())
+        vfloor = float(np.abs(v["cpu32"] - v["cpu64"]).max())
+        vgate = max(W2V_FLOOR_K * vfloor,
+                    2.0 ** -23 * float(np.abs(v["cpu64"]).max()))
+        res["infer_vector"] = {"max_abs_err": err, "gate": vgate,
+                               "finite": bool(np.isfinite(v["card"]).all())}
+        ok = ok and err <= vgate and res["infer_vector"]["finite"]
+    return res, ok
+
+
+def _glove_twin(torch, sents, dev, seed):
+    from deeplearning4j_tpu_torch.nlp import Glove
+    out = {}
+    for name, device, dtype in (("card", dev, torch.float32),
+                                ("cpu32", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+        g = Glove(sentences=sents, layer_size=W2V_KW["layer_size"],
+                  window=W2V_KW["window"], epochs=5, seed=seed,
+                  dtype=dtype, device=device)
+        wall = _timed_fit(torch, g)
+        out[name] = ({"syn0": g.lookup_table.syn0.cpu()}, wall)
+    gate, floor = _floor_gate(out["cpu32"][0], out["cpu64"][0])
+    err = _max_diff(out["card"][0], out["cpu32"][0])
+    words = sum(len(s.split()) for s in sents) * 5
+    return ({"words_per_sec": words / out["card"][1], "max_abs_err": err,
+             "gate": gate, "f32_floor": floor}, err <= gate)
+
+
+def _table_add_times(torch, dev, vocab, table, rows):
+    """``_table_add`` on both branches at the main fit's shape: syn1neg's
+    update (B rows x (K + 1) negatives, idx drawn from the unigram table)
+    and syn0's (B rows)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import elements
+    rng = np.random.default_rng(57)
+    d = W2V_KW["layer_size"]
+    tab = torch.zeros((vocab, d), device=dev)
+    out = {}
+    for what, n in (("syn1neg", rows * (W2V_KW["negative"] + 1)),
+                    ("syn0", rows)):
+        idx = torch.as_tensor(table[rng.integers(0, len(table), n)],
+                              device=dev).long()
+        upd = torch.randn((n, d), device=dev) * 1e-3
+        dense = median_ms(lambda: elements._table_add(tab, idx, upd), torch)
+        with _ScatterBranch():
+            scatter = median_ms(lambda: elements._table_add(tab, idx, upd),
+                                torch)
+        out[what] = {"rows": n, "dense_ms": dense, "scatter_ms": scatter}
+    return out
+
+
+def word2vec_phase(args, torch, dev, card):
+    """Phase 57.  Returns ``(None, None)`` or ``(None, what failed)``.
+    Runs with the process's TF32 switch ON, as a user's process may set
+    it: the one-hot products must keep f32 on their own."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return _word2vec_runs(args, torch, dev, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _word2vec_runs(args, torch, dev, card):
+    from deeplearning4j_tpu_torch.nlp import (LabelledDocument,
+                                              ParagraphVectors, Word2Vec)
+    from deeplearning4j_tpu_torch.nlp import sequence_vectors as sv
+    from deeplearning4j_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        return None, "the native corpus indexer (csrc/host_codec.cpp) " \
+                     "did not build"
+    sents = zipf_sentences(W2V_VOCAB, W2V_SENTS, W2V_LEN)
+    words = W2V_SENTS * W2V_LEN * W2V_KW["epochs"]
+    out, errs = {"corpus_words": words}, []
+    tap = _BlockTap(sv, "skipgram_steps_ns")
+    try:
+        model = Word2Vec(sentences=sents, device=dev, **W2V_KW)
+        model.build_vocab()
+        if model._try_native_index(model.vocab.index_map()) is None:
+            return None, "the bulk path did not take the native index"
+        tap.capture = True
+        cold = _timed_fit(torch, model)
+        tap.capture = False
+        first = _tables(model)
+        same = True
+        rates = []
+        for _ in range(W2V_STEADY_RUNS):
+            model.lookup_table.reset_weights()
+            rates.append(words / _timed_fit(torch, model))
+            again = _tables(model)
+            same = same and all(torch.equal(first[n], again[n])
+                                for n in first)
+        out.update(cold_words_per_sec=words / cold,
+                   steady_words_per_sec=statistics.median(rates),
+                   steady_runs=rates, vocab=model.vocab.num_words(),
+                   rows_per_step=model._rows_per_step(),
+                   refits_bitwise_equal=same)
+        out.update(_profiled_fit(torch, model, tap))
+        blk = out["first_block"] = _block_twin(torch, tap, dev)
+        out["table_add"] = _table_add_times(
+            torch, dev, model.vocab.num_words(), model.lookup_table.table,
+            model._rows_per_step())
+        if not same:
+            errs.append("re-fits of the same seed gave different tables")
+        if blk["max_abs_err"] > blk["gate"] or not blk["rerun_bitwise_equal"]:
+            errs.append(f"first block vs its CPU twin or its re-run: {blk}")
+        if not all(torch.isfinite(t).all() for t in first.values()):
+            errs.append("word2vec tables are not finite")
+    finally:
+        tap.restore()
+
+    # the other bulk paths, each beside its CPU twins
+    small = sents[:W2V_SMALL_SENTS]
+    small_words = len(small) * W2V_LEN
+    docs = [LabelledDocument(s, ["DOC_%d" % i]) for i, s in enumerate(small)]
+    fits = {
+        "cbow_ns": lambda d: Word2Vec(sentences=small, device=d,
+                                      elements_algorithm="cbow", **W2V_KW),
+        "skipgram_hs": lambda d: Word2Vec(
+            sentences=small, device=d, **dict(W2V_KW, negative=0),
+            use_hierarchic_softmax=True),
+        "cbow_hs": lambda d: Word2Vec(
+            sentences=small, device=d, **dict(W2V_KW, negative=0),
+            use_hierarchic_softmax=True, elements_algorithm="cbow"),
+        "pv_dbow": lambda d: ParagraphVectors(
+            documents=docs, device=d, sequence_algorithm="dbow", **W2V_KW),
+        "pv_dm": lambda d: ParagraphVectors(
+            documents=docs, device=d, sequence_algorithm="dm", **W2V_KW),
+    }
+    for name, make in fits.items():
+        res, ok = _twin_fit(torch, make, dev, small_words,
+                            infer_text=small[7] if name == "pv_dm" else None)
+        out[name] = res
+        if not ok:
+            errs.append(f"{name} vs its CPU twin: {res}")
+    res, ok = _glove_twin(torch, sents[:GLOVE_SENTS], dev, W2V_KW["seed"])
+    out["glove"] = res
+    if not ok:
+        errs.append(f"glove vs its CPU twin: {res}")
+
+    # the scatter branch at a vocabulary above _DENSE_TABLE_MAX_V
+    big = _big_vocab_sentences(args.seed + 57)
+    distinct = len({t for s in big for t in s.split()})
+    big_kw = dict(W2V_KW, layer_size=BIG_LAYER)
+    tap = _BlockTap(sv, "skipgram_steps_ns")
+    try:
+        m = Word2Vec(sentences=big, device=dev, **big_kw)
+        m.build_vocab()
+        tap.capture = True
+        wall = _timed_fit(torch, m)
+        tap.capture = False
+        t1 = _tables(m)
+        m.lookup_table.reset_weights()
+        _timed_fit(torch, m)
+        same = all(torch.equal(t1[n], v) for n, v in _tables(m).items())
+        blk = _block_twin(torch, tap, dev)
+    finally:
+        tap.restore()
+    from deeplearning4j_tpu_torch.nlp import elements
+    out["scatter_fit"] = {
+        "distinct_words": distinct, "vocab": m.vocab.num_words(),
+        "layer_size": BIG_LAYER, "corpus_words": BIG_SENTS * W2V_LEN,
+        "branch": "scatter" if m.vocab.num_words()
+        > elements._DENSE_TABLE_MAX_V else "dense",
+        "words_per_sec": BIG_SENTS * W2V_LEN / wall, "seconds": wall,
+        "refit_bitwise_equal": same, "first_block": blk}
+    if out["scatter_fit"]["branch"] != "scatter":
+        errs.append(f"the large vocabulary ({distinct} words) did not take "
+                    "the scatter branch")
+    if not same:
+        errs.append("two fits on the scatter branch gave different tables")
+    if blk["max_abs_err"] > blk["gate"] or not blk["rerun_bitwise_equal"]:
+        errs.append(f"scatter fit's first block vs its CPU twin or its "
+                    f"re-run: {blk}")
+    print(json.dumps({"phase": "word2vec", **out,
+                      "seconds": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return None, (errs[0] if errs else None)
+
+
+def word2vec_processes_phase(args, torch, dev, card):
+    """Phase 58.  Returns ``(None, None)`` or ``(None, what failed)``."""
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import (CollectionSentenceIterator,
+                                              Word2Vec, read_binary,
+                                              read_full_model,
+                                              read_word_vectors, write_binary,
+                                              write_full_model,
+                                              write_word_vectors)
+    from deeplearning4j_tpu_torch.nlp.distributed_vectors import (
+        Word2VecProcessMaster, train_word2vec_distributed)
+
+    t_phase = time.perf_counter()
+    sents = zipf_sentences(W2V_VOCAB, W2V_SENTS, W2V_LEN)
+    shard, more = sents[:W2V_MP_SENTS], sents[W2V_MP_SENTS:2 * W2V_MP_SENTS]
+    out, errs = {}, []
+    t0 = time.perf_counter()
+    threads = train_word2vec_distributed(shard, num_workers=2, device=dev,
+                                         **W2V_KW)
+    torch.cuda.synchronize()
+    out["threads_seconds"] = time.perf_counter() - t0
+    model = Word2Vec(sentences=shard, device=dev, **W2V_KW)
+    master = Word2VecProcessMaster(num_workers=2, timeout=600.0)
+    with tempfile.TemporaryDirectory() as jobdir:
+        t0 = time.perf_counter()
+        master.fit(model, jobdir=jobdir)
+        out["processes_seconds"] = time.perf_counter() - t0
+    diff = _max_diff(_tables(model), _tables(threads))
+    results = master.last_results
+    foreign = sorted({p for r in results for p in r["packages"]}
+                     & {"jax", "jaxlib", "deeplearning4j_tpu"})
+    out.update(workers=[{"wid": r["wid"], "device": r["device"],
+                         "words_per_sec": r["words_per_sec"]}
+                        for r in results],
+               max_abs_err_vs_threads=diff, tol=TOL_W2V_WORKERS,
+               foreign_packages_in_workers=foreign)
+    if diff > TOL_W2V_WORKERS:
+        errs.append(f"process workers vs threads {diff}")
+    if foreign or not all(r["device"].startswith("cuda") for r in results):
+        errs.append(f"a worker ran off the card or loaded {foreign}")
+
+    # the formats: a full model resumes training as the model it was
+    # written from; the text and binary vectors read back
+    with tempfile.TemporaryDirectory() as d:
+        full = os.path.join(d, "w2v.zip")
+        write_full_model(threads, full)
+        back = read_full_model(full, device=dev)
+        for m in (threads, back):
+            m.sentence_iterator = CollectionSentenceIterator(more)
+            m.fit()
+        resumed = _max_diff(_tables(back), _tables(threads))
+        write_word_vectors(threads, os.path.join(d, "v.txt"))
+        write_binary(threads, os.path.join(d, "v.bin"))
+        syn0 = threads.lookup_table.syn0.cpu().numpy()
+        txt = read_word_vectors(os.path.join(d, "v.txt"), device=dev)
+        binf = read_binary(os.path.join(d, "v.bin"), device=dev)
+        txt_err = float(np.abs(txt.lookup_table.syn0.cpu().numpy()
+                               - syn0).max())
+        bin_same = bool((binf.lookup_table.syn0.cpu().numpy() == syn0).all())
+    out.update(full_model_resume_max_abs_err=resumed,
+               text_max_abs_err=txt_err, binary_bitwise_equal=bin_same)
+    # the text format prints 6 decimals (half a unit of the last) and
+    # reads them back into f32 (half an ulp of the entry)
+    txt_tol = 5e-7 + 2.0 ** -23 * float(np.abs(syn0).max())
+    out["text_tol"] = txt_tol
+    if resumed != 0.0 or txt_err > txt_tol or not bin_same:
+        errs.append(f"formats: resume {resumed}, text {txt_err}, binary "
+                    f"{bin_same}")
+    print(json.dumps({"phase": "word2vec_processes", **out,
+                      "seconds": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return None, (errs[0] if errs else None)
+
+
+def blog_graph(seed):
+    """The synthetic BlogCatalog-sized graph (see BLOG_*)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph import Graph
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, BLOG_N + 1) ** BLOG_EXPONENT
+    w /= w.sum()
+    perm = rng.permutation(BLOG_N)
+    src = perm[rng.choice(BLOG_N, size=BLOG_M, p=w)]
+    dst = perm[rng.choice(BLOG_N, size=BLOG_M, p=w)]
+    g = Graph(BLOG_N)
+    for a, b in zip(src.tolist(), dst.tolist()):
+        g.add_edge(a, b)
+    return g
+
+
+class _FirstWalks:
+    """The first ``n`` walks of each pass of a walk iterator."""
+
+    def __init__(self, walks, n):
+        self.walks, self.n = walks, n
+
+    def __iter__(self):
+        import itertools
+        return itertools.islice(iter(self.walks), self.n)
+
+
+def deepwalk_phase(args, torch, dev, card):
+    """Phase 59.  Returns ``(None, None)`` or ``(None, what failed)``."""
+    from deeplearning4j_tpu_torch.graph import (DeepWalk, Node2Vec,
+                                                Node2VecWalkIterator,
+                                                RandomWalkIterator)
+    from deeplearning4j_tpu_torch.nlp import sequence_vectors as sv
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    g = blog_graph(args.seed + 59)
+    deg = g.degrees()
+    out = {"graph": {"vertices": g.num_vertices(), "edges": BLOG_M,
+                     "max_degree": int(deg.max()),
+                     "build_seconds": time.perf_counter() - t0},
+           "walk_length": BLOG_WALK, "window": BLOG_WINDOW,
+           "layer_size": BLOG_LAYER}
+    errs = []
+    tap = _BlockTap(sv, "skipgram_steps_hs")
+    try:
+        dw = DeepWalk(vector_size=BLOG_LAYER, window_size=BLOG_WINDOW,
+                      seed=args.seed, device=dev)
+        dw.initialize(g)
+        before = dw.lookup_table.syn0.clone()
+        res = _profiled_walk_fit(torch, dw, tap, RandomWalkIterator(
+            g, BLOG_WALK, seed=args.seed))
+        res.update(walks_per_vertex=1, walks_per_vertex_published=80,
+                   words=BLOG_N * (BLOG_WALK + 1),
+                   code_length_max=max(vw.code_length
+                                       for vw in dw.vocab.vocab_words()))
+        res["words_per_sec"] = res["words"] / res["seconds"]
+        out["deepwalk"] = res
+        moved = float((dw.lookup_table.syn0 - before).abs().max())
+        if not (torch.isfinite(dw.lookup_table.syn0).all() and moved > 0):
+            errs.append("DeepWalk's vectors are not finite or did not move")
+        n2v = Node2Vec(vector_size=BLOG_LAYER, window_size=BLOG_WINDOW,
+                       p=N2V_P, q=N2V_Q, seed=args.seed, device=dev)
+        n2v.initialize(g)
+        res = _profiled_walk_fit(torch, n2v, tap, _FirstWalks(
+            Node2VecWalkIterator(g, BLOG_WALK, p=N2V_P, q=N2V_Q,
+                                 seed=args.seed), N2V_START_VERTICES))
+        res.update(start_vertices=N2V_START_VERTICES, p=N2V_P, q=N2V_Q,
+                   words=N2V_START_VERTICES * (BLOG_WALK + 1))
+        res["words_per_sec"] = res["words"] / res["seconds"]
+        out["node2vec"] = res
+        if not torch.isfinite(n2v.lookup_table.syn0).all():
+            errs.append("Node2Vec's vectors are not finite")
+    finally:
+        tap.restore()
+    print(json.dumps({"phase": "deepwalk", **out,
+                      "seconds": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return None, (errs[0] if errs else None)
+
+
+def _profiled_walk_fit(torch, model, tap, walks):
+    """A graph model's fit on ``walks`` (drawn inside the fit) under a
+    card-only trace: seconds, HS blocks, launches per block, the card's
+    busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    calls = tap.calls
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.fit(walks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    blocks = tap.calls - calls
+    kernels, busy_us = _kernel_spans(prof)
+    return {"seconds": wall, "hs_blocks": blocks,
+            "launches_per_block": kernels / max(blocks, 1),
+            "busy_share": busy_us / 1e6 / wall}
+
+
+def embedding_phases(args, torch, dev, card):
+    """Phases 57-59.  Returns ``(None, None)`` or ``(None, what
+    failed)``."""
+    t0 = time.perf_counter()
+    for phase in (word2vec_phase, word2vec_processes_phase, deepwalk_phase):
+        _, err = phase(args, torch, dev, card)
+        if err:
+            return None, err
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "embedding_seconds",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return None, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9216,6 +9861,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pipe_launches, err = pipeline_data_clustering_phases(args, torch, dev,
                                                          card)
+    if err:
+        return fail(err)
+
+    # ---- 57-59. the embedding family ----------------------------------
+    torch.cuda.empty_cache()
+    _, err = embedding_phases(args, torch, dev, card)
     if err:
         return fail(err)
 

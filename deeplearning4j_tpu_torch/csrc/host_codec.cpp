@@ -1,14 +1,17 @@
 // Host-side codecs of the port: the training masters' gradient codec
 // (threshold and bitmap encoding of a flat f32 update, with the residual
 // the encoding leaves) and the data readers' decodes (u8 pixels to f32,
-// CIFAR-10 binary records to NHWC floats, strict float CSV).
+// CIFAR-10 binary records to NHWC floats, strict float CSV) and the
+// embedding trainers' corpus indexer (tokenize + vocab-index a sentence
+// corpus in one pass).
 //
 // The port's own copy of the JAX package's native library (the same
-// functions and C interface, less the corpus indexer, which serves
-// nlp).  None of it is a device kernel: the masters' EncodingHandler
-// runs the codec on the host right before a message leaves the process,
-// and the data fetchers decode on the host before a batch exists
-// (utils/native.py builds the library with g++ at first use).
+// functions and C interface).  None of it is a device kernel: the
+// masters' EncodingHandler runs the codec on the host right before a
+// message leaves the process, the data fetchers decode on the host
+// before a batch exists, and the corpus indexer turns text into the
+// index arrays the embedding trainers ship to the card (utils/native.py
+// builds the library with g++ at first use).
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 -o libdl4j_torch_codec.so \
 //            host_codec.cpp
@@ -18,6 +21,9 @@
 #include <cstring>
 #include <cmath>
 #include <algorithm>
+#include <string>
+#include <string_view>
+#include <unordered_map>
 #include <vector>
 
 extern "C" {
@@ -162,6 +168,97 @@ int64_t dl4j_parse_csv(const char* buf, int64_t len, char delim,
     if (cols > 0 && !end_row()) return -1;
     *n_cols_out = row_cols < 0 ? 0 : row_cols;
     return n_vals;
+}
+
+
+// ------------------------------------------------------------ corpus index
+// Tokenize + vocab-index a sentence corpus in one pass — the native
+// data-loader role the reference delegates to DataVec/libnd4j.  The bulk
+// embedding paths (SequenceVectors) are bound by host emission; this
+// replaces the per-sentence Python split + dict.get loop.
+//
+// Token semantics mirror Python str.split(): tokens are maximal runs of
+// non-whitespace.  Only ASCII whitespace is handled natively; if any
+// Unicode whitespace codepoint appears (which str.split would also treat
+// as a separator) the function returns -2 and the caller falls back to
+// the Python path — the two paths must tokenize identically or not at all.
+//
+// text:        concatenated UTF-8 sentences (no separators needed).
+// sent_offsets int64[n_sent+1] byte offsets delimiting each sentence.
+// vocab_blob:  vocabulary words joined by '\n', in index order 0..V-1
+//              (words cannot contain whitespace by construction).
+// out_idx:     int32 buffer of capacity out_cap.
+// out_counts:  int64[n_sent] — IN-VOCAB tokens per sentence (OOV skipped,
+//              matching the Python path's arr[arr >= 0] filter).
+// Returns total in-vocab tokens written, -2 on unicode-whitespace bail,
+// -3 when out_cap would overflow (caller falls back — never writes past).
+int64_t dl4j_index_corpus(const char* text, const int64_t* sent_offsets,
+                          int64_t n_sent, const char* vocab_blob,
+                          int64_t vocab_len, int32_t* out_idx,
+                          int64_t out_cap, int64_t* out_counts) {
+    std::unordered_map<std::string_view, int32_t> vocab;
+    {
+        int32_t idx = 0;
+        const char* p = vocab_blob;
+        const char* end = vocab_blob + vocab_len;
+        while (p < end) {
+            const char* nl = static_cast<const char*>(
+                memchr(p, '\n', static_cast<size_t>(end - p)));
+            const char* stop = nl ? nl : end;
+            vocab.emplace(std::string_view(p, static_cast<size_t>(stop - p)),
+                          idx++);
+            p = nl ? nl + 1 : end;
+        }
+    }
+    // str.split's ASCII whitespace set: space, \t-\r, AND the information
+    // separators 0x1C-0x1F (FS/GS/RS/US — Python treats them as whitespace)
+    auto is_ws = [](unsigned char c) {
+        return c == ' ' || (c >= '\t' && c <= '\r')
+            || (c >= 0x1C && c <= 0x1F);
+    };
+    // UTF-8 sequences of the Unicode whitespace str.split also strips:
+    // U+0085 U+00A0 U+1680 U+2000-200A U+2028 U+2029 U+202F U+205F U+3000
+    auto unicode_ws_at = [](const unsigned char* p, const unsigned char* end) {
+        if (p + 1 < end && p[0] == 0xC2 && (p[1] == 0x85 || p[1] == 0xA0))
+            return true;
+        if (p + 2 < end) {
+            if (p[0] == 0xE1 && p[1] == 0x9A && p[2] == 0x80) return true;
+            if (p[0] == 0xE2 && p[1] == 0x80 &&
+                ((p[2] >= 0x80 && p[2] <= 0x8A) || p[2] == 0xA8 ||
+                 p[2] == 0xA9 || p[2] == 0xAF)) return true;
+            if (p[0] == 0xE2 && p[1] == 0x81 && p[2] == 0x9F) return true;
+            if (p[0] == 0xE3 && p[1] == 0x80 && p[2] == 0x80) return true;
+        }
+        return false;
+    };
+    int64_t total = 0;
+    for (int64_t s = 0; s < n_sent; ++s) {
+        const unsigned char* p = reinterpret_cast<const unsigned char*>(
+            text + sent_offsets[s]);
+        const unsigned char* end = reinterpret_cast<const unsigned char*>(
+            text + sent_offsets[s + 1]);
+        int64_t count = 0;
+        while (p < end) {
+            while (p < end && is_ws(*p)) ++p;
+            if (p >= end) break;
+            if (unicode_ws_at(p, end)) return -2;
+            const unsigned char* start = p;
+            while (p < end && !is_ws(*p)) {
+                if (*p >= 0x80 && unicode_ws_at(p, end)) return -2;
+                ++p;
+            }
+            auto it = vocab.find(std::string_view(
+                reinterpret_cast<const char*>(start),
+                static_cast<size_t>(p - start)));
+            if (it != vocab.end()) {
+                if (total >= out_cap) return -3;  // never write past the buf
+                out_idx[total++] = it->second;
+                ++count;
+            }
+        }
+        out_counts[s] = count;
+    }
+    return total;
 }
 
 }  // extern "C"

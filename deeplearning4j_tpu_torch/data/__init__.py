@@ -2,12 +2,11 @@
 ``deeplearning4j-core/.../datasets/`` +
 ``deeplearning4j-nn/.../datasets/iterator/``).
 
-Re-exports what the JAX package's ``data`` exports, except:
-
-- ``ShapePolicy`` and ``default_shape_policy`` (``data/shapes.py``) wait
-  for ROADMAP item 2's graph capture, which is what they feed;
-- ``Vectorizer``, ``CallableVectorizer`` and ``TextCorpusVectorizer``
-  (``data/vectorizer.py``) wait for item 9 e's ``nlp``, which they serve.
+Re-exports what the JAX package's ``data`` exports, except
+``ShapePolicy`` and ``default_shape_policy`` (``data/shapes.py``), which
+wait for ROADMAP item 2's graph capture, which is what they feed.
+``TextCorpusVectorizer`` imports ``nlp`` (and with it torch) only when it
+vectorizes.
 
 Importing the package loads numpy only (torch is imported inside the
 calls that place batches on a device), so the spawned ETL workers of
@@ -45,6 +44,7 @@ from .formatter import LocalUnstructuredDataFormatter
 from .fetchers import (CifarDataSetIterator, EmnistDataSetIterator,
                        LFWDataSetIterator, TinyImageNetDataSetIterator)
 from .mnist import IrisDataSetIterator, MnistDataSetIterator
+from .vectorizer import CallableVectorizer, TextCorpusVectorizer, Vectorizer
 
 __all__ = [
     "AsyncDataSetIterator", "AsyncMultiDataSetIterator", "BenchmarkDataSetIterator", "DataSet",
@@ -68,4 +68,5 @@ __all__ = [
     "MultiDataSetWrapperIterator", "PreProcessedDataSetIterator",
     "ReconstructionDataSetIterator", "DevicePrefetchIterator",
     "MultiprocessETLIterator", "build_input_pipeline",
+    "Vectorizer", "CallableVectorizer", "TextCorpusVectorizer",
 ]

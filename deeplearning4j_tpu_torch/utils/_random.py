@@ -19,6 +19,14 @@ A raw ``[2] uint32`` key (no typed key wrapper) and the counter layout of
   o1`` (no XOR) and its top 52 bits, as JAX's under ``jax_enable_x64``;
   ``bernoulli`` with a tensor ``p`` draws uniforms in p's dtype, as
   ``jax.random.bernoulli`` with an array ``p``;
+* ``randint(key, shape, lo, hi)`` is ``jax.random.randint`` with x64
+  off (int32, 32-bit words): the key splits in two, each half draws a
+  word per element (``hi_bits``, ``lo_bits``), and with ``span = hi -
+  lo`` and ``m = (2**16 mod span)**2 mod span`` the value is ``lo +
+  ((hi_bits mod span) * m + lo_bits mod span) mod span``, every product
+  and sum wrapping mod 2**32 as ``lax.mul``/``lax.add`` on uint32 (so for
+  a span above 2**16, ``m`` is 0).  Under ``jax_enable_x64`` JAX draws
+  int64 from 64-bit words: another stream;
 * ``normal`` is ``sqrt(2) * erfinv(uniform(nextafter(-1, +inf), 1))``
   and ``gumbel`` is ``-log(-log(uniform(tiny, 1)))``; their last step
   rounds as the device's ``erfinv`` and ``log`` do, so they agree with
@@ -40,7 +48,7 @@ import torch
 
 __all__ = ["threefry2x32", "prng_key", "split", "fold_in", "bits",
            "random_bits", "uniform", "bernoulli", "normal", "gumbel",
-           "permutation"]
+           "permutation", "randint"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -209,3 +217,27 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(sub, (n,)), stable=True).indices
         x = x[order]
     return x
+
+
+def randint(keys: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` with x64 off,
+    bit for bit, as int64.  ``keys`` is one ``[2]`` key, or ``[S, 2]``
+    keys for ``[S, *shape]`` draws in one batched call (row s equals the
+    draw of ``keys[s]``)."""
+    one = keys.ndim == 1
+    keys = (keys[None] if one else keys).to(torch.int64) & _M32
+    n = _numel(shape)
+    # split(key, 2) of every row at once: halves (k1, k2) = threefry(key,
+    # (0, 0)) and threefry(key, (0, 1))
+    lo = torch.arange(2, dtype=torch.int64, device=keys.device)[None, :]
+    o0, o1 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
+    hi_bits = bits(torch.stack((o0[:, 0], o1[:, 0]), dim=-1), n)
+    lo_bits = bits(torch.stack((o0[:, 1], o1[:, 1]), dim=-1), n)
+    span = int(maxval) - int(minval)
+    span = 1 if span <= 0 else span
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = ((((hi_bits % span) * mult) & _M32) + lo_bits % span) & _M32
+    out = (off % span + int(minval)).reshape((keys.shape[0],) + tuple(shape))
+    return out[0] if one else out

@@ -1,11 +1,13 @@
-"""ctypes loader for the host codecs (port of ``utils/native.py``, less
-``index_corpus``, which serves ``nlp``): ``csrc/host_codec.cpp``, built
+"""ctypes loader for the host codecs (port of ``utils/native.py``):
+``csrc/host_codec.cpp``, built
 with g++ at first use into ``build/native/`` at the repository root (or
 ``$DL4J_TPU_TORCH_NATIVE_BUILD_DIR``) and cached.
 
 The gradient codec (threshold and bitmap encode/decode) serves the
 training masters; the decodes (``u8_to_f32``, ``decode_cifar``,
-``parse_csv``) serve the data readers.  Every entry point has a NumPy
+``parse_csv``) serve the data readers; ``index_corpus`` serves the
+embedding trainers (``nlp/sequence_vectors``).  Every entry point has a
+NumPy or Python
 twin, used where the library cannot be built or loaded (no g++, a
 read-only tree), exactly as the JAX package's loader does, or where the
 caller passes ``use_native=False``; ``available()`` reports which path
@@ -25,7 +27,7 @@ import numpy as np
 
 __all__ = ["available", "threshold_encode_native", "threshold_decode_native",
            "bitmap_encode_native", "bitmap_decode_native", "decode_cifar",
-           "u8_to_f32", "parse_csv"]
+           "u8_to_f32", "parse_csv", "index_corpus"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -40,6 +42,7 @@ _SO = _BUILD_DIR / "libdl4j_torch_codec.so"
 _i8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
 _u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
 
@@ -95,6 +98,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dl4j_parse_csv.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char, _f32,
         ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+    lib.dl4j_index_corpus.restype = ctypes.c_int64
+    lib.dl4j_index_corpus.argtypes = [
+        ctypes.c_char_p, _i64, ctypes.c_int64, ctypes.c_char_p,
+        ctypes.c_int64, _i32, ctypes.c_int64, _i64]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -256,3 +263,52 @@ def parse_csv(text: bytes, delimiter: str = ",", *,
     rows = [r for r in text.decode().splitlines() if r.strip()]
     return np.asarray([[float(v) for v in r.split(delimiter)] for r in rows],
                       np.float32)
+
+
+def index_corpus(sentences, index_map, *, use_native: bool = True):
+    """Tokenize and vocab-index ``sentences`` (a list of str): a list of
+    per-sentence int32 index arrays, out-of-vocabulary tokens dropped.
+    Tokens are exactly ``str.split()``'s.
+
+    ``None`` where the Python path of the caller must index instead: an
+    empty ``index_map``, an index space that is not ``0..V-1``, text that
+    does not encode to UTF-8 (lone surrogates), and, on the native path,
+    text with Unicode whitespace (the library returns -2: only ASCII
+    whitespace is handled natively) or an output that would overflow its
+    buffer (-3).  The native path returns views into one buffer;
+    ``use_native=False`` (or no library) runs the Python twin, which
+    tokenizes with ``str.split`` and needs no bail for whitespace."""
+    if not index_map:
+        return None
+    try:
+        parts = [s.encode() for s in sentences]
+    except UnicodeEncodeError:
+        return None
+    words = [None] * len(index_map)
+    for w, i in index_map.items():
+        if not 0 <= i < len(words) or words[i] is not None:
+            return None
+        words[i] = w
+    lib = _load() if use_native else None
+    if lib is None:
+        get = index_map.get
+        out = []
+        for s in sentences:
+            arr = np.fromiter((get(t, -1) for t in s.split()), np.int32)
+            out.append(arr[arr >= 0])
+        return out
+    offsets = np.zeros(len(parts) + 1, np.int64)
+    np.cumsum([len(b) for b in parts], out=offsets[1:])
+    text = b"".join(parts)
+    blob = "\n".join(words).encode()
+    # at most one token per 2 bytes within a sentence; sentence boundaries
+    # take no separator byte, hence the + len(parts)
+    cap = max((len(text) + len(parts)) // 2 + 16, 64)
+    out_idx = np.empty(cap, np.int32)
+    out_counts = np.zeros(len(parts), np.int64)
+    total = lib.dl4j_index_corpus(text, offsets, len(parts), blob,
+                                  len(blob), out_idx, cap, out_counts)
+    if total < 0:
+        return None
+    return np.split(out_idx[:total],
+                    np.cumsum(out_counts)[:-1].astype(np.int64))

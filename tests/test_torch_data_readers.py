@@ -325,8 +325,7 @@ def test_emnist_cifar_and_synthetic_stand_ins(tmp_path, monkeypatch):
 
 
 def test_data_package_exports_the_jax_names():
-    skipped = {"ShapePolicy", "default_shape_policy", "Vectorizer",
-               "CallableVectorizer", "TextCorpusVectorizer"}
+    skipped = {"ShapePolicy", "default_shape_policy"}
     assert set(tdata.__all__) == set(jdata.__all__) - skipped
     for name in tdata.__all__:
         assert getattr(tdata, name) is not None
