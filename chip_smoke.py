@@ -442,7 +442,7 @@ if any phase fails:
     applied; exact ``Tsne`` on 5,000 x 50, perplexity 30, 300 iterations
     on the card (KL, a step's time), P on 1 row in 9 and the gradient,
     KL and update of steps 0, 260 and 299 against the CPU from the
-    card's inputs (``TOL_TSNE_*``); ``BarnesHutTsne`` at n 1,000 for 20
+    card's inputs (``TOL_TSNE_*``); ``BarnesHutTsne`` at n 1,000 for 5
     iterations (kNN and calibration on the card, the SPTree on the
     host).  Phases 54-56 print their seconds together;
 57. ``word2vec``: the JAX package's ``word2vec_words_per_sec``
@@ -473,6 +473,38 @@ if any phase fails:
     synthetic graph of BlogCatalog's size (10,312 vertices, 333,983
     edges), walk length 40, window 10, layer 128: words/s, HS blocks,
     launches a block, busy share.  Phases 57-59 print their seconds
+    together;
+60. ``ui_train``: the full-width TransformerLM trains 5 Adam steps of
+    batch 16 with a ``ui.StatsListener`` (frequency 1) writing to a
+    ``FileStatsStorage`` that a ``UIServer`` serves and, through a
+    ``RemoteUIStatsStorageRouter``, to a second ``UIServer``'s
+    ``/remote``: each flash kernel 8 times a step; every recorded
+    statistic of every param and update against a host recomputation
+    from a copy of the same params (histograms exact with the
+    listener's f32 formula in numpy, scalars within ``TOL_UI_SCALAR`` of
+    float64); one device-to-host copy a listened step more than an
+    unlistened one (raw kineto events); 5 points from ``/overview`` and
+    ``/param/<name>`` on both servers; ``load_model_guess`` on the log
+    gives the same records; the device memory keys set; the step with
+    and without the listener and the card's busy share;
+61. ``kafka_serve``: that LM saved by ``write_model`` and read back by
+    ``load_model_guess``; 4 batches of 16 x 512 ids published through
+    ``NDArrayKafkaClient`` (v2 record batches) to an in-process
+    ``MiniKafkaBroker``, a group consumer runs ``output`` and publishes
+    the probabilities to a second topic, whose reader gets them equal
+    to ``output`` bitwise; 8 forward launches a batch; CRC-32C on the
+    native codec; batches/s and the round trip's share in the CRC and
+    the codec;
+62. ``lstm_generate``: ``generate_tokens`` on the zoo char-LSTM
+    (``helper="pallas"``), batch 32, a 16-character prompt and 128 new
+    tokens, greedy and at temperature 0.8, against a ``helper=None``
+    twin with its params (streams equal, ties excepted as in 13), 2
+    ``lstm_fwd`` launches a step, tokens/s; ``ServeRoute`` over the TCP
+    hub serving its ``output`` on batch 128 x 64 (2 launches a batch,
+    rows equal to a direct call); 64 greedy tokens after a 448-token
+    prompt on the trained LM, no flash launch (generation attends
+    through ``sdpa_reference``, as in JAX), equal to its
+    reference-attention twin's.  Phases 60-62 print their seconds
     together.
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
@@ -7851,7 +7883,10 @@ TSNE_N, TSNE_DIM, TSNE_PERPLEXITY, TSNE_ITERS = 5000, 50, 30.0, 300
 # the embedding's largest |y|.
 TSNE_CHECKED_ROWS, TSNE_CHECKED_STEPS = 512, (0, 260, 299)
 TOL_TSNE_P, TOL_TSNE_GRAD, TOL_TSNE_KL, TOL_TSNE_Y = 1e-5, 1e-4, 1e-5, 1e-6
-BH_N, BH_ITERS = 1000, 20
+# Barnes-Hut at n 1,000: 5 iterations (its SPTree runs on the host, ~3 s
+# an iteration; the run checks a finite embedding and KL, and the time
+# limit of the whole smoke needs the seconds)
+BH_N, BH_ITERS = 1000, 5
 
 
 class _StepClock:
@@ -9332,6 +9367,533 @@ def embedding_phases(args, torch, dev, card):
     return None, None
 
 
+# ---- 60-62. the last modules: the training UI, the Kafka wire, generation
+UI_STEPS = 5                    # listened fit steps, checked record by record
+UI_TIMED_STEPS = 8              # steps timed with and without the listener
+UI_PROFILED_STEPS = 3           # steps traced with and without it (D2H count)
+UI_BINS = 20
+# A recorded scalar against float64 numpy on a host copy of the same f32
+# tensor: the card reduces up to 4.2 M f32 values (the embedding), a tree
+# of ~22 levels, ~1e-6 relative at worst; the mean, which cancels
+# towards 0, is held relative to the mean magnitude.  min and max are
+# exact, and so is the histogram (the same f32 formula in numpy).
+TOL_UI_SCALAR = 1e-5
+KAFKA_BATCHES = 4
+GEN_LSTM_BATCH, GEN_LSTM_PROMPT, GEN_LSTM_TOKENS = 32, 16, 128
+GEN_TEMPERATURE = 0.8
+ROUTE_BATCHES = 3
+GEN_LM_BATCH, GEN_LM_PROMPT, GEN_LM_TOKENS = 4, 448, 64
+
+
+def host_stats(x) -> dict:
+    """What ``ui.StatsListener`` records for the f32 array ``x``,
+    recomputed on the host: the histogram with the listener's own f32
+    formula, the scalars in float64."""
+    import numpy as np
+    x = np.asarray(x, np.float32).reshape(-1)
+    lo, hi = x.min(), x.max()
+    width = np.maximum(hi - lo, np.float32(1e-12))
+    idx = np.clip(((x - lo) / width * np.float32(UI_BINS)).astype(np.int32),
+                  0, UI_BINS - 1)
+    x64 = x.astype(np.float64)
+    return {"mean": x64.mean(), "std": x64.std(), "min": float(lo),
+            "max": float(hi), "mean_magnitude": np.abs(x64).mean(),
+            "norm2": float(np.sqrt((x64 * x64).sum())),
+            "hist": np.bincount(idx, minlength=UI_BINS).tolist()}
+
+
+def stats_errors(got: dict, want: dict) -> tuple:
+    """(largest scalar error relative to ``want``'s scale, histograms
+    equal)."""
+    scale = max(want["mean_magnitude"], 1e-30)
+    err = max(abs(got[k] - want[k]) / max(abs(want[k]), scale)
+              for k in ("mean", "std", "min", "max", "mean_magnitude",
+                        "norm2"))
+    return err, got["hist"] == want["hist"]
+
+
+def d2h_copies(prof) -> int:
+    """Device-to-host copies in a card-only ``torch.profiler`` trace (the
+    raw kineto events)."""
+    return sum(1 for ev in prof.profiler.kineto_results.events()
+               if "CUDA" in str(ev.device_type())
+               and "dtoh" in ev.name().lower())
+
+
+def _get_json(url: str):
+    from urllib.request import urlopen
+    with urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def ui_train_phase(args, torch, dev, card):
+    """Phase 60.  Returns ``((the trained net, its seeded tree, flash
+    launches), None)`` or ``(None, what failed)``."""
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
+                                             RemoteUIStatsStorageRouter,
+                                             StatsListener, UIServer)
+    from deeplearning4j_tpu_torch.utils.model_guesser import load_model_guess
+
+    class Tee:
+        """The listener's router: the served log and the remote UI."""
+
+        def __init__(self, *routers):
+            self.routers = routers
+
+        def put_record(self, report):
+            for r in self.routers:
+                r.put_record(report)
+
+    class HostCopies(TrainingListener):
+        """After the stats listener: a host copy of every param and the
+        score, for the host recomputation (the checked run only)."""
+
+        def __init__(self):
+            self.params, self.scores = [], []
+
+        def iteration_done(self, model, iteration, epoch):
+            # a copy: the step updates the params in place
+            self.params.append({f"{k}/{n}": p.detach().cpu().numpy().copy()
+                                for k, g in model.params.items()
+                                for n, p in g.items()})
+            self.scores.append(model.get_score())
+
+    t_phase = time.perf_counter()
+    store = REPO / "build" / "ui_train"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    tree = _lm_tree(args, dev, 60)
+    net = _lm_net(args, dev, tree)
+    batches = _lm_batches(args, 60, UI_STEPS + UI_PROFILED_STEPS * 2
+                          + UI_TIMED_STEPS + 2)
+    log = FileStatsStorage(str(store / "stats.bin"))
+    ui = UIServer(port=0).start()
+    ui.attach(log)
+    remote = UIServer(port=0).start()
+    router = RemoteUIStatsStorageRouter(f"http://127.0.0.1:{remote.port}")
+    tee = Tee(log, router)
+    try:
+        # the checked run: 5 listened steps, every record recomputed
+        copies = HostCopies()
+        net.set_listeners(StatsListener(tee, session_id="ui_train"), copies)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        for x, y in batches[:UI_STEPS]:
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        recs = log.get_records("ui_train")
+        if len(recs) != UI_STEPS or [r.iteration for r in recs] != \
+                list(range(1, UI_STEPS + 1)):
+            return None, f"ui_train: records {[r.iteration for r in recs]}"
+        worst, hists, arrays = 0.0, True, 0
+        for i, rec in enumerate(recs):
+            if rec.score != copies.scores[i]:
+                return None, (f"ui_train: score {rec.score} != "
+                              f"{copies.scores[i]} at {rec.iteration}")
+            now = copies.params[i]
+            if set(rec.param_stats) != set(now) or \
+                    set(rec.update_stats) != (set(now) if i else set()):
+                return None, "ui_train: recorded names differ from params"
+            for name, arr in now.items():
+                for got, x in ((rec.param_stats[name], arr),) + (
+                        ((rec.update_stats[name],
+                          arr - copies.params[i - 1][name]),) if i else ()):
+                    err, same = stats_errors(got, host_stats(x))
+                    worst, hists = max(worst, err), hists and same
+                    arrays += 1
+        mem = recs[-1].memory
+        # the listener's one copy a step, against the same steps unlistened
+        counts, busy = {}, {}
+        for mode, window in (("listened", batches[UI_STEPS:UI_STEPS + 3]),
+                             ("plain", batches[UI_STEPS + 3:UI_STEPS + 6])):
+            net.set_listeners(*([StatsListener(tee, session_id="ui_prof")]
+                                if mode == "listened" else []))
+            net.fit(*window[0])            # outside the trace
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for x, y in window:
+                    net.fit(x, y)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            counts[mode] = d2h_copies(prof) / len(window)
+            busy[mode] = _kernel_spans(prof)[1] / 1e6 / wall
+        timed = batches[UI_STEPS + 6:]
+        net.set_listeners(StatsListener(tee, session_id="ui_timed"))
+        listened_ms = _timed_steps(torch, net, timed, UI_TIMED_STEPS)
+        net.set_listeners()
+        plain_ms = _timed_steps(torch, net, timed, UI_TIMED_STEPS)
+        # the dashboard over the log, and the remote UI fed by the router
+        name = next(iter(recs[0].param_stats))
+        views = {}
+        for which, srv in (("file", ui), ("remote", remote)):
+            base = f"http://127.0.0.1:{srv.port}/train/ui_train"
+            views[which] = (len(_get_json(base + "/overview")["scores"]),
+                            len(_get_json(f"{base}/param/{name}")
+                                ["param_mean_magnitude"]))
+        guessed = load_model_guess(str(store / "stats.bin"))
+        same_log = [r.to_dict() for r in guessed.get_records("ui_train")] \
+            == [r.to_dict() for r in recs]
+        guessed.close()
+    finally:
+        net.set_listeners()
+        ui.stop()
+        remote.stop()
+        log.close()
+    row = {"phase": "ui_train", "card": card, "model": {
+               "name": "TransformerLM", "vocab": VOCAB, "seq": SEQ,
+               "embed": EMBED, "layers": LAYERS, "heads": HEADS,
+               "batch": TRAIN_BATCH, "updater": "Adam(3e-4)",
+               "num_params": net.num_params()},
+           "steps": UI_STEPS, "arrays_checked": arrays,
+           "max_scalar_err_vs_f64": worst, "tol": TOL_UI_SCALAR,
+           "histograms_exact": hists, "kernel_launches": launches,
+           "expected_launches": {k: 8 * UI_STEPS for k in launches},
+           "d2h_copies_per_step": counts, "device_busy_share": busy,
+           "step_ms_listened": listened_ms, "step_ms_plain": plain_ms,
+           "listener_overhead_ms": listened_ms - plain_ms,
+           "overview_and_param_points": views,
+           "model_guess_log_equal": same_log,
+           "memory": {k: v for k, v in mem.items()
+                      if k.startswith("device0")},
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    if worst > TOL_UI_SCALAR or not hists:
+        return None, (f"ui_train: statistics vs the host: {worst} (tol "
+                      f"{TOL_UI_SCALAR}), histograms exact {hists}")
+    if any(v != 8 * UI_STEPS for v in launches.values()):
+        return None, f"ui_train: flash launches {launches}"
+    if counts["listened"] - counts["plain"] != 1:
+        return None, f"ui_train: device-to-host copies a step {counts}"
+    if any(v != (UI_STEPS, UI_STEPS) for v in views.values()):
+        return None, f"ui_train: dashboard points {views}"
+    if not same_log:
+        return None, "ui_train: load_model_guess read other records"
+    if not (mem.get("device0_bytes_in_use", 0) > 0
+            and mem.get("device0_bytes_limit", 0) > 0):
+        return None, f"ui_train: device memory keys {mem}"
+    return (net, tree, launches), None
+
+
+def kafka_serve_phase(args, torch, dev, card, net):
+    """Phase 61.  Returns ``(flash launches, None)`` or ``(None, what
+    failed)``."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.streaming import codec
+    from deeplearning4j_tpu_torch.streaming import kafka_wire as kw
+    from deeplearning4j_tpu_torch.utils import native
+    from deeplearning4j_tpu_torch.utils.model_guesser import load_model_guess
+    from deeplearning4j_tpu_torch.utils.model_serializer import write_model
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        return None, "kafka_serve: the native codec library did not build"
+    store = REPO / "build" / "kafka_serve"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    t1 = time.perf_counter()
+    # the served model: params only (the Adam slots would triple the zip)
+    write_model(net, str(store / "lm.zip"), save_updater=False)
+    served = load_model_guess(str(store / "lm.zip"), device=dev)
+    save_load_s = time.perf_counter() - t1
+    rng = np.random.default_rng(args.seed + 61)
+    batches = [rng.integers(0, VOCAB, (TRAIN_BATCH, SEQ))
+               for _ in range(KAFKA_BATCHES)]
+    spent = {"crc32c": 0.0, "codec": 0.0}
+    lock = threading.Lock()
+
+    def clocked(what, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                with lock:
+                    spent[what] += time.perf_counter() - t
+        return wrapper
+
+    patched = [(kw, "crc32c", "crc32c"),
+               (kw, "encode_record_batch", "codec"),
+               (kw, "decode_record_batches", "codec"),
+               (codec, "serialize_array", "codec"),
+               (codec, "deserialize_array", "codec")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
+    broker = kw.MiniKafkaBroker().start()
+    clients = []
+    try:
+        for mod, attr, what in patched:
+            setattr(mod, attr, clocked(what, getattr(mod, attr)))
+        pub = kw.NDArrayKafkaClient("127.0.0.1", broker.port, "lm_ids")
+        consumer = kw.NDArrayKafkaClient("127.0.0.1", broker.port, "lm_ids",
+                                         group_id="lm_servers")
+        out_pub = kw.NDArrayKafkaClient("127.0.0.1", broker.port,
+                                        "lm_probs")
+        reader = kw.NDArrayKafkaClient("127.0.0.1", broker.port, "lm_probs",
+                                       group_id="lm_readers")
+        clients = [pub, consumer, out_pub, reader]
+        fetched, round_ms = [], []
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        for ids in batches:
+            t1 = time.perf_counter()
+            pub.publish(ids)
+            got = consumer.poll(max_items=1)
+            out_pub.publish(served.output(got[0]))
+            fetched.append(reader.poll(max_items=1))
+            round_ms.append((time.perf_counter() - t1) * 1e3)
+        wall = time.perf_counter() - t0
+        launches = dict(fa.launches)
+        versions = (pub._client.produce_version,
+                    reader._client.fetch_version)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+        for c in clients:
+            c.close()
+        broker.stop()
+    equal = all(len(f) == 1 and np.array_equal(
+        f[0], net.output(ids).cpu().numpy()) for f, ids in
+        zip(fetched, batches))
+    row = {"phase": "kafka_serve", "card": card, "batches": KAFKA_BATCHES,
+           "batch_shape": [TRAIN_BATCH, SEQ],
+           "prediction_bytes": int(fetched[0][0].nbytes) if fetched[0]
+           else 0, "wire_versions": {"produce": versions[0],
+                                     "fetch": versions[1]},
+           "crc32c_native": native.available(),
+           "save_and_guess_load_s": save_load_s,
+           "batches_per_s": KAFKA_BATCHES / wall,
+           "round_trip_ms": round_ms, "crc32c_s": spent["crc32c"],
+           "crc32c_share": spent["crc32c"] / wall,
+           "codec_s_with_crc": spent["codec"],
+           "codec_share_with_crc": spent["codec"] / wall,
+           "predictions_equal_output_bitwise": equal,
+           "kernel_launches": launches,
+           "expected_fwd_launches": 8 * KAFKA_BATCHES,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    if versions != (3, 4):
+        return None, f"kafka_serve: wire versions {versions}, not v2"
+    if not equal:
+        return None, "kafka_serve: fetched predictions differ from output"
+    if launches != {"fwd": 8 * KAFKA_BATCHES, "bwd_dq": 0, "bwd_dkv": 0}:
+        return None, f"kafka_serve: flash launches {launches}"
+    return launches, None
+
+
+def _stream_consistent(torch, net, twin, toks, prompt_len, temperature,
+                       seed):
+    """Where the card's stream ``toks`` parts from its twin's: every
+    token must be the one the twin would choose after the same history
+    (argmax, or the same uniform draw through its tempered distribution)
+    except at ties, where the two nets' choice scores lie within twice
+    their largest difference.  Returns (ties, mismatches, margin)."""
+    import numpy as np
+    import torch.nn.functional as F
+    onehot = F.one_hot(torch.as_tensor(toks, device=net.device),
+                       net.layer_confs[0].n_in).float()
+    pk, pt = (m.output(onehot)[:, prompt_len - 1:-1].cpu().numpy()
+              for m in (net, twin))
+
+    def scores(p):
+        if temperature <= 0:
+            return p
+        logits = np.log(np.maximum(p, 1e-9)) / temperature
+        q = np.exp(logits - logits.max(-1, keepdims=True))
+        return np.cumsum(q / q.sum(-1, keepdims=True), -1)
+
+    sk, st = scores(pk), scores(pt)
+    margin = 2 * float(np.abs(sk - st).max())
+    chosen = toks[:, prompt_len:]
+    ties = mismatches = 0
+    rng = np.random.default_rng(seed)
+    for s in range(chosen.shape[1]):
+        for r in range(chosen.shape[0]):
+            c, row = int(chosen[r, s]), st[r, s]
+            if temperature <= 0:
+                want = int(row.argmax())
+                near = row[want] - row[c] <= margin
+            else:
+                u = rng.random()
+                want = int(np.searchsorted(row / row[-1], u, side="right"))
+                lo = row[c - 1] / row[-1] if c else 0.0
+                near = lo - margin <= u < row[c] / row[-1] + margin
+            if want != c:
+                ties += bool(near)
+                mismatches += not near
+    return ties, mismatches, margin
+
+
+def lstm_generate_phase(args, torch, dev, card, lm_net, lm_tree):
+    """Phase 62.  Returns ``(launch counts, None)`` or ``(None, what
+    failed)``."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.models import generate_tokens
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+    from deeplearning4j_tpu_torch.streaming import (NDArrayPublisher,
+                                                    ServeRoute,
+                                                    TcpMessageBroker,
+                                                    deserialize_array)
+
+    t_phase = time.perf_counter()
+    net = _char_lstm(args, dev, 62)
+    twin = MultiLayerNetwork(TextGenerationLSTM(
+        num_classes=LSTM_CLASSES, timesteps=LSTM_T, hidden=LSTM_HIDDEN,
+        seed=args.seed + 62).conf(), device=dev).load_params({
+            k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+            for k, g in net.params.items()})
+    rng = np.random.default_rng(args.seed + 62)
+    prompt = rng.integers(0, LSTM_CLASSES, (GEN_LSTM_BATCH, GEN_LSTM_PROMPT))
+    runs, launches = {}, {}
+    for mode, temperature in (("greedy", 0.0),
+                              ("sampled", GEN_TEMPERATURE)):
+        torch.cuda.synchronize()
+        pl.reset_launches()
+        t1 = time.perf_counter()
+        toks = generate_tokens(net, prompt, GEN_LSTM_TOKENS,
+                               temperature=temperature, seed=args.seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches[mode] = pl.launches["lstm_fwd"]
+        t1 = time.perf_counter()
+        ref = generate_tokens(twin, prompt, GEN_LSTM_TOKENS,
+                              temperature=temperature, seed=args.seed)
+        twin_secs = time.perf_counter() - t1
+        equal = bool(np.array_equal(toks, ref))
+        ties, mismatches, margin = (0, 0, 0.0) if equal else \
+            _stream_consistent(torch, net, twin, toks, GEN_LSTM_PROMPT,
+                               temperature, args.seed)
+        runs[mode] = {"tokens_per_s": GEN_LSTM_BATCH * GEN_LSTM_TOKENS / secs,
+                      "twin_tokens_per_s":
+                          GEN_LSTM_BATCH * GEN_LSTM_TOKENS / twin_secs,
+                      "seconds": secs, "equal_to_twin": equal,
+                      "ties": ties, "mismatches": mismatches,
+                      "margin": margin,
+                      "launches_per_step": launches[mode]
+                      / (GEN_LSTM_TOKENS + 1)}
+    # ServeRoute over the TCP hub, serving the same net's output
+    hub = TcpMessageBroker().serve()
+    route = ServeRoute(hub, net, "chars", "char_probs").start()
+    out = hub.subscribe("char_probs")
+    try:
+        time.sleep(0.2)                    # the subscriptions register
+        pub = NDArrayPublisher(hub, "chars")
+        xs = [F.one_hot(torch.as_tensor(
+            rng.integers(0, LSTM_CLASSES, (LSTM_BATCH, LSTM_T))),
+            LSTM_CLASSES).float().numpy() for _ in range(ROUTE_BATCHES)]
+        torch.cuda.synchronize()
+        pl.reset_launches()
+        got, route_ms = [], []
+        for x in xs:
+            t1 = time.perf_counter()
+            pub.publish(x)
+            payload = out.poll(timeout=60.0)
+            route_ms.append((time.perf_counter() - t1) * 1e3)
+            got.append(None if payload is None
+                       else deserialize_array(payload)[0])
+        route_launches = pl.launches["lstm_fwd"]
+    finally:
+        route.stop()
+        out.close()
+        hub.shutdown()
+    route_equal = all(g is not None and np.array_equal(
+        g, net.output(x).cpu().numpy()) for g, x in zip(got, xs))
+    # the full-width LM: generation attends through sdpa_reference (the
+    # cached path), as in JAX, so no flash launch; its twin is on the
+    # reference attention path
+    lm_twin = _lm_net(args, dev, lm_tree, attn_impl="reference").load_params(
+        {k: {n: p.detach().cpu().numpy() for n, p in g.items()}
+         for k, g in lm_net.params.items()})
+    lm_prompt = rng.integers(0, VOCAB, (GEN_LM_BATCH, GEN_LM_PROMPT))
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    lm_toks = generate_tokens(lm_net, lm_prompt, GEN_LM_TOKENS,
+                              temperature=0.0)
+    torch.cuda.synchronize()
+    lm_secs = time.perf_counter() - t1
+    lm_launches = dict(fa.launches)
+    lm_ref = generate_tokens(lm_twin, lm_prompt, GEN_LM_TOKENS,
+                             temperature=0.0)
+    lm_equal = bool(np.array_equal(lm_toks, lm_ref))
+    row = {"phase": "lstm_generate", "card": card, "model": {
+               "name": "TextGenerationLSTM", "classes": LSTM_CLASSES,
+               "hidden": LSTM_HIDDEN, "helper": "pallas"},
+           "batch": GEN_LSTM_BATCH, "prompt": GEN_LSTM_PROMPT,
+           "new_tokens": GEN_LSTM_TOKENS, "temperature": GEN_TEMPERATURE,
+           "runs": runs, "kernel_launches": launches,
+           "expected_launches": 2 * (GEN_LSTM_TOKENS + 1),
+           "serve_route_tcp": {"batches": ROUTE_BATCHES,
+                               "batch_shape": [LSTM_BATCH, LSTM_T],
+                               "launches": route_launches,
+                               "expected_launches": 2 * ROUTE_BATCHES,
+                               "rows_equal_output_bitwise": route_equal,
+                               "round_trip_ms": route_ms},
+           "lm_generate": {"batch": GEN_LM_BATCH, "prompt": GEN_LM_PROMPT,
+                           "new_tokens": GEN_LM_TOKENS,
+                           "tokens_per_s":
+                               GEN_LM_BATCH * GEN_LM_TOKENS / lm_secs,
+                           "flash_launches": lm_launches,
+                           "equal_to_reference_twin": lm_equal},
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    for mode, r in runs.items():
+        if launches[mode] != 2 * (GEN_LSTM_TOKENS + 1):
+            return None, f"lstm_generate {mode}: lstm_fwd launches " \
+                         f"{launches[mode]}"
+        if r["mismatches"]:
+            return None, f"lstm_generate {mode}: {r['mismatches']} tokens " \
+                         "differ from the twin's outside ties"
+    if route_launches != 2 * ROUTE_BATCHES or not route_equal:
+        return None, f"lstm_generate: ServeRoute launches {route_launches}" \
+                     f", rows equal {route_equal}"
+    if any(lm_launches.values()) or not lm_equal:
+        return None, f"lstm_generate: LM generation launches {lm_launches}" \
+                     f", equal to its twin {lm_equal}"
+    return {"generate": launches["greedy"], "route": route_launches}, None
+
+
+def last_modules_phases(args, torch, dev, card):
+    """Phases 60-62.  Returns ``(launch counts, None)`` or ``(None, what
+    failed)``."""
+    t0 = time.perf_counter()
+    trained, err = ui_train_phase(args, torch, dev, card)
+    if err:
+        return None, err
+    net, tree, ui_launches = trained
+    torch.cuda.empty_cache()
+    kafka_launches, err = kafka_serve_phase(args, torch, dev, card, net)
+    if err:
+        return None, err
+    torch.cuda.empty_cache()
+    lstm_launches, err = lstm_generate_phase(args, torch, dev, card, net,
+                                             tree)
+    if err:
+        return None, err
+    print(json.dumps({"phase": "last_modules_seconds",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return {"ui": ui_launches, "kafka": kafka_launches,
+            "lstm": lstm_launches}, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9870,6 +10432,12 @@ def main(argv=None) -> int:
     if err:
         return fail(err)
 
+    # ---- 60-62. the training UI, the Kafka wire, generation ------------
+    torch.cuda.empty_cache()
+    last_launches, err = last_modules_phases(args, torch, dev, card)
+    if err:
+        return fail(err)
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -9903,6 +10471,8 @@ def main(argv=None) -> int:
             "launches_moe_lm_serve": axes_launches["moe"]["serve"][name],
             "launches_tensor_parallel_lm_tp1": axes_launches["tp"][name],
             "launches_masters_mp_lm_workers": mp_launches[name],
+            "launches_ui_train": last_launches["ui"][name],
+            "launches_kafka_serve": last_launches["kafka"][name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,
@@ -9938,6 +10508,9 @@ def main(argv=None) -> int:
         keras_launches["lstm"]["sigmoid"]
     lstm_record["launches_keras_char_lstm_hard_sigmoid_per_output"] = \
         keras_launches["lstm"]["hard_sigmoid"]
+    lstm_record["launches_generate_tokens"] = last_launches["lstm"][
+        "generate"]
+    lstm_record["launches_serve_route_tcp"] = last_launches["lstm"]["route"]
     bf16_totals = bn_record.pop("bfloat16_totals")
     bf16_err = bn_record.pop("bfloat16_max_abs_err")
     records.append(bn_record)

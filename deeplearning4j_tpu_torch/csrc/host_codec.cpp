@@ -3,15 +3,17 @@
 // the encoding leaves) and the data readers' decodes (u8 pixels to f32,
 // CIFAR-10 binary records to NHWC floats, strict float CSV) and the
 // embedding trainers' corpus indexer (tokenize + vocab-index a sentence
-// corpus in one pass).
+// corpus in one pass) and the Kafka wire's CRC-32C (the v2 record-batch
+// checksum).
 //
 // The port's own copy of the JAX package's native library (the same
 // functions and C interface).  None of it is a device kernel: the
 // masters' EncodingHandler runs the codec on the host right before a
 // message leaves the process, the data fetchers decode on the host
-// before a batch exists, and the corpus indexer turns text into the
-// index arrays the embedding trainers ship to the card (utils/native.py
-// builds the library with g++ at first use).
+// before a batch exists, the corpus indexer turns text into the
+// index arrays the embedding trainers ship to the card, and the CRC runs
+// on every record batch the Kafka client and broker write or read
+// (utils/native.py builds the library with g++ at first use).
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 -o libdl4j_torch_codec.so \
 //            host_codec.cpp
@@ -259,6 +261,52 @@ int64_t dl4j_index_corpus(const char* text, const int64_t* sent_offsets,
         out_counts[s] = count;
     }
     return total;
+}
+
+// CRC-32C (Castagnoli, reflected polynomial 0x82F63B78), slicing by 8:
+// eight 256-entry tables, eight input bytes a step.  `crc` is the running
+// value of an earlier call (0 to start), so a buffer may go in pieces.
+// The same answer as the bytewise table loop (streaming/kafka_wire's
+// Python twin) and as google_crc32c's extend().
+}  // extern "C"
+
+namespace {
+struct Crc32cTables {
+    uint32_t t[8][256];
+    Crc32cTables() {
+        for (uint32_t i = 0; i < 256; ++i) {
+            uint32_t c = i;
+            for (int k = 0; k < 8; ++k) c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+            t[0][i] = c;
+        }
+        for (uint32_t i = 0; i < 256; ++i)
+            for (int s = 1; s < 8; ++s)
+                t[s][i] = (t[s - 1][i] >> 8) ^ t[0][t[s - 1][i] & 0xFF];
+    }
+};
+const Crc32cTables& crc32c_tables() {
+    static const Crc32cTables tables;  // initialised once, thread-safe
+    return tables;
+}
+}  // namespace
+
+extern "C" {
+
+uint32_t dl4j_crc32c(const uint8_t* data, int64_t n, uint32_t crc) {
+    const auto& T = crc32c_tables().t;
+    crc = ~crc;
+    int64_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint32_t lo = crc ^ (uint32_t(data[i]) | uint32_t(data[i + 1]) << 8 |
+                             uint32_t(data[i + 2]) << 16 |
+                             uint32_t(data[i + 3]) << 24);
+        crc = T[7][lo & 0xFF] ^ T[6][(lo >> 8) & 0xFF] ^
+              T[5][(lo >> 16) & 0xFF] ^ T[4][lo >> 24] ^
+              T[3][data[i + 4]] ^ T[2][data[i + 5]] ^
+              T[1][data[i + 6]] ^ T[0][data[i + 7]];
+    }
+    for (; i < n; ++i) crc = (crc >> 8) ^ T[0][(crc ^ data[i]) & 0xFF];
+    return ~crc;
 }
 
 }  // extern "C"

@@ -29,41 +29,6 @@ def _host(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def activation_grid_svg(activations, max_maps: int = 16,
-                        cell: int = 56) -> str:
-    """[h, w, c] (or [b, h, w, c]: the first example) activation maps as
-    an SVG grid of grayscale cells (copy of the JAX package's
-    ``ui/components.activation_grid_svg``)."""
-    a = np.asarray(activations, np.float32)
-    if a.ndim == 4:
-        a = a[0]
-    if a.ndim != 3:
-        raise ValueError(f"expected [h,w,c] activations, got {a.shape}")
-    c = min(a.shape[-1], max_maps)
-    cols = int(np.ceil(np.sqrt(c)))
-    rows = int(np.ceil(c / cols))
-    h, w = a.shape[:2]
-    parts = []
-    for m in range(c):
-        fmap = a[:, :, m]
-        lo, hi = float(fmap.min()), float(fmap.max())
-        norm = (fmap - lo) / max(hi - lo, 1e-9)
-        ox = (m % cols) * (cell + 4)
-        oy = (m // cols) * (cell + 4)
-        px = cell / max(h, w)
-        for r in range(h):
-            for cc_ in range(w):
-                g = int(norm[r, cc_] * 255)
-                parts.append(
-                    f'<rect x="{ox + cc_ * px:.1f}" y="{oy + r * px:.1f}" '
-                    f'width="{px:.2f}" height="{px:.2f}" '
-                    f'fill="rgb({g},{g},{g})"/>')
-    width = cols * (cell + 4)
-    height = rows * (cell + 4)
-    return (f'<svg width="{width}" height="{height}" '
-            f'xmlns="http://www.w3.org/2000/svg">{"".join(parts)}</svg>')
-
-
 class TrainingListener:
     """Base callback; all hooks optional (reference TrainingListener.java)."""
 
@@ -282,6 +247,7 @@ class ConvolutionalIterationListener(TrainingListener):
     def iteration_done(self, model, iteration, epoch):
         if iteration % self.frequency != 0:
             return
+        from ..ui.components import activation_grid_svg
         acts = model.feed_forward(self.probe)
         a = _host(acts[self.layer_index])
         if a.ndim != 4:

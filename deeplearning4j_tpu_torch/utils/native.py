@@ -6,7 +6,10 @@ with g++ at first use into ``build/native/`` at the repository root (or
 The gradient codec (threshold and bitmap encode/decode) serves the
 training masters; the decodes (``u8_to_f32``, ``decode_cifar``,
 ``parse_csv``) serve the data readers; ``index_corpus`` serves the
-embedding trainers (``nlp/sequence_vectors``).  Every entry point has a
+embedding trainers (``nlp/sequence_vectors``); ``crc32c`` serves the
+Kafka wire (``streaming/kafka_wire``: the v2 record-batch checksum,
+where the JAX package takes ``google_crc32c`` when it is installed and
+its bytewise Python loop otherwise).  Every entry point has a
 NumPy or Python
 twin, used where the library cannot be built or loaded (no g++, a
 read-only tree), exactly as the JAX package's loader does, or where the
@@ -27,7 +30,7 @@ import numpy as np
 
 __all__ = ["available", "threshold_encode_native", "threshold_decode_native",
            "bitmap_encode_native", "bitmap_decode_native", "decode_cifar",
-           "u8_to_f32", "parse_csv", "index_corpus"]
+           "u8_to_f32", "parse_csv", "index_corpus", "crc32c"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -102,6 +105,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dl4j_index_corpus.argtypes = [
         ctypes.c_char_p, _i64, ctypes.c_int64, ctypes.c_char_p,
         ctypes.c_int64, _i32, ctypes.c_int64, _i64]
+    lib.dl4j_crc32c.restype = ctypes.c_uint32
+    lib.dl4j_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                ctypes.c_uint32]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -312,3 +318,32 @@ def index_corpus(sentences, index_map, *, use_native: bool = True):
         return None
     return np.split(out_idx[:total],
                     np.cumsum(out_counts)[:-1].astype(np.int64))
+
+
+def _make_crc32c_table():
+    poly = 0x82F63B78
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ poly if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C_TABLE = _make_crc32c_table()
+
+
+def crc32c(data: bytes, crc: int = 0, *, use_native: bool = True) -> int:
+    """CRC-32C (Castagnoli) of ``data``, continuing from ``crc`` (0 to
+    start).  ``use_native=False`` (or no library) runs the bytewise table
+    loop, the JAX package's ``_crc32c_py``."""
+    data = bytes(data)
+    lib = _load() if use_native else None
+    if lib is not None:
+        return int(lib.dl4j_crc32c(data, len(data), crc & 0xFFFFFFFF))
+    crc = ~crc & 0xFFFFFFFF
+    table = _CRC32C_TABLE            # local ref: hot loop
+    for b in data:
+        crc = (crc >> 8) ^ table[(crc ^ b) & 0xFF]
+    return ~crc & 0xFFFFFFFF

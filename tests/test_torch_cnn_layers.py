@@ -387,15 +387,19 @@ def test_graph_json_the_port_cannot_run_raises():
     jn = JCG(_small_graph(JAX_PKG, helper=None)).init()
     d = json.loads(jn.conf.to_json())
     # every vertex and preprocessor class is ported (the conv zoo slice),
-    # and the YOLOv2 head since the pretraining and detection slice: it
-    # reads back as itself; a class the port still lacks (a UI chart
-    # component) raises when read
+    # the YOLOv2 head since the pretraining and detection slice, and the
+    # UI components since the last modules' slice: each reads back as
+    # itself; a class neither package registers raises when read
+    import deeplearning4j_tpu_torch.ui.components  # noqa: F401 (registers)
     merged = json.loads(json.dumps(d))
     merged["vertices"]["p_add"] = {"@class": "LayerVertex", "layer": {
         "@class": "Yolo2OutputLayer"}}
     read = tcg.ComputationGraphConfiguration.from_json(json.dumps(merged))
     assert type(read.vertices["p_add"].layer).__name__ == "Yolo2OutputLayer"
     merged["vertices"]["p_add"]["layer"] = {"@class": "ChartLine"}
+    read = tcg.ComputationGraphConfiguration.from_json(json.dumps(merged))
+    assert type(read.vertices["p_add"].layer).__name__ == "ChartLine"
+    merged["vertices"]["p_add"]["layer"] = {"@class": "NoSuchClassAnywhere"}
     with pytest.raises(ValueError, match="not ported"):
         tcg.ComputationGraphConfiguration.from_json(json.dumps(merged))
     # every updater is ported since the rest-of-training slice: RmsProp

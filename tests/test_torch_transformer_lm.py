@@ -105,15 +105,16 @@ def test_param_tree_mismatch_raises(jax_net):
 
 def test_unported_class_and_corrupt_zip_raise(jax_net, tmp_path):
     # every updater is ported since the rest-of-training slice, the
-    # precision policy since the precision and memory slice, and the
-    # pretraining layers since the pretraining and detection slice: each
-    # reads back as itself; a class the port still lacks (a UI chart
-    # component) raises when read
-    for name in ("PrecisionPolicy", "AutoEncoder"):
+    # precision policy since the precision and memory slice, the
+    # pretraining layers since the pretraining and detection slice, and
+    # the UI components since the last modules' slice: each reads back as
+    # itself; a class neither package registers raises when read
+    import deeplearning4j_tpu_torch.ui.components  # noqa: F401 (registers)
+    for name in ("PrecisionPolicy", "AutoEncoder", "ChartLine"):
         js = jax_net.conf.to_json().replace('"Adam"', f'"{name}"', 1)
         read = MultiLayerConfiguration.from_json(js)
         assert any(type(lc.updater).__name__ == name for lc in read.layers)
-    js = jax_net.conf.to_json().replace('"Adam"', '"ChartLine"', 1)
+    js = jax_net.conf.to_json().replace('"Adam"', '"NoSuchClassAnywhere"', 1)
     with pytest.raises(ValueError, match="not ported"):
         MultiLayerConfiguration.from_json(js)
     bad = tmp_path / "bad.zip"
