@@ -506,6 +506,21 @@ if any phase fails:
     through ``sdpa_reference``, as in JAX), equal to its
     reference-attention twin's.  Phases 60-62 print their seconds
     together.
+63. ``captured_fit``: the full-width TransformerLM (batch 16, Adam 3e-4,
+    f32, TF32 off) trains 20 steps through ``fit``, whose step is one CUDA
+    graph (``nn/compile_cache.StepGraphs``: the first step eager on the
+    capture stream, the second captured, then replays), beside a copy
+    from the same weights whose step the phase calls directly and
+    eagerly: losses, params and Adam slots after 20 steps (gap
+    ``TOL_CAPTURED``); ``training_compile_total{fn=train_step}`` 1 for
+    the 20 steps and exactly 1 more for a ragged final batch of 8; one
+    replay traced with ``torch.profiler`` holds 8 ``flash_attn_fwd``, 8
+    ``flash_attn_bwd_dq`` and 8 ``flash_attn_bwd_dkv``, equal to the
+    launch counters' replay delta; median step, busy share and kernel
+    launches a step, captured against eager; the step at
+    ``DL4J_TPU_DISPATCH_DEPTH`` 1 and 2; the capture's seconds and each
+    copy's peak memory; then the same check over 5 steps of the zoo
+    char-LSTM (``helper="pallas"``, batch 128 x 64).
 
 Phases 2, 3 and the ``kernel_time`` rows run f32, bf16 and f16.  Each
 phase prints one JSON line (phases 17-20 one per model).  Every number
@@ -9894,6 +9909,279 @@ def last_modules_phases(args, torch, dev, card):
             "lstm": lstm_launches}, None
 
 
+# ---- 63. the captured train step -------------------------------------------
+CAP_STEPS = 20                  # fit steps, captured copy and eager copy
+CAP_RAGGED = 8                  # rows of the ragged final batch
+CAP_TIMED_STEPS = 20            # timed steps of each copy
+CAP_LSTM_STEPS = 5
+# captured against eager, same weights, same batches, one card: the graph
+# replays the kernels the eager step launched, with the same launch
+# configurations, in the same order, so the same bits are expected
+TOL_CAPTURED = 0.0
+
+
+def _eager_step(net, x, y):
+    """One train step of ``net``, called directly and eagerly: ``fit``'s
+    eager route (the captured route's plain version)."""
+    loss, net.state, _, _ = net._train_step().fn(
+        net._param_tree(), net.state, net.opt_state, x, y, None, None, None,
+        None, net._rng)
+    net.iteration += 1
+    return loss
+
+
+def _state_gaps(a, b) -> dict:
+    """Largest absolute differences of two nets' params and updater slots
+    (the Adam moments), and whether their keys and counts agree."""
+    def worst(pairs):
+        return max((float((u - v).detach().abs().max()) for u, v in pairs),
+                   default=0.0)
+    params = worst((p, b.params[k][n]) for k, g in a.params.items()
+                   for n, p in g.items())
+    slots = worst((t, b.opt_state["slots"][k][n][s])
+                  for k, g in a.opt_state["slots"].items()
+                  for n, sl in g.items() for s, t in sl.items())
+    import torch
+    return {"params_max_abs": params, "slots_max_abs": slots,
+            "key_equal": bool(torch.equal(a._rng, b._rng)),
+            "counts_equal": a.opt_state["count"] == b.opt_state["count"]}
+
+
+def _traced_step(torch, fn) -> dict:
+    """One step under ``torch.profiler`` (card only): its kernel launches,
+    busy microseconds and the flash kernels by class."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = Counter(ev.name().lower()
+                    for ev in prof.profiler.kineto_results.events()
+                    if "CUDA" in str(ev.device_type()))
+    kernels, busy = _kernel_spans(prof)
+    flash = {cls: sum(v for k, v in names.items()
+                      if any(t in k for t in tags))
+             for cls, tags in LM_KERNEL_CLASSES[:3]}
+    return {"kernel_launches": kernels, "busy_us": busy, "flash": flash}
+
+
+class _StampClock:
+    """A listener that stamps the host clock at every step: the spacing of
+    the stamps is the step time the dispatch window lets through."""
+
+    def __init__(self):
+        self.stamps = []
+
+    def iteration_done(self, model, iteration, epoch):
+        self.stamps.append(time.perf_counter())
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def _captured_vs_eager(torch, cap, eag, batches, launches) -> tuple:
+    """``steps`` of ``cap.fit`` and of ``_eager_step(eag)`` on the same
+    batches: (the captured losses, the eager losses, the gaps, the
+    ``launches`` counter after the captured steps).  The first eager step
+    runs under ``host_sync_check``: a host read on the step's path raises
+    there."""
+    from contextlib import nullcontext
+
+    from deeplearning4j_tpu_torch.nn.compile_cache import host_sync_check
+    cap_losses, eag_losses = [], []
+    for x, y in batches:
+        cap.fit(x, y)
+        cap_losses.append(cap._score)
+    cap_launches = dict(launches)
+    for i, (x, y) in enumerate(batches):
+        with host_sync_check() if i == 0 else nullcontext():
+            eag_losses.append(_eager_step(eag, x, y))
+    torch.cuda.synchronize()
+    cap_l = [float(v) for v in cap_losses]
+    eag_l = [float(v) for v in eag_losses]
+    gaps = _state_gaps(cap, eag)
+    gaps["losses_max_abs"] = max(abs(a - b) for a, b in zip(cap_l, eag_l))
+    return cap_l, eag_l, gaps, cap_launches
+
+
+def _gaps_ok(gaps) -> bool:
+    return gaps["key_equal"] and gaps["counts_equal"] and all(
+        gaps[k] <= TOL_CAPTURED
+        for k in ("losses_max_abs", "params_max_abs", "slots_max_abs"))
+
+
+def captured_fit_phase(args, torch, dev, card):
+    """Phase 63.  Returns ``({"flash": launches of the captured LM's 20
+    steps, "lstm_fwd": of the captured char-LSTM's 5}, None)`` or
+    ``(None, what failed)``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.dispatch import ENV_VAR
+    from deeplearning4j_tpu_torch.observability.registry import \
+        default_registry
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_lstm as pl
+
+    def compiles():
+        c = default_registry().get("training_compile_total")
+        return 0.0 if c is None else c.labels("train_step").value
+
+    t_phase = time.perf_counter()
+    tree = _lm_tree(args, dev, 63)
+    rng = np.random.default_rng(args.seed + 63)
+    toks = rng.integers(0, VOCAB, (CAP_STEPS, TRAIN_BATCH, SEQ + 1))
+    batches = [(torch.as_tensor(b[:, :-1], device=dev),
+                torch.as_tensor(b[:, 1:], device=dev)) for b in toks]
+    torch.cuda.empty_cache()
+    cap, eag = _lm_net(args, dev, tree), _lm_net(args, dev, tree)
+    c0 = compiles()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cap_losses, eag_losses, gaps, launches = _captured_vs_eager(
+        torch, cap, eag, batches, fa.launches)
+    peak_both = torch.cuda.max_memory_allocated()
+    c1 = compiles()
+    route = cap.last_route
+    graphs = cap._graphs.stats() if cap._graphs is not None else {}
+    capture_s = [g["capture_s"] for g in graphs.values()]
+
+    # one replay traced, against the launch counters' delta of that step
+    x, y = batches[0]
+    counted = dict(fa.launches)
+    replay = _traced_step(torch, lambda: cap.fit(x, y))
+    delta = {k: fa.launches[k] - counted[k] for k in counted}
+    eager = _traced_step(torch, lambda: _eager_step(eag, x, y))
+
+    # the median step of each copy and its busy share
+    step_cap = _timed_steps(torch, cap, batches, CAP_TIMED_STEPS)
+    times = []
+    for i in range(CAP_TIMED_STEPS + 2):
+        x, y = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _eager_step(eag, x, y)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t1) * 1e3)
+    step_eag = statistics.median(times)
+
+    # the fit loop's window: a 20-step fit at depth 1 and 2
+    depth_ms = {}
+    old = os.environ.get(ENV_VAR)
+    try:
+        for depth in (1, 2):
+            os.environ[ENV_VAR] = str(depth)
+            clock = _StampClock()
+            cap.set_listeners(clock)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cap.fit(iter(batches))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            gaps_ms = [(b - a) * 1e3 for a, b in zip(clock.stamps,
+                                                     clock.stamps[1:])]
+            depth_ms[depth] = {"step_ms_median": statistics.median(gaps_ms),
+                               "wall_ms_per_step": wall / len(batches)}
+    finally:
+        cap.set_listeners()
+        if old is None:
+            os.environ.pop(ENV_VAR, None)
+        else:
+            os.environ[ENV_VAR] = old
+
+    # each copy's peak over 3 steps, from the same allocation before it
+    peaks = {}
+    for name, step in (("captured", lambda x, y: cap.fit(x, y)),
+                       ("eager", lambda x, y: _eager_step(eag, x, y))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for x, y in batches[:3]:
+            step(x, y)
+        torch.cuda.synchronize()
+        peaks[name] = {"allocated_before_bytes": base,
+                       "step_peak_bytes":
+                       torch.cuda.max_memory_allocated() - base,
+                       "reserved_bytes": torch.cuda.memory_reserved()}
+
+    # a ragged final batch: one more compile, exactly
+    c2 = compiles()
+    x, y = batches[0]
+    cap.fit(x[:CAP_RAGGED], y[:CAP_RAGGED])
+    c3 = compiles()
+    del cap, eag
+    torch.cuda.empty_cache()
+
+    # the char-LSTM: 5 steps captured against eager
+    lcap, leag = _char_lstm(args, dev, 63), _char_lstm(args, dev, 63)
+    lrng = np.random.default_rng(args.seed + 630)
+    lbatches = [tuple(torch.as_tensor(a, device=dev)
+                      for a in _char_rows(lrng, LSTM_BATCH))
+                for _ in range(CAP_LSTM_STEPS)]
+    torch.cuda.synchronize()
+    pl.reset_launches()
+    l_cap, l_eag, l_gaps, l_launches = _captured_vs_eager(
+        torch, lcap, leag, lbatches, pl.launches)
+    lstm = {"route": lcap.last_route, "losses": l_cap,
+            "eager_losses": l_eag, "gaps": l_gaps,
+            "lstm_fwd_launches": l_launches["lstm_fwd"],
+            "expected_lstm_fwd_launches": 2 * CAP_LSTM_STEPS,
+            "graphs": lcap._graphs.stats() if lcap._graphs else {}}
+    del lcap, leag
+
+    flash_want = {cls: LAYERS for cls, _ in LM_KERNEL_CLASSES[:3]}
+    launch_want = {k: LAYERS * CAP_STEPS for k in launches}
+    print(json.dumps({
+        "phase": "captured_fit", "model": {
+            "vocab": VOCAB, "seq": SEQ, "embed": EMBED, "layers": LAYERS,
+            "heads": HEADS, "batch": TRAIN_BATCH, "dtype": "float32",
+            "updater": "Adam(learning_rate=3e-4)"},
+        "route": route, "steps": CAP_STEPS, "losses": cap_losses,
+        "eager_losses": eag_losses, "gaps": gaps, "tol": TOL_CAPTURED,
+        "compiles_20_steps": c1 - c0, "compiles_ragged_batch": c3 - c2,
+        "capture_seconds": capture_s, "graphs": graphs,
+        "kernel_launches": launches, "expected_launches": launch_want,
+        "replay_trace": replay, "replay_counter_delta": delta,
+        "eager_trace": eager,
+        "step_ms_median": {"captured": step_cap, "eager": step_eag},
+        "busy_share": {"captured": replay["busy_us"] / 1e3 / step_cap,
+                       "eager": eager["busy_us"] / 1e3 / step_eag},
+        "dispatch_depth": depth_ms,
+        "peak_memory": {"both_copies_20_steps_bytes": peak_both - before,
+                        **peaks},
+        "char_lstm": lstm,
+        "seconds": round(time.perf_counter() - t_phase, 3),
+        "card": card}), flush=True)
+    if route != "captured":
+        return None, f"the LM's fit step took the route {route!r}"
+    if not _gaps_ok(gaps):
+        return None, f"captured and eager LM steps differ: {gaps}"
+    if c1 - c0 != 1 or c3 - c2 != 1:
+        return None, (f"train_step compiles: {c1 - c0} for {CAP_STEPS} "
+                      f"steps of one shape (want 1), {c3 - c2} for the "
+                      "ragged batch (want 1)")
+    if launches != launch_want:
+        return None, f"captured fit launched {launches}; want {launch_want}"
+    if replay["flash"] != flash_want or \
+            list(delta.values()) != list(flash_want.values()):
+        return None, (f"one replay's trace holds {replay['flash']} flash "
+                      f"kernels and the counters moved {delta}; want "
+                      f"{flash_want}")
+    if lstm["route"] == "captured" and not _gaps_ok(l_gaps):
+        return None, f"captured and eager char-LSTM steps differ: {l_gaps}"
+    if l_launches["lstm_fwd"] != 2 * CAP_LSTM_STEPS:
+        return None, (f"the char-LSTM's {CAP_LSTM_STEPS} steps launched "
+                      f"lstm_fwd {l_launches['lstm_fwd']} times; want "
+                      f"{2 * CAP_LSTM_STEPS}")
+    return {"flash": launches, "lstm_fwd": l_launches["lstm_fwd"]}, None
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10438,6 +10726,12 @@ def main(argv=None) -> int:
     if err:
         return fail(err)
 
+    # ---- 63. the train step captured as a CUDA graph -----------------------
+    torch.cuda.empty_cache()
+    cap_launches, err = captured_fit_phase(args, torch, dev, card)
+    if err:
+        return fail(err)
+
     # the training path runs f32, causal
     sources = {"fwd": fa.SOURCE, "bwd_dq": fa.BWD_SOURCE,
                "bwd_dkv": fa.BWD_SOURCE}
@@ -10473,6 +10767,7 @@ def main(argv=None) -> int:
             "launches_masters_mp_lm_workers": mp_launches[name],
             "launches_ui_train": last_launches["ui"][name],
             "launches_kafka_serve": last_launches["kafka"][name],
+            "launches_captured_fit_lm_20_steps": cap_launches["flash"][name],
             "max_abs_err": max_err[(name, "float32", True)],
             "ms": kern, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib_ms,
@@ -10511,6 +10806,8 @@ def main(argv=None) -> int:
     lstm_record["launches_generate_tokens"] = last_launches["lstm"][
         "generate"]
     lstm_record["launches_serve_route_tcp"] = last_launches["lstm"]["route"]
+    lstm_record["launches_captured_fit_char_lstm_5_steps"] = \
+        cap_launches["lstm_fwd"]
     bf16_totals = bn_record.pop("bfloat16_totals")
     bf16_err = bn_record.pop("bfloat16_max_abs_err")
     records.append(bn_record)

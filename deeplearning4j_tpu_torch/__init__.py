@@ -9,11 +9,13 @@ The package exports the JAX package's user surface (``MultiLayerNetwork``,
 ``PrecisionPolicy``, ``observability``), each imported on first access
 (PEP 562), so a process that imports one submodule (a spawned worker,
 an ETL process, a Kafka consumer) loads no more than that submodule
-needs.  ``persistent_cache_status``/``wire_persistent_cache`` (the JAX
-package's XLA compile cache) are not ported yet: their counterpart comes
-with the port's compile and dispatch work.
+needs.  ``persistent_cache_status``/``wire_persistent_cache`` wire the
+kernels' build cache (``nn/compile_cache``): with
+``DL4J_TPU_COMPILE_CACHE=<dir>`` set, importing the package points it at
+that directory, as the JAX package wires its XLA cache at import.
 """
 import importlib
+import os
 
 __version__ = "0.1.0"
 
@@ -29,6 +31,9 @@ _WHERE = {
     "ComputationGraph": (".nn.computation_graph", "ComputationGraph"),
     "MultiLayerNetwork": (".nn.multilayer", "MultiLayerNetwork"),
     "PrecisionPolicy": (".nn.precision", "PrecisionPolicy"),
+    "persistent_cache_status": (".nn.compile_cache",
+                                "persistent_cache_status"),
+    "wire_persistent_cache": (".nn.compile_cache", "wire_persistent_cache"),
 }
 
 __all__ = [
@@ -40,6 +45,8 @@ __all__ = [
     "MultiLayerNetwork",
     "PrecisionPolicy",
     "observability",
+    "persistent_cache_status",
+    "wire_persistent_cache",
 ]
 
 
@@ -49,6 +56,12 @@ def __getattr__(name):
     mod, attr = _WHERE[name]
     module = importlib.import_module(mod, __name__)
     return module if attr is None else getattr(module, attr)
+
+
+if os.environ.get("DL4J_TPU_COMPILE_CACHE"):
+    # imports no torch: nn/compile_cache loads torch inside its functions
+    importlib.import_module(".nn.compile_cache", __name__) \
+        .wire_persistent_cache()
 
 
 def __dir__():

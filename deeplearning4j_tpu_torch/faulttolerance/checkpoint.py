@@ -1242,6 +1242,17 @@ class FitCheckpointer:
         self._last_saved_iter = int(self.net.iteration)
         return path
 
+    def due(self) -> bool:
+        """Would :meth:`after_batch` save right now?  A preview without
+        side effects for the fit loop: a checkpoint boundary drains the
+        dispatch window BEFORE the save, so the checkpoint holds finished
+        steps and a resume from the middle of a window is exact."""
+        if self.manager is None:
+            return False
+        n = self.config.save_every_n_iterations
+        return bool(self._preempted or (
+            n and int(self.net.iteration) - self._last_saved_iter >= n))
+
     def after_batch(self, fit_epoch: int, batch_seq: int) -> bool:
         """Call after each fitted batch (``batch_seq`` = batches consumed
         so far this epoch).  Saves on the iteration trigger; returns True

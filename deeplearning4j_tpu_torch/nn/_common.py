@@ -41,6 +41,7 @@ from ..observability.registry import default_registry
 from ..utils import _random, global_batch
 from ..utils.device import resolve_device
 from . import precision as _precision
+from .dispatch import DispatchWindow
 from .conf.updaters import Sgd, UpdaterConf
 from .layers.base import BaseLayerConf, LayerConf, flatten_group
 
@@ -151,6 +152,14 @@ class UpdaterGroups:
                  labels: Dict[str, Dict[str, str]]):
         self.transforms = transforms
         self.labels = labels
+        # each live label's [start, end) in the step's scalar vector
+        self._span: Dict[str, Tuple[int, int]] = {}
+        n = 0
+        for lab, u in transforms.items():
+            if u is not None:
+                k = len(u.scalars(0))
+                self._span[lab] = (n, n + k)
+                n += k
 
     def init(self, params: Tree) -> Dict[str, Any]:
         """``{"count": {label: 0}, "slots": {layer: {name: {slot:
@@ -165,22 +174,83 @@ class UpdaterGroups:
                           if u is not None},
                 "slots": slots}
 
-    @torch.no_grad()
     def step(self, params: Tree, grads: Tree, state: Dict[str, Any]) -> None:
         """Apply one update to ``params`` in place (``p += u``, as
-        ``optax.apply_updates``) and advance ``state``."""
-        count = state["count"]
+        ``optax.apply_updates``) and advance ``state``: ``stage``,
+        ``apply``, ``advance``."""
+        p0 = next((p for g in params.values() for p in g.values()), None)
+        self.stage(state, "cpu" if p0 is None else p0.device)
+        self.apply(params, grads, state)
+        self.advance(state)
+
+    def stage(self, state: Dict[str, Any], device) -> None:
+        """Host half, before a step: every label's ``scalars(count)``,
+        computed in f64, copied into ``state["scalars"]``, a device
+        vector that keeps its storage from step to step (a captured step
+        reads it there).  On CUDA the copy leaves from a fresh pinned
+        buffer of the caching host allocator, which records the copy on
+        the stream and hands that memory out again only after the copy
+        ran, so a host that runs steps ahead never overwrites values a
+        queued copy has yet to read."""
+        vals: List[float] = []
+        for lab in self._span:
+            vals += self.transforms[lab].scalars(state["count"][lab])
+        buf = state.get("scalars")
+        dev = torch.device(device)
+        if buf is None or buf.numel() != len(vals) or \
+                buf.device.type != dev.type or \
+                dev.index not in (None, buf.device.index):
+            buf = state["scalars"] = torch.zeros(
+                len(vals), dtype=torch.float64, device=dev)
+        src = torch.tensor(vals, dtype=torch.float64)
+        if buf.is_cuda:
+            buf.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            buf.copy_(src)
+
+    @torch.no_grad()
+    def apply(self, params: Tree, grads: Tree, state: Dict[str, Any]
+              ) -> None:
+        """Device half: the updates from the staged scalars, written into
+        ``params`` and the slots in place.  No host read, no host count."""
+        vec = state["scalars"]
+        by_dtype: Dict[torch.dtype, torch.Tensor] = {}
         for layer, group in params.items():
             for name, p in group.items():
-                u_conf = self.transforms[self.labels[layer][name]]
+                lab = self.labels[layer][name]
+                u_conf = self.transforms[lab]
                 if u_conf is None:
                     continue
+                v = by_dtype.get(p.dtype)
+                if v is None:
+                    v = by_dtype[p.dtype] = vec.to(p.dtype)
+                a, b = self._span[lab]
                 u = u_conf.update(grads[layer][name],
-                                  state["slots"][layer][name],
-                                  count[self.labels[layer][name]], p)
+                                  state["slots"][layer][name], v[a:b], p)
                 p.add_(u.to(p.dtype))
+
+    @staticmethod
+    def advance(state: Dict[str, Any]) -> None:
+        """Host half, after a step that updated: every count moves on."""
+        count = state["count"]
         for lab in count:
             count[lab] += 1
+
+    def applier(self) -> "_Applier":
+        """These groups with ``step`` = ``apply``: for a train step whose
+        caller stages before it and advances after it."""
+        return _Applier(self)
+
+
+class _Applier:
+    """``UpdaterGroups.applier()``: what a train step's update paths call
+    (``step``) runs the device half only."""
+
+    def __init__(self, groups: UpdaterGroups):
+        self.groups = groups
+
+    def step(self, params: Tree, grads: Tree, state: Dict[str, Any]) -> None:
+        self.groups.apply(params, grads, state)
 
 
 def build_tx(default_u: UpdaterConf, confs: Dict[str, Optional[LayerConf]],
@@ -748,15 +818,24 @@ class Network(nn.Module):
         # False until the first step after the train step was built: that
         # step builds the kernels and warms the allocator ("compile")
         self._warm_step = False
+        # whether the latest step compiled (a new shape, a CUDA-graph
+        # capture: nn/compile_cache)
+        self._last_step_compiled = False
+        # the loss and iteration of the latest step the dispatch window
+        # materialized (nn/dispatch)
+        self.last_drained_score: Optional[float] = None
+        self.last_drained_iteration: Optional[int] = None
         # the dropout key stream: jax.random.PRNGKey(seed), as the
         # reference's ``_rng``, on the network's device
         self._rng = _random.prng_key(conf.seed, self.device)
 
     def _next_key(self) -> torch.Tensor:
         """``self._rng, key = split(self._rng)``: the key of one training
-        step (or one ``train=True`` forward)."""
+        step (or one ``train=True`` forward).  The new stream is written
+        into ``_rng`` in place: a captured train step reads the key
+        buffer where it was at capture."""
         new_rng, key = _random.split(self._rng)
-        self._rng = new_rng
+        self._rng.copy_(new_rng)
         return key
 
     def _layers(self) -> List[Tuple[str, Any, Any]]:
@@ -962,6 +1041,15 @@ class Network(nn.Module):
             if (rec_on or mon is not None) else None
         prof = step_profiler_for("train_step", device=self.device)
         self._stepprof = prof
+
+        # the bounded dispatch window: the host runs at most
+        # DL4J_TPU_DISPATCH_DEPTH steps ahead of the card; every drained
+        # loss is NaN-checked with its own step's iteration
+        def nan_at_drain(iteration, value):
+            if rec_on:
+                rec.record("train", "nan_at_drain", score=value,
+                           iteration=int(iteration))
+        win = DispatchWindow(owner=self, profiler=prof, on_nan=nan_at_drain)
         if obs:
             steps_c = reg.counter("training_steps_total",
                                   "Optimizer steps taken")
@@ -1001,10 +1089,12 @@ class Network(nn.Module):
                     if prof is not None:
                         prof.begin(t_step, etl_s)
                     compile_step = not self._warm_step
+                    self._last_step_compiled = False
                     self._fit_step(*batch)
                     self._warm_step = True
+                    compile_step = compile_step or self._last_step_compiled
                     if prof is not None:
-                        prof.dispatched(self._score)
+                        prof.dispatched(self._score, window=win)
                     t_end = monotonic_s()
                     dt = t_end - t_step
                     if obs:
@@ -1022,23 +1112,34 @@ class Network(nn.Module):
                         stop = True   # opt-in health stop: clean return
                     if prof is not None:
                         prof.lap("forensics")
-                    if not stop and ckpt is not None and \
-                            ckpt.after_batch(ep, seq):
-                        stop = True   # SIGTERM: final save — return
+                    if not stop and ckpt is not None:
+                        if ckpt.due():
+                            # a checkpoint holds finished steps only
+                            win.drain()
+                        if ckpt.after_batch(ep, seq):
+                            stop = True   # SIGTERM: final save — return
                     if prof is not None:
                         if ckpt is not None:
                             prof.lap("checkpoint")
                         prof.end(self.iteration, compile_step)
                     if stop:
                         break
+                    # admit the step: blocks on the oldest step in flight
+                    # once the window is full
+                    win.push(self._score, self.iteration)
                 if stop:
                     break
+                win.drain()
                 for lst in self.listeners:
                     lst.on_epoch_end(self)
                 self.epoch += 1
                 if ckpt is not None and ckpt.after_epoch(ep):
                     break
+            # a stop breaks out before the epoch's drain
+            win.drain()
         except Exception as e:
+            # never block on steps in flight while unwinding
+            win.abandon()
             # unhandled fit exception: commit the flight-recorder window
             # BEFORE propagating
             if rec_on:
@@ -1121,7 +1222,9 @@ class Network(nn.Module):
                 "slots": {k: {n: {s: t.clone() for s, t in sl.items()}
                               for n, sl in g.items()}
                           for k, g in self.opt_state["slots"].items()}}
-        self._rng, other._rng = _random.split(self._rng)
+        new_rng, other._rng = _random.split(self._rng)
+        self._rng.copy_(new_rng)
+        other._rng = other._rng.clone()
         other.iteration, other.epoch = self.iteration, self.epoch
         other.last_batch_size = self.last_batch_size
         return other

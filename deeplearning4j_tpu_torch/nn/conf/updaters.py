@@ -31,8 +31,13 @@ returns the update ``u`` that the caller adds to the parameter:
 
 The learning rate is a float or a ``Schedule``; ``_lr(count)`` is its
 value at the label's step count (0-based, as optax's), a host float.
-Per-parameter state (``slots``) lives in a dict of tensors; the step
-count is kept by the caller.
+The values that depend on the count (``-lr`` and the bias corrections,
+``scalars(count)``) are computed on the host in f64 and reach the
+update as a small device tensor, so the update launches the same
+kernels at every step (a captured CUDA graph replays them).
+Per-parameter state (``slots``) lives in a dict of tensors that the
+update writes in place (``mul_``, ``add_``, ``maximum(out=)``), in
+optax's order of operations; the step count is kept by the caller.
 """
 from __future__ import annotations
 
@@ -61,15 +66,21 @@ class UpdaterConf:
             return self.DEFAULT_LR
         return resolve(self.learning_rate).value(count)
 
+    def scalars(self, count: int) -> Tuple[float, ...]:
+        """The host values step ``count`` reads (``count`` = steps taken
+        before), f64: ``-lr`` first, then the updater's bias
+        corrections."""
+        return (-float(self._lr(count)),)
+
     def init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {name: torch.full_like(p, self.SLOT_INIT.get(name, 0.0))
                 for name in self.SLOTS}
 
     def update(self, g: torch.Tensor, slots: Dict[str, torch.Tensor],
-               count: int, p: torch.Tensor) -> torch.Tensor:
-        """The update for gradient ``g`` of parameter ``p``; ``slots`` are
-        replaced in place in the dict; ``count`` is the number of steps
-        taken before."""
+               s: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """The update for gradient ``g`` of parameter ``p``; the tensors
+        of ``slots`` are updated in place.  ``s`` holds ``scalars(count)``
+        as a 1-D tensor in ``p``'s dtype on its device."""
         raise NotImplementedError  # pragma: no cover - abstract
 
 
@@ -81,14 +92,15 @@ def _bias_correction(decay: float, count: int) -> float:
     return 1.0 - decay ** count
 
 
-def _moment(g, m, decay):
-    """optax ``update_moment`` (order 1): ``(1−decay)·g + decay·m``."""
-    return (1 - decay) * g + decay * m
+def _moment_(m, g, decay):
+    """optax ``update_moment`` (order 1), ``(1−decay)·g + decay·m``, into
+    ``m``: the same two products and sum, in place."""
+    return m.mul_(decay).add_((1 - decay) * g)
 
 
-def _moment2(g, m, decay):
-    """optax ``update_moment_per_elem_norm`` (order 2)."""
-    return (1 - decay) * (g * g) + decay * m
+def _moment2_(m, g, decay):
+    """optax ``update_moment_per_elem_norm`` (order 2) into ``m``."""
+    return m.mul_(decay).add_((1 - decay) * (g * g))
 
 
 @register_serde
@@ -96,8 +108,8 @@ def _moment2(g, m, decay):
 class Sgd(UpdaterConf):
     DEFAULT_LR: ClassVar[float] = 1e-1
 
-    def update(self, g, slots, count, p):
-        return -self._lr(count) * g
+    def update(self, g, slots, s, p):
+        return g * s[0]
 
 
 @register_serde
@@ -108,11 +120,10 @@ class Nesterovs(UpdaterConf):
     SLOTS: ClassVar[Tuple[str, ...]] = ("trace",)
     DEFAULT_LR: ClassVar[float] = 1e-1
 
-    def update(self, g, slots, count, p):
+    def update(self, g, slots, s, p):
         m = self.momentum
-        trace = g + m * slots["trace"]
-        slots["trace"] = trace
-        return -self._lr(count) * (g + m * trace)
+        trace = slots["trace"].mul_(m).add_(g)
+        return (g + m * trace) * s[0]
 
 
 @register_serde
@@ -124,18 +135,19 @@ class Adam(UpdaterConf):
 
     SLOTS: ClassVar[Tuple[str, ...]] = ("mu", "nu")
 
-    def _scaled(self, g, slots, count):
-        """``scale_by_adam``'s update (before the learning rate)."""
-        b1, b2 = self.beta1, self.beta2
-        mu = _moment(g, slots["mu"], b1)
-        nu = _moment2(g, slots["nu"], b2)
-        slots["mu"], slots["nu"] = mu, nu
-        mu_hat = mu / _bias_correction(b1, count + 1)
-        nu_hat = nu / _bias_correction(b2, count + 1)
-        return mu_hat / (torch.sqrt(nu_hat) + self.epsilon)
+    def scalars(self, count):
+        return (-float(self._lr(count)),
+                _bias_correction(self.beta1, count + 1),
+                _bias_correction(self.beta2, count + 1))
 
-    def update(self, g, slots, count, p):
-        return -self._lr(count) * self._scaled(g, slots, count)
+    def _scaled(self, g, slots, s):
+        """``scale_by_adam``'s update (before the learning rate)."""
+        mu = _moment_(slots["mu"], g, self.beta1)
+        nu = _moment2_(slots["nu"], g, self.beta2)
+        return (mu / s[1]) / (torch.sqrt(nu / s[2]) + self.epsilon)
+
+    def update(self, g, slots, s, p):
+        return self._scaled(g, slots, s) * s[0]
 
 
 @register_serde
@@ -147,13 +159,15 @@ class AdaMax(UpdaterConf):
 
     SLOTS: ClassVar[Tuple[str, ...]] = ("mu", "nu")
 
-    def update(self, g, slots, count, p):
-        mu = _moment(g, slots["mu"], self.beta1)
-        nu = torch.maximum(torch.abs(g) + self.epsilon,
-                           self.beta2 * slots["nu"])
-        slots["mu"], slots["nu"] = mu, nu
-        mu_hat = mu / _bias_correction(self.beta1, count + 1)
-        return -self._lr(count) * (mu_hat / nu)
+    def scalars(self, count):
+        return (-float(self._lr(count)),
+                _bias_correction(self.beta1, count + 1))
+
+    def update(self, g, slots, s, p):
+        mu = _moment_(slots["mu"], g, self.beta1)
+        nu = slots["nu"].mul_(self.beta2)
+        torch.maximum(torch.abs(g) + self.epsilon, nu, out=nu)
+        return ((mu / s[1]) / nu) * s[0]
 
 
 @register_serde
@@ -165,16 +179,19 @@ class Nadam(UpdaterConf):
 
     SLOTS: ClassVar[Tuple[str, ...]] = ("mu", "nu")
 
-    def update(self, g, slots, count, p):
-        b1, b2 = self.beta1, self.beta2
-        mu = _moment(g, slots["mu"], b1)
-        nu = _moment2(g, slots["nu"], b2)
-        slots["mu"], slots["nu"] = mu, nu
-        mu_hat = b1 * (mu / _bias_correction(b1, count + 2)) + \
-            (1 - b1) * (g / _bias_correction(b1, count + 1))
-        nu_hat = nu / _bias_correction(b2, count + 1)
-        return -self._lr(count) * (mu_hat / (torch.sqrt(nu_hat) +
-                                             self.epsilon))
+    def scalars(self, count):
+        return (-float(self._lr(count)),
+                _bias_correction(self.beta1, count + 1),
+                _bias_correction(self.beta2, count + 1),
+                _bias_correction(self.beta1, count + 2))
+
+    def update(self, g, slots, s, p):
+        b1 = self.beta1
+        mu = _moment_(slots["mu"], g, b1)
+        nu = _moment2_(slots["nu"], g, self.beta2)
+        mu_hat = b1 * (mu / s[3]) + (1 - b1) * (g / s[1])
+        nu_hat = nu / s[2]
+        return (mu_hat / (torch.sqrt(nu_hat) + self.epsilon)) * s[0]
 
 
 @register_serde
@@ -186,16 +203,17 @@ class AmsGrad(UpdaterConf):
 
     SLOTS: ClassVar[Tuple[str, ...]] = ("mu", "nu", "nu_max")
 
-    def update(self, g, slots, count, p):
-        b1, b2 = self.beta1, self.beta2
-        mu = _moment(g, slots["mu"], b1)
-        nu = _moment2(g, slots["nu"], b2)
-        mu_hat = mu / _bias_correction(b1, count + 1)
-        nu_hat = nu / _bias_correction(b2, count + 1)
-        nu_max = torch.maximum(slots["nu_max"], nu_hat)
-        slots["mu"], slots["nu"], slots["nu_max"] = mu, nu, nu_max
-        return -self._lr(count) * (mu_hat / (torch.sqrt(nu_max) +
-                                             self.epsilon))
+    def scalars(self, count):
+        return (-float(self._lr(count)),
+                _bias_correction(self.beta1, count + 1),
+                _bias_correction(self.beta2, count + 1))
+
+    def update(self, g, slots, s, p):
+        mu = _moment_(slots["mu"], g, self.beta1)
+        nu = _moment2_(slots["nu"], g, self.beta2)
+        nu_max = slots["nu_max"]
+        torch.maximum(nu_max, nu / s[2], out=nu_max)
+        return ((mu / s[1]) / (torch.sqrt(nu_max) + self.epsilon)) * s[0]
 
 
 @register_serde
@@ -207,13 +225,13 @@ class AdaDelta(UpdaterConf):
     SLOTS: ClassVar[Tuple[str, ...]] = ("e_g", "e_x")
     DEFAULT_LR: ClassVar[float] = 1.0   # the reference's AdaDelta has none
 
-    def update(self, g, slots, count, p):
-        e_g = _moment2(g, slots["e_g"], self.rho)
-        u = (torch.sqrt(slots["e_x"] + self.epsilon) /
+    def update(self, g, slots, s, p):
+        e_g = _moment2_(slots["e_g"], g, self.rho)
+        e_x = slots["e_x"]
+        u = (torch.sqrt(e_x + self.epsilon) /
              torch.sqrt(e_g + self.epsilon)) * g
-        slots["e_g"] = e_g
-        slots["e_x"] = _moment2(u, slots["e_x"], self.rho)
-        return -self._lr(count) * u
+        _moment2_(e_x, u, self.rho)
+        return u * s[0]
 
 
 @register_serde
@@ -225,12 +243,11 @@ class AdaGrad(UpdaterConf):
     SLOT_INIT: ClassVar[Dict[str, float]] = {"sum_of_squares": 0.1}
     DEFAULT_LR: ClassVar[float] = 1e-1
 
-    def update(self, g, slots, count, p):
-        t = g * g + slots["sum_of_squares"]
-        slots["sum_of_squares"] = t
+    def update(self, g, slots, s, p):
+        t = slots["sum_of_squares"].add_(g * g)
         inv = torch.where(t > 0, torch.rsqrt(t + self.epsilon),
                           torch.zeros((), dtype=t.dtype, device=t.device))
-        return -self._lr(count) * (inv * g)
+        return (inv * g) * s[0]
 
 
 @register_serde
@@ -242,10 +259,9 @@ class RmsProp(UpdaterConf):
     SLOTS: ClassVar[Tuple[str, ...]] = ("nu",)
     DEFAULT_LR: ClassVar[float] = 1e-1
 
-    def update(self, g, slots, count, p):
-        nu = _moment2(g, slots["nu"], self.rms_decay)
-        slots["nu"] = nu
-        return -self._lr(count) * (torch.rsqrt(nu + self.epsilon) * g)
+    def update(self, g, slots, s, p):
+        nu = _moment2_(slots["nu"], g, self.rms_decay)
+        return (torch.rsqrt(nu + self.epsilon) * g) * s[0]
 
 
 @register_serde
@@ -253,7 +269,10 @@ class RmsProp(UpdaterConf):
 class NoOp(UpdaterConf):
     """Updater.NONE: gradients are not applied."""
 
-    def update(self, g, slots, count, p):
+    def scalars(self, count):
+        return ()
+
+    def update(self, g, slots, s, p):
         return torch.zeros_like(g)
 
 
@@ -263,9 +282,8 @@ class AdamW(Adam):
     """Adam with decoupled weight decay on every parameter."""
     weight_decay: float = 0.01
 
-    def update(self, g, slots, count, p):
-        u = self._scaled(g, slots, count) + self.weight_decay * p
-        return -self._lr(count) * u
+    def update(self, g, slots, s, p):
+        return (self._scaled(g, slots, s) + self.weight_decay * p) * s[0]
 
 
 @register_serde
@@ -278,10 +296,12 @@ class Lion(UpdaterConf):
     SLOTS: ClassVar[Tuple[str, ...]] = ("mu",)
     DEFAULT_LR: ClassVar[float] = 1e-4
 
-    def update(self, g, slots, count, p):
-        u = torch.sign(_moment(g, slots["mu"], self.beta1))
-        slots["mu"] = _moment(g, slots["mu"], self.beta2)
-        return -self._lr(count) * (u + self.weight_decay * p)
+    def update(self, g, slots, s, p):
+        mu = slots["mu"]
+        # the sign reads the old moment; the moment moves after it
+        u = torch.sign((1 - self.beta1) * g + self.beta1 * mu)
+        _moment_(mu, g, self.beta2)
+        return (u + self.weight_decay * p) * s[0]
 
 
 _BY_NAME = {

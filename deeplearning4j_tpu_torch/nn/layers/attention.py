@@ -564,7 +564,12 @@ class PositionalEncodingLayer(LayerConf):
         """The table for ``t`` steps from ``offset``: an int or 0-d tensor
         (``[t, e]``) or a ``[b]`` vector of per-row positions (``[b, t,
         e]``, the slot-batched decode step)."""
-        offset = torch.as_tensor(offset, device=device).to(torch.float32)
+        if not isinstance(offset, torch.Tensor):
+            # a fill, not a host-to-device copy: a captured train step
+            # may run this
+            offset = torch.full((), int(offset), dtype=torch.int64,
+                                device=device)
+        offset = offset.to(device=device, dtype=torch.float32)
         pos = offset[..., None] + torch.arange(t, dtype=torch.float32,
                                                device=device)
         i = torch.arange(e, dtype=torch.float32, device=device)

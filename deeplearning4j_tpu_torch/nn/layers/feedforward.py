@@ -22,6 +22,7 @@ import torch
 
 from ...parallel.inference import InvalidInputError
 from ...utils import global_batch
+from ...utils.device import constant
 from ...utils.serde import register_serde
 from .. import losses as _losses
 from ..conf.input_type import InputType
@@ -83,8 +84,7 @@ class OutputLayer(DenseLayer):
         z = self.pre_output(params, x, train=train, key=key)
         act = self.resolved("activation", "identity")
         if self.loss_weights is not None:
-            w = torch.as_tensor(self.loss_weights, dtype=z.dtype,
-                                device=z.device)
+            w = constant(self.loss_weights, z.dtype, z.device)
             if w.shape[-1] != self.n_out:
                 raise ValueError(
                     f"layer '{self.name}': {w.shape[-1]} loss weights for "

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.device import constant
 from ...utils.serde import register_serde
 from .. import activations as _act
 from ..conf.input_type import InputType
@@ -76,8 +77,8 @@ class Yolo2OutputLayer(LayerConf):
         """Predicted centres and sizes in grid units."""
         H, W = txy.shape[1], txy.shape[2]
         cell = self._cell_offsets(H, W, txy)
-        priors = torch.as_tensor(self.boxes, dtype=txy.dtype,
-                                 device=txy.device)
+        priors = constant([v for box in self.boxes for v in box],
+                          txy.dtype, txy.device).reshape(-1, 2)
         xy = torch.sigmoid(txy) + cell[None, :, :, None, :]
         wh = priors[None, None, None] * torch.exp(_act._clip(twh, -10, 10))
         return xy, wh

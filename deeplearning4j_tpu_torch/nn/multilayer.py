@@ -8,7 +8,8 @@ layer, keyed ``layer_i`` and named as in the JAX package, so a JAX
 checkpoint maps onto them one to one.  Layer state (BatchNormalization's
 running statistics) lives in ``state``; every layer runs through
 ``forward(params, state, x, train, mask)`` and each training step replaces
-``state`` with the new one it returns.  A ``[b, t]`` features mask goes
+``state`` with the new one it returns (a captured step writes it into
+``state``'s own tensors).  A ``[b, t]`` features mask goes
 through the stack, each layer handing the next ``feed_forward_mask`` of
 it; the loss's label mask defaults to the mask that reaches the output
 layer.  Where the configuration has a preprocessor at layer i (the
@@ -35,7 +36,13 @@ output layer's loss plus l1/l2, gradients by autograd (through the
 kernels' autograd functions on CUDA), gradient normalization, then the
 hand-written updater arithmetic of ``nn/conf/updaters.py``, then the
 layers' constraints.  The step leaves the loss on the device:
-``score()``/``get_score()`` materialise it on demand.  Listeners fire at
+``score()``/``get_score()`` materialise it on demand.  The step is the
+shared one of the configuration's signature (``nn/compile_cache``); on a
+CUDA device a plain step is one CUDA graph per input shapes
+(``train_route``: tBPTT, loss-scaled, data-parallel and sparse-embedding
+steps, ``fit_on_device`` and pretraining stay eager, ``EAGER_ROUTES``
+says why), and ``fit`` runs at most ``DL4J_TPU_DISPATCH_DEPTH`` steps
+ahead of the card (``nn/dispatch``).  Listeners fire at
 the JAX package's points (``iteration_done`` after each step and tBPTT
 chunk, ``on_epoch_start``/``on_epoch_end`` around ``fit``'s epochs);
 ``fit_on_device`` keeps the dataset on the device.
@@ -67,6 +74,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..utils import _random
 from . import precision as _precision
+from .compile_cache import (InstrumentedJit, StepGraphs, shared_jit,
+                            topology_signature)
 from ._common import (Network, UpdaterGroups, aux_term, backward_and_update,
                       batch_factory, cast_act, cast_params,
                       carry_thread_context, exchange_fetch,
@@ -78,6 +87,22 @@ from .conf.multi_layer import MultiLayerConfiguration
 from .layers.base import draws
 
 _SGD = ("sgd", "stochastic_gradient_descent")
+
+# the steps that stay eager on a CUDA device, each with its reason
+EAGER_ROUTES = {
+    "device": "not on a CUDA device: a CUDA graph needs one",
+    "tbptt": "tBPTT chunks carry the recurrent state from chunk to chunk "
+             "of one batch; not captured yet (ROADMAP item 2)",
+    "loss_scale": "a loss-scaled precision policy reads bool(finite) on the "
+                  "host to skip an overflowed update",
+    "exchange": "a data-parallel step runs collectives over the ranks' "
+                "process group; not captured yet (ROADMAP item 2)",
+    "sparse": "a sparse-embedding step coalesces its touched rows, a "
+              "data-dependent shape",
+    "fit_on_device": "fit_on_device steps with an explicit key each; its "
+                     "epoch program is not captured yet (ROADMAP item 2)",
+    "pretrain": "pretraining's steps are not captured yet (ROADMAP item 2)",
+}
 
 
 def _layer_confs(conf) -> Dict[str, Any]:
@@ -153,10 +178,13 @@ def _stack_forward(conf, params, state, x, *, train: bool, mask=None,
                     lp, h, carries.get(name), train=train, key=lkey,
                     mask=mask)
             elif remat:
+                # the layers draw from explicit keys, never from torch's
+                # generators: no generator state to stash (a stash reads
+                # it on the host, which a captured step cannot)
                 h, new_state[name] = checkpoint(
                     carry_thread_context(_layer_forward), lc, lp,
                     state.get(name, {}), h, lkey, mask, role,
-                    use_reentrant=False)
+                    use_reentrant=False, preserve_rng_state=False)
             else:
                 h, new_state[name] = _forward_of(lc, role)(
                     lp, state.get(name, {}), h, train=train, key=lkey,
@@ -234,13 +262,22 @@ def _detached(carries: Dict[str, Any]) -> Dict[str, Any]:
 
 def _build_train_step(conf, tx, exchange=None):
     """``step(params, state, opt_state, x, y, mask, label_mask, carries=None,
-    key=None) -> (loss, new_state, gstats, new_carries)``: one SGD-path
-    training step that updates ``params`` and ``opt_state`` in place,
-    drawing dropout from ``key`` (the caller's split of the network's
-    stream).  With ``carries`` (tBPTT) the recurrent layers start from
+    key=None, rng=None, staged=False) -> (loss, new_state, gstats,
+    new_carries)``: one SGD-path training step that updates ``params`` and
+    ``opt_state`` in place, drawing dropout from ``key`` (the caller's
+    split of the network's stream) or, given the network's key buffer
+    ``rng``, from the key it splits off first (``rng, key = split(rng)``,
+    the new stream written into ``rng`` in place, as the JAX step's first
+    traced op).  With ``carries`` (tBPTT) the recurrent layers start from
     them, gradients stopped at the chunk boundary, and the step returns
     the carries it ends with (its input carries when an overflow skipped
     it).  Port of the reference's ``_build_train_step``.
+
+    ``staged=True``: the caller staged the updater's scalars before the
+    step and advances its counts after it (``UpdaterGroups.stage`` and
+    ``advance``), so the step itself makes no host read and no host
+    write, which a captured CUDA graph needs; otherwise the update runs
+    whole (``UpdaterGroups.step``).  Both run the same arithmetic.
 
     A first-layer embedding with ``sparse_grad=True`` trains in row space
     (``nn/sparse``): the table is substituted by the touched rows, its
@@ -266,7 +303,10 @@ def _build_train_step(conf, tx, exchange=None):
         skip = (_sparse.TABLE,)
 
     def step(params, state, opt_state, x, y, mask, label_mask,
-             carries=None, key=None):
+             carries=None, key=None, rng=None, staged=False):
+        if rng is not None:
+            new_rng, key = _random.split(rng)
+            rng.copy_(new_rng)
         # carry state flows INTO the chunk; gradients do not flow back
         # across the chunk boundary (tBPTT truncation)
         cs = None if carries is None else _detached(carries)
@@ -278,7 +318,8 @@ def _build_train_step(conf, tx, exchange=None):
             # floating inputs only: integer ids reach the embedding exact
             x = cast_act(x, pol.compute_dtype)
         ctx = None
-        params_in, params_fwd, x_in, upd = params, params, x, tx
+        upd = tx.applier() if staged else tx
+        params_in, params_fwd, x_in = params, params, x
         if sparse_emb is not None:
             # the table's leaf is the touched rows; the forward reads
             # them with a zero trash row after them, which the ids of
@@ -287,7 +328,7 @@ def _build_train_step(conf, tx, exchange=None):
             params_in = _with_table(params, ctx.rows)
             params_fwd = _with_table(params, ctx.rows_ext)
             x_in = ctx.x_sub
-            upd = ctx.updater(tx)
+            upd = ctx.updater(upd)
         ls = state.get(_precision.SCALE_STATE_KEY) \
             if pol is not None and pol.scaled else None
         with (nullcontext() if exchange is None
@@ -384,6 +425,34 @@ def _with_table(params, table):
     return {**params, lk: {**params[lk], pn: table}}
 
 
+def _write_state(state, new_state, strict: bool) -> None:
+    """``new_state``'s leaves written into ``state``'s own tensors, in
+    place, where a leaf of that shape and dtype exists; otherwise set.
+    ``strict`` (during a capture) raises instead of setting: the graph
+    reads the state's tensors where they were at capture."""
+    for k, group in new_state.items():
+        old = state.get(k)
+        if not isinstance(group, dict) or not isinstance(old, dict):
+            if strict and group is not old:
+                raise RuntimeError(f"captured step: state '{k}' is not a "
+                                   "group of tensors the step can write")
+            state[k] = group
+            continue
+        for n, t in group.items():
+            o = old.get(n)
+            if o is t:
+                continue
+            if isinstance(o, torch.Tensor) and isinstance(t, torch.Tensor) \
+                    and o.shape == t.shape and o.dtype == t.dtype:
+                o.copy_(t)
+            elif strict:
+                raise RuntimeError(
+                    f"captured step: state '{k}/{n}' changed its shape or "
+                    "dtype, so the step cannot write it in place")
+            else:
+                old[n] = t
+
+
 def _normalize_batch(b) -> Tuple[Any, Any, Any, Any]:
     """``(x, y, features_mask, labels_mask)`` from a 2- or 4-tuple or a
     ``DataSet``-like object."""
@@ -409,6 +478,9 @@ class MultiLayerNetwork(Network):
         self._rnn_carries: Optional[Dict[str, Any]] = None
         self._rnn_carry_batch = -1
         self._gen_programs: Dict[str, Any] = {}
+        # the captured train steps (CUDA only), and how the latest step ran
+        self._graphs: Optional[StepGraphs] = None
+        self.last_route: Optional[str] = None
 
     def topology_sig(self) -> str:
         """Value signature of the layer stack: equal for two networks
@@ -536,12 +608,39 @@ class MultiLayerNetwork(Network):
             self._fit_one(x, y, m, lm)
 
     def _train_step(self):
+        """The network's train step: the shared step of its signature
+        (``nn/compile_cache.shared_jit``), or, under a data-parallel
+        exchange, a step of its own (it holds the exchange)."""
         if self._step is None:
             if self.opt_state is None:
                 self._init_updater()
-            self._step = _build_train_step(self.conf, self._tx,
-                                           self._exchange)
+            conf, tx, ex = self.conf, self._tx, self._exchange
+
+            def build():
+                return _build_train_step(conf, tx, ex)
+            if ex is not None:
+                self._step = InstrumentedJit(build(), "train_step")
+            else:
+                self._step = shared_jit(
+                    (type(self).__name__, topology_signature(conf),
+                     "train_step"), build, name="train_step")
         return self._step
+
+    def train_route(self) -> Tuple[str, str]:
+        """How ``fit`` runs a plain step here: ``("captured", "")`` (one
+        CUDA graph per input shapes, ``nn/compile_cache.StepGraphs``) or
+        ``("eager", reason)``.  tBPTT chunks, ``fit_on_device`` and
+        pretraining run eagerly too (``EAGER_ROUTES``)."""
+        if self.device.type != "cuda":
+            return "eager", EAGER_ROUTES["device"]
+        if self._exchange is not None:
+            return "eager", EAGER_ROUTES["exchange"]
+        pol = _precision.resolve(self.conf.defaults)
+        if pol is not None and pol.scaled:
+            return "eager", EAGER_ROUTES["loss_scale"]
+        if _sparse.sparse_embedding_conf(self.conf) is not None:
+            return "eager", EAGER_ROUTES["sparse"]
+        return "captured", ""
 
     def _fit_one(self, x, y, m, lm) -> torch.Tensor:
         """One train step; returns (and keeps in ``_score``) the loss as a
@@ -549,15 +648,63 @@ class MultiLayerNetwork(Network):
         self._validate_input_ids(x)
         self.last_batch_size = int(getattr(x, "shape", (0,))[0])
         step = self._train_step()
-        loss, self.state, gstats, _ = step(
-            self._param_tree(), self.state, self.opt_state,
-            self._on_device(x), self._on_device(y), self._on_device(m),
-            self._on_device(lm), None, self._next_key())
+        inputs = (self._on_device(x), self._on_device(y),
+                  self._on_device(m), self._on_device(lm))
+        route, reason = self.train_route()
+        if route == "captured":
+            loss, gstats = self._captured_step(step, inputs)
+            self.last_route = route
+        else:
+            loss, self.state, gstats, _ = step(
+                self._param_tree(), self.state, self.opt_state, *inputs,
+                None, None, self._rng)
+            self._last_step_compiled = getattr(step, "last_call_traced",
+                                               False)
+            self.last_route = f"eager: {reason}"
         self._score = loss
         self._last_grad_stats = gstats
         self.iteration += 1
         self._iteration_done()
         return loss
+
+    def _captured_step(self, step: InstrumentedJit, inputs):
+        """One step through the network's CUDA graphs: the updater's
+        scalars staged on the host, the graph of these input shapes
+        replayed (built at need), the updater's counts advanced.  The
+        step writes the layer state into ``state``'s own tensors, which
+        the graph reads back at the next replay."""
+        tx = self._tx
+        tx.stage(self.opt_state, self.device)
+        if self._graphs is None:
+            self._graphs = StepGraphs()
+
+        def body(x, y, m, lm):
+            # the step differentiates fresh leaves over the params'
+            # storage: an autograd graph still alive from an earlier
+            # computation on another stream holds the params' own
+            # accumulators, and reaching one would join that stream into
+            # the capture
+            params = {k: {n: p.detach().requires_grad_(p.requires_grad)
+                          for n, p in g.items()}
+                      for k, g in self.params.items()}
+            loss, new_state, gstats, _ = step.fn(
+                params, self.state, self.opt_state, x, y, m, lm, None, None,
+                self._rng, staged=True)
+            _write_state(self.state, new_state,
+                         strict=torch.cuda.is_current_stream_capturing())
+            return loss, gstats
+
+        def reads():
+            out = [p for g in self.params.values() for p in g.values()]
+            out += [t for g in self.opt_state["slots"].values()
+                    for sl in g.values() for t in sl.values()]
+            out += [t for g in self.state.values() if isinstance(g, dict)
+                    for t in g.values() if isinstance(t, torch.Tensor)]
+            return out + [self._rng, self.opt_state["scalars"]]
+        (loss, gstats), built = self._graphs.run(step, body, inputs, reads)
+        tx.advance(self.opt_state)
+        self._last_step_compiled = built
+        return loss, gstats
 
     def _device_step(self, xs, ys, key) -> torch.Tensor:
         """One train step on a minibatch already on the device, drawing
@@ -565,6 +712,7 @@ class MultiLayerNetwork(Network):
         loss, self.state, self._last_grad_stats, _ = self._train_step()(
             self._param_tree(), self.state, self.opt_state, xs[0], ys[0],
             None, None, None, key)
+        self.last_route = f"eager: {EAGER_ROUTES['fit_on_device']}"
         return loss
 
     def fit_on_device(self, x, y, *, batch_size: int, epochs: int = 1,
@@ -624,6 +772,7 @@ class MultiLayerNetwork(Network):
             self._last_grad_stats = gstats
             self.iteration += 1
             self._iteration_done()
+        self.last_route = f"eager: {EAGER_ROUTES['tbptt']}"
 
     def _init_carries(self, batch: int) -> Dict[str, Any]:
         """Zero carries (f32) for every layer with ``HAS_CARRY``, keyed
@@ -708,6 +857,7 @@ class MultiLayerNetwork(Network):
                                    self._on_device(batch), self._next_key())
                 self.iteration += 1
                 self._iteration_done()
+        self.last_route = f"eager: {EAGER_ROUTES['pretrain']}"
         self._score = float(self._score)
         if self._tx is None:
             self._init_updater()

@@ -349,7 +349,7 @@ class RowContext:
         slots = dict(opt_state["slots"])
         slots[lk] = dict(slots[lk])
         slots[lk][pn] = slot_rows
-        tx.step(targets, gs, {"count": opt_state["count"], "slots": slots})
+        tx.step(targets, gs, {**opt_state, "slots": slots})
         scatter_rows_tree(slot_full, slot_rows, local)
         if self.pdim is not None:
             self.table[local] = p_rows

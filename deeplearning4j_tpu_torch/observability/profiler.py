@@ -284,10 +284,15 @@ class StepProfiler:
         elif phase == "listener":
             self._listener += seconds
 
-    def dispatched(self, handle=None) -> None:
+    def dispatched(self, handle=None, window=None) -> None:
         """The step's launches returned.  Every ``sample_every``-th step
         additionally fences on ``handle`` (the step's loss) to measure the
-        device slice honestly (the ONLY profiler-added sync; counted)."""
+        device slice honestly (the ONLY profiler-added sync; counted).
+
+        ``window``: the fit loop's bounded ``nn/dispatch.DispatchWindow``
+        (or None).  A sampled fence drains it first, so the steps still
+        in flight retire through ``drained`` and the occupancy books
+        balance."""
         now = monotonic_s()
         self._dispatch = now - self._last - self._h2d - self._listener
         self._last = now
@@ -297,8 +302,15 @@ class StepProfiler:
         if depth > self.max_depth:
             self.max_depth = depth
         if handle is not None and self.steps % self.sample_every == 0:
-            self._fence(handle, now)
+            self._fence(handle, now, window)
         self._ev0 = None
+
+    def drained(self, k: int = 1) -> None:
+        """The dispatch window materialized ``k`` in-flight steps: keep
+        the depth gauge tracking the window's real occupancy (in steady
+        state ``max_depth`` is the configured depth)."""
+        d = self.dispatch_depth - k
+        self.dispatch_depth = d if d > 0 else 0
 
     def lap(self, phase: str) -> None:
         """Close a bookkeeping slice (forensics / checkpoint) at now."""
@@ -322,7 +334,9 @@ class StepProfiler:
             self.flush()
 
     # ------------------------------------------------- fence (cold, 1/N)
-    def _fence(self, handle, t_disp: float) -> None:
+    def _fence(self, handle, t_disp: float, window=None) -> None:
+        if window is not None and len(window):
+            window.drain()
         if self._ev0 is not None:
             ev1 = _record_event(self._cuda)
             ev1.synchronize()
@@ -335,9 +349,12 @@ class StepProfiler:
         self._last = now
         self._sampled = True
         self.fences += 1
-        # the fence is the only materialization point the profiler owns:
-        # it resets the occupancy itself
-        self.dispatch_depth = 0
+        if window is None:
+            # no window feeding drained(): the fence is the only
+            # materialization point, so it resets the occupancy itself.
+            # With one, the drain above retired the earlier steps and
+            # the fenced step retires at its own push.
+            self.dispatch_depth = 0
         live = live_device_bytes()
         self._live = live
         if live is not None and live > self.live_bytes_watermark:

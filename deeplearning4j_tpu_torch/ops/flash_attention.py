@@ -30,12 +30,12 @@ up to 256), and a shape the reference admits beyond it takes
 from __future__ import annotations
 
 import ctypes
-import threading
 from collections import Counter
 from typing import Callable, Optional, Tuple
 
 import torch
 
+from . import launch_count
 from .attention import NEG_INF, sdpa_reference
 
 BLOCK = 64            # q and k tile rows of the plain twins
@@ -51,11 +51,11 @@ BWD_SOURCE = "flash_attn_bwd.cu"
 
 # Kernel launches, one count per kernel, and the same launches by input
 # dtype (``{(kernel, dtype name): n}``); each wrapper adds one to both
-# where it launches its kernel and nowhere else (under a lock: replicas
-# of the training masters launch from several threads).
+# where it launches its kernel and nowhere else (``launch_count``: under
+# a lock, since replicas of the training masters launch from several
+# threads, and into a capture's record while a CUDA graph is captured).
 launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 launches_by_dtype: Counter = Counter()
-_count_lock = threading.Lock()
 
 _fns = {}
 
@@ -67,9 +67,9 @@ def reset_launches() -> None:
 
 
 def _count(name: str, dtype: torch.dtype) -> None:
-    with _count_lock:
-        launches[name] += 1
-        launches_by_dtype[(name, str(dtype).split(".")[-1])] += 1
+    launch_count.count(launches, name)
+    launch_count.count(launches_by_dtype,
+                       (name, str(dtype).split(".")[-1]))
 
 
 def _tile_ok(t: int) -> bool:

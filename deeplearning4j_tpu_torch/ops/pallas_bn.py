@@ -37,6 +37,8 @@ from typing import Sequence
 
 import torch
 
+from . import launch_count
+
 SOURCE = "bn_apply.cu"
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # ``_tile_m``'s budget per operand block and its row tiles (the
@@ -258,8 +260,8 @@ def bn_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     _check_kernel_inputs(x, scale, shift)
     y = torch.empty_like(x)
     _launch(x, scale, shift, y, relu)
-    launches["bn_apply"] += 1
-    launches_by_dtype[str(x.dtype).split(".")[-1]] += 1
+    launch_count.count(launches, "bn_apply")
+    launch_count.count(launches_by_dtype, str(x.dtype).split(".")[-1])
     return y
 
 

@@ -100,8 +100,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: a ``[2]`` key."""
-    lo = torch.tensor([int(data) & _M32], dtype=torch.int64,
-                      device=key.device)
+    lo = torch.full((1,), int(data) & _M32, dtype=torch.int64,
+                    device=key.device)
     return torch.cat(_hash(key, lo))
 
 
@@ -134,9 +134,9 @@ def _scaled(mant: torch.Tensor, minval: float, maxval: float
     """A float in [1, 2) minus 1, scaled and floored at ``minval``, each
     step rounded to the float's dtype as ``jax.random.uniform``."""
     f = dict(dtype=mant.dtype, device=mant.device)
-    lo = torch.tensor(minval, **f)
-    hi = torch.tensor(maxval, **f)
-    floats = mant - torch.tensor(1.0, **f)
+    lo = torch.full((), minval, **f)
+    hi = torch.full((), maxval, **f)
+    floats = mant - torch.full((), 1.0, **f)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -185,7 +185,7 @@ def bernoulli(key: torch.Tensor, p, shape=None) -> torch.Tensor:
                     dtype=p.dtype)
         return u < p
     u = uniform(key, shape)
-    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+    return u < torch.full((), p, dtype=torch.float32, device=u.device)
 
 
 def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
@@ -195,8 +195,8 @@ def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     the dtype's rounding."""
     lo = _NORMAL_LO if dtype != torch.float64 else -1.0 + 2.0 ** -53
     u = uniform(key, shape, lo, 1.0, dtype=dtype)
-    return torch.tensor(2.0 ** 0.5, dtype=dtype,
-                        device=u.device) * torch.erfinv(u)
+    return torch.full((), 2.0 ** 0.5, dtype=dtype,
+                      device=u.device) * torch.erfinv(u)
 
 
 def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:

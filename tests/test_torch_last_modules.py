@@ -29,8 +29,6 @@ REPO = Path(__file__).resolve().parents[1]
 # names the JAX package exports that the port does not have yet, each
 # with the work that brings it
 DEFERRED = {
-    "persistent_cache_status",   # nn/compile_cache.py: compile/dispatch work
-    "wire_persistent_cache",     # nn/compile_cache.py: compile/dispatch work
     "available_bench_model",     # utils/benchmarks.py: the first benchmark
     "flagship_entry_model",      # utils/benchmarks.py: the first benchmark
 }

@@ -49,12 +49,14 @@ _SAMPLE_RE = re.compile(
     r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*)?\})? \S+$')
 
 # metrics the JAX package records that the port does not, each with the
-# ROADMAP item that brings it: the compile cache and the shape policy's
-# padding (item 2: the port traces nothing and pads nothing yet)
-JAX_ONLY = {"training_compile_seconds": "item 2",
-            "training_compile_total": "item 2",
-            "training_padding_ratio": "item 2",
+# ROADMAP item that brings it: the shape policy's padding (item 2: the
+# port pads nothing yet)
+JAX_ONLY = {"training_padding_ratio": "item 2",
             "training_shape_buckets": "item 2"}
+# metrics whose label values are a subset of the JAX package's: the port
+# compiles its train step only; serving and generation run eagerly (the
+# JAX package jits them; ROADMAP item 2)
+PORT_FEWER_VALUES = {"training_compile_seconds", "training_compile_total"}
 
 
 # the variables a test elsewhere in the worker may leave set (the stepprof
@@ -374,6 +376,10 @@ def test_metric_names_after_fit_serve_generate_match(iso):
     assert set(jn_) - set(tn_) == set(JAX_ONLY)
     assert set(tn_) <= set(jn_)
     for name in tn_:
+        if name in PORT_FEWER_VALUES:
+            assert tn_[name][:2] == jn_[name][:2], name
+            assert set(tn_[name][2]) <= set(jn_[name][2]), name
+            continue
         assert tn_[name] == jn_[name], name
     assert tr.get("training_steps_total").value == 3
     assert tr.get("training_examples_total").value == 12

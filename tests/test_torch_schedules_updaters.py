@@ -138,8 +138,9 @@ def test_updater_by_name_and_traps():
                        ["sum_of_squares"], torch.full((2,), 0.1))
     assert tupd.AdaDelta()._lr(0) == 1.0
     # Lion: sign(0) is 0, so a zero gradient on a zero moment moves nothing
-    u = tupd.Lion(learning_rate=1.0).update(
-        torch.zeros(3), {"mu": torch.zeros(3)}, 0, torch.ones(3))
+    lion = tupd.Lion(learning_rate=1.0)
+    u = lion.update(torch.zeros(3), {"mu": torch.zeros(3)},
+                    torch.tensor(lion.scalars(0)), torch.ones(3))
     assert torch.equal(u, torch.zeros(3))
 
 
